@@ -1,0 +1,546 @@
+"""The folded-GEMM kernels: decode x resample x window x dispersion x
+inverse DFT x truncation as one planar (n_in, half) GEMM per A-scan.
+
+Every pre-FPN stage is linear in the A-scan with coefficients that depend
+only on the intra-line index, so the chain folds into one complex operator
+``W = W_re + i W_im`` built once per curve update on the host
+(:func:`build_depth_operator`).  At run time one kernel per call does
+
+    decode raw integers -> x @ W_re, x @ W_im  (planar depth profiles)
+
+or, in the steady state, the same GEMMs plus FPN mean subtraction and the
+dynamic-range scaling ``A*log10(re^2+im^2)+B`` in the epilogue, so only raw
+integers are read and only the magnitude image is written.
+
+This module holds, for each of the four kernel families:
+
+* the CUDA kernel (``csrc/fold_gemm.cu``, built by :mod:`.build`), which a
+  wrapper launches for CUDA tensors;
+* its plain PyTorch version (``*_plain``), which the wrapper uses for CPU
+  tensors and which the tests and ``chip_smoke.py`` hold the kernel to;
+* a launch count in :data:`LAUNCHES`, raised only where the kernel is
+  launched.
+
+==========================  ===========================================
+family (LAUNCHES key)       replaces (octproz_tpu/pallas/fused_prep.py)
+==========================  ===========================================
+``depth``                   ``_kernel_depth``
+``depth_split``             ``_kernel_depth_split``
+``depth_scale``             ``_kernel_depth_scale``
+``depth_scale_split``       ``_kernel_depth_scale_split``
+==========================  ===========================================
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..ops.background import rolling_average_indices
+from ..params import AcqParams, ProcConfig
+
+#: Operator split widths of the multi-pass rungs: "high" -> 2 bf16 parts
+#: (3 passes), "highest" -> 3 parts (5 passes).
+_SPLIT_PARTS = {"high": 2, "highest": 3}
+
+#: Kernel launches per family since the last :func:`reset_launch_counts`.
+LAUNCHES = {"depth": 0, "depth_split": 0, "depth_scale": 0,
+            "depth_scale_split": 0}
+
+
+def reset_launch_counts() -> None:
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+# ---------------------------------------------------------------------------
+# Host operators (numpy)
+# ---------------------------------------------------------------------------
+
+def build_prep_operator(
+    acq: AcqParams,
+    cfg: ProcConfig,
+    resample_matrix: Optional[np.ndarray],
+    window: Optional[np.ndarray],
+) -> np.ndarray:
+    """Fold background removal, k-linearization and windowing into one
+    (n_in, n_out) operator applied as ``lines @ op`` (stage order of
+    cuda_code.cu:1422-1511)."""
+    n = acq.samples_per_line
+    op = np.eye(n, dtype=np.float64)
+    if cfg.background_removal:
+        start, end, count = rolling_average_indices(n, cfg.rolling_average_window)
+        m = np.zeros((n, n), dtype=np.float64)
+        for i in range(n):
+            m[i, start[i]:end[i] + 1] = 1.0 / count[i]
+        op = op - m  # (I - M)
+    if cfg.resampling:
+        if resample_matrix is None:
+            raise ValueError("resampling enabled but no resample matrix given")
+        op = np.asarray(resample_matrix, np.float64) @ op
+    if cfg.windowing:
+        if window is None:
+            raise ValueError("windowing enabled but no window curve given")
+        op = np.asarray(window, np.float64)[:, None] * op
+    return np.ascontiguousarray(op.T, dtype=np.float32)  # (n_in, n_out)
+
+
+def build_depth_operator(
+    acq: AcqParams,
+    cfg: ProcConfig,
+    resample_matrix: Optional[np.ndarray],
+    window: Optional[np.ndarray],
+    phase: Optional[np.ndarray],
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Fold the whole pre-FPN chain -- background, k-linearization, window,
+    dispersion phasor, unnormalised inverse DFT, mirror truncation -- into
+    one complex (n_in, half) operator applied as ``lines @ (re + i im)``.
+
+    With F[k, j] = exp(+2i pi k j / n), the inverse-DFT rows of the kept
+    half (cufftExecC2C(CUFFT_INVERSE), cuda_code.cu:1513-1515):
+
+        z_half = F_half . diag(phasor) . diag(win) . R . (I - M) . decode(raw)
+    """
+    n = acq.samples_per_line
+    half = acq.output_ascan_length
+    op = build_prep_operator(acq, cfg, resample_matrix, window)  # (n_in, n_out)
+    opd = op.astype(np.float64).T  # (n_out, n_in)
+    if cfg.dispersion:
+        if phase is None:
+            raise ValueError("dispersion enabled but no phasor given")
+        opd = np.asarray(phase, np.complex128)[:, None] * opd
+    j = np.arange(n, dtype=np.float64)
+    k = np.arange(half, dtype=np.float64)
+    f_half = np.exp(2j * np.pi * np.outer(k, j) / n)  # (half, n_out)
+    total = f_half @ opd                               # (half, n_in) complex
+    total_t = np.ascontiguousarray(total.T)            # (n_in, half)
+    return (total_t.real.astype(np.float32), total_t.imag.astype(np.float32))
+
+
+@functools.lru_cache(maxsize=64)  # host float64 math, once per setting
+def _scale_affine(log_scaling: bool, half: int, gmin: float, gmax: float,
+                  addend: float, coeff: float) -> Tuple[float, float]:
+    """Fold the dynamic-range scaling into two constants:
+
+      log: coeff*((10*log10(p/half) - gmin)/(gmax-gmin) + addend) = A*log10(p) + B
+      lin: coeff*((sqrt(p)/half   - gmin)/(gmax-gmin) + addend) = A*sqrt(p)  + B
+
+    in float64 (a zero range gives inf, as the unfolded expression does)."""
+    with np.errstate(divide="ignore", invalid="ignore"):
+        s = np.float64(coeff) / (np.float64(gmax) - np.float64(gmin))
+        base = np.float64(coeff) * addend - s * gmin
+        if log_scaling:
+            a = 10.0 * s
+            b = base - s * 10.0 * np.log10(np.float64(half))
+        else:
+            a = s / np.float64(half)
+            b = base
+    return float(a), float(b)
+
+
+# ---------------------------------------------------------------------------
+# Shared numerics (torch)
+# ---------------------------------------------------------------------------
+
+def _bf16_trunc(v: torch.Tensor) -> torch.Tensor:
+    """The bf16-representable truncation of float32 v, by masking the low 16
+    mantissa bits.  A mask, not a bf16 cast round trip: the cast rounds to
+    nearest and would change the split's parts."""
+    i = v.to(torch.float32).contiguous().view(torch.int32)
+    return (i & -65536).view(torch.float32)
+
+
+def _split_bf16(w: torch.Tensor, parts: int = 2) -> Tuple[torch.Tensor, ...]:
+    """Decompose float32 w into ``parts`` bf16 terms whose sum equals w to
+    ~8*parts mantissa bits.  All but the last are mask truncations (exact in
+    bf16); the last is a round-to-nearest cast of the remainder."""
+    out = []
+    rem = w
+    for k in range(parts):
+        p = _bf16_trunc(rem) if k < parts - 1 else rem
+        out.append(p.to(torch.bfloat16))
+        rem = rem - p
+    return tuple(out)
+
+
+def _dot_split(x: torch.Tensor, w_parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """float32-grade GEMM from bf16 operand splits:
+
+        x @ w ~= sum_j x_hi @ w_j  +  sum_{j<last} x_lo @ w_j
+
+    one float32 product per term, summed smallest terms first.  Each
+    product of two bf16 values is exact in float32, so the terms are
+    computed as float32 matmuls of the bf16-exact values."""
+    x_hi_f = _bf16_trunc(x)
+    x_hi = x_hi_f.to(torch.bfloat16)
+    x_lo = (x - x_hi_f).to(torch.bfloat16)
+    terms = [(x_hi, w) for w in w_parts] + [(x_lo, w) for w in w_parts[:-1]]
+    acc = None
+    for xa, wa in reversed(terms):  # low-order products first
+        t = xa.to(torch.float32) @ wa.to(torch.float32)
+        acc = t if acc is None else acc + t
+    return acc
+
+
+#: log2(m) for m in [1, 2): degree-5 least-squares fit, max |err| 3.2e-5.
+_LOG2_POLY = (-2.786805564, 5.046852936, -3.492466043, 1.593884548,
+              -4.048623094e-01, 4.342836333e-02)
+
+_LOG10_2 = 0.30102999566398120
+
+
+def _f32(v: float) -> float:
+    """v rounded to float32, so a Python scalar enters float32 arithmetic
+    with exactly the value the CUDA kernel receives."""
+    return float(np.float32(v))
+
+
+def _fast_log2(p: torch.Tensor) -> torch.Tensor:
+    """Exponent-extraction log2: integer ops plus a degree-5 polynomial.
+    p is a non-negative float32; p == 0 gives about -127 (finite)."""
+    i = p.contiguous().view(torch.int32)
+    e = ((i >> 23) & 0x1FF) - 127  # logical shift of the sign-free bits
+    m = ((i & 0x007FFFFF) | 0x3F800000).view(torch.float32)
+    r = torch.full_like(m, _f32(_LOG2_POLY[-1]))
+    for c in _LOG2_POLY[-2::-1]:
+        r = r * m + _f32(c)
+    return e.to(torch.float32) + r
+
+
+def _scale_epilogue(p: torch.Tensor, *, log_scaling: bool, a: float, b: float,
+                    fast_log: bool = False) -> torch.Tensor:
+    if log_scaling and fast_log:
+        # a*log10(p) + b == (a*log10(2))*log2(p) + b
+        return _f32(a * _LOG10_2) * _fast_log2(p) + _f32(b)
+    v = torch.log10(p) if log_scaling else torch.sqrt(p)
+    return _f32(a) * v + _f32(b)
+
+
+def _decode_block(x: torch.Tensor, bitshift: bool) -> torch.Tensor:
+    """In-kernel decode: uint8/uint16 -> int32 -> (>> 4) -> float32.
+    float32 input was decoded before the kernel (see :func:`_predecode`)."""
+    if x.dtype == torch.float32:
+        return x
+    xi = x.to(torch.int32)
+    if bitshift:
+        xi = xi >> 4
+    return xi.to(torch.float32)
+
+
+def _predecode(raw2d: torch.Tensor, bit_depth: int, bitshift: bool) -> torch.Tensor:
+    """Decode >16-bit containers before the kernel, which takes 8/16-bit
+    integers or float32."""
+    if bit_depth > 16:
+        from ..ops.convert import decode
+        return decode(raw2d, bit_depth, bitshift)
+    return raw2d
+
+
+# ---------------------------------------------------------------------------
+# Plain versions of the four kernels
+# ---------------------------------------------------------------------------
+
+def _gemm(x: torch.Tensor, w_parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    if len(w_parts) == 1:
+        return x @ w_parts[0]
+    return _dot_split(x, w_parts)
+
+
+def depth_plain(raw2d, w_re_parts, w_im_parts, *, bitshift: bool):
+    """``_kernel_depth`` (one float32 operator per axis) and
+    ``_kernel_depth_split`` (2 or 3 bf16 parts per axis): decode, then the
+    two GEMMs.  Returns planar (re, im) float32 (lines, half)."""
+    x = _decode_block(raw2d, bitshift)
+    return _gemm(x, w_re_parts), _gemm(x, w_im_parts)
+
+
+def depth_scale_plain(raw2d, w_re_parts, w_im_parts, mean2, *, bitshift: bool,
+                      log_scaling: bool, a: float, b: float,
+                      fast_log: bool = False,
+                      out_dtype: torch.dtype = torch.float32):
+    """``_kernel_depth_scale`` / ``_kernel_depth_scale_split``: decode, the
+    two GEMMs, FPN mean subtraction, p = re^2+im^2, the scale epilogue and
+    the store in ``out_dtype``."""
+    x = _decode_block(raw2d, bitshift)
+    re = _gemm(x, w_re_parts) - mean2[0:1, :]
+    im = _gemm(x, w_im_parts) - mean2[1:2, :]
+    p = re * re + im * im
+    out = _scale_epilogue(p, log_scaling=log_scaling, a=a, b=b,
+                          fast_log=fast_log)
+    return out.to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Agreement of a kernel with its plain version
+# ---------------------------------------------------------------------------
+#
+# Both sides are float32; the bounds, and why (n_in = 1024 and 1664, 12-bit
+# and float inputs):
+# * planar (re, im): ||kernel - plain||_2 <= 3e-6 ||plain||_2.  Summing the
+#   contraction in another order costs at most 7e-7 (float32 against a
+#   float64 evaluation of the same pass terms); the nearest wrong rung --
+#   the "highest" parts through the 3-pass math -- is 1.3e-5 or more off.
+# * scaled image, float32 store: equal finite masks; over the voxels at or
+#   above the display floor (plain >= 0) an RMS error <= 1e-6 and a max
+#   error <= 1e-4 display units.  Reordering costs at most 1.3e-7 RMS; the
+#   wrong rung above is 3.4e-6 RMS or more off.  Below the floor p -> 0 and
+#   log10 amplifies rounding without bound; those voxels display black.
+# * bfloat16 store: the max bound plus one bf16 step (2^-7 |plain|), as a
+#   value near a bf16 boundary may round either way.  This checks the
+#   store; the float32 cases check the rung.
+
+PLANAR_REL_L2 = 3e-6
+SCALE_RMS = 1e-6
+SCALE_MAX = 1e-4
+BF16_STEP = 2.0 ** -7
+
+
+def planar_error(got: Sequence[torch.Tensor], ref: Sequence[torch.Tensor]) -> float:
+    """||got - ref||_2 / ||ref||_2 over the planar pair (re, im)."""
+    num = sum(float((g.double() - r.double()).square().sum()) for g, r in zip(got, ref))
+    den = sum(float(r.double().square().sum()) for r in ref)
+    return (num / den) ** 0.5
+
+
+def scale_error(got: torch.Tensor, ref: torch.Tensor) -> Tuple[float, float, bool]:
+    """(RMS, max |got - ref|, within the bounds) over the voxels of ``ref``
+    at or above the display floor; raises if the finite masks differ or the
+    floor hides most of the image."""
+    g, r = got.double(), ref.double()
+    if not torch.equal(torch.isfinite(g), torch.isfinite(r)):
+        raise AssertionError("kernel and plain version differ in finite mask")
+    shown = torch.isfinite(r) & (r >= 0)
+    if float(shown.double().mean()) <= 0.5:
+        raise AssertionError("most voxels lie below the display floor")
+    err = (g - r)[shown].abs()
+    rms, worst = float(err.square().mean().sqrt()), float(err.max())
+    if got.dtype == torch.bfloat16:
+        return rms, worst, bool((err <= SCALE_MAX + BF16_STEP * r[shown].abs()).all())
+    return rms, worst, rms <= SCALE_RMS and worst <= SCALE_MAX
+
+
+# ---------------------------------------------------------------------------
+# CUDA launches
+# ---------------------------------------------------------------------------
+
+_IN_KIND = {torch.uint8: 0, torch.uint16: 1, torch.float32: 2}
+_MODE_LOG, _MODE_LIN, _MODE_FAST_LOG = 0, 1, 2
+
+
+def _check_launch(raw2d, w_re_parts, w_im_parts, mean2=None):
+    """Validate what the kernel reads; returns (lines, n_in, half)."""
+    dev = raw2d.device
+    if raw2d.dtype not in _IN_KIND:
+        raise TypeError(f"fold kernel takes uint8, uint16 or float32 lines, "
+                        f"got {raw2d.dtype}")
+    if raw2d.dim() != 2 or not raw2d.is_contiguous():
+        raise ValueError("fold kernel needs contiguous (lines, n_in) input")
+    parts = len(w_re_parts)
+    if parts not in (1, 2, 3) or len(w_im_parts) != parts:
+        raise ValueError(f"fold kernel takes 1, 2 or 3 operator parts per "
+                         f"axis, got {len(w_re_parts)}/{len(w_im_parts)}")
+    want = torch.float32 if parts == 1 else torch.bfloat16
+    lines, n_in = raw2d.shape
+    half = w_re_parts[0].shape[-1]
+    for w in (*w_re_parts, *w_im_parts):
+        if w.device != dev or w.dtype != want or tuple(w.shape) != (n_in, half) \
+                or not w.is_contiguous():
+            raise ValueError(
+                f"fold operator part must be a contiguous {want} "
+                f"({n_in}, {half}) tensor on {dev}, got {w.dtype} "
+                f"{tuple(w.shape)} on {w.device}")
+    if mean2 is not None and (mean2.device != dev or mean2.dtype != torch.float32
+                              or tuple(mean2.shape) != (2, half)
+                              or not mean2.is_contiguous()):
+        raise ValueError(f"mean2 must be a contiguous float32 (2, {half}) "
+                         f"tensor on {dev}")
+    return lines, n_in, half
+
+
+def _ptrs(parts):
+    """The operator parts as three pointer arguments (unused ones NULL)."""
+    p = [t.data_ptr() for t in parts]
+    return p + [None] * (3 - len(p))
+
+
+def _raise_on(rc: int, lib, what: str) -> None:
+    if rc != 0:
+        msg = lib.fold_gemm_error_string(rc).decode()
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc} ({msg})")
+
+
+def _launch_depth(raw2d, w_re_parts, w_im_parts, *, bitshift: bool):
+    from . import build
+
+    lines, n_in, half = _check_launch(raw2d, w_re_parts, w_im_parts)
+    re = torch.empty((lines, half), dtype=torch.float32, device=raw2d.device)
+    im = torch.empty_like(re)
+    if lines == 0:
+        return re, im
+    lib = build.load()
+    passes = 2 * len(w_re_parts) - 1
+    with torch.cuda.device(raw2d.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.fold_gemm_planar(
+            raw2d.data_ptr(), _IN_KIND[raw2d.dtype], int(bitshift), passes,
+            *_ptrs(w_re_parts), *_ptrs(w_im_parts),
+            re.data_ptr(), im.data_ptr(), lines, n_in, half, stream)
+    _raise_on(rc, lib, "fold_gemm_planar")
+    LAUNCHES["depth" if passes == 1 else "depth_split"] += 1
+    return re, im
+
+
+def _launch_depth_scale(raw2d, w_re_parts, w_im_parts, mean2, *, bitshift,
+                        log_scaling, a, b, fast_log, out_dtype):
+    from . import build
+
+    lines, n_in, half = _check_launch(raw2d, w_re_parts, w_im_parts, mean2)
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fold kernel stores float32 or bfloat16, got {out_dtype}")
+    out = torch.empty((lines, half), dtype=out_dtype, device=raw2d.device)
+    if lines == 0:
+        return out
+    if not log_scaling:
+        mode, a_k = _MODE_LIN, a
+    elif fast_log:
+        mode, a_k = _MODE_FAST_LOG, a * _LOG10_2
+    else:
+        mode, a_k = _MODE_LOG, a
+    lib = build.load()
+    passes = 2 * len(w_re_parts) - 1
+    with torch.cuda.device(raw2d.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.fold_gemm_scale(
+            raw2d.data_ptr(), _IN_KIND[raw2d.dtype], int(bitshift), passes,
+            *_ptrs(w_re_parts), *_ptrs(w_im_parts), mean2.data_ptr(),
+            out.data_ptr(), int(out_dtype == torch.bfloat16), mode,
+            ctypes.c_float(a_k), ctypes.c_float(b), lines, n_in, half, stream)
+    _raise_on(rc, lib, "fold_gemm_scale")
+    LAUNCHES["depth_scale" if passes == 1 else "depth_scale_split"] += 1
+    return out
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (the plain version); any other device has no fold kernel."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise RuntimeError(f"no fold kernel for device {t.device}")
+
+
+def fold_depth(raw2d, w_re_parts, w_im_parts, *, bitshift: bool):
+    """Planar depth profiles of (lines, n_in) input: the CUDA kernel for a
+    CUDA tensor, the plain version for a CPU tensor."""
+    if _on_cuda(raw2d):
+        return _launch_depth(raw2d, w_re_parts, w_im_parts, bitshift=bitshift)
+    return depth_plain(raw2d, w_re_parts, w_im_parts, bitshift=bitshift)
+
+
+def fold_depth_scale(raw2d, w_re_parts, w_im_parts, mean2, *, bitshift: bool,
+                     log_scaling: bool, a: float, b: float,
+                     fast_log: bool = False,
+                     out_dtype: torch.dtype = torch.float32):
+    """Scaled magnitude of (lines, n_in) input: the CUDA kernel for a CUDA
+    tensor, the plain version for a CPU tensor."""
+    kw = dict(bitshift=bitshift, log_scaling=log_scaling, a=a, b=b,
+              fast_log=fast_log, out_dtype=out_dtype)
+    if _on_cuda(raw2d):
+        return _launch_depth_scale(raw2d, w_re_parts, w_im_parts, mean2, **kw)
+    return depth_scale_plain(raw2d, w_re_parts, w_im_parts, mean2, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Public wrappers (same signatures as the JAX package, minus ``interpret``)
+# ---------------------------------------------------------------------------
+
+def _operator_parts(w, precision: str) -> Tuple[torch.Tensor, ...]:
+    """The operator as the kernel takes it at ``precision``: one float32
+    part, or 2/3 bf16 parts.  ``w`` is the float32 operator (split here) or
+    a tuple of parts already split for ``precision`` (as
+    ``Curves.depth_parts`` holds them), which is returned as is."""
+    parts = _SPLIT_PARTS.get(precision, 1)
+    if isinstance(w, (tuple, list)):
+        if len(w) != parts:
+            raise ValueError(f"matmul_precision={precision!r} takes {parts} "
+                             f"operator part(s), got {len(w)}")
+        return tuple(w)
+    return _split_bf16(w, parts) if parts > 1 else (w.to(torch.float32).contiguous(),)
+
+
+def _check_fold_config(cfg: ProcConfig, depth_op_re, depth_op_im) -> None:
+    if depth_op_re is None or depth_op_im is None:
+        raise ValueError(
+            "cfg.fft_via_matmul is set but curves.depth_op_* is None -- "
+            "build the curves with the same config (make_curves(acq, cfg, ...))")
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError(
+            "compute_dtype='bfloat16' is not ported yet (ROADMAP.md Queue 1, A14)")
+
+
+def fused_depth_scale(
+    raw: torch.Tensor,
+    depth_op_re: torch.Tensor,
+    depth_op_im: torch.Tensor,
+    mean2: torch.Tensor,
+    acq: AcqParams,
+    cfg: ProcConfig,
+) -> torch.Tensor:
+    """Raw uint lines (..., n_in) -> scaled magnitude (..., half) in one
+    kernel: decode, folded GEMMs, FPN mean subtraction and dynamic-range
+    scaling.  ``mean2`` is float32 (2, half), the (re, im) FPN mean line
+    (zeros when FPN is off).  The store dtype is ``cfg.output_dtype``.
+    ``depth_op_re``/``depth_op_im`` are the float32 operators or their parts
+    already split for ``cfg.matmul_precision`` (``Curves.depth_parts``).
+    ``cfg.fold_k_split`` and ``cfg.pallas_tile`` do not change the result."""
+    _check_fold_config(cfg, depth_op_re, depth_op_im)
+    if cfg.fold_concat:
+        raise NotImplementedError(
+            "fold_concat is not ported yet (ROADMAP.md Queue 2, B5/B6)")
+    lead_shape = raw.shape[:-1]
+    raw2d = _predecode(raw.reshape(-1, raw.shape[-1]).contiguous(),
+                       acq.bit_depth, cfg.bitshift)
+    w_re = _operator_parts(depth_op_re, cfg.matmul_precision)
+    w_im = _operator_parts(depth_op_im, cfg.matmul_precision)
+    a, b = _scale_affine(cfg.log_scaling, w_re[0].shape[-1],
+                         cfg.grayscale_min, cfg.grayscale_max, cfg.addend,
+                         cfg.multiplicator)
+    mag = fold_depth_scale(
+        raw2d, w_re, w_im, mean2.to(torch.float32).contiguous(), bitshift=cfg.bitshift,
+        log_scaling=cfg.log_scaling, a=a, b=b, fast_log=cfg.fast_log,
+        out_dtype=(torch.bfloat16 if cfg.output_dtype == "bfloat16"
+                   else torch.float32))
+    return mag.reshape(*lead_shape, mag.shape[-1])
+
+
+def fused_depth_transform(
+    raw: torch.Tensor,
+    depth_op_re: torch.Tensor,
+    depth_op_im: torch.Tensor,
+    acq: AcqParams,
+    cfg: ProcConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Raw uint lines (..., n_in) -> truncated depth profiles: planar
+    (re, im) float32 (..., half).
+
+    ``fold_backend="pallas"`` runs the kernel (CUDA tensors) or its plain
+    version (CPU tensors); ``fold_backend="xla"`` is plain torch matmuls on
+    any device, as the JAX package's XLA route is plain jnp matmuls.  The
+    operators are taken as :func:`fused_depth_scale` takes them."""
+    _check_fold_config(cfg, depth_op_re, depth_op_im)
+    lead_shape = raw.shape[:-1]
+    raw2d = _predecode(raw.reshape(-1, raw.shape[-1]).contiguous(),
+                       acq.bit_depth, cfg.bitshift)
+    w_re = _operator_parts(depth_op_re, cfg.matmul_precision)
+    w_im = _operator_parts(depth_op_im, cfg.matmul_precision)
+    if cfg.fold_backend == "xla":
+        re, im = depth_plain(raw2d, w_re, w_im, bitshift=cfg.bitshift)
+    else:
+        re, im = fold_depth(raw2d, w_re, w_im, bitshift=cfg.bitshift)
+    half = re.shape[-1]
+    return re.reshape(*lead_shape, half), im.reshape(*lead_shape, half)

@@ -1,0 +1,443 @@
+"""The fold kernels: each plain PyTorch version against the JAX package's
+Pallas kernel (run in interpret mode on the CPU, as its own tests run it),
+and -- on a CUDA GPU only -- each CUDA kernel against its plain version.
+
+Tolerances (float32 on both sides), those of the kernels' own comparison
+(``fused_prep.planar_error`` / ``scale_error``, reasons stated there):
+* planar (re, im): ||port - ref||_2 <= 3e-6 ||ref||_2, and every element
+  within 1e-5 * max|ref|.  The contraction is summed in another order.
+* scaled image: equal finite masks; where ref is at or above the display
+  floor (ref >= 0), RMS error <= 1e-6 and max error <= 1e-4.  Below it
+  p -> 0 and log10 amplifies the same rounding without bound; such voxels
+  display black.  bfloat16 stores: the max bound plus one bf16 rounding
+  step (2^-7 * |ref|).
+The bounds separate the rungs: the "highest" operator parts run through the
+3-pass math, or the 3-pass math without its x_lo term, fail them
+(``test_gates_separate_the_rungs``).
+
+The JAX package is imported inside a fixture, so the CUDA tests of this
+file also run where JAX is not installed:
+
+    python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels.py
+"""
+
+import dataclasses
+import importlib
+
+import numpy as np
+import pytest
+import torch
+
+from octproz_tpu_torch import curves as tcurves
+from octproz_tpu_torch.kernels import fused_prep as tfp
+from octproz_tpu_torch.params import AcqParams, default_full_config
+
+N = 256
+PLANAR_RTOL = 1e-5
+RUNGS = ["default", "high", "highest"]
+
+
+@pytest.fixture(scope="module")
+def jfp():
+    """The JAX package's fused_prep module (the pallas package's __init__
+    re-exports a function of the same name, hence import_module)."""
+    return importlib.import_module("octproz_tpu.pallas.fused_prep")
+
+
+@pytest.fixture
+def np_rng():
+    return np.random.default_rng(4321)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the fold kernels are CUDA C++ for "
+                    "sm_90a and have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in true float32
+    return torch.device("cuda", 0)
+
+
+def _operators(n=N):
+    """The folded depth operator of the benchmark chain at line length n."""
+    acq = AcqParams(samples_per_line=n, ascans_per_bscan=8, bscans_per_buffer=1)
+    cfg = dataclasses.replace(default_full_config(), bitshift=True)
+    cv = tcurves.make_curves(acq, cfg, resample_coeffs=(0.0, n - 1.0, 10.0, -4.0),
+                             dispersion_coeffs=(0.0, 0.0, 8.0, 0.0), device="cpu")
+    return cv.depth_op_re.numpy(), cv.depth_op_im.numpy()
+
+
+def _raw(rng, lines, n=N, dtype=np.uint16):
+    hi = 256 if dtype == np.uint8 else 4096
+    return rng.integers(0, hi, size=(lines, n)).astype(dtype)
+
+
+def _planar_close(got, want):
+    got = [g.cpu().numpy() if isinstance(g, torch.Tensor) else g for g in got]
+    scale = max(np.abs(w).max() for w in want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == np.float32
+        assert np.abs(g - w).max() <= PLANAR_RTOL * scale
+    err = tfp.planar_error([torch.from_numpy(g) for g in got],
+                           [torch.from_numpy(np.array(w)) for w in want])
+    assert err <= tfp.PLANAR_REL_L2, err
+
+
+def _scale_close(got, want):
+    """``got`` a tensor in its store dtype (bf16 gets the bf16 bound) or an
+    array; ``want`` an array."""
+    g = got.cpu() if isinstance(got, torch.Tensor) else torch.from_numpy(np.array(got))
+    w = torch.from_numpy(np.array(want, np.float32))
+    assert g.shape == w.shape
+    rms, worst, ok = tfp.scale_error(g, w)
+    assert ok, (rms, worst)
+
+
+def _jax_depth(jfp, raw, wre, wim, precision, bitshift, bit_depth=12):
+    import jax.numpy as jnp
+
+    re, im = jfp._fused_depth_impl(
+        jnp.asarray(raw), jnp.asarray(wre), jnp.asarray(wim), bit_depth=bit_depth,
+        bitshift=bitshift, compute_dtype="float32", precision=precision,
+        interpret=True)
+    return np.asarray(re), np.asarray(im)
+
+
+def _jax_scale(jfp, raw, wre, wim, mean2, precision, bitshift, *, log_scaling=True,
+               fast_log=False, output_dtype="float32", bit_depth=12):
+    import jax.numpy as jnp
+
+    out = jfp._fused_depth_scale_impl(
+        jnp.asarray(raw), jnp.asarray(wre), jnp.asarray(wim), jnp.asarray(mean2),
+        bit_depth=bit_depth, bitshift=bitshift, compute_dtype="float32",
+        precision=precision, log_scaling=log_scaling, gmin=0.0, gmax=60.0,
+        addend=0.0, coeff=1.0, output_dtype=output_dtype, fast_log=fast_log,
+        interpret=True)
+    return np.asarray(out, np.float32)
+
+
+def _parts(w, precision):
+    return tfp._operator_parts(torch.from_numpy(w), precision)
+
+
+# ---------------------------------------------------------------------------
+# plain versions vs the Pallas kernels (CPU)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("precision", RUNGS)
+@pytest.mark.parametrize("lines,bitshift", [(256, True), (105, False)])
+def test_depth_plain_matches_pallas(jfp, np_rng, precision, lines, bitshift):
+    """_kernel_depth (default) and _kernel_depth_split (high, highest)."""
+    wre, wim = _operators()
+    raw = _raw(np_rng, lines)
+    got = tfp.fold_depth(torch.from_numpy(raw), _parts(wre, precision),
+                         _parts(wim, precision), bitshift=bitshift)
+    _planar_close(got, _jax_depth(jfp, raw, wre, wim, precision, bitshift))
+
+
+def test_depth_plain_uint8_matches_pallas(jfp, np_rng):
+    wre, wim = _operators()
+    raw = _raw(np_rng, 64, dtype=np.uint8)
+    got = tfp.fold_depth(torch.from_numpy(raw), _parts(wre, "high"),
+                         _parts(wim, "high"), bitshift=False)
+    _planar_close(got, _jax_depth(jfp, raw, wre, wim, "high", False, bit_depth=8))
+
+
+SCALE_CASES = [
+    # (precision, lines, log_scaling, fast_log, output_dtype)
+    ("default", 256, True, False, "float32"),
+    ("high", 256, True, False, "float32"),
+    ("highest", 256, True, False, "float32"),
+    ("default", 256, True, True, "float32"),
+    ("default", 256, False, False, "float32"),
+    ("default", 256, True, False, "bfloat16"),
+    ("high", 256, True, False, "bfloat16"),
+    ("high", 105, True, False, "float32"),
+    ("default", 105, True, True, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("precision,lines,log_scaling,fast_log,output_dtype", SCALE_CASES)
+def test_depth_scale_plain_matches_pallas(jfp, np_rng, precision, lines, log_scaling,
+                                          fast_log, output_dtype):
+    """_kernel_depth_scale (default) and _kernel_depth_scale_split (high,
+    highest): FPN mean subtraction, log/lin/fast-log epilogue, f32/bf16 store."""
+    wre, wim = _operators()
+    raw = _raw(np_rng, lines)
+    mean2 = np_rng.normal(0, 50.0, size=(2, N // 2)).astype(np.float32)
+    a, b = tfp._scale_affine(log_scaling, N // 2, 0.0, 60.0, 0.0, 1.0)
+    odt = torch.bfloat16 if output_dtype == "bfloat16" else torch.float32
+    got = tfp.fold_depth_scale(torch.from_numpy(raw), _parts(wre, precision),
+                               _parts(wim, precision), torch.from_numpy(mean2),
+                               bitshift=True, log_scaling=log_scaling, a=a, b=b,
+                               fast_log=fast_log, out_dtype=odt)
+    assert got.dtype == odt
+    want = _jax_scale(jfp, raw, wre, wim, mean2, precision, True, log_scaling=log_scaling,
+                      fast_log=fast_log, output_dtype=output_dtype)
+    _scale_close(got, want)
+
+
+@pytest.mark.parametrize("precision", ["high", "highest"])
+def test_depth_scale_plain_low_bits_matches_pallas(jfp, np_rng, precision):
+    """12-bit samples without the bitshift exceed bf16's 8 bits, so the
+    split rungs' x_lo terms are nonzero; float32 store."""
+    wre, wim = _operators()
+    raw = _raw(np_rng, 256)
+    mean2 = np_rng.normal(0, 50.0, size=(2, N // 2)).astype(np.float32)
+    a, b = tfp._scale_affine(True, N // 2, 0.0, 60.0, 0.0, 1.0)
+    got = tfp.fold_depth_scale(torch.from_numpy(raw), _parts(wre, precision),
+                               _parts(wim, precision), torch.from_numpy(mean2),
+                               bitshift=False, log_scaling=True, a=a, b=b)
+    _scale_close(got, _jax_scale(jfp, raw, wre, wim, mean2, precision, False))
+
+
+def test_gates_separate_the_rungs(np_rng):
+    """The agreement bounds catch a kernel that computes a neighbouring
+    rung: the "highest" parts through the 3-pass math, and the 3-pass math
+    without its x_lo * w_0 term (x_hi in place of x), both fail."""
+    wre, wim = _operators()
+    x = torch.from_numpy(_raw(np_rng, 256).astype(np.float32))
+    mean2 = torch.from_numpy(np_rng.normal(0, 50.0, size=(2, N // 2)).astype(np.float32))
+    a, b = tfp._scale_affine(True, N // 2, 0.0, 60.0, 0.0, 1.0)
+    kw = dict(bitshift=False, log_scaling=True, a=a, b=b)
+    p5 = (_parts(wre, "highest"), _parts(wim, "highest"))
+    p3 = (_parts(wre, "high"), _parts(wim, "high"))
+    x_hi = tfp._bf16_trunc(x)
+    for (xa, wa), (xb, wb) in [((x, [p[:2] for p in p5]), (x, p5)), ((x_hi, p3), (x, p3))]:
+        err = tfp.planar_error(tfp.depth_plain(xa, *wa, bitshift=False),
+                               tfp.depth_plain(xb, *wb, bitshift=False))
+        assert err > 2 * tfp.PLANAR_REL_L2, err
+        rms, _, ok = tfp.scale_error(tfp.depth_scale_plain(xa, *wa, mean2, **kw),
+                                     tfp.depth_scale_plain(xb, *wb, mean2, **kw))
+        assert not ok and rms > 2 * tfp.SCALE_RMS, rms
+
+
+@pytest.mark.parametrize("precision", RUNGS)
+def test_wrappers_take_parts_split_once(np_rng, precision):
+    """Curves.depth_parts (split once by make_curves) give the output of
+    the float32 operators split per call; a part count that does not match
+    the rung is refused."""
+    acq, cfg, _, _ = _acq_cfg(matmul_precision=precision)
+    wre, wim = (torch.from_numpy(w) for w in _operators())
+    parts = (tfp._operator_parts(wre, precision), tfp._operator_parts(wim, precision))
+    raw = torch.from_numpy(np_rng.integers(0, 4096, size=acq.buffer_shape).astype(np.uint16))
+    mean2 = torch.from_numpy(np_rng.normal(0, 50.0, size=(2, N // 2)).astype(np.float32))
+    assert torch.equal(tfp.fused_depth_scale(raw, *parts, mean2, acq, cfg),
+                       tfp.fused_depth_scale(raw, wre, wim, mean2, acq, cfg))
+    for got, want in zip(tfp.fused_depth_transform(raw, *parts, acq, cfg),
+                         tfp.fused_depth_transform(raw, wre, wim, acq, cfg)):
+        assert torch.equal(got, want)
+    other = "high" if precision == "default" else "default"
+    wrong = (tfp._operator_parts(wre, other), tfp._operator_parts(wim, other))
+    with pytest.raises(ValueError, match="operator part"):
+        tfp.fused_depth_scale(raw, *wrong, mean2, acq, cfg)
+
+
+def _acq_cfg(**changes):
+    import octproz_tpu.params as jparams
+
+    acq = AcqParams(samples_per_line=N, ascans_per_bscan=32, bscans_per_buffer=4)
+    cfg = dataclasses.replace(default_full_config(), bitshift=True, **changes)
+    jacq = jparams.AcqParams(samples_per_line=N, ascans_per_bscan=32, bscans_per_buffer=4)
+    jcfg = dataclasses.replace(jparams.default_full_config(), bitshift=True, **changes)
+    return acq, cfg, jacq, jcfg
+
+
+@pytest.mark.parametrize("backend", ["pallas", "xla"])
+@pytest.mark.parametrize("precision", RUNGS)
+def test_fused_depth_transform_wrapper_matches(jfp, np_rng, backend, precision):
+    """The public wrapper on a (bscans, ascans, samples) buffer, both fold
+    backends: the port's "xla" route is plain torch, like JAX's jnp route."""
+    import jax.numpy as jnp
+
+    acq, cfg, jacq, jcfg = _acq_cfg(fold_backend=backend, matmul_precision=precision)
+    wre, wim = _operators()
+    raw = np_rng.integers(0, 4096, size=acq.buffer_shape).astype(np.uint16)
+    got = tfp.fused_depth_transform(torch.from_numpy(raw), torch.from_numpy(wre),
+                                    torch.from_numpy(wim), acq, cfg)
+    want = jfp.fused_depth_transform(jnp.asarray(raw), jnp.asarray(wre), jnp.asarray(wim),
+                                     jacq, jcfg, interpret=True)
+    assert got[0].shape == (4, 32, N // 2)
+    _planar_close(got, [np.asarray(w) for w in want])
+
+
+@pytest.mark.parametrize("precision", RUNGS)
+def test_fused_depth_scale_wrapper_on_a_stack(jfp, np_rng, precision):
+    """The public wrapper on a (k, bscans, ascans, samples) stack (the batch
+    strategy's call)."""
+    import jax.numpy as jnp
+
+    acq, cfg, jacq, jcfg = _acq_cfg(matmul_precision=precision)
+    wre, wim = _operators()
+    raw = np_rng.integers(0, 4096, size=(2, *acq.buffer_shape)).astype(np.uint16)
+    mean2 = np_rng.normal(0, 50.0, size=(2, N // 2)).astype(np.float32)
+    got = tfp.fused_depth_scale(torch.from_numpy(raw), torch.from_numpy(wre),
+                                torch.from_numpy(wim), torch.from_numpy(mean2), acq, cfg)
+    want = jfp.fused_depth_scale(jnp.asarray(raw), jnp.asarray(wre), jnp.asarray(wim),
+                                 jnp.asarray(mean2), jacq, jcfg, interpret=True)
+    assert tuple(got.shape) == (2, 4, 32, N // 2)
+    _scale_close(got, np.asarray(want))
+
+
+def test_fold_k_split_leaves_output_unchanged(np_rng):
+    """fold_k_split was a TPU overlap knob: accepted, output identical."""
+    acq, cfg, _, _ = _acq_cfg()
+    wre, wim = (torch.from_numpy(w) for w in _operators())
+    raw = torch.from_numpy(np_rng.integers(0, 4096, size=acq.buffer_shape).astype(np.uint16))
+    mean2 = torch.zeros((2, N // 2))
+    base = tfp.fused_depth_scale(raw, wre, wim, mean2, acq, cfg)
+    for k in (2, 4):
+        cfg_k = dataclasses.replace(cfg, fold_k_split=k, pallas_tile=64)
+        assert torch.equal(tfp.fused_depth_scale(raw, wre, wim, mean2, acq, cfg_k), base)
+
+
+def test_wrappers_refuse_unported_configs():
+    acq, cfg, _, _ = _acq_cfg()
+    w = torch.zeros((N, N // 2))
+    raw = torch.zeros(acq.buffer_shape, dtype=torch.uint16)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tfp.fused_depth_scale(raw, w, w, torch.zeros(2, N // 2), acq,
+                              dataclasses.replace(cfg, fold_concat=True))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tfp.fused_depth_transform(raw, w, w, acq,
+                                  dataclasses.replace(cfg, compute_dtype="bfloat16"))
+    with pytest.raises(ValueError, match="depth_op"):
+        tfp.fused_depth_transform(raw, None, w, acq, cfg)
+
+
+def test_no_plain_route_for_other_devices():
+    """Only a CPU tensor takes the plain version; any other device either
+    launches the CUDA kernel or raises -- here the meta device raises."""
+    raw = torch.empty((8, N), dtype=torch.uint16, device="meta")
+    w = torch.empty((N, N // 2), device="meta")
+    with pytest.raises(RuntimeError, match="no fold kernel"):
+        tfp.fold_depth(raw, (w,), (w,), bitshift=True)
+    with pytest.raises(RuntimeError, match="no fold kernel"):
+        tfp.fold_depth_scale(raw, (w,), (w,), torch.empty((2, N // 2), device="meta"),
+                             bitshift=True, log_scaling=True, a=1.0, b=0.0)
+
+
+def test_launch_checks_reject_what_the_kernel_does_not_take():
+    """The launch checks (device, dtype, shape, contiguity) before any
+    pointer reaches the kernel."""
+    raw = torch.zeros((8, N), dtype=torch.uint16)
+    w = torch.zeros((N, N // 2))
+    assert tfp._check_launch(raw, (w,), (w,)) == (8, N, N // 2)
+    with pytest.raises(TypeError):
+        tfp._check_launch(raw.to(torch.int16), (w,), (w,))
+    with pytest.raises(ValueError):
+        tfp._check_launch(raw.t(), (w,), (w,))
+    with pytest.raises(ValueError):  # split parts must be bf16
+        tfp._check_launch(raw, (w, w), (w, w))
+    with pytest.raises(ValueError):
+        tfp._check_launch(raw, (w[:, :10],), (w,))
+    with pytest.raises(ValueError):
+        tfp._check_launch(raw, (w,), (w,), torch.zeros((2, 3)))
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels vs their plain versions (GPU only)
+# ---------------------------------------------------------------------------
+
+CUDA_CASES = [
+    # (n_in, lines, input dtype, bitshift, passes, scale mode or None, out dtype)
+    (256, 300, torch.uint16, True, 1, None, None),
+    (256, 300, torch.uint16, True, 3, None, None),
+    (256, 300, torch.uint16, True, 5, None, None),
+    (256, 300, torch.uint16, False, 3, None, None),
+    (256, 300, torch.uint16, False, 5, None, None),
+    (1664, 70, torch.uint16, True, 3, None, None),
+    (256, 300, torch.uint16, True, 1, "log", torch.float32),
+    (256, 300, torch.uint16, True, 3, "log", torch.float32),
+    (256, 300, torch.uint16, True, 5, "log", torch.float32),
+    (256, 300, torch.uint16, False, 3, "log", torch.float32),
+    (256, 300, torch.uint16, False, 5, "log", torch.float32),
+    (256, 300, torch.uint16, True, 1, "fast_log", torch.bfloat16),
+    (256, 300, torch.uint8, False, 1, "lin", torch.float32),
+    (1664, 70, torch.float32, False, 3, "log", torch.bfloat16),
+]
+
+
+def _cuda_raw(rng, lines, n_in, in_dtype, device):
+    if in_dtype == torch.float32:
+        raw = rng.integers(0, 1 << 24, size=(lines, n_in)).astype(np.float32)
+    else:
+        raw = _raw(rng, lines, n_in, np.uint8 if in_dtype == torch.uint8 else np.uint16)
+    return torch.from_numpy(raw).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_in,lines,in_dtype,bitshift,passes,mode,out_dtype", CUDA_CASES)
+def test_cuda_kernel_matches_plain(cuda_device, np_rng, n_in, lines, in_dtype, bitshift,
+                                   passes, mode, out_dtype):
+    precision = {1: "default", 3: "high", 5: "highest"}[passes]
+    wre, wim = (torch.from_numpy(w).to(cuda_device) for w in _operators(n_in))
+    parts_re = tfp._operator_parts(wre, precision)
+    parts_im = tfp._operator_parts(wim, precision)
+    raw = _cuda_raw(np_rng, lines, n_in, in_dtype, cuda_device)
+    before = dict(tfp.LAUNCHES)
+    if mode is None:
+        got = tfp.fold_depth(raw, parts_re, parts_im, bitshift=bitshift)
+        want = tfp.depth_plain(raw, parts_re, parts_im, bitshift=bitshift)
+        torch.cuda.synchronize()
+        _planar_close([g.cpu() for g in got], [w.cpu().numpy() for w in want])
+        family = "depth" if passes == 1 else "depth_split"
+    else:
+        mean2 = torch.from_numpy(np_rng.normal(0, 50.0, size=(2, n_in // 2))
+                                 .astype(np.float32)).to(cuda_device)
+        a, b = tfp._scale_affine(mode != "lin", n_in // 2, 0.0, 60.0, 0.0, 1.0)
+        kw = dict(bitshift=bitshift, log_scaling=mode != "lin", a=a, b=b,
+                  fast_log=mode == "fast_log", out_dtype=out_dtype)
+        got = tfp.fold_depth_scale(raw, parts_re, parts_im, mean2, **kw)
+        want = tfp.depth_scale_plain(raw, parts_re, parts_im, mean2, **kw)
+        torch.cuda.synchronize()
+        assert got.dtype == out_dtype
+        _scale_close(got, want.float().cpu().numpy())
+        family = "depth_scale" if passes == 1 else "depth_scale_split"
+    assert tfp.LAUNCHES[family] == before[family] + 1
+
+
+@pytest.mark.cuda
+def test_cuda_gates_catch_the_3_pass_math(cuda_device, np_rng):
+    """Control: the 3-pass kernel fed the "highest" parts differs from the
+    5-pass plain version by more than the agreement bounds."""
+    wre, wim = (torch.from_numpy(w).to(cuda_device) for w in _operators())
+    p5 = (tfp._operator_parts(wre, "highest"), tfp._operator_parts(wim, "highest"))
+    raw = _cuda_raw(np_rng, 300, N, torch.uint16, cuda_device)
+    got = tfp.fold_depth(raw, p5[0][:2], p5[1][:2], bitshift=False)
+    want = tfp.depth_plain(raw, *p5, bitshift=False)
+    assert tfp.planar_error(got, want) > 2 * tfp.PLANAR_REL_L2
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_raises_instead_of_falling_back(cuda_device):
+    """A CUDA tensor the kernel cannot take raises; it never runs the plain
+    version."""
+    raw = torch.zeros((8, N), dtype=torch.int16, device=cuda_device)
+    w = torch.zeros((N, N // 2), device=cuda_device)
+    with pytest.raises(TypeError):
+        tfp.fold_depth(raw, (w,), (w,), bitshift=True)
+    with pytest.raises(ValueError):
+        tfp.fold_depth(raw.to(torch.uint8), (w.cpu(),), (w,), bitshift=True)
+
+
+@pytest.mark.cuda
+def test_cuda_model_matches_cpu_model(cuda_device):
+    """FdOctModel end to end on the GPU (CUDA kernels) and on the CPU (plain
+    versions): FPN buffer then steady buffers, the high rung."""
+    from octproz_tpu_torch.models.fdoct import FdOctModel
+
+    acq = AcqParams(samples_per_line=N, ascans_per_bscan=32, bscans_per_buffer=8)
+    cfg = dataclasses.replace(default_full_config(), bitshift=True, bscans_for_noise=2,
+                              matmul_precision="high")
+    rng = np.random.default_rng(13)
+    raws = [rng.integers(0, 4096, size=acq.buffer_shape).astype(np.uint16) for _ in range(3)]
+    kw = dict(resample_coeffs=(0.0, N - 1.0, 10.0, -4.0),
+              dispersion_coeffs=(0.0, 0.0, 8.0, 0.0))
+    gpu = FdOctModel(acq, cfg, **kw, device=cuda_device)
+    cpu = FdOctModel(acq, cfg, **kw, device="cpu")
+    before = dict(tfp.LAUNCHES)
+    for raw in raws:
+        _scale_close(gpu.fetch(gpu.process_buffer(raw)), cpu.fetch(cpu.process_buffer(raw)))
+    assert tfp.LAUNCHES["depth_split"] == before["depth_split"] + 1
+    assert tfp.LAUNCHES["depth_scale_split"] == before["depth_scale_split"] + 2

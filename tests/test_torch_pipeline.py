@@ -1,0 +1,345 @@
+"""The slice end to end: the port's FdOctModel against the JAX package's on
+the same inputs (FPN buffer, steady buffers, batch and scan chunks), the
+golden-pair gate, the float64-oracle precision ladder, the interop round
+trip, and the refusals of configurations outside the slice.
+
+Tolerances (float32 on both sides, on the CPU the port runs the kernels'
+plain versions):
+* scaled images: equal finite masks, and |port - jax| <= 1e-4 where the JAX
+  value is at or above the display floor (>= 0); below it p -> 0 and
+  log10 amplifies float32 summation-order differences without bound.
+  bfloat16 stores add one bf16 rounding step (2^-7 * |value|).
+* FPN mean lines: rtol 1e-5 with an absolute floor of 1e-5 * max|mean|.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import octproz_tpu.models.fdoct as jfdoct
+import octproz_tpu.params as jparams
+from octproz_tpu import curves as jcurves
+from octproz_tpu import pipeline as jpipeline
+from octproz_tpu_torch import bench, interop
+from octproz_tpu_torch import curves as tcurves
+from octproz_tpu_torch import pipeline as tpipeline
+from octproz_tpu_torch.models.fdoct import FdOctModel
+from octproz_tpu_torch.params import (AcqParams, FpnMode, Interpolation, ProcConfig,
+                                      WindowType, default_full_config)
+
+N, ASCANS, BSCANS = 256, 32, 8
+KW = dict(resample_coeffs=(0.0, N - 1.0, 10.0, -4.0),
+          dispersion_coeffs=(0.0, 0.0, 8.0, 0.0), window_type=WindowType.HANNING)
+JKW = dict(KW, window_type=jparams.WindowType.HANNING)
+SCALE_ATOL = 1e-4
+BF16_STEP = 2.0 ** -7
+
+
+def _models(**changes):
+    """The port's and the JAX package's model on the same configuration:
+    the benchmark chain with bitshift, FPN from the first two B-scans."""
+    base = dict(bitshift=True, bscans_for_noise=2)
+    base.update(changes)
+    enums = {"fpn_mode": (FpnMode, jparams.FpnMode),
+             "interpolation": (Interpolation, jparams.Interpolation)}
+    jchanges = {k: (enums[k][1](v.value) if k in enums else v) for k, v in base.items()}
+    acq = AcqParams(samples_per_line=N, ascans_per_bscan=ASCANS, bscans_per_buffer=BSCANS)
+    jacq = jparams.AcqParams(samples_per_line=N, ascans_per_bscan=ASCANS,
+                             bscans_per_buffer=BSCANS)
+    tm = FdOctModel(acq, dataclasses.replace(default_full_config(), **base), **KW,
+                    device="cpu")
+    jm = jfdoct.FdOctModel(jacq, dataclasses.replace(jparams.default_full_config(),
+                                                     **jchanges), **JKW)
+    return tm, jm
+
+
+def _buffers(count, seed=99):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 4096, size=(BSCANS, ASCANS, N)).astype(np.uint16)
+            for _ in range(count)]
+
+
+def _close(got, want):
+    g = got.float().numpy().astype(np.float64) if isinstance(got, torch.Tensor) \
+        else np.asarray(got, np.float64)
+    w = np.asarray(want, np.float64)
+    assert g.shape == w.shape
+    np.testing.assert_array_equal(np.isfinite(g), np.isfinite(w))
+    shown = np.isfinite(w) & (w >= 0)
+    assert shown.mean() > 0.5
+    limit = SCALE_ATOL + (BF16_STEP * np.abs(w[shown])
+                          if isinstance(got, torch.Tensor) and got.dtype == torch.bfloat16
+                          else 0.0)
+    err = np.abs(g[shown] - w[shown])
+    assert (err <= limit).all(), err.max()
+
+
+def _same_fpn(tm, jm):
+    assert tm.fpn_state.determined == bool(jm.fpn_state.determined)
+    t = tm.fpn_state.mean_line.numpy()
+    j = np.asarray(jm.fpn_state.mean_line)
+    np.testing.assert_allclose(t, j, rtol=1e-5, atol=1e-5 * max(np.abs(j).max(), 1.0))
+
+
+SLICE_CONFIGS = {
+    "once-default": {},
+    "once-high": dict(matmul_precision="high"),
+    "once-highest": dict(matmul_precision="highest"),
+    "fpn-off": dict(fpn_mode=FpnMode.OFF),
+    "fpn-continuous": dict(fpn_mode=FpnMode.CONTINUOUS),
+    "fold-xla": dict(fold_backend="xla"),
+    "unfused-scale": dict(fused_scale=False),
+    "bf16-store": dict(output_dtype="bfloat16"),
+    "fast-log": dict(fast_log=True),
+    "lin-scale": dict(log_scaling=False),
+}
+
+
+@pytest.mark.parametrize("name", list(SLICE_CONFIGS))
+def test_model_matches_jax_buffer_by_buffer(name):
+    """Buffer 0 (FPN determination), two steady buffers, then a chunk of two
+    with strategy "auto" (batch wherever the JAX model batches)."""
+    tm, jm = _models(**SLICE_CONFIGS[name])
+    raws = _buffers(5)
+    for raw in raws[:3]:
+        got = tm.process_buffer(raw)
+        want = jm.process_buffer(raw)
+        assert got.dtype == (torch.bfloat16 if tm.cfg.output_dtype == "bfloat16"
+                             else torch.float32)
+        _close(got, np.asarray(want, np.float32))
+        _same_fpn(tm, jm)
+    assert tm._batch_ready() == jm._batch_ready()
+    got = tm.process_chunk(np.stack(raws[3:]))
+    want = jm.process_chunk(np.stack(raws[3:]))
+    assert tuple(got.shape) == (2, BSCANS, ASCANS, N // 2)
+    _close(got, np.asarray(want, np.float32))
+    _same_fpn(tm, jm)
+
+
+@pytest.mark.parametrize("name", ["once-default", "once-high", "fpn-continuous"])
+def test_scan_chunk_matches_jax(name):
+    """strategy="scan" from a fresh FPN state: the state threads through the
+    stack exactly as per-buffer calls."""
+    tm, jm = _models(**SLICE_CONFIGS[name])
+    stack = np.stack(_buffers(3, seed=5))
+    got = tm.process_chunk(stack, strategy="scan")
+    _close(got, np.asarray(jm.process_chunk(stack, strategy="scan"), np.float32))
+    _same_fpn(tm, jm)
+    tm2, _ = _models(**SLICE_CONFIGS[name])
+    per_buffer = torch.stack([tm2.process_buffer(r) for r in stack])
+    assert torch.equal(got, per_buffer)
+
+
+def test_batch_equals_per_buffer_steps():
+    """After FPN determination the batch kernel call over a stack equals
+    the per-buffer steps (same finite mask, 1e-5)."""
+    tm, _ = _models()
+    raws = _buffers(4, seed=7)
+    tm.process_buffer(raws[0])
+    steps = [tm.process_buffer(r) for r in raws[1:]]
+    batch = tm.process_chunk(np.stack(raws[1:]), strategy="batch")
+    for a, b in zip(steps, batch):
+        assert torch.equal(torch.isfinite(a), torch.isfinite(b))
+        fin = torch.isfinite(a)
+        assert torch.allclose(a[fin], b[fin], atol=1e-5, rtol=1e-5)
+
+
+def test_model_controls():
+    tm, _ = _models()
+    raw = _buffers(1)[0]
+    with pytest.raises(ValueError, match="batch"):
+        tm.process_chunk(raw[None], strategy="batch")  # FPN not determined yet
+    with pytest.raises(ValueError, match="strategy"):
+        tm.process_chunk(raw[None], strategy="mega")
+    first = tm.process_buffer(raw)
+    assert tm.fpn_state.determined and tm._batch_ready()
+    tm.redetermine_fpn()
+    assert not tm.fpn_state.determined and not tm._batch_ready()
+    assert torch.equal(tm.process_buffer(raw), first)
+    tm.set_klin_coeffs(0.0, N - 1.0, 0.0, 0.0)
+    assert not torch.equal(tm.process_buffer(raw), first)
+    tm.set_window(WindowType.GAUSS, 0.5, 0.8)
+    tm.set_dispersion_coeffs(0.0, 0.0, 2.0, 0.0)
+    tm.set_custom_resample_curve(np.linspace(0, N - 3, N))
+    tm.set_config(grayscale_max=80.0, output_dtype="bfloat16")
+    out = tm.process_buffer(raw)
+    assert out.dtype == torch.bfloat16
+    fetched = tm.fetch(out)
+    assert isinstance(fetched, np.ndarray) and fetched.dtype == np.float32
+
+
+def test_set_config_splits_the_operator_once():
+    """make_curves splits the depth operator for the configured rung; a
+    rung change rebuilds the parts in the published snapshot."""
+    tm, _ = _models()
+    assert [len(p) for p in tm.curves.depth_parts] == [1, 1]
+    tm.set_config(matmul_precision="highest")
+    cfg, curves, _ = tm._exec
+    assert cfg.matmul_precision == "highest"
+    assert [len(p) for p in curves.depth_parts] == [3, 3]
+    assert all(p.dtype == torch.bfloat16 for parts in curves.depth_parts for p in parts)
+
+
+UNPORTED = [dict(fft_via_matmul=False), dict(use_pallas_prep=True),
+            dict(fold_concat=True), dict(compute_dtype="bfloat16"),
+            dict(bscan_flip=True), dict(sinusoidal_correction=True),
+            dict(post_background_removal=True)]
+
+
+@pytest.mark.parametrize("changes", UNPORTED)
+def test_unported_configs_raise_naming_the_roadmap(changes):
+    """Outside the slice the port refuses; it never routes elsewhere."""
+    acq = AcqParams(samples_per_line=N, ascans_per_bscan=ASCANS, bscans_per_buffer=BSCANS)
+    cfg = dataclasses.replace(default_full_config(), **changes)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        FdOctModel(acq, cfg, **KW, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tpipeline.make_step(acq, cfg)
+    tm, _ = _models()
+    before = tm.cfg
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tm.set_config(**changes)
+    assert tm.cfg is before
+
+
+def test_unported_entry_points_raise():
+    acq = AcqParams(samples_per_line=N, ascans_per_bscan=ASCANS, bscans_per_buffer=BSCANS)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        FdOctModel(acq, default_full_config(), mesh=object(), device="cpu")
+    tm, _ = _models()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        tm.put_packed_buffer(np.zeros(10, np.uint8))
+
+
+@pytest.mark.parametrize("changes", [{}, dict(fpn_mode=FpnMode.OFF),
+                                     dict(fpn_mode=FpnMode.CONTINUOUS),
+                                     dict(fold_backend="xla")])
+def test_preflight_footprint_matches_jax(changes):
+    """The device-memory estimate is the JAX package's arithmetic; a budget
+    below it refuses with the breakdown; the CPU reports no limit."""
+    from octproz_tpu.utils.memory import estimate_footprint as jax_estimate
+    from octproz_tpu_torch.utils.memory import estimate_footprint, preflight_check
+
+    tm, jm = _models(**changes)
+    assert estimate_footprint(tm.acq, tm.cfg) == jax_estimate(jm.acq, jm.cfg)
+    need = estimate_footprint(tm.acq, tm.cfg)["total"]
+    with pytest.raises(MemoryError, match="raw="):
+        preflight_check(tm.acq, tm.cfg, "cpu", limit_bytes=need)
+    assert preflight_check(tm.acq, tm.cfg, "cpu")["total"] == need
+
+
+@pytest.mark.parametrize("rung", ["default", "high", "highest", "xla"])
+def test_golden_pair_gate(rung):
+    """The gate of tests/test_fidelity.py:125-127 on the port."""
+    changes = (dict(fold_backend="xla") if rung == "xla"
+               else dict(matmul_precision=rung))
+    res = bench.golden_pair("cpu", **changes)
+    assert res.psnr_db >= 60.0, res
+    assert res.min_bscan_psnr_db >= 55.0, res
+    assert res.mean_ssim >= 0.99, res
+
+
+LADDER_ACQ = AcqParams(samples_per_line=128, ascans_per_bscan=16, bscans_per_buffer=2)
+LADDER_KW = dict(resample_coeffs=(0.0, 127.0, 10.0, -4.0),
+                 dispersion_coeffs=(0.0, 0.0, 8.0, 0.0), window_type=WindowType.HANNING)
+
+
+def _ladder(fpn_on: bool):
+    """PSNR (dB, display range) per rung vs the float64 oracle, as
+    tests/test_pallas.py:285-361 measures it."""
+    import oracle
+
+    cfg = ProcConfig(resampling=True, interpolation=Interpolation.CUBIC, windowing=True,
+                     dispersion=True, log_scaling=True, fft_via_matmul=True,
+                     fpn_mode=FpnMode.ONCE if fpn_on else FpnMode.OFF,
+                     bscans_for_noise=2)
+    cv = tcurves.make_curves(LADDER_ACQ, cfg, **LADDER_KW, device="cpu")
+    raw = np.random.default_rng(1234).integers(0, 4095, size=LADDER_ACQ.buffer_shape
+                                                ).astype(np.uint16)
+    want, _ = oracle.full_pipeline(
+        raw, LADDER_ACQ.bit_depth, resample_curve=np.asarray(cv.resample_curve),
+        interpolation="cubic", window=np.asarray(cv.window), phase=np.asarray(cv.phase),
+        fpn_lines=LADDER_ACQ.ascans_per_bscan * 2 if fpn_on else 0,
+        log_scaling=True, gmin=cfg.grayscale_min, gmax=cfg.grayscale_max,
+        addend=cfg.addend, coeff=cfg.multiplicator)
+    ref = np.clip(np.asarray(want, np.float64), 0, 1)
+    out = {}
+    for rung in ("default", "high", "highest"):
+        m = FdOctModel(LADDER_ACQ, dataclasses.replace(cfg, matmul_precision=rung),
+                       **LADDER_KW, device="cpu")
+        g = np.clip(m.fetch(m.process_buffer(raw)).astype(np.float64), 0, 1)
+        out[rung] = 10 * np.log10(1.0 / max(float(np.mean((g - ref) ** 2)), 1e-30))
+    return out
+
+
+def test_precision_ladder_vs_float64_oracle():
+    """FPN off.  On the CPU the default rung is true float32; the split
+    rungs keep their budgets: high in the 50.6 dB acquisition bound,
+    highest at float32 grade and clearly above high."""
+    p = _ladder(fpn_on=False)
+    assert p["default"] >= bench.ORACLE_GATE_DB["default"], p
+    assert p["high"] >= bench.IN_BOUND_SNR_DB, p
+    assert p["highest"] > p["high"] + 10.0, p
+    assert p["highest"] > 85.0, p
+
+
+def test_precision_ladder_fpn_on():
+    """With the tie-banded FPN the rungs keep their grade end to end."""
+    p = _ladder(fpn_on=True)
+    assert p["high"] > 55.0, p
+    assert p["highest"] > 80.0, p
+
+
+def test_interop_round_trip():
+    """JAX curves and FPN state carried into the port: the curves are the
+    port's own to the byte, and the port continues the JAX model's stream."""
+    tm, jm = _models()
+    raws = _buffers(2, seed=3)
+    jm.process_buffer(raws[0])
+    jc = jm.curves
+    fields = {f.name: (None if getattr(jc, f.name) is None else np.asarray(getattr(jc, f.name)))
+              for f in dataclasses.fields(jcurves.Curves)}
+    carried = interop.curves_from_numpy(fields, "cpu")
+    own = tm.curves
+    assert torch.equal(carried.depth_op_re, own.depth_op_re)
+    assert torch.equal(carried.depth_op_im, own.depth_op_im)
+    state = interop.fpn_state_from_numpy(np.asarray(jm.fpn_state.mean_line),
+                                         bool(jm.fpn_state.determined), "cpu")
+    got, state2 = tpipeline.process_buffer(torch.from_numpy(raws[1]), carried, state,
+                                           tm.acq, tm.cfg)
+    assert state2 is state  # steady state: the mean line is an input
+    _close(got, np.asarray(jm.process_buffer(raws[1]), np.float32))
+    back = interop.to_numpy(carried)
+    for name, arr in fields.items():
+        assert (arr is None) == (back[name] is None)
+        if arr is not None:
+            np.testing.assert_array_equal(back[name], arr)
+    mean, determined = interop.to_numpy(state)
+    assert determined and np.array_equal(mean, np.asarray(jm.fpn_state.mean_line))
+    with pytest.raises(ValueError):
+        interop.curves_from_numpy({"not_a_field": None}, "cpu")
+    with pytest.raises(ValueError):
+        interop.fpn_state_from_numpy(np.zeros(4), False, "cpu")
+
+
+def test_jax_step_functions_agree():
+    """make_step / make_scan_step / initial_fpn_state: the functional API."""
+    tm, _ = _models()
+    jacq = jparams.AcqParams(samples_per_line=N, ascans_per_bscan=ASCANS,
+                             bscans_per_buffer=BSCANS)
+    jcfg = dataclasses.replace(jparams.default_full_config(), bitshift=True,
+                               bscans_for_noise=2)
+    jcv = jcurves.make_curves(jacq, jcfg, **JKW)
+    raws = _buffers(2, seed=11)
+    st = tpipeline.initial_fpn_state(tm.acq)
+    assert tuple(st.mean_line.shape) == (2, N // 2) and not st.determined
+    step = tpipeline.make_step(tm.acq, tm.cfg)
+    jstep = jpipeline.make_step(jacq, jcfg)
+    jst = jpipeline.initial_fpn_state(jacq)
+    for raw in raws:
+        got, st = step(torch.from_numpy(raw), tm.curves, st)
+        want, jst = jstep(jnp.asarray(raw), jcv, jst)
+        _close(got, np.asarray(want))
