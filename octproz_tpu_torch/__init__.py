@@ -1,7 +1,8 @@
 """octproz_tpu_torch -- the FD-OCT framework on PyTorch and CUDA.
 
 The port of ``octproz_tpu`` (JAX, TPU) to one NVIDIA Hopper GPU.  Plain
-tensor code is PyTorch; the folded-GEMM kernels of the main path are
+tensor code is PyTorch (the FFT is ``torch.fft``); the GEMM kernels of both
+pipeline branches -- the folded GEMM and the FFT path's prep GEMM -- are
 hand-written CUDA C++ for ``sm_90a`` (kernels/csrc), each with a plain
 PyTorch version beside it that runs on the CPU and that the kernel is held
 to.  The JAX package stays the reference and is never imported here.

@@ -15,8 +15,13 @@ of 12-bit samples:
 * ``oracle_psnr_db`` per rung: FPN-off PSNR of one 1024 x 512 x 8 buffer
   against the float64 NumPy oracle (``tests/oracle.py``), each gated;
 * ``golden_psnr_db``: the checked-in golden pair through the port;
-* ``kernels``: each CUDA kernel's time beside its plain PyTorch version's
+* ``kernels``: each fold kernel's time beside its plain PyTorch version's
   at the main path's shapes;
+* ``paths.fft``: the FFT path (``presets.benchmark_config(tpu=False)`` with
+  the prep kernels, then cuFFT) -- steady ms per buffer and MHz at the
+  default and "high" rungs with the step split into prep kernel, FFT and
+  FPN plus scaling, its oracle PSNR per rung, its golden pair, and the four
+  prep kernels beside their plain versions;
 * the device's name and power limit, since a card below its maximum power
   runs slower under load.
 
@@ -59,8 +64,22 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _TESTS = os.path.join(_REPO, "tests")
 
 
+#: The rungs the steady state is timed at.
+TIMED_RUNGS = ("default", "high")
+FOLD_KERNELS = ("depth", "depth_split", "depth_scale", "depth_scale_split")
+PREP_KERNELS = ("prep_phase", "prep_phase_split", "prep_real", "prep_real_split")
+
+
 def bench_config(**changes) -> ProcConfig:
     return dataclasses.replace(default_full_config(), bitshift=True, **changes)
+
+
+def fft_config(**changes) -> ProcConfig:
+    """The FFT path's chain: the benchmark preset without the folded GEMM,
+    stages 1-3 in the prep kernels."""
+    from .models.presets import benchmark_config
+
+    return dataclasses.replace(benchmark_config(tpu=False), use_pallas_prep=True, **changes)
 
 
 def device_info() -> Dict[str, object]:
@@ -149,16 +168,16 @@ def golden_pair(device, **changes):
                     ascans_per_bscan=meta["ascans"],
                     bscans_per_buffer=meta["bscans"],
                     bit_depth=meta["bit_depth"])
-    cfg = ProcConfig(
-        bitshift=meta["bitshift"],
-        resampling=True, interpolation=Interpolation(meta["interpolation"]),
-        windowing=True, dispersion=True,
-        fpn_mode=FpnMode(meta["fpn_mode"]),
-        bscans_for_noise=meta["bscans_for_noise"],
-        log_scaling=meta["log_scaling"],
-        grayscale_min=meta["grayscale_min"],
-        grayscale_max=meta["grayscale_max"],
-        fft_via_matmul=True, **changes)
+    cfg = ProcConfig(**{
+        "bitshift": meta["bitshift"],
+        "resampling": True, "interpolation": Interpolation(meta["interpolation"]),
+        "windowing": True, "dispersion": True,
+        "fpn_mode": FpnMode(meta["fpn_mode"]),
+        "bscans_for_noise": meta["bscans_for_noise"],
+        "log_scaling": meta["log_scaling"],
+        "grayscale_min": meta["grayscale_min"],
+        "grayscale_max": meta["grayscale_max"],
+        "fft_via_matmul": True, **changes})
     raw = np.fromfile(os.path.join(data, "golden_pair_input.raw"),
                       np.uint16).reshape(acq.buffer_shape)
     ref = load_volume(os.path.join(data, "golden_pair_ref.raw"),
@@ -183,40 +202,123 @@ def steady_ms_per_buffer(cfg: ProcConfig, device, ring: int = 4,
     return cuda_ms(lambda: model.process_buffer(bufs[next(turn) % ring]), iters=iters)
 
 
-def kernel_times(device, iters: int = 5) -> Dict[str, Dict[str, float]]:
-    """Each kernel family beside its plain version at the main path's
-    shapes: one 131072-line buffer of 1024 uint16 samples -> 512 bins, the
-    split families at the "high" rung (3 passes)."""
+def fft_stage_ms(cfg: ProcConfig, device, ring: int = 4,
+                 iters: int = 12) -> Dict[str, float]:
+    """CUDA-event ms per buffer of the FFT path's stages in the steady
+    state: ``prep`` (stages 1-3, the prep kernel), ``fft`` (inverse FFT and
+    truncation), ``fpn_scale`` (FPN subtraction and scaling).  Runs the
+    pipeline's own stage functions in its order and checks that the last
+    buffer's output equals ``process_buffer``'s."""
+    from . import pipeline
+    from .models.fdoct import FdOctModel
+    from .ops import postprocess
+
+    if cfg.fft_via_matmul or pipeline.has_post(cfg):
+        raise ValueError("fft_stage_ms times the FFT path without post stages")
+    model = FdOctModel(FULL_ACQ, cfg, **CURVE_KW, device=device)
+    bufs = random_buffers(FULL_ACQ, ring, device, seed=11)
+    model.process_buffer(bufs[0])  # FPN determination
+    acq, curves, state = model.acq, model.curves, model.fpn_state
+    half = acq.output_ascan_length
+    scale = postprocess.scale_log if cfg.log_scaling else postprocess.scale_lin
+    names = ("prep", "fft", "fpn_scale")
+    totals = dict.fromkeys(names, 0.0)
+    warmup = 2
+    for i in range(warmup + iters):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        raw = bufs[i % ring]
+        ev[0].record()
+        spectra = pipeline.prep_spectra(raw, curves, acq, cfg)
+        ev[1].record()
+        z = pipeline.transform_to_depth(spectra, half)
+        ev[2].record()
+        if cfg.fpn_mode != FpnMode.OFF:
+            z, _ = pipeline.apply_fpn(z, state, acq, cfg)
+        mag = pipeline.narrow(scale(z, half, cfg.grayscale_min, cfg.grayscale_max,
+                                    cfg.addend, cfg.multiplicator), cfg)
+        ev[3].record()
+        ev[3].synchronize()
+        if i >= warmup:
+            for k, name in enumerate(names):
+                totals[name] += ev[k].elapsed_time(ev[k + 1]) / iters
+    if not torch.equal(mag, model.process_buffer(raw)):
+        raise AssertionError("the timed stages differ from process_buffer")
+    return totals
+
+
+def _kernel_and_plain(name: str, device):
+    """(kernel, plain) closures for one kernel family at the main path's
+    shapes: one 131072-line buffer of 1024 uint16 samples; the fold
+    families -> 512 bins, the prep families -> 1024 columns; the split
+    families at the "high" rung (3 passes)."""
     from . import curves as curves_mod
     from .kernels import fused_prep as fp
 
+    precision = "high" if name.endswith("_split") else "default"
+    raw2d = random_buffers(FULL_ACQ, 1, device, seed=5).reshape(-1, FULL_ACQ.samples_per_line)
+    if name.startswith("prep"):
+        cv = curves_mod.make_curves(FULL_ACQ, fft_config(), **CURVE_KW, device=device)
+        parts = fp._operator_parts(cv.prep_operator, precision)
+        if name.startswith("prep_phase"):
+            rows = (cv.phase.real.contiguous(), cv.phase.imag.contiguous())
+            return (lambda: fp._launch_prep(raw2d, parts, *rows, bitshift=True),
+                    lambda: fp.prep_phase_plain(raw2d, parts, *rows, bitshift=True))
+        return (lambda: fp._launch_prep(raw2d, parts, None, None, bitshift=True),
+                lambda: fp.prep_real_plain(raw2d, parts, bitshift=True))
     cfg = bench_config()
     cv = curves_mod.make_curves(FULL_ACQ, cfg, **CURVE_KW, device=device)
-    raw2d = random_buffers(FULL_ACQ, 1, device, seed=5).reshape(-1, FULL_ACQ.samples_per_line)
-    mean2 = torch.zeros((2, FULL_ACQ.output_ascan_length), dtype=torch.float32, device=device)
-    a, b = fp._scale_affine(True, FULL_ACQ.output_ascan_length, cfg.grayscale_min,
-                            cfg.grayscale_max, cfg.addend, cfg.multiplicator)
+    wre = fp._operator_parts(cv.depth_op_re, precision)
+    wim = fp._operator_parts(cv.depth_op_im, precision)
+    if name.startswith("depth_scale"):
+        mean2 = torch.zeros((2, FULL_ACQ.output_ascan_length), dtype=torch.float32,
+                            device=device)
+        a, b = fp._scale_affine(True, FULL_ACQ.output_ascan_length, cfg.grayscale_min,
+                                cfg.grayscale_max, cfg.addend, cfg.multiplicator)
+        kw = dict(bitshift=True, log_scaling=True, a=a, b=b)
+        return (lambda: fp._launch_depth_scale(raw2d, wre, wim, mean2, fast_log=False,
+                                               out_dtype=torch.float32, **kw),
+                lambda: fp.depth_scale_plain(raw2d, wre, wim, mean2, **kw))
+    return (lambda: fp._launch_depth(raw2d, wre, wim, bitshift=True),
+            lambda: fp.depth_plain(raw2d, wre, wim, bitshift=True))
+
+
+def kernel_times(device, names: Sequence[str] = FOLD_KERNELS,
+                 iters: int = 5) -> Dict[str, Dict[str, float]]:
+    """Each kernel family in ``names`` beside its plain version at the main
+    path's shapes (see :func:`_kernel_and_plain`), in turns plain, kernel,
+    kernel, plain."""
     out = {}
-    for name, precision in (("depth", "default"), ("depth_split", "high"),
-                            ("depth_scale", "default"),
-                            ("depth_scale_split", "high")):
-        wre = fp._operator_parts(cv.depth_op_re, precision)
-        wim = fp._operator_parts(cv.depth_op_im, precision)
-        if name.startswith("depth_scale"):
-            kw = dict(bitshift=True, log_scaling=True, a=a, b=b)
-            kernel = lambda: fp._launch_depth_scale(raw2d, wre, wim, mean2, fast_log=False,
-                                                    out_dtype=torch.float32, **kw)
-            plain = lambda: fp.depth_scale_plain(raw2d, wre, wim, mean2, **kw)
-        else:
-            kernel = lambda: fp._launch_depth(raw2d, wre, wim, bitshift=True)
-            plain = lambda: fp.depth_plain(raw2d, wre, wim, bitshift=True)
-        # turns: plain, kernel, kernel, plain
+    for name in names:
+        kernel, plain = _kernel_and_plain(name, device)
         p1 = cuda_ms(plain, iters, warmup=1)
         k1 = cuda_ms(kernel, iters, warmup=1)
         k2 = cuda_ms(kernel, iters, warmup=0)
         p2 = cuda_ms(plain, iters, warmup=0)
         out[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2}
     return out
+
+
+def fft_path_record(device) -> Dict[str, object]:
+    """The ``paths.fft`` record: steady ms and MHz with the stage split at
+    each timed rung, oracle PSNR per rung (gated), the golden pair, and the
+    prep kernels beside their plain versions."""
+    psnr = oracle_psnr(tuple(ORACLE_GATE_DB), device, fft_config())
+    for rung, gate in ORACLE_GATE_DB.items():
+        if psnr[rung] < gate:
+            raise SystemExit(f"bench: FFT path rung {rung!r} failed its fidelity gate: "
+                             f"{psnr[rung]:.2f} dB < {gate} dB")
+    lines = FULL_ACQ.ascans_per_buffer
+    rungs = {}
+    for rung in TIMED_RUNGS:
+        cfg = fft_config(matmul_precision=rung)
+        ms = steady_ms_per_buffer(cfg, device)
+        rungs[rung] = {"ms_per_buffer": ms, "equivalent_ascan_rate": lines / ms / 1e3,
+                       "oracle_psnr_db": psnr[rung], "stages_ms": fft_stage_ms(cfg, device)}
+    golden = golden_pair(device, fft_via_matmul=False, use_pallas_prep=True)
+    return {"config": "presets.benchmark_config(tpu=False), use_pallas_prep=True",
+            "rungs": rungs, "oracle_psnr_db": psnr,
+            "golden_psnr_db": float(golden.psnr_db),
+            "kernels": kernel_times(device, PREP_KERNELS)}
 
 
 def main() -> None:
@@ -257,6 +359,7 @@ def main() -> None:
         "oracle_psnr_db": psnr,
         "golden_psnr_db": float(golden.psnr_db),
         "kernels": kernel_times(device),
+        "paths": {"fft": fft_path_record(device)},
         "platform": info["platform"],
         "device_name": info["device_name"],
         "power_limit": info["power_limit"],

@@ -267,7 +267,8 @@ def make_curves(
     Fields named by :func:`consumed_fields` become tensors on ``device``;
     everything else stays a host numpy array.  With ``fft_via_matmul``,
     ``depth_parts`` holds the depth operator split for
-    ``cfg.matmul_precision`` on ``device``.
+    ``cfg.matmul_precision`` on ``device``; where the prep kernels consume
+    the prep operator, ``prep_parts`` holds it split the same way.
     """
     from .kernels.fused_prep import (_operator_parts, build_depth_operator,
                                      build_prep_operator)
@@ -279,7 +280,7 @@ def make_curves(
             if name in used else np_arr
 
     n = acq.samples_per_line
-    rc = rm = win = phase = sin_curve = post_bg = prep_op = None
+    rc = rm = win = phase = sin_curve = post_bg = prep_op = prep_parts = None
     rm_np = win_np = None
     if cfg.resampling:
         rc_np = resample_curve(acq, *resample_coeffs, custom=custom_resample_curve)
@@ -293,6 +294,8 @@ def make_curves(
     if cfg.use_pallas_prep:
         prep_op = place("prep_operator",
                         build_prep_operator(acq, cfg, rm_np, win_np))
+        if "prep_operator" in used:
+            prep_parts = _operator_parts(prep_op, cfg.matmul_precision)
     dop_re = dop_im = depth_parts = None
     phase_np = (np.asarray(dispersion_phase(acq, *dispersion_coeffs))
                 if cfg.dispersion else None)
@@ -324,4 +327,5 @@ def make_curves(
         sinusoidal_curve=sin_curve,
         post_background=post_bg,
         depth_parts=depth_parts,
+        prep_parts=prep_parts,
     )

@@ -38,8 +38,9 @@ def fpn_state_from_numpy(mean_line: np.ndarray, determined: bool, device) -> Fpn
 
 def to_numpy(obj):
     """Port state back to numpy: a tensor -> array; Curves -> dict of
-    arrays (None kept; ``depth_parts`` left out, as it is derived from
-    ``depth_op_*``); FpnState -> (mean_line, determined)."""
+    arrays (None kept; ``depth_parts`` and ``prep_parts`` left out, as they
+    are derived from ``depth_op_*`` and ``prep_operator``); FpnState ->
+    (mean_line, determined)."""
     if isinstance(obj, torch.Tensor):
         t = obj.detach()
         if t.dtype == torch.bfloat16:
@@ -50,7 +51,7 @@ def to_numpy(obj):
     if isinstance(obj, Curves):
         out = {}
         for f in dataclasses.fields(Curves):
-            if f.name == "depth_parts":
+            if f.name in ("depth_parts", "prep_parts"):
                 continue
             v = getattr(obj, f.name)
             out[f.name] = None if v is None else to_numpy(v) \

@@ -37,19 +37,11 @@
 // the tile) are masked inside the kernel.  Built without --use_fast_math:
 // log10f(0) is -inf on the exact path, as in the JAX package.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
 #include <type_traits>
 
-namespace {
+#include "gemm_common.cuh"
 
-constexpr int BM = 64;       // lines per block tile
-constexpr int BK = 16;       // contraction (n_in) per K step
-constexpr int TM = 4;        // lines per thread
-constexpr int THREADS = 256; // 16 x 16 threads
-constexpr int TY = THREADS / 16;
+namespace {
 
 enum Epi { PLANAR = 0, SCALE = 1 };
 enum Mode { MODE_LOG = 0, MODE_LIN = 1, MODE_FAST_LOG = 2 };
@@ -70,30 +62,6 @@ struct Args {
   float a;
   float b;
 };
-
-// _decode_block: uint -> int32 -> (>> 4) -> float.
-template <typename InT>
-__device__ __forceinline__ float decode(InT v, int bitshift) {
-  int i = static_cast<int>(v);
-  if (bitshift) i >>= 4;
-  return static_cast<float>(i);
-}
-template <>
-__device__ __forceinline__ float decode<float>(float v, int) {
-  return v;
-}
-
-template <typename WT>
-__device__ __forceinline__ float load_w(const void* p, long long off);
-template <>
-__device__ __forceinline__ float load_w<float>(const void* p, long long off) {
-  return static_cast<const float*>(p)[off];
-}
-template <>
-__device__ __forceinline__ float load_w<__nv_bfloat16>(const void* p,
-                                                       long long off) {
-  return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[off]);
-}
 
 template <typename OutT>
 __device__ __forceinline__ OutT store_cast(float v);
@@ -166,9 +134,9 @@ __global__ void __launch_bounds__(THREADS)
       if constexpr (XT == 1) {
         xs[0][c][r] = v;
       } else {
-        const float hi = __int_as_float(__float_as_int(v) & 0xFFFF0000);
+        const float hi = x_hi(v);
         xs[0][c][r] = hi;
-        xs[1][c][r] = __bfloat162float(__float2bfloat16_rn(v - hi));
+        xs[1][c][r] = x_lo(v, hi);
       }
     }
     // Stage the operator tiles, every part of both axes.

@@ -1,21 +1,25 @@
-"""The folded-GEMM kernels: decode x resample x window x dispersion x
-inverse DFT x truncation as one planar (n_in, half) GEMM per A-scan.
+"""The GEMM kernels of both pipeline branches.
 
-Every pre-FPN stage is linear in the A-scan with coefficients that depend
-only on the intra-line index, so the chain folds into one complex operator
-``W = W_re + i W_im`` built once per curve update on the host
-(:func:`build_depth_operator`).  At run time one kernel per call does
+Every pre-FFT stage is linear in the A-scan with coefficients that depend
+only on the intra-line index, so background removal, k-linearization and
+the window fold into one (n_in, n_out) prep operator P
+(:func:`build_prep_operator`); with the dispersion phasor, the inverse DFT
+and the mirror truncation as well, into one complex depth operator
+``W = W_re + i W_im`` (:func:`build_depth_operator`).  Both are built once
+per curve update on the host.  At run time one kernel per call does
 
-    decode raw integers -> x @ W_re, x @ W_im  (planar depth profiles)
+    fold path:  decode raw integers -> x @ W_re, x @ W_im  (planar depth
+                profiles), or in the steady state the same GEMMs plus FPN
+                mean subtraction and ``A*log10(re^2+im^2)+B``, so only raw
+                integers are read and only the magnitude image is written;
+    FFT path:   decode raw integers -> y = x @ P -> (y cos, y sin) as
+                complex64 spectra (or y alone without dispersion), which
+                the FFT stage then transforms.
 
-or, in the steady state, the same GEMMs plus FPN mean subtraction and the
-dynamic-range scaling ``A*log10(re^2+im^2)+B`` in the epilogue, so only raw
-integers are read and only the magnitude image is written.
+This module holds, for each of the eight kernel families:
 
-This module holds, for each of the four kernel families:
-
-* the CUDA kernel (``csrc/fold_gemm.cu``, built by :mod:`.build`), which a
-  wrapper launches for CUDA tensors;
+* the CUDA kernel (``csrc/fold_gemm.cu``, ``csrc/prep_gemm.cu``, built by
+  :mod:`.build`), which a wrapper launches for CUDA tensors;
 * its plain PyTorch version (``*_plain``), which the wrapper uses for CPU
   tensors and which the tests and ``chip_smoke.py`` hold the kernel to;
 * a launch count in :data:`LAUNCHES`, raised only where the kernel is
@@ -28,6 +32,10 @@ family (LAUNCHES key)       replaces (octproz_tpu/pallas/fused_prep.py)
 ``depth_split``             ``_kernel_depth_split``
 ``depth_scale``             ``_kernel_depth_scale``
 ``depth_scale_split``       ``_kernel_depth_scale_split``
+``prep_phase``              ``_kernel_phase``
+``prep_phase_split``        ``_kernel_phase_split``
+``prep_real``               ``_kernel_real``
+``prep_real_split``         ``_kernel_real_split``
 ==========================  ===========================================
 """
 
@@ -49,7 +57,8 @@ _SPLIT_PARTS = {"high": 2, "highest": 3}
 
 #: Kernel launches per family since the last :func:`reset_launch_counts`.
 LAUNCHES = {"depth": 0, "depth_split": 0, "depth_scale": 0,
-            "depth_scale_split": 0}
+            "depth_scale_split": 0, "prep_phase": 0, "prep_phase_split": 0,
+            "prep_real": 0, "prep_real_split": 0}
 
 
 def reset_launch_counts() -> None:
@@ -241,7 +250,7 @@ def _predecode(raw2d: torch.Tensor, bit_depth: int, bitshift: bool) -> torch.Ten
 
 
 # ---------------------------------------------------------------------------
-# Plain versions of the four kernels
+# Plain versions of the kernels
 # ---------------------------------------------------------------------------
 
 def _gemm(x: torch.Tensor, w_parts: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -274,6 +283,20 @@ def depth_scale_plain(raw2d, w_re_parts, w_im_parts, mean2, *, bitshift: bool,
     return out.to(out_dtype)
 
 
+def prep_phase_plain(raw2d, op_parts, cos_row, sin_row, *, bitshift: bool):
+    """``_kernel_phase`` (one float32 operator) and ``_kernel_phase_split``
+    (2 or 3 bf16 parts): decode, y = x @ P, then (y cos, y sin).  Returns
+    complex64 (lines, n_out)."""
+    y = _gemm(_decode_block(raw2d, bitshift), op_parts)
+    return torch.complex(y * cos_row, y * sin_row)
+
+
+def prep_real_plain(raw2d, op_parts, *, bitshift: bool):
+    """``_kernel_real`` / ``_kernel_real_split``: decode, y = x @ P.
+    Returns float32 (lines, n_out)."""
+    return _gemm(_decode_block(raw2d, bitshift), op_parts)
+
+
 # ---------------------------------------------------------------------------
 # Agreement of a kernel with its plain version
 # ---------------------------------------------------------------------------
@@ -292,8 +315,17 @@ def depth_scale_plain(raw2d, w_re_parts, w_im_parts, mean2, *, bitshift: bool,
 # * bfloat16 store: the max bound plus one bf16 step (2^-7 |plain|), as a
 #   value near a bf16 boundary may round either way.  This checks the
 #   store; the float32 cases check the rung.
+# * prep spectra (complex64 as (re, im), or float32): relative L2 <= 1e-6.
+#   Measured on the CPU at n = 1024 and 1664, 12-bit (shifted and not) and
+#   float inputs, with and without background removal in the operator: a
+#   sequential float32 sum over n_in (the kernel's order) differs from the
+#   plain version by at most 1.44e-7, and each from a float64 evaluation of
+#   the same pass terms by at most 2.8e-7; the nearest wrong rung -- the
+#   "highest" parts through the 3-pass math -- is 8.5e-6 or more off, and
+#   the 3-pass math without x_lo 2.7e-3 or more.
 
 PLANAR_REL_L2 = 3e-6
+PREP_REL_L2 = 1e-6
 SCALE_RMS = 1e-6
 SCALE_MAX = 1e-4
 BF16_STEP = 2.0 ** -7
@@ -304,6 +336,12 @@ def planar_error(got: Sequence[torch.Tensor], ref: Sequence[torch.Tensor]) -> fl
     num = sum(float((g.double() - r.double()).square().sum()) for g, r in zip(got, ref))
     den = sum(float(r.double().square().sum()) for r in ref)
     return (num / den) ** 0.5
+
+
+def prep_error(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """Relative L2 error of prep spectra, complex (over re and im) or real."""
+    split = lambda t: (t.real, t.imag) if t.is_complex() else (t,)
+    return planar_error(split(got), split(ref))
 
 
 def scale_error(got: torch.Tensor, ref: torch.Tensor) -> Tuple[float, float, bool]:
@@ -331,34 +369,59 @@ _IN_KIND = {torch.uint8: 0, torch.uint16: 1, torch.float32: 2}
 _MODE_LOG, _MODE_LIN, _MODE_FAST_LOG = 0, 1, 2
 
 
-def _check_launch(raw2d, w_re_parts, w_im_parts, mean2=None):
-    """Validate what the kernel reads; returns (lines, n_in, half)."""
-    dev = raw2d.device
+def _check_raw(raw2d, family: str):
     if raw2d.dtype not in _IN_KIND:
-        raise TypeError(f"fold kernel takes uint8, uint16 or float32 lines, "
+        raise TypeError(f"{family} kernel takes uint8, uint16 or float32 lines, "
                         f"got {raw2d.dtype}")
     if raw2d.dim() != 2 or not raw2d.is_contiguous():
-        raise ValueError("fold kernel needs contiguous (lines, n_in) input")
-    parts = len(w_re_parts)
-    if parts not in (1, 2, 3) or len(w_im_parts) != parts:
-        raise ValueError(f"fold kernel takes 1, 2 or 3 operator parts per "
-                         f"axis, got {len(w_re_parts)}/{len(w_im_parts)}")
-    want = torch.float32 if parts == 1 else torch.bfloat16
-    lines, n_in = raw2d.shape
-    half = w_re_parts[0].shape[-1]
-    for w in (*w_re_parts, *w_im_parts):
-        if w.device != dev or w.dtype != want or tuple(w.shape) != (n_in, half) \
+        raise ValueError(f"{family} kernel needs contiguous (lines, n_in) input")
+    return raw2d.shape
+
+
+def _check_parts(parts, n_in: int, dev, family: str, split: bool) -> int:
+    """Every operator part a contiguous (n_in, n_out) tensor on ``dev``,
+    float32 for an unsplit operator and bf16 for a split; returns n_out."""
+    want = torch.bfloat16 if split else torch.float32
+    n_out = parts[0].shape[-1]
+    for w in parts:
+        if w.device != dev or w.dtype != want or tuple(w.shape) != (n_in, n_out) \
                 or not w.is_contiguous():
             raise ValueError(
-                f"fold operator part must be a contiguous {want} "
-                f"({n_in}, {half}) tensor on {dev}, got {w.dtype} "
+                f"{family} operator part must be a contiguous {want} "
+                f"({n_in}, {n_out}) tensor on {dev}, got {w.dtype} "
                 f"{tuple(w.shape)} on {w.device}")
-    if mean2 is not None and (mean2.device != dev or mean2.dtype != torch.float32
-                              or tuple(mean2.shape) != (2, half)
-                              or not mean2.is_contiguous()):
-        raise ValueError(f"mean2 must be a contiguous float32 (2, {half}) "
-                         f"tensor on {dev}")
+    return n_out
+
+
+def _check_row(t, shape, dev, name: str) -> None:
+    if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != shape \
+            or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous float32 {shape} tensor on {dev}")
+
+
+def _check_launch(raw2d, w_re_parts, w_im_parts, mean2=None):
+    """Validate what a fold kernel reads; returns (lines, n_in, half)."""
+    lines, n_in = _check_raw(raw2d, "fold")
+    if len(w_re_parts) not in (1, 2, 3) or len(w_im_parts) != len(w_re_parts):
+        raise ValueError(f"fold kernel takes 1, 2 or 3 operator parts per "
+                         f"axis, got {len(w_re_parts)}/{len(w_im_parts)}")
+    half = _check_parts((*w_re_parts, *w_im_parts), n_in, raw2d.device, "fold",
+                        split=len(w_re_parts) > 1)
+    if mean2 is not None:
+        _check_row(mean2, (2, half), raw2d.device, "mean2")
     return lines, n_in, half
+
+
+def _check_prep_launch(raw2d, op_parts, cos_row=None, sin_row=None):
+    """Validate what a prep kernel reads; returns (lines, n_in, n_out)."""
+    lines, n_in = _check_raw(raw2d, "prep")
+    if len(op_parts) not in (1, 2, 3):
+        raise ValueError(f"prep kernel takes 1, 2 or 3 operator parts, got {len(op_parts)}")
+    n_out = _check_parts(op_parts, n_in, raw2d.device, "prep", split=len(op_parts) > 1)
+    for name, row in (("cos_row", cos_row), ("sin_row", sin_row)):
+        if row is not None:
+            _check_row(row, (n_out,), raw2d.device, name)
+    return lines, n_in, n_out
 
 
 def _ptrs(parts):
@@ -424,14 +487,44 @@ def _launch_depth_scale(raw2d, w_re_parts, w_im_parts, mean2, *, bitshift,
     return out
 
 
-def _on_cuda(t: torch.Tensor) -> bool:
+def _launch_prep(raw2d, op_parts, cos_row, sin_row, *, bitshift: bool):
+    """The phase kernel (cos_row and sin_row given; complex64 out) or the
+    real kernel (both None; float32 out)."""
+    from . import build
+
+    phase = cos_row is not None
+    if phase != (sin_row is not None):
+        raise ValueError("the phase kernel takes both cos_row and sin_row")
+    lines, n_in, n_out = _check_prep_launch(raw2d, op_parts, cos_row, sin_row)
+    out = torch.empty((lines, n_out), device=raw2d.device,
+                      dtype=torch.complex64 if phase else torch.float32)
+    if lines == 0:
+        return out
+    lib = build.load()
+    passes = 2 * len(op_parts) - 1
+    args = (raw2d.data_ptr(), _IN_KIND[raw2d.dtype], int(bitshift), passes,
+            *_ptrs(op_parts))
+    with torch.cuda.device(raw2d.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if phase:  # interleaved (re, im) straight into the complex64 tensor
+            rc = lib.prep_gemm_phase(*args, cos_row.data_ptr(), sin_row.data_ptr(),
+                                     out.data_ptr(), lines, n_in, n_out, stream)
+        else:
+            rc = lib.prep_gemm_real(*args, out.data_ptr(), lines, n_in, n_out, stream)
+    family = "prep_phase" if phase else "prep_real"
+    _raise_on(rc, lib, family)
+    LAUNCHES[family if passes == 1 else family + "_split"] += 1
+    return out
+
+
+def _on_cuda(t: torch.Tensor, family: str = "fold") -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU tensor
-    (the plain version); any other device has no fold kernel."""
+    (the plain version); any other device has no kernel."""
     if t.device.type == "cuda":
         return True
     if t.device.type == "cpu":
         return False
-    raise RuntimeError(f"no fold kernel for device {t.device}")
+    raise RuntimeError(f"no {family} kernel for device {t.device}")
 
 
 def fold_depth(raw2d, w_re_parts, w_im_parts, *, bitshift: bool):
@@ -455,6 +548,23 @@ def fold_depth_scale(raw2d, w_re_parts, w_im_parts, mean2, *, bitshift: bool,
     return depth_scale_plain(raw2d, w_re_parts, w_im_parts, mean2, **kw)
 
 
+def prep_phase(raw2d, op_parts, cos_row, sin_row, *, bitshift: bool):
+    """Phasor-multiplied prep spectra, complex64 (lines, n_out), of
+    (lines, n_in) input: the CUDA kernel for a CUDA tensor, the plain
+    version for a CPU tensor."""
+    if _on_cuda(raw2d, "prep"):
+        return _launch_prep(raw2d, op_parts, cos_row, sin_row, bitshift=bitshift)
+    return prep_phase_plain(raw2d, op_parts, cos_row, sin_row, bitshift=bitshift)
+
+
+def prep_real(raw2d, op_parts, *, bitshift: bool):
+    """Real prep spectra, float32 (lines, n_out): the CUDA kernel for a
+    CUDA tensor, the plain version for a CPU tensor."""
+    if _on_cuda(raw2d, "prep"):
+        return _launch_prep(raw2d, op_parts, None, None, bitshift=bitshift)
+    return prep_real_plain(raw2d, op_parts, bitshift=bitshift)
+
+
 # ---------------------------------------------------------------------------
 # Public wrappers (same signatures as the JAX package, minus ``interpret``)
 # ---------------------------------------------------------------------------
@@ -463,7 +573,8 @@ def _operator_parts(w, precision: str) -> Tuple[torch.Tensor, ...]:
     """The operator as the kernel takes it at ``precision``: one float32
     part, or 2/3 bf16 parts.  ``w`` is the float32 operator (split here) or
     a tuple of parts already split for ``precision`` (as
-    ``Curves.depth_parts`` holds them), which is returned as is."""
+    ``Curves.depth_parts`` and ``Curves.prep_parts`` hold them), which is
+    returned as is."""
     parts = _SPLIT_PARTS.get(precision, 1)
     if isinstance(w, (tuple, list)):
         if len(w) != parts:
@@ -473,14 +584,18 @@ def _operator_parts(w, precision: str) -> Tuple[torch.Tensor, ...]:
     return _split_bf16(w, parts) if parts > 1 else (w.to(torch.float32).contiguous(),)
 
 
+def _check_compute_dtype(cfg: ProcConfig) -> None:
+    if cfg.compute_dtype != "float32":
+        raise NotImplementedError(
+            "compute_dtype='bfloat16' is not ported yet (ROADMAP.md Queue 1, A14)")
+
+
 def _check_fold_config(cfg: ProcConfig, depth_op_re, depth_op_im) -> None:
     if depth_op_re is None or depth_op_im is None:
         raise ValueError(
             "cfg.fft_via_matmul is set but curves.depth_op_* is None -- "
             "build the curves with the same config (make_curves(acq, cfg, ...))")
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            "compute_dtype='bfloat16' is not ported yet (ROADMAP.md Queue 1, A14)")
+    _check_compute_dtype(cfg)
 
 
 def fused_depth_scale(
@@ -544,3 +659,34 @@ def fused_depth_transform(
         re, im = fold_depth(raw2d, w_re, w_im, bitshift=cfg.bitshift)
     half = re.shape[-1]
     return re.reshape(*lead_shape, half), im.reshape(*lead_shape, half)
+
+
+def fused_prep(
+    raw: torch.Tensor,
+    prep_operator,
+    phase: Optional[torch.Tensor],
+    acq: AcqParams,
+    cfg: ProcConfig,
+) -> torch.Tensor:
+    """Stages 1-3 of the FFT path in one kernel.
+
+    raw: uint (..., n_in); prep_operator: the float32 (n_in, n_out) operator
+    of :func:`build_prep_operator` or its parts already split for
+    ``cfg.matmul_precision`` (``Curves.prep_parts``); phase: complex64
+    (n_out,) phasor or None.  Returns complex64 (phase given) or float32
+    (..., n_out).  ``cfg.pallas_tile`` does not change the result."""
+    if prep_operator is None:
+        raise ValueError(
+            "cfg.use_pallas_prep is set but curves.prep_operator is None -- "
+            "build the curves with the same config (make_curves(acq, cfg, ...))")
+    _check_compute_dtype(cfg)
+    lead_shape = raw.shape[:-1]
+    raw2d = _predecode(raw.reshape(-1, raw.shape[-1]).contiguous(),
+                       acq.bit_depth, cfg.bitshift)
+    parts = _operator_parts(prep_operator, cfg.matmul_precision)
+    if phase is None:
+        out = prep_real(raw2d, parts, bitshift=cfg.bitshift)
+    else:
+        out = prep_phase(raw2d, parts, phase.real.contiguous(), phase.imag.contiguous(),
+                         bitshift=cfg.bitshift)
+    return out.reshape(*lead_shape, out.shape[-1])

@@ -5,7 +5,8 @@ geometry, the processing configuration, the current LUTs on the model's
 device and the carried FPN state, and exposes buffer- and chunk-level
 processing.  The device is explicit: a CUDA device runs the hand-written
 kernels, the CPU runs their plain versions, and nothing moves from one to
-the other on its own.
+the other on its own.  The batched chunk is the fold path's; the FFT path
+chunks buffer by buffer ("scan"), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -195,11 +196,24 @@ class FdOctModel:
 
     def _batch_chunk(self, raw_stack) -> torch.Tensor:
         """One fused kernel over the whole stack; the FPN state is unchanged
-        (the mean line is a constant input in this regime)."""
+        (the mean line is a constant input in this regime).  The post stages
+        run per buffer, in float32, and the store narrows after them."""
         from ..kernels.fused_prep import fused_depth_scale
 
         cfg, curves, _ = self._exec  # consistent (cfg, curves) pair
         mean = (torch.zeros_like(self.fpn_state.mean_line)
                 if cfg.fpn_mode == FpnMode.OFF else self.fpn_state.mean_line)
-        return fused_depth_scale(raw_stack, *pipeline.depth_operators(curves),
-                                 mean, self.acq, cfg)
+        mag = fused_depth_scale(raw_stack, *pipeline.depth_operators(curves),
+                                mean, self.acq, pipeline.kernel_config(cfg))
+        if pipeline.has_post(cfg):
+            mag = torch.stack([pipeline.postprocess_volume(m, curves, cfg) for m in mag])
+        return pipeline.narrow(mag, cfg)
+
+    def process_volume(self, raw_volume) -> torch.Tensor:
+        """raw uint (buffers, bscans, ascans, samples), or one buffer ->
+        (buffers * bscans, ascans, samples//2), buffer by buffer with the
+        FPN state carried along."""
+        raw_volume = self.put_buffer(raw_volume)
+        if raw_volume.dim() == 3:
+            return self.process_buffer(raw_volume)
+        return torch.cat([self.process_buffer(raw) for raw in raw_volume], dim=0)

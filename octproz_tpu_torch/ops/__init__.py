@@ -1,1 +1,1 @@
-"""Signal-processing stages of the folded-GEMM path (torch and host numpy)."""
+"""Signal-processing stages of both pipeline branches (torch and host numpy)."""

@@ -1,5 +1,5 @@
-"""Fixed-pattern-noise removal, planar (re, im) form (minimum-variance mean
-A-line method, Moon et al. 2010).
+"""Fixed-pattern-noise removal in planar (re, im) and complex form
+(minimum-variance mean A-line method, Moon et al. 2010).
 
 Numerics of ``getMinimumVarianceMean`` (cuda_code.cu:523-565): the first
 ``bscans_for_noise * ascans_per_bscan`` A-scans are cut into FPN_SEGMENTS
@@ -68,3 +68,30 @@ def select_min_variance_mean_planar(sum_re, sum_im, sum_sq, seg_count):
 def minimum_variance_mean_planar(re, im, segments: int = FPN_SEGMENTS):
     sum_re, sum_im, sum_sq, seg_width = segment_sums_planar(re, im, segments)
     return select_min_variance_mean_planar(sum_re, sum_im, sum_sq, seg_width)
+
+
+# Complex forms: the planar functions on the real and imaginary parts.
+
+def segment_sums(lines: torch.Tensor, segments: int = FPN_SEGMENTS):
+    """complex64 (n_lines, width) -> (sum_z complex64 (segments, width),
+    sum_sq float32 (segments, width), seg_width)."""
+    sum_re, sum_im, sum_sq, seg_width = segment_sums_planar(lines.real, lines.imag,
+                                                            segments)
+    return torch.complex(sum_re, sum_im), sum_sq, seg_width
+
+
+def select_min_variance_mean(sum_z: torch.Tensor, sum_sq: torch.Tensor,
+                             seg_count) -> torch.Tensor:
+    """Segment statistics -> the minimum-variance mean line, complex64 (width,)."""
+    return torch.complex(*select_min_variance_mean_planar(sum_z.real, sum_z.imag,
+                                                          sum_sq, seg_count))
+
+
+def minimum_variance_mean(lines: torch.Tensor, segments: int = FPN_SEGMENTS) -> torch.Tensor:
+    """complex64 (n_lines, width) -> minimum-variance mean line (width,)."""
+    return torch.complex(*minimum_variance_mean_planar(lines.real, lines.imag, segments))
+
+
+def subtract_mean_line(z_half: torch.Tensor, mean_line_half: torch.Tensor) -> torch.Tensor:
+    """``meanALineSubtraction`` (cuda_code.cu:567-584) on truncated A-scans."""
+    return z_half - mean_line_half

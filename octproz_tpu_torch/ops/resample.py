@@ -1,10 +1,12 @@
-"""k-linearization as a static banded operator (host numpy).
+"""k-linearization: a static banded operator (host numpy), or per-sample
+gathers (torch).
 
 The fractional source position ``curve[j]`` depends only on the output
 column j, so every interpolator of the reference
 (octproz_project/octproz/src/cuda_code.cu:213-326) is a banded matrix R with
 R[j, t] = weight of input sample t in output sample j.  R is built once per
-curve update and folded into the depth operator.
+curve update and folded into the depth or prep operator, or applied as a
+product (:func:`apply_matmul`); :func:`apply_gather` interpolates directly.
 
 Boundary rules kept from the reference formulation:
 * cubic: ``n0 = abs(n1 - 1)``, so for n1 == 0 the first tap aliases to
@@ -18,6 +20,7 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch
 
 from ..params import Interpolation
 
@@ -91,3 +94,60 @@ def build_resample_matrix(curve: np.ndarray, mode: Interpolation,
     rows = np.repeat(np.arange(n_out), idx.shape[1])
     np.add.at(r, (rows, idx.reshape(-1)), w.reshape(-1))
     return r
+
+
+def apply_matmul(x: torch.Tensor, resample_matrix: torch.Tensor,
+                 precision: str = "default") -> torch.Tensor:
+    """Resample spectra by the dense operator: x (..., n_in) @ R.T.
+
+    "high"/"highest" run the same bf16 operand-split passes as the kernels
+    (kernels/fused_prep._dot_split); "default" is one float32 product."""
+    from ..kernels.fused_prep import _SPLIT_PARTS, _dot_split, _split_bf16
+
+    m = resample_matrix.T.to(torch.float32)
+    parts = _SPLIT_PARTS.get(precision)
+    if parts:
+        return _dot_split(x.to(torch.float32), _split_bf16(m, parts))
+    return torch.matmul(x.to(torch.float32), m)
+
+
+def apply_gather(x: torch.Tensor, curve: torch.Tensor,
+                 mode: Interpolation) -> torch.Tensor:
+    """Per-sample gathers along the last axis at the fractional positions
+    ``curve`` (float32 (n_out,)), in float32, with the tap geometry of
+    :func:`interpolation_taps`; every tap index is clamped to the line."""
+    n = x.shape[-1]
+    x0 = curve.to(torch.int32)
+    t = curve - x0.to(torch.float32)
+
+    def take(i):
+        return x.index_select(-1, torch.clamp(i, 0, n - 1))
+
+    if mode == Interpolation.LINEAR:
+        f0, f1 = take(x0), take(x0 + 1)
+        return f0 + (f1 - f0) * t
+    if mode == Interpolation.QUADRATIC:
+        f0, f1, f2 = take(x0), take(x0 + 1), take(x0 + 2)
+        b1 = f1 - f0
+        b2 = ((f2 - f1) - b1) / 2.0
+        return f0 + b1 * t + b2 * t * (t - 1.0)
+    if mode == Interpolation.CUBIC:
+        n1 = x0
+        n0 = torch.abs(n1 - 1)
+        y0, y1, y2, y3 = take(n0), take(n1), take(n1 + 1), take(n1 + 2)
+        a = -y0 + 3.0 * (y1 - y2) + y3
+        b = 2.0 * y0 - 5.0 * y1 + 4.0 * y2 - y3
+        c = -y0 + y2
+        return 0.5 * t * ((a * t + b) * t + c) + y1
+    if mode == Interpolation.LANCZOS:
+        pi = float(np.float32(math.pi))  # float32 pi, as the JAX package's
+        acc = torch.zeros_like(take(x0))
+        for i in range(-7, 9):
+            tap = x0 + i
+            ax = torch.abs(curve - tap.to(torch.float32))
+            sinc_x = torch.sin(pi * ax) / (pi * ax)
+            sinc_x8 = torch.sin(pi / 8 * ax) / (pi / 8 * ax)
+            w = torch.where(ax < 1e-5, 1.0, sinc_x * sinc_x8)
+            acc = acc + take(tap) * w
+        return acc
+    raise ValueError(f"unknown interpolation mode {mode}")

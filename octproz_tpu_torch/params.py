@@ -280,6 +280,9 @@ class Curves:
     # (re parts, im parts): depth_op_* split once for cfg.matmul_precision,
     # so the hot path launches without re-splitting.  None: split per call.
     depth_parts: Optional[object] = None
+    # prep_operator split once for cfg.matmul_precision (the FFT path's
+    # counterpart of depth_parts).  None: split per call.
+    prep_parts: Optional[object] = None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -3,7 +3,8 @@ clearly before the first buffer.
 
 The reference checks ``cudaMemGetInfo`` before every allocation
 (cuda_code.cu:975-1015); here the estimate (the arithmetic of
-``octproz_tpu/utils/memory.py``) is held against
+``octproz_tpu/utils/memory.py``, for the fold and the FFT path alike) is
+held against
 ``torch.cuda.mem_get_info`` of the model's device.  A CPU device reports no
 limit and the check is skipped.
 """
@@ -19,9 +20,9 @@ from ..params import AcqParams, FpnMode, ProcConfig
 
 def estimate_footprint(acq: AcqParams, cfg: ProcConfig,
                        max_in_flight: int = 2) -> Dict[str, int]:
-    """Per-component steady-state device footprint in bytes of the folded
-    path (the configurations the port runs; conservative: transient
-    operands are counted once per in-flight step)."""
+    """Per-component steady-state device footprint in bytes (conservative:
+    transient operands are counted once per in-flight step)."""
+    n = acq.samples_per_line
     half = acq.output_ascan_length
     lines = acq.ascans_per_buffer
     f = 4  # float32
@@ -30,15 +31,30 @@ def estimate_footprint(acq: AcqParams, cfg: ProcConfig,
     comp: Dict[str, int] = {}
     comp["raw"] = acq.samples_per_buffer * acq.raw_dtype.itemsize * in_flight
     comp["processed"] = lines * half * f * in_flight
-    comp["operators"] = 2 * acq.samples_per_line * half * f
-    fused = (cfg.fused_scale and cfg.fold_backend == "pallas"
-             and cfg.fpn_mode in (FpnMode.OFF, FpnMode.ONCE))
-    if not fused or cfg.fpn_mode != FpnMode.OFF:
-        # the unfused tail (or the FPN-determination buffer) holds the
-        # planar (re, im) depth volumes
-        comp["planar_depth"] = 2 * lines * half * f
+    if cfg.fft_via_matmul:
+        comp["operators"] = 2 * n * half * f
+        fused = (cfg.fused_scale and cfg.fold_backend == "pallas"
+                 and cfg.fpn_mode in (FpnMode.OFF, FpnMode.ONCE))
+        if not fused or cfg.fpn_mode != FpnMode.OFF:
+            # the unfused tail (or the FPN-determination buffer) holds the
+            # planar (re, im) depth volumes
+            comp["planar_depth"] = 2 * lines * half * f
+    else:
+        ops = 0
+        if cfg.resampling:
+            ops += n * n * f if cfg.resample_via_matmul else n * f
+        if cfg.windowing:
+            ops += n * f
+        if cfg.dispersion:
+            ops += n * 2 * f  # complex phasor
+        comp["operators"] = ops
+        # decoded float spectra and the complex FFT buffer per step
+        comp["spectra"] = lines * n * f
+        comp["fft"] = lines * n * 2 * f
     if cfg.fpn_mode != FpnMode.OFF:
         comp["fpn_state"] = 2 * half * f + 3 * 9 * half * f  # mean + segment sums
+    if cfg.sinusoidal_correction or cfg.post_background_removal:
+        comp["postprocess_tmp"] = lines * half * f
     comp["total"] = sum(comp.values())
     return comp
 

@@ -146,6 +146,10 @@ def test_scale_affine_equal(log_scaling, gmin, gmax, addend, coeff):
 CURVE_CFGS = [
     dict(fft_via_matmul=True, resampling=True, windowing=True, dispersion=True),
     dict(use_pallas_prep=True, resampling=True, dispersion=True),
+    dict(use_pallas_prep=True, resampling=True, windowing=True, background_removal=True,
+         matmul_precision="highest"),
+    dict(use_pallas_prep=True, fft_via_matmul=True, resampling=True, windowing=True,
+         matmul_precision="high"),
     dict(resampling=True, windowing=True, dispersion=True),
     dict(resampling=True, resample_via_matmul=False, sinusoidal_correction=True,
          post_background_removal=True),
@@ -169,14 +173,20 @@ def test_make_curves_equal(flags):
     jc = jcurves.make_curves(J_ACQ, jcfg, **kw)
     used = tcurves.consumed_fields(cfg)
     assert {f.name for f in dataclasses.fields(tparams.Curves)} == \
-        {f.name for f in dataclasses.fields(jcurves.Curves)} | {"depth_parts"}
-    if cfg.fft_via_matmul:
-        for got, op in zip(tc.depth_parts, (tc.depth_op_re, tc.depth_op_im)):
+        {f.name for f in dataclasses.fields(jcurves.Curves)} | {"depth_parts", "prep_parts"}
+    split = {"depth_parts": (tc.depth_op_re, tc.depth_op_im) if cfg.fft_via_matmul else None,
+             "prep_parts": (tc.prep_operator,) if "prep_operator" in used else None}
+    for name, ops in split.items():
+        parts = getattr(tc, name)
+        if ops is None:
+            assert parts is None, name
+            continue
+        if name == "prep_parts":
+            parts = (parts,)
+        for got, op in zip(parts, ops):
             want = tfp._operator_parts(op, cfg.matmul_precision)
             assert len(got) == len(want)
             assert all(torch.equal(g, w) for g, w in zip(got, want))
-    else:
-        assert tc.depth_parts is None
     for f in dataclasses.fields(jcurves.Curves):
         t, j = getattr(tc, f.name), getattr(jc, f.name)
         assert (t is None) == (j is None), f.name

@@ -1,11 +1,16 @@
-"""The fold kernels: each plain PyTorch version against the JAX package's
-Pallas kernel (run in interpret mode on the CPU, as its own tests run it),
-and -- on a CUDA GPU only -- each CUDA kernel against its plain version.
+"""The fold and prep kernels: each plain PyTorch version against the JAX
+package's Pallas kernel (run in interpret mode on the CPU, as its own tests
+run it; JAX's own tests never run the prep kernels at "high" or "highest",
+these do), and -- on a CUDA GPU only -- each CUDA kernel against its plain
+version.
 
 Tolerances (float32 on both sides), those of the kernels' own comparison
-(``fused_prep.planar_error`` / ``scale_error``, reasons stated there):
+(``fused_prep.planar_error`` / ``scale_error`` / ``prep_error``, reasons
+stated there):
 * planar (re, im): ||port - ref||_2 <= 3e-6 ||ref||_2, and every element
   within 1e-5 * max|ref|.  The contraction is summed in another order.
+* prep spectra (complex as (re, im), or real): ||port - ref||_2 <= 1e-6
+  ||ref||_2, and every element within 1e-5 * max|ref|.
 * scaled image: equal finite masks; where ref is at or above the display
   floor (ref >= 0), RMS error <= 1e-6 and max error <= 1e-4.  Below it
   p -> 0 and log10 amplifies the same rounding without bound; such voxels
@@ -13,7 +18,7 @@ Tolerances (float32 on both sides), those of the kernels' own comparison
   step (2^-7 * |ref|).
 The bounds separate the rungs: the "highest" operator parts run through the
 3-pass math, or the 3-pass math without its x_lo term, fail them
-(``test_gates_separate_the_rungs``).
+(``test_gates_separate_the_rungs``, ``test_prep_bound_separates_the_rungs``).
 
 The JAX package is imported inside a fixture, so the CUDA tests of this
 file also run where JAX is not installed:
@@ -52,8 +57,8 @@ def np_rng():
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA GPU: the fold kernels are CUDA C++ for "
-                    "sm_90a and have no CPU mode")
+        pytest.skip("needs a CUDA GPU: the fold and prep kernels are CUDA C++ "
+                    "for sm_90a and have no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in true float32
     return torch.device("cuda", 0)
 
@@ -441,3 +446,254 @@ def test_cuda_model_matches_cpu_model(cuda_device):
         _scale_close(gpu.fetch(gpu.process_buffer(raw)), cpu.fetch(cpu.process_buffer(raw)))
     assert tfp.LAUNCHES["depth_split"] == before["depth_split"] + 1
     assert tfp.LAUNCHES["depth_scale_split"] == before["depth_scale_split"] + 2
+
+
+# ---------------------------------------------------------------------------
+# The prep kernels (FFT path): plain versions vs the Pallas kernels (CPU)
+# ---------------------------------------------------------------------------
+
+def _prep_operator(n=N, background_removal=False):
+    """The FFT path's prep operator (float32 numpy) and phasor (complex64)
+    of the benchmark chain at line length n."""
+    acq = AcqParams(samples_per_line=n, ascans_per_bscan=8, bscans_per_buffer=1)
+    cfg = dataclasses.replace(default_full_config(), bitshift=True, fft_via_matmul=False,
+                              use_pallas_prep=True, background_removal=background_removal)
+    cv = tcurves.make_curves(acq, cfg, resample_coeffs=(0.0, n - 1.0, 10.0, -4.0),
+                             dispersion_coeffs=(0.0, 0.0, 8.0, 0.0), device="cpu")
+    return cv.prep_operator.numpy(), cv.phase.numpy()
+
+
+def _rows(phase):
+    return (torch.from_numpy(np.ascontiguousarray(phase.real)),
+            torch.from_numpy(np.ascontiguousarray(phase.imag)))
+
+
+def _prep_close(got, want):
+    """``got`` a tensor, ``want`` an array; the prep bound plus an
+    elementwise bound of 1e-5 * max|want|."""
+    g = got.cpu()
+    w = torch.from_numpy(np.array(want))
+    assert g.dtype == w.dtype and g.shape == w.shape
+    assert float((g - w).abs().max()) <= PLANAR_RTOL * float(w.abs().max())
+    err = tfp.prep_error(g, w)
+    assert err <= tfp.PREP_REL_L2, err
+
+
+def _jax_prep(jfp, raw, op, phase, precision, bitshift, bit_depth=12):
+    import jax.numpy as jnp
+
+    rows = (None, None) if phase is None else (jnp.asarray(phase.real).reshape(1, -1),
+                                               jnp.asarray(phase.imag).reshape(1, -1))
+    out = jfp._fused_prep_impl(jnp.asarray(raw), jnp.asarray(op), *rows,
+                               bit_depth=bit_depth, bitshift=bitshift,
+                               precision=precision, interpret=True)
+    return np.asarray(out)
+
+
+@pytest.mark.parametrize("precision", RUNGS)
+@pytest.mark.parametrize("epi", ["phase", "real"])
+@pytest.mark.parametrize("lines,bitshift", [(256, True), (105, False)])
+def test_prep_plain_matches_pallas(jfp, np_rng, precision, epi, lines, bitshift):
+    """_kernel_phase / _kernel_real (default) and _kernel_phase_split /
+    _kernel_real_split (high, highest); unshifted 12-bit samples make the
+    split rungs' x_lo terms nonzero; 105 lines is an odd count."""
+    op, phase = _prep_operator()
+    raw = _raw(np_rng, lines)
+    parts = _parts(op, precision)
+    if epi == "phase":
+        got = tfp.prep_phase(torch.from_numpy(raw), parts, *_rows(phase), bitshift=bitshift)
+        assert got.dtype == torch.complex64
+    else:
+        got = tfp.prep_real(torch.from_numpy(raw), parts, bitshift=bitshift)
+        assert got.dtype == torch.float32
+    _prep_close(got, _jax_prep(jfp, raw, op, phase if epi == "phase" else None,
+                               precision, bitshift))
+
+
+@pytest.mark.parametrize("kind,precision", [("uint8", "default"), ("uint8", "high"),
+                                            ("float32", "highest"), ("float32", "high")])
+def test_prep_plain_input_types_match_pallas(jfp, np_rng, kind, precision):
+    """uint8 samples, and float32 lines (a >16-bit source decoded before
+    the kernel); the operator with background removal folded in (dense)."""
+    op, phase = _prep_operator(background_removal=True)
+    if kind == "uint8":
+        raw, bit_depth = _raw(np_rng, 64, dtype=np.uint8), 8
+    else:
+        raw, bit_depth = np_rng.integers(0, 1 << 24, size=(64, N)).astype(np.float32), 24
+    got = tfp.prep_phase(torch.from_numpy(raw), _parts(op, precision), *_rows(phase),
+                         bitshift=False)
+    _prep_close(got, _jax_prep(jfp, raw, op, phase, precision, False, bit_depth))
+
+
+def test_prep_bound_separates_the_rungs(np_rng):
+    """The prep bound catches a kernel that computes a neighbouring rung:
+    the "highest" parts through the 3-pass math, and the 3-pass math
+    without its x_lo terms, both fail it, phase and real."""
+    op, phase = _prep_operator()
+    x = torch.from_numpy(_raw(np_rng, 256).astype(np.float32))
+    p5, p3 = _parts(op, "highest"), _parts(op, "high")
+    x_hi = tfp._bf16_trunc(x)
+    for (xa, wa), (xb, wb) in [((x, p5[:2]), (x, p5)), ((x_hi, p3), (x, p3))]:
+        err = tfp.prep_error(tfp.prep_real_plain(xa, wa, bitshift=False),
+                             tfp.prep_real_plain(xb, wb, bitshift=False))
+        assert err > 2 * tfp.PREP_REL_L2, err
+        err = tfp.prep_error(tfp.prep_phase_plain(xa, wa, *_rows(phase), bitshift=False),
+                             tfp.prep_phase_plain(xb, wb, *_rows(phase), bitshift=False))
+        assert err > 2 * tfp.PREP_REL_L2, err
+
+
+@pytest.mark.parametrize("precision", RUNGS)
+@pytest.mark.parametrize("dispersion", [True, False])
+def test_fused_prep_wrapper_matches(jfp, np_rng, precision, dispersion):
+    """The public wrapper on a (bscans, ascans, samples) buffer: complex64
+    with the phasor, float32 without, as JAX's; the operator split once
+    (``Curves.prep_parts``) gives the output of the float32 operator split
+    per call; a part count that does not match the rung is refused."""
+    import jax.numpy as jnp
+
+    acq, cfg, jacq, jcfg = _acq_cfg(fft_via_matmul=False, use_pallas_prep=True,
+                                    dispersion=dispersion, matmul_precision=precision)
+    cv = tcurves.make_curves(acq, cfg, resample_coeffs=(0.0, N - 1.0, 10.0, -4.0),
+                             dispersion_coeffs=(0.0, 0.0, 8.0, 0.0), device="cpu")
+    raw = np_rng.integers(0, 4096, size=acq.buffer_shape).astype(np.uint16)
+    phase = cv.phase if dispersion else None
+    got = tfp.fused_prep(torch.from_numpy(raw), cv.prep_operator, phase, acq, cfg)
+    assert tuple(got.shape) == (4, 32, N)
+    assert got.dtype == (torch.complex64 if dispersion else torch.float32)
+    assert torch.equal(tfp.fused_prep(torch.from_numpy(raw), cv.prep_parts, phase, acq, cfg),
+                       got)
+    want = jfp.fused_prep(jnp.asarray(raw), jnp.asarray(cv.prep_operator.numpy()),
+                          None if phase is None else jnp.asarray(phase.numpy()),
+                          jacq, jcfg, interpret=True)
+    _prep_close(got, np.asarray(want))
+    other = "high" if precision == "default" else "default"
+    with pytest.raises(ValueError, match="operator part"):
+        tfp.fused_prep(torch.from_numpy(raw), tfp._operator_parts(cv.prep_operator, other),
+                       phase, acq, cfg)
+
+
+def test_prep_wrapper_refusals():
+    acq, cfg, _, _ = _acq_cfg(fft_via_matmul=False, use_pallas_prep=True)
+    raw = torch.zeros(acq.buffer_shape, dtype=torch.uint16)
+    with pytest.raises(ValueError, match="prep_operator"):
+        tfp.fused_prep(raw, None, None, acq, cfg)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tfp.fused_prep(raw, torch.zeros((N, N)), None, acq,
+                       dataclasses.replace(cfg, compute_dtype="bfloat16"))
+    meta = torch.empty((8, N), dtype=torch.uint16, device="meta")
+    w = torch.empty((N, N), device="meta")
+    with pytest.raises(RuntimeError, match="no prep kernel"):
+        tfp.prep_real(meta, (w,), bitshift=True)
+    with pytest.raises(RuntimeError, match="no prep kernel"):
+        tfp.prep_phase(meta, (w,), w[0], w[0], bitshift=True)
+
+
+def test_prep_launch_checks_reject_what_the_kernel_does_not_take():
+    """The prep launch checks (device, dtype, shape, contiguity) before any
+    pointer reaches the kernel; a phase launch needs both phasor rows."""
+    raw = torch.zeros((8, N), dtype=torch.uint16)
+    w = torch.zeros((N, N))
+    row = torch.zeros(N)
+    assert tfp._check_prep_launch(raw, (w,), row, row) == (8, N, N)
+    with pytest.raises(TypeError):
+        tfp._check_prep_launch(raw.to(torch.int16), (w,))
+    with pytest.raises(ValueError):
+        tfp._check_prep_launch(raw.t(), (w,))
+    with pytest.raises(ValueError):  # split parts must be bf16
+        tfp._check_prep_launch(raw, (w, w))
+    with pytest.raises(ValueError):
+        tfp._check_prep_launch(raw, (w[:, :10],))
+    with pytest.raises(ValueError):
+        tfp._check_prep_launch(raw, (w,), row[:10], row)
+    with pytest.raises(ValueError):
+        tfp._check_prep_launch(raw, tuple(w.to(torch.bfloat16) for _ in range(4)))
+    with pytest.raises(ValueError, match="both"):
+        tfp._launch_prep(raw, (w,), row, None, bitshift=True)
+
+
+# ---------------------------------------------------------------------------
+# The prep kernels on the GPU
+# ---------------------------------------------------------------------------
+
+PREP_CUDA_CASES = [
+    # (n_in, lines, input dtype, bitshift, passes, "phase" or "real", background removal)
+    (256, 300, torch.uint16, True, 1, "phase", False),
+    (256, 300, torch.uint16, True, 3, "phase", False),
+    (256, 300, torch.uint16, True, 5, "phase", False),
+    (256, 300, torch.uint16, False, 3, "phase", True),
+    (256, 300, torch.uint16, False, 5, "real", False),
+    (256, 300, torch.uint16, True, 1, "real", False),
+    (256, 300, torch.uint16, True, 3, "real", True),
+    (1664, 70, torch.uint16, True, 1, "phase", False),
+    (1100, 65, torch.uint8, False, 3, "real", False),
+    (1100, 65, torch.float32, False, 5, "phase", True),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_in,lines,in_dtype,bitshift,passes,epi,bg", PREP_CUDA_CASES)
+def test_cuda_prep_kernel_matches_plain(cuda_device, np_rng, n_in, lines, in_dtype,
+                                        bitshift, passes, epi, bg):
+    precision = {1: "default", 3: "high", 5: "highest"}[passes]
+    op, phase = _prep_operator(n_in, bg)
+    parts = tfp._operator_parts(torch.from_numpy(op).to(cuda_device), precision)
+    rows = tuple(r.to(cuda_device) for r in _rows(phase))
+    raw = _cuda_raw(np_rng, lines, n_in, in_dtype, cuda_device)
+    family = f"prep_{epi}" + ("_split" if passes > 1 else "")
+    before = tfp.LAUNCHES[family]
+    if epi == "phase":
+        got = tfp.prep_phase(raw, parts, *rows, bitshift=bitshift)
+        want = tfp.prep_phase_plain(raw, parts, *rows, bitshift=bitshift)
+    else:
+        got = tfp.prep_real(raw, parts, bitshift=bitshift)
+        want = tfp.prep_real_plain(raw, parts, bitshift=bitshift)
+    torch.cuda.synchronize()
+    _prep_close(got, want.cpu().numpy())
+    assert tfp.LAUNCHES[family] == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_prep_bound_catches_the_3_pass_math(cuda_device, np_rng):
+    """Control: the 3-pass prep kernel fed the "highest" parts differs from
+    the 5-pass plain version by more than the prep bound."""
+    op, phase = _prep_operator()
+    p5 = tfp._operator_parts(torch.from_numpy(op).to(cuda_device), "highest")
+    raw = _cuda_raw(np_rng, 300, N, torch.uint16, cuda_device)
+    got = tfp.prep_real(raw, p5[:2], bitshift=False)
+    assert tfp.prep_error(got, tfp.prep_real_plain(raw, p5, bitshift=False)) \
+        > 2 * tfp.PREP_REL_L2
+
+
+@pytest.mark.cuda
+def test_cuda_prep_wrapper_raises_instead_of_falling_back(cuda_device):
+    raw = torch.zeros((8, N), dtype=torch.int16, device=cuda_device)
+    w = torch.zeros((N, N), device=cuda_device)
+    with pytest.raises(TypeError):
+        tfp.prep_real(raw, (w,), bitshift=True)
+    with pytest.raises(ValueError):
+        tfp.prep_phase(raw.to(torch.uint8), (w,), w[0].cpu(), w[0], bitshift=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dispersion", [True, False])
+def test_cuda_fft_model_matches_cpu_model(cuda_device, dispersion):
+    """FdOctModel on the FFT path on the GPU (prep kernel, cuFFT) and on
+    the CPU (plain version, pocketfft): FPN buffer then steady buffers, the
+    high rung."""
+    from octproz_tpu_torch.models.fdoct import FdOctModel
+
+    acq = AcqParams(samples_per_line=N, ascans_per_bscan=32, bscans_per_buffer=8)
+    cfg = dataclasses.replace(default_full_config(), bitshift=True, bscans_for_noise=2,
+                              fft_via_matmul=False, use_pallas_prep=True,
+                              dispersion=dispersion, matmul_precision="high")
+    rng = np.random.default_rng(17)
+    raws = [rng.integers(0, 4096, size=acq.buffer_shape).astype(np.uint16) for _ in range(3)]
+    kw = dict(resample_coeffs=(0.0, N - 1.0, 10.0, -4.0),
+              dispersion_coeffs=(0.0, 0.0, 8.0, 0.0))
+    gpu = FdOctModel(acq, cfg, **kw, device=cuda_device)
+    cpu = FdOctModel(acq, cfg, **kw, device="cpu")
+    family = "prep_phase_split" if dispersion else "prep_real_split"
+    before = tfp.LAUNCHES[family]
+    for raw in raws:
+        _scale_close(gpu.fetch(gpu.process_buffer(raw)), cpu.fetch(cpu.process_buffer(raw)))
+    assert tfp.LAUNCHES[family] == before + 3

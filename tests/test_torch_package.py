@@ -13,6 +13,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "octproz_tpu_torch")
 
 MODULES = ["octproz_tpu_torch", "octproz_tpu_torch.models.fdoct",
+           "octproz_tpu_torch.models.presets", "octproz_tpu_torch.ops.fft",
            "octproz_tpu_torch.kernels.fused_prep", "octproz_tpu_torch.kernels.build",
            "octproz_tpu_torch.bench", "octproz_tpu_torch.interop",
            "octproz_tpu_torch.utils.fidelity", "octproz_tpu_torch.utils.memory"]

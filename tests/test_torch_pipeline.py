@@ -1,7 +1,10 @@
-"""The slice end to end: the port's FdOctModel against the JAX package's on
-the same inputs (FPN buffer, steady buffers, batch and scan chunks), the
-golden-pair gate, the float64-oracle precision ladder, the interop round
-trip, and the refusals of configurations outside the slice.
+"""Both pipeline branches end to end: the port's FdOctModel against the
+JAX package's on the same inputs (FPN buffer, steady buffers, batch and
+scan chunks) on the fold path and the FFT path (prep kernels or torch ops,
+then the FFT), with and without the post stages; the presets;
+process_volume; the golden-pair gate and the float64-oracle precision
+ladder on both paths; the interop round trip; and the refusals of
+configurations the port does not run yet.
 
 Tolerances (float32 on both sides, on the CPU the port runs the kernels'
 plain versions):
@@ -10,6 +13,8 @@ plain versions):
   log10 amplifies float32 summation-order differences without bound.
   bfloat16 stores add one bf16 rounding step (2^-7 * |value|).
 * FPN mean lines: rtol 1e-5 with an absolute floor of 1e-5 * max|mean|.
+On the FFT path the two FFT libraries round differently as well (relative
+1e-7, tests/test_torch_ops.py), far inside both bounds.
 """
 
 import dataclasses
@@ -38,21 +43,33 @@ SCALE_ATOL = 1e-4
 BF16_STEP = 2.0 ** -7
 
 
-def _models(**changes):
+#: A post-process background line (made from a seed) for configurations
+#: that remove one.
+POST_BG = np.random.default_rng(5).uniform(0.0, 0.3, size=N // 2).astype(np.float32)
+
+
+def _jax_cfg(cfg: ProcConfig):
+    """The JAX package's ProcConfig with the same field values."""
+    enums = {"fpn_mode": jparams.FpnMode, "interpolation": jparams.Interpolation}
+    return jparams.ProcConfig(**{
+        f.name: (enums[f.name](getattr(cfg, f.name).value) if f.name in enums
+                 else getattr(cfg, f.name)) for f in dataclasses.fields(cfg)})
+
+
+def _models(base_cfg=None, **changes):
     """The port's and the JAX package's model on the same configuration:
-    the benchmark chain with bitshift, FPN from the first two B-scans."""
-    base = dict(bitshift=True, bscans_for_noise=2)
-    base.update(changes)
-    enums = {"fpn_mode": (FpnMode, jparams.FpnMode),
-             "interpolation": (Interpolation, jparams.Interpolation)}
-    jchanges = {k: (enums[k][1](v.value) if k in enums else v) for k, v in base.items()}
+    ``base_cfg`` (default: the benchmark chain) with bitshift and FPN from
+    the first two B-scans, then ``changes``; the same post background line
+    where the configuration removes one."""
+    cfg = dataclasses.replace(base_cfg or default_full_config(), bitshift=True,
+                              bscans_for_noise=2)
+    cfg = dataclasses.replace(cfg, **changes)
     acq = AcqParams(samples_per_line=N, ascans_per_bscan=ASCANS, bscans_per_buffer=BSCANS)
     jacq = jparams.AcqParams(samples_per_line=N, ascans_per_bscan=ASCANS,
                              bscans_per_buffer=BSCANS)
-    tm = FdOctModel(acq, dataclasses.replace(default_full_config(), **base), **KW,
-                    device="cpu")
-    jm = jfdoct.FdOctModel(jacq, dataclasses.replace(jparams.default_full_config(),
-                                                     **jchanges), **JKW)
+    post = dict(post_background=POST_BG) if cfg.post_background_removal else {}
+    tm = FdOctModel(acq, cfg, **KW, **post, device="cpu")
+    jm = jfdoct.FdOctModel(jacq, _jax_cfg(cfg), **JKW, **post)
     return tm, jm
 
 
@@ -95,6 +112,40 @@ SLICE_CONFIGS = {
     "bf16-store": dict(output_dtype="bfloat16"),
     "fast-log": dict(fast_log=True),
     "lin-scale": dict(log_scaling=False),
+    # the fold path with the post stages (the kernel stores float32 while a
+    # post stage consumes it; a bf16 store narrows after them)
+    "fold-bscan-flip": dict(bscan_flip=True),
+    "fold-sinusoidal": dict(sinusoidal_correction=True),
+    "fold-post-background": dict(post_background_removal=True,
+                                 post_background_weight=0.8, post_background_offset=0.05),
+    "fold-post-stages-bf16": dict(bscan_flip=True, sinusoidal_correction=True,
+                                  post_background_removal=True, output_dtype="bfloat16"),
+    "fold-ignores-use-pallas-prep": dict(use_pallas_prep=True),
+    # the FFT path: the prep kernels (phase with dispersion, real without)
+    "fft-prep-default": dict(fft_via_matmul=False, use_pallas_prep=True),
+    "fft-prep-high": dict(fft_via_matmul=False, use_pallas_prep=True, matmul_precision="high"),
+    "fft-prep-highest": dict(fft_via_matmul=False, use_pallas_prep=True,
+                             matmul_precision="highest"),
+    "fft-prep-real-default": dict(fft_via_matmul=False, use_pallas_prep=True, dispersion=False),
+    "fft-prep-real-high": dict(fft_via_matmul=False, use_pallas_prep=True, dispersion=False,
+                               matmul_precision="high"),
+    "fft-prep-background": dict(fft_via_matmul=False, use_pallas_prep=True,
+                                background_removal=True, rolling_average_window=8),
+    # the FFT path through torch ops
+    "fft-matmul": dict(fft_via_matmul=False),
+    "fft-matmul-high": dict(fft_via_matmul=False, matmul_precision="high"),
+    "fft-gather-cubic": dict(fft_via_matmul=False, resample_via_matmul=False),
+    "fft-gather-lanczos": dict(fft_via_matmul=False, resample_via_matmul=False,
+                               interpolation=Interpolation.LANCZOS),
+    "fft-background": dict(fft_via_matmul=False, background_removal=True),
+    "fft-fpn-off": dict(fft_via_matmul=False, use_pallas_prep=True, fpn_mode=FpnMode.OFF),
+    "fft-fpn-continuous": dict(fft_via_matmul=False, use_pallas_prep=True,
+                               fpn_mode=FpnMode.CONTINUOUS),
+    "fft-lin-scale": dict(fft_via_matmul=False, use_pallas_prep=True, log_scaling=False),
+    "fft-bf16-store": dict(fft_via_matmul=False, output_dtype="bfloat16"),
+    "fft-post-stages-bf16": dict(fft_via_matmul=False, use_pallas_prep=True, bscan_flip=True,
+                                 sinusoidal_correction=True, post_background_removal=True,
+                                 output_dtype="bfloat16"),
 }
 
 
@@ -119,7 +170,8 @@ def test_model_matches_jax_buffer_by_buffer(name):
     _same_fpn(tm, jm)
 
 
-@pytest.mark.parametrize("name", ["once-default", "once-high", "fpn-continuous"])
+@pytest.mark.parametrize("name", ["once-default", "once-high", "fpn-continuous",
+                                  "fft-prep-default", "fft-matmul", "fft-fpn-continuous"])
 def test_scan_chunk_matches_jax(name):
     """strategy="scan" from a fresh FPN state: the state threads through the
     stack exactly as per-buffer calls."""
@@ -183,10 +235,7 @@ def test_set_config_splits_the_operator_once():
     assert all(p.dtype == torch.bfloat16 for parts in curves.depth_parts for p in parts)
 
 
-UNPORTED = [dict(fft_via_matmul=False), dict(use_pallas_prep=True),
-            dict(fold_concat=True), dict(compute_dtype="bfloat16"),
-            dict(bscan_flip=True), dict(sinusoidal_correction=True),
-            dict(post_background_removal=True)]
+UNPORTED = [dict(fold_concat=True), dict(compute_dtype="bfloat16")]
 
 
 @pytest.mark.parametrize("changes", UNPORTED)
@@ -214,12 +263,18 @@ def test_unported_entry_points_raise():
         tm.put_packed_buffer(np.zeros(10, np.uint8))
 
 
-@pytest.mark.parametrize("changes", [{}, dict(fpn_mode=FpnMode.OFF),
-                                     dict(fpn_mode=FpnMode.CONTINUOUS),
-                                     dict(fold_backend="xla")])
+@pytest.mark.parametrize("changes", [
+    {}, dict(fpn_mode=FpnMode.OFF), dict(fpn_mode=FpnMode.CONTINUOUS), dict(fold_backend="xla"),
+    dict(fft_via_matmul=False), dict(fft_via_matmul=False, use_pallas_prep=True),
+    dict(fft_via_matmul=False, resample_via_matmul=False),
+    dict(fft_via_matmul=False, resampling=False, windowing=False, dispersion=False,
+         fpn_mode=FpnMode.OFF),
+    dict(sinusoidal_correction=True), dict(post_background_removal=True),
+    dict(fft_via_matmul=False, bscan_flip=True)])
 def test_preflight_footprint_matches_jax(changes):
-    """The device-memory estimate is the JAX package's arithmetic; a budget
-    below it refuses with the breakdown; the CPU reports no limit."""
+    """The device-memory estimate is the JAX package's arithmetic, on the
+    fold and the FFT path and with the post stages; a budget below it
+    refuses with the breakdown; the CPU reports no limit."""
     from octproz_tpu.utils.memory import estimate_footprint as jax_estimate
     from octproz_tpu_torch.utils.memory import estimate_footprint, preflight_check
 
@@ -231,11 +286,19 @@ def test_preflight_footprint_matches_jax(changes):
     assert preflight_check(tm.acq, tm.cfg, "cpu")["total"] == need
 
 
-@pytest.mark.parametrize("rung", ["default", "high", "highest", "xla"])
+FFT_PREP = dict(fft_via_matmul=False, use_pallas_prep=True)
+
+
+@pytest.mark.parametrize("rung", ["default", "high", "highest", "xla", "fft-default",
+                                  "fft-high", "fft-torch"])
 def test_golden_pair_gate(rung):
-    """The gate of tests/test_fidelity.py:125-127 on the port."""
-    changes = (dict(fold_backend="xla") if rung == "xla"
-               else dict(matmul_precision=rung))
+    """The gate of tests/test_fidelity.py:125-127 on the port: the fold
+    path at each rung and backend, the FFT path through the prep kernels at
+    default and high, and through torch ops."""
+    changes = {"xla": dict(fold_backend="xla"),
+               "fft-default": FFT_PREP,
+               "fft-high": dict(FFT_PREP, matmul_precision="high"),
+               "fft-torch": dict(fft_via_matmul=False)}.get(rung, dict(matmul_precision=rung))
     res = bench.golden_pair("cpu", **changes)
     assert res.psnr_db >= 60.0, res
     assert res.min_bscan_psnr_db >= 55.0, res
@@ -247,15 +310,16 @@ LADDER_KW = dict(resample_coeffs=(0.0, 127.0, 10.0, -4.0),
                  dispersion_coeffs=(0.0, 0.0, 8.0, 0.0), window_type=WindowType.HANNING)
 
 
-def _ladder(fpn_on: bool):
+def _ladder(fpn_on: bool, **changes):
     """PSNR (dB, display range) per rung vs the float64 oracle, as
     tests/test_pallas.py:285-361 measures it."""
     import oracle
 
-    cfg = ProcConfig(resampling=True, interpolation=Interpolation.CUBIC, windowing=True,
-                     dispersion=True, log_scaling=True, fft_via_matmul=True,
-                     fpn_mode=FpnMode.ONCE if fpn_on else FpnMode.OFF,
-                     bscans_for_noise=2)
+    cfg = ProcConfig(**{"resampling": True, "interpolation": Interpolation.CUBIC,
+                        "windowing": True, "dispersion": True, "log_scaling": True,
+                        "fft_via_matmul": True,
+                        "fpn_mode": FpnMode.ONCE if fpn_on else FpnMode.OFF,
+                        "bscans_for_noise": 2, **changes})
     cv = tcurves.make_curves(LADDER_ACQ, cfg, **LADDER_KW, device="cpu")
     raw = np.random.default_rng(1234).integers(0, 4095, size=LADDER_ACQ.buffer_shape
                                                 ).astype(np.uint16)
@@ -291,6 +355,23 @@ def test_precision_ladder_fpn_on():
     p = _ladder(fpn_on=True)
     assert p["high"] > 55.0, p
     assert p["highest"] > 80.0, p
+
+
+@pytest.mark.parametrize("fpn_on", [False, True])
+def test_precision_ladder_fft_path(fpn_on):
+    """The FFT path through the prep kernels: the same gates as the fold
+    path (FPN off: default, high in the 50.6 dB bound, highest clearly
+    above high and above 85 dB; FPN on: high > 55, highest > 80).  The
+    float32 FFT adds rounding of its own, below the highest rung's here
+    (CPU: about 144 dB against 109 dB at 128 samples)."""
+    p = _ladder(fpn_on, **FFT_PREP)
+    if fpn_on:
+        assert p["high"] > 55.0 and p["highest"] > 80.0, p
+        return
+    assert p["default"] >= bench.ORACLE_GATE_DB["default"], p
+    assert p["high"] >= bench.IN_BOUND_SNR_DB, p
+    assert p["highest"] > p["high"] + 10.0, p
+    assert p["highest"] > 85.0, p
 
 
 def test_interop_round_trip():
@@ -343,3 +424,75 @@ def test_jax_step_functions_agree():
         got, st = step(torch.from_numpy(raw), tm.curves, st)
         want, jst = jstep(jnp.asarray(raw), jcv, jst)
         _close(got, np.asarray(want))
+
+
+PRESET_CASES = [("benchmark", False), ("minimal", False), ("handheld", False),
+                ("handheld", True)]
+
+
+@pytest.mark.parametrize("name,tpu", PRESET_CASES)
+def test_presets_match_jax(name, tpu):
+    """Every preset on the FFT path (tpu=False) and the handheld preset on
+    the fold path: the same configuration and geometry as the JAX
+    package's, and the same output at a small geometry, buffer by buffer
+    and by chunk."""
+    import octproz_tpu.models.presets as jpresets
+    from octproz_tpu_torch.models import presets as tpresets
+
+    fns = {"benchmark": "benchmark_config", "minimal": "minimal_config",
+           "handheld": "handheld_sinusoidal_config"}
+    cfg = getattr(tpresets, fns[name])(tpu=tpu)
+    assert _jax_cfg(cfg) == getattr(jpresets, fns[name])(tpu=tpu)
+    assert dataclasses.asdict(tpresets.figshare_test_volume()) == \
+        dataclasses.asdict(jpresets.figshare_test_volume())
+    assert set(tpresets.PRESETS) == set(jpresets.PRESETS)
+    assert cfg.fft_via_matmul == tpu
+    tm, jm = _models(cfg)
+    raws = _buffers(4, seed=21)
+    for raw in raws[:2]:
+        _close(tm.process_buffer(raw), np.asarray(jm.process_buffer(raw), np.float32))
+        _same_fpn(tm, jm)
+    assert tm._batch_ready() == jm._batch_ready() == tpu
+    _close(tm.process_chunk(np.stack(raws[2:])),
+           np.asarray(jm.process_chunk(np.stack(raws[2:])), np.float32))
+
+
+@pytest.mark.parametrize("name", ["once-default", "fft-prep-default"])
+def test_process_volume_matches_jax(name):
+    """A (buffers, bscans, ascans, samples) volume -> (buffers * bscans,
+    ascans, samples // 2), the FPN state carried from buffer to buffer; a
+    single buffer is processed as one."""
+    tm, jm = _models(**SLICE_CONFIGS[name])
+    vol = np.stack(_buffers(3, seed=8))
+    got = tm.process_volume(vol)
+    assert tuple(got.shape) == (3 * BSCANS, ASCANS, N // 2)
+    _close(got, np.asarray(jm.process_volume(vol), np.float32))
+    _same_fpn(tm, jm)
+    one = tm.process_volume(vol[0])
+    _close(one, np.asarray(jm.process_volume(vol[0]), np.float32))
+
+
+def test_interop_round_trip_fft_path():
+    """The JAX model's prep operator and phasor carried into the port on
+    the FFT path: equal to the port's own, and the port continues the JAX
+    model's stream with them (split per call: carried curves have no
+    prep_parts)."""
+    tm, jm = _models(**FFT_PREP)
+    raws = _buffers(2, seed=4)
+    jm.process_buffer(raws[0])
+    jc = jm.curves
+    fields = {f.name: (None if getattr(jc, f.name) is None else np.asarray(getattr(jc, f.name)))
+              for f in dataclasses.fields(jcurves.Curves)}
+    carried = interop.curves_from_numpy(fields, "cpu")
+    assert carried.prep_parts is None and tm.curves.prep_parts is not None
+    assert torch.equal(carried.prep_operator, tm.curves.prep_operator)
+    assert torch.equal(carried.phase, tm.curves.phase)
+    state = interop.fpn_state_from_numpy(np.asarray(jm.fpn_state.mean_line),
+                                         bool(jm.fpn_state.determined), "cpu")
+    got, _ = tpipeline.process_buffer(torch.from_numpy(raws[1]), carried, state,
+                                      tm.acq, tm.cfg)
+    _close(got, np.asarray(jm.process_buffer(raws[1]), np.float32))
+    back = interop.to_numpy(tm.curves)
+    assert "prep_parts" not in back and "depth_parts" not in back
+    np.testing.assert_array_equal(back["prep_operator"], fields["prep_operator"])
+    np.testing.assert_array_equal(back["phase"], fields["phase"])
