@@ -7,10 +7,12 @@ nonzero and the final line is not printed:
 
 1. device: the card's name and power limit;
 2. build: the CUDA kernels from ``octproz_tpu_torch/kernels/csrc``;
-3. kernels: each kernel family (four fold, four prep) against its plain
-   PyTorch version on the card, at the main path's widths, an odd line
-   count and 1664-sample lines (and 1100 for the prep kernels), then
-   controls (a kernel computing a neighbouring rung) that must fail;
+3. kernels: each kernel family (four fold, two concat fold, four prep)
+   against its plain PyTorch version on the card, at the main path's
+   widths, an odd line count and 1664-sample lines (and 1100 for the prep
+   kernels), then controls (a kernel computing a neighbouring rung, or for
+   the concat kernels reading the im half one column early) that must
+   fail;
 4. fold path: ``FdOctModel`` on full 1024 x 512 x 256 buffers of the
    reference benchmark chain on the folded GEMM -- FPN determination,
    steady buffers and a batched chunk -- at the default and the "high"
@@ -22,8 +24,20 @@ nonzero and the final line is not printed:
    and the handheld preset, with the prep kernels' launch counts read
    around that run; each rung's full-size prep output against the plain
    versions;
-6. fidelity: the golden pair and the float64-oracle ladder on both paths;
-7. times: steady-state ms per buffer and MHz on both paths (the FFT path
+6. stream: ``StreamingEngine`` over full 12-bit buffers replayed from RAM
+   by ``VirtualOctSource``, the benchmark chain with ``fold_concat`` at the
+   default and the "high" rung, per buffer and in batch chunks of four, on
+   the uint16 and the packed-12 wire, every buffer quantized and fetched
+   to the host, with the launch counts read around each engine run (the
+   rung's concat kernel launched for every steady buffer or chunk, the
+   two-operator steady-state kernels not): the streamed float32 recorder
+   output against ``process_buffer`` on the same buffers, the packed-12
+   wire's against the uint16 wire's (exact), the steady concat output
+   against its plain version at full size, and the engine's A-scan rate
+   with the upload included (buffers over wall time, 3 s after warm-up)
+   beside the steady ``process_buffer`` rate;
+7. fidelity: the golden pair and the float64-oracle ladder on both paths;
+8. times: steady-state ms per buffer and MHz on both paths (the FFT path
    split into prep kernel, FFT and FPN plus scaling), and each kernel
    beside its plain version.
 
@@ -51,12 +65,16 @@ KERNELS = {
     "depth_split": ("fold_gemm.cu", 271),
     "depth_scale": ("fold_gemm.cu", 375),
     "depth_scale_split": ("fold_gemm.cu", 422),
+    "depth_scale_concat": ("fold_concat.cu", 337),
+    "depth_scale_concat_split": ("fold_concat.cu", 354),
     "prep_phase": ("prep_gemm.cu", 228),
     "prep_phase_split": ("prep_gemm.cu", 245),
     "prep_real": ("prep_gemm.cu", 238),
     "prep_real_split": ("prep_gemm.cu", 254),
 }
-FOLD = tuple(k for k in KERNELS if k.startswith("depth"))
+CONCAT = ("depth_scale_concat", "depth_scale_concat_split")
+TWO_OPERATOR = ("depth_scale", "depth_scale_split")
+FOLD = tuple(k for k in KERNELS if k.startswith("depth") and k not in CONCAT)
 PREP = tuple(k for k in KERNELS if k.startswith("prep"))
 
 # Kernel vs plain version on the card (both float32): the bounds of
@@ -246,8 +264,97 @@ def phase_kernels():
             if ok:
                 raise AssertionError(f"control {name!r} passed: the bounds do "
                                      f"not separate the rungs")
+    _concat_kernel_cases(worst, ops, g, dev)
     _prep_kernel_cases(worst, g, dev)
     return worst
+
+
+def _compare_concat(raw, wide, bitshift, log_scaling, odt, g, ref=None):
+    """A concat kernel on (raw, wide parts) against its plain version on
+    ``ref`` (default the same inputs).  Returns (max |err|, detail, within
+    the bounds)."""
+    import torch
+
+    from octproz_tpu_torch.kernels import fused_prep as fp
+
+    rraw, rwide = ref or (raw, wide)
+    half = wide[0].shape[1] // 2
+    mean2 = torch.randn((2, half), generator=g, device=raw.device) * 50.0
+    a, b = fp._scale_affine(log_scaling, half, 0.0, 60.0, 0.0, 1.0)
+    kw = dict(bitshift=bitshift, log_scaling=log_scaling, a=a, b=b, out_dtype=odt)
+    got = fp.fold_depth_scale_concat(raw, wide, mean2, **kw)
+    want = fp.depth_scale_concat_plain(rraw, rwide, mean2, **kw)
+    rms, worst, ok = fp.scale_error(got, want)
+    bound = (f"{fp.SCALE_MAX:g} + bf16 step" if odt == torch.bfloat16
+             else f"RMS {fp.SCALE_RMS:g}, max {fp.SCALE_MAX:g}")
+    return worst, (f"above the display floor RMS {rms:.3e}, max {worst:.3e} "
+                   f"(bound {bound})"), ok
+
+
+def _concat_kernel_cases(worst, ops, g, dev):
+    """The concat fold families (B5/B6) on the two-operator families' grid
+    -- rungs 1/3/5 with x_lo zero and nonzero, log and lin, float32 and
+    bf16 stores, uint8/uint16/float inputs, an odd line count, n_in = 1664
+    -- then the controls, which must fail: the wrong rung, and the im half
+    read one column early (swapping re and im would not do: p is symmetric
+    in them)."""
+    import torch
+
+    from octproz_tpu_torch.kernels import fused_prep as fp
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [
+        # (n_in, lines, input, passes, log scaling, out dtype)
+        (1024, 4096, "u16s", 1, True, f32),
+        (1024, 4096, "u16s", 3, True, f32),
+        (1024, 4096, "u16s", 5, True, f32),
+        (1024, 4096, "u16", 3, True, f32),
+        (1024, 4096, "u16", 5, True, f32),
+        (1024, 4096, "u16s", 1, False, f32),
+        (1024, 4096, "u16", 3, False, f32),
+        (1024, 4096, "u16s", 1, True, bf16),
+        (1024, 4096, "u16s", 3, True, bf16),
+        (1024, 4133, "u16s", 1, True, f32),
+        (1024, 4133, "u16s", 3, True, f32),
+        (1664, 1000, "u16s", 1, True, f32),
+        (1664, 1000, "u16", 5, True, f32),
+        (1024, 2048, "u8", 1, True, f32),
+        (1024, 2048, "f32", 3, True, f32),
+        (1024, 2048, "f32", 5, True, f32),
+    ]
+    for n_in, lines, kind, passes, log_scaling, odt in cases:
+        precision = {1: "default", 3: "high", 5: "highest"}[passes]
+        raw = _raw(kind, lines, n_in, g, dev)
+        wide = fp.concat_operator(*ops[n_in], precision)
+        err, detail, ok = _compare_concat(raw, wide, kind == "u16s", log_scaling, odt, g)
+        torch.cuda.synchronize()
+        family = "depth_scale_concat" + ("_split" if passes > 1 else "")
+        if n_in == 1024 and kind == "u16s" and odt == f32:
+            worst[family] = max(worst[family], err)  # the main path's inputs
+        log(f"[kernels] {family:<24} n_in={n_in} lines={lines} {kind} passes={passes} "
+            f"{'log' if log_scaling else 'lin'} {str(odt).replace('torch.', '')}: "
+            f"{detail} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{family} kernel disagrees with its plain version")
+
+    raw = _raw("u16", 4096, 1024, g, dev)
+    p5, p3 = (fp.concat_operator(*ops[1024], r) for r in ("highest", "high"))
+    (w1,) = fp.concat_operator(*ops[1024], "default")
+    half = w1.shape[1] // 2
+    shifted = torch.cat([w1[:, :half + 1], w1[:, half:-1]], dim=1).contiguous()
+    x_hi = fp._bf16_trunc(raw.to(torch.float32))
+    controls = [
+        ("3-pass concat kernel on the highest parts", (raw, p5[:2]), (raw, p5)),
+        ("3-pass concat kernel without x_lo (x_hi input)", (x_hi, p3), (raw, p3)),
+        ("concat kernel reading im at column half - 1 + j", (raw, (shifted,)), (raw, (w1,))),
+    ]
+    for name, kernel_in, plain_in in controls:
+        _, detail, ok = _compare_concat(*kernel_in, False, True, f32, g, ref=plain_in)
+        torch.cuda.synchronize()
+        log(f"[kernels] control: {name}: {detail} -> "
+            f"{'passes (BAD)' if ok else 'fails, as it must'}")
+        if ok:
+            raise AssertionError(f"control {name!r} passed: the bounds do not catch it")
 
 
 def _compare_prep(raw, parts, rows, bitshift, ref=None):
@@ -390,18 +497,24 @@ def _run_main_path(model, host_raw, bufs, tag):
 
 def _check_steady_full_size(model, out, raw):
     """The main path's first steady buffer against the plain version of its
-    kernel on the same full-size input (no kernel launch)."""
+    kernel (two-operator or, with fold_concat, concat) on the same
+    full-size input (no kernel launch)."""
     from octproz_tpu_torch.kernels import fused_prep as fp
 
     acq, cfg = model.acq, model.cfg
     a, b = fp._scale_affine(cfg.log_scaling, acq.output_ascan_length, cfg.grayscale_min,
                             cfg.grayscale_max, cfg.addend, cfg.multiplicator)
-    ref = fp.depth_scale_plain(raw.reshape(-1, acq.samples_per_line),
-                               *model.curves.depth_parts, model.fpn_state.mean_line,
-                               bitshift=cfg.bitshift, log_scaling=cfg.log_scaling,
-                               a=a, b=b)
+    kw = dict(bitshift=cfg.bitshift, log_scaling=cfg.log_scaling, a=a, b=b)
+    raw2d = raw.reshape(-1, acq.samples_per_line)
+    if cfg.fold_concat:
+        wide = fp.concat_operator(*model.curves.depth_parts, cfg.matmul_precision)
+        ref = fp.depth_scale_concat_plain(raw2d, wide, model.fpn_state.mean_line, **kw)
+    else:
+        ref = fp.depth_scale_plain(raw2d, *model.curves.depth_parts,
+                                   model.fpn_state.mean_line, **kw)
     rms, worst, ok = fp.scale_error(out.reshape(ref.shape), ref)
-    family = "depth_scale" if cfg.matmul_precision == "default" else "depth_scale_split"
+    family = ("depth_scale_concat" if cfg.fold_concat else "depth_scale") \
+        + ("" if cfg.matmul_precision == "default" else "_split")
     log(f"[main] {family} full buffer ({cfg.matmul_precision}) vs plain version: "
         f"above the display floor RMS {rms:.3e}, max {worst:.3e} -> {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -591,6 +704,143 @@ def phase_fft_path(worst):
     return launches
 
 
+def _engine_launches(run, rung, need, tag):
+    """``run()`` -- one ``StreamingEngine.run`` -- between a reset and a read
+    of the launch counts.  The rung's concat family must have launched at
+    least ``need(result)`` times (the steady buffers or chunks the run
+    dispatched) and no other steady-state family at all.  Returns the
+    result and the run's concat counts."""
+    import torch
+
+    from octproz_tpu_torch.kernels import fused_prep as fp
+
+    torch.cuda.synchronize()
+    fp.reset_launch_counts()
+    result = run()
+    torch.cuda.synchronize()
+    counts = {k: fp.LAUNCHES[k] for k in CONCAT + TWO_OPERATOR}
+    family = CONCAT[0] if rung == "default" else CONCAT[1]
+    want = need(result)
+    if counts[family] < want or any(v for k, v in counts.items() if k != family):
+        raise AssertionError(f"{tag}: engine run launched {counts}; want {family} >= "
+                             f"{want} and no other steady-state family")
+    return result, {k: counts[k] for k in CONCAT}
+
+
+def _record_stream(cfg, source, wire, chunk, directory, dev, tag):
+    """Two buffers of the engine's float32 recorder stream (every buffer
+    quantized and fetched as well), with the engine run's launch counts.
+    For a chunked run the model's FPN is determined on buffer 0 first, so
+    both recorded buffers come out of one batch kernel; per buffer, the
+    run's first buffer determines the FPN and the second is steady."""
+    from octproz_tpu_torch import bench
+    from octproz_tpu_torch.io.recorder import RecordingParams
+    from octproz_tpu_torch.models.fdoct import FdOctModel
+    from octproz_tpu_torch.runtime import StreamingEngine
+
+    acq = bench.FULL_ACQ
+    model = FdOctModel(acq, cfg, **bench.CURVE_KW, device=dev)
+    if chunk > 1:
+        model.process_buffer(source.read_buffer(0) if wire == "uint16"
+                             else model.put_packed_buffer(source.read_buffer(0)))
+    eng = StreamingEngine(model, source, wire_format=wire, stream_to_host=True,
+                          dispatch_chunk=chunk, chunk_strategy="batch" if chunk > 1 else "auto")
+    eng.start_recording(RecordingParams(save_dir=directory, name=f"{wire}{chunk}",
+                                        buffers_to_record=2, save_raw=False,
+                                        save_processed=True, save_as_32bit_float=True,
+                                        save_meta=False))
+    want = max(chunk, 2)
+    n, counts = _engine_launches(lambda: eng.run(max_buffers=want), cfg.matmul_precision,
+                                 lambda n: n // chunk if chunk > 1 else n - 1, tag)
+    path = eng.processed_recorder.last_file
+    if n != want or path is None:
+        raise AssertionError(f"{tag}: {n} buffers, recording {path}")
+    out = np.fromfile(path, np.float32).reshape(2, *acq.processed_buffer_shape)
+    os.remove(path)
+    return out, counts
+
+
+def phase_stream(worst, info):
+    """The streaming runtime at full width on the concat path: see the
+    module docstring, phase 6.  Returns the concat kernels' launch counts,
+    summed over the engine runs alone."""
+    import tempfile
+
+    import torch
+
+    from octproz_tpu_torch import bench
+    from octproz_tpu_torch.kernels import fused_prep as fp
+    from octproz_tpu_torch.models.fdoct import FdOctModel
+
+    dev = torch.device("cuda", 0)
+    acq = bench.FULL_ACQ
+    card = f"{info['device_name']}, power limit {info['power_limit']}"
+    rates = {}
+    launches = dict.fromkeys(CONCAT, 0)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        sources = bench.stream_sources(tmp)
+        log(f"[stream] sources: 3 buffers per wire written and read back in "
+            f"{time.perf_counter() - t0:.1f} s")
+        host = [sources["uint16"].read_buffer(i) for i in range(2)]
+        for rung in ("default", "high"):
+            cfg = bench.bench_config(fold_concat=True, matmul_precision=rung)
+            ref_model = FdOctModel(acq, cfg, **bench.CURVE_KW, device=dev)
+            ref = [ref_model.fetch(ref_model.process_buffer(host[0]))]   # FPN buffer
+            steady = [ref_model.process_buffer(b) for b in (host[1], host[0])]
+            ref += [ref_model.fetch(t) for t in steady]
+            want = {1: (ref[0], ref[1]), 4: (ref[2], ref[1])}
+            recorded = {}
+            for wire, src in sources.items():
+                for chunk in (1, 4):
+                    mode = "batch chunks of 4" if chunk > 1 else "per buffer"
+                    tag = f"stream {rung} {wire} {mode}"
+                    got, counts = _record_stream(cfg, src, wire, chunk, tmp, dev, tag)
+                    recorded[(wire, chunk)] = got
+                    for i in range(2):
+                        rms, err, ok = fp.scale_error(torch.from_numpy(got[i]),
+                                                      torch.from_numpy(want[chunk][i]))
+                        if not ok:
+                            raise AssertionError(
+                                f"{tag} buffer {i} differs from process_buffer: "
+                                f"RMS {rms:.3e}, max {err:.3e}")
+                    rate, rate_counts = _engine_launches(
+                        lambda: bench.engine_rate(cfg, dev, src, wire, chunk, seconds=3.0),
+                        rung, lambda r: (r["buffers"] - chunk) // chunk if chunk > 1
+                        else r["buffers"] - 1, f"{tag} rate")
+                    rates[(rung, wire, chunk)] = rate
+                    for k in CONCAT:
+                        launches[k] += counts[k] + rate_counts[k]
+                    log(f"[stream] {rung} rung, {wire} wire, {mode}: recorded float32 "
+                        f"stream == process_buffer within the scale bounds; engine "
+                        f"launches {counts} (recorded run), {rate_counts} (rate run), "
+                        f"two-operator steady-state kernels 0")
+            for chunk in (1, 4):
+                if not np.array_equal(recorded[("uint16", chunk)], recorded[("packed12", chunk)]):
+                    raise AssertionError(f"{rung}: packed-12 wire output != uint16 wire output")
+            log(f"[stream] {rung} rung: packed-12 wire output == uint16 wire output (exact)")
+            family, err = _check_steady_full_size(ref_model, steady[1], torch.from_numpy(
+                host[0]).to(dev))
+            worst[family] = max(worst[family], err)
+            del ref_model, steady, recorded
+    log(f"[main] stream path launches {launches}, summed over the engine runs "
+        f"({time.perf_counter() - t0:.1f} s)")
+    lines = acq.ascans_per_buffer
+    for rung in ("default", "high"):
+        ms = bench.steady_ms_per_buffer(bench.bench_config(fold_concat=True,
+                                                           matmul_precision=rung), dev)
+        for (r, wire, chunk), rate in rates.items():
+            if r == rung:
+                spread = rate["window_mhz"]
+                log(f"[stream] {rung} rung, {wire} wire, chunk {chunk}: engine "
+                    f"{rate['mhz']:.3f} MHz A-scans with the upload and the quantized "
+                    f"fetch ({rate['timed_buffers']} buffers in {rate['timed_s']:.3f} s after "
+                    f"warm-up, {rate['wire_mb_per_s']:.0f} MB/s wire; 1 s windows "
+                    f"{min(spread, default=0):.3f}-{max(spread, default=0):.3f} MHz); steady "
+                    f"process_buffer {lines / ms / 1e3:.3f} MHz ({ms:.3f} ms/buffer) ({card})")
+    return launches
+
+
 def phase_fidelity():
     import torch
 
@@ -689,6 +939,7 @@ def main() -> None:
     phase_build()
     worst = phase_kernels()
     launches = {**phase_main_path(worst), **phase_fft_path(worst)}
+    launches.update(phase_stream(worst, info))
     phase_fidelity()
     times = phase_times(info)
     kernels = [{"name": name, "route": "cuda", "source": CSRC + source,

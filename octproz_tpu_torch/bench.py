@@ -16,18 +16,26 @@ of 12-bit samples:
   against the float64 NumPy oracle (``tests/oracle.py``), each gated;
 * ``golden_psnr_db``: the checked-in golden pair through the port;
 * ``kernels``: each fold kernel's time beside its plain PyTorch version's
-  at the main path's shapes;
+  at the main path's shapes (the concat kernels of ``fold_concat`` too);
 * ``paths.fft``: the FFT path (``presets.benchmark_config(tpu=False)`` with
   the prep kernels, then cuFFT) -- steady ms per buffer and MHz at the
   default and "high" rungs with the step split into prep kernel, FFT and
   FPN plus scaling, its oracle PSNR per rung, its golden pair, and the four
   prep kernels beside their plain versions;
+* ``paths.stream``: the streaming runtime (``StreamingEngine``) on the
+  benchmark chain with ``fold_concat`` -- the concat path's steady ms per
+  buffer and MHz (``process_buffer``, buffers on the device), and the
+  engine's end-to-end A-scan rate with the upload included, on the uint16
+  and the packed-12 wire, per buffer and in chunks of four, every buffer
+  quantized and fetched to the host; ``transfer_ms`` times the engine's
+  transfer stages on their own;
 * the device's name and power limit, since a card below its maximum power
   runs slower under load.
 
 Times are CUDA-event times after warm-up, on distinct buffers already on
-the device.  Without a CUDA device the bench exits with an error: there is
-no CPU measurement.
+the device; the engine's rate is its own ``ThroughputMeter`` (host clock).
+Without a CUDA device the bench exits with an error: there is no CPU
+measurement.
 """
 
 from __future__ import annotations
@@ -38,6 +46,8 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
+import time
 from typing import Dict, Sequence
 
 import numpy as np
@@ -66,7 +76,8 @@ _TESTS = os.path.join(_REPO, "tests")
 
 #: The rungs the steady state is timed at.
 TIMED_RUNGS = ("default", "high")
-FOLD_KERNELS = ("depth", "depth_split", "depth_scale", "depth_scale_split")
+FOLD_KERNELS = ("depth", "depth_split", "depth_scale", "depth_scale_split",
+                "depth_scale_concat", "depth_scale_concat_split")
 PREP_KERNELS = ("prep_phase", "prep_phase_split", "prep_real", "prep_real_split")
 
 
@@ -274,9 +285,13 @@ def _kernel_and_plain(name: str, device):
                             device=device)
         a, b = fp._scale_affine(True, FULL_ACQ.output_ascan_length, cfg.grayscale_min,
                                 cfg.grayscale_max, cfg.addend, cfg.multiplicator)
-        kw = dict(bitshift=True, log_scaling=True, a=a, b=b)
+        kw = dict(bitshift=True, log_scaling=True, a=a, b=b, out_dtype=torch.float32)
+        if name.startswith("depth_scale_concat"):
+            wide = fp.concat_operator(cv.depth_op_re, cv.depth_op_im, precision)
+            return (lambda: fp._launch_depth_scale_concat(raw2d, wide, mean2, **kw),
+                    lambda: fp.depth_scale_concat_plain(raw2d, wide, mean2, **kw))
         return (lambda: fp._launch_depth_scale(raw2d, wre, wim, mean2, fast_log=False,
-                                               out_dtype=torch.float32, **kw),
+                                               **kw),
                 lambda: fp.depth_scale_plain(raw2d, wre, wim, mean2, **kw))
     return (lambda: fp._launch_depth(raw2d, wre, wim, bitshift=True),
             lambda: fp.depth_plain(raw2d, wre, wim, bitshift=True))
@@ -321,6 +336,120 @@ def fft_path_record(device) -> Dict[str, object]:
             "kernels": kernel_times(device, PREP_KERNELS)}
 
 
+def stream_sources(directory: str, count: int = 3, seed: int = 40):
+    """``count`` distinct 12-bit buffers of ``FULL_ACQ`` written once to
+    ``directory`` as uint16 samples and as packed-12 wire bytes; returns
+    {wire: VirtualOctSource replaying the file from RAM without end}, so
+    the host source does not set the engine's pace."""
+    from .io.source import VirtualOctSource
+    from .ops.convert import pack_uint12
+
+    bufs = np.random.default_rng(seed).integers(0, 4096, size=(count, *FULL_ACQ.buffer_shape),
+                                                dtype=np.uint16)
+    u16, p12 = os.path.join(directory, "u16.raw"), os.path.join(directory, "p12.raw")
+    bufs.tofile(u16)
+    pack_uint12(bufs).tofile(p12)
+    del bufs
+    return {"uint16": VirtualOctSource(u16, FULL_ACQ),
+            "packed12": VirtualOctSource(p12, FULL_ACQ, packed_12bit=True,
+                                         keep_packed=True)}
+
+
+def engine_rate(cfg: ProcConfig, device, source, wire: str, dispatch_chunk: int = 1,
+                seconds: float = 5.0, warmup: int = 8, window_s: float = 1.0,
+                max_buffers: int = 5000) -> Dict[str, object]:
+    """The engine's end-to-end rate on ``source`` (the upload, the step and
+    the quantized fetch of every buffer included): the buffers that reached
+    the host after the first ``warmup`` (rounded up to whole chunks; they
+    hold the FPN buffer and the pipeline's fill) over the wall time they
+    took, in a run stopped once about ``seconds`` have passed after the
+    warm-up.  Both ends of the timed span are the arrival of a chunk's last
+    buffer.  The ThroughputMeter's ``window_s`` windows after the first are
+    kept as a spread statistic (``window_mhz``)."""
+    from .models.fdoct import FdOctModel
+    from .runtime import StreamingEngine
+
+    chunk = max(1, dispatch_chunk)
+    warm = -(-warmup // chunk) * chunk - 1  # the last buffer of a chunk
+    model = FdOctModel(FULL_ACQ, cfg, **CURVE_KW, device=device)
+    arrived, windows = [], []
+
+    def on_processed(_host, _buffer_nr):
+        arrived.append(time.perf_counter())
+        if len(arrived) > warm and arrived[-1] - arrived[warm] >= seconds:
+            eng.stop()
+
+    eng = StreamingEngine(model, source, wire_format=wire, stream_to_host=True,
+                          dispatch_chunk=chunk, metrics_window_s=window_s,
+                          on_metrics=windows.append, on_processed=on_processed)
+    t0 = time.perf_counter()
+    n = eng.run(max_buffers=max_buffers)
+    wall = time.perf_counter() - t0
+    ends = arrived[:len(arrived) // chunk * chunk]  # whole chunks only
+    timed = len(ends) - 1 - warm
+    if timed < chunk:
+        raise AssertionError(f"the engine delivered {len(arrived)} buffers; "
+                             f"{warm + 1} are warm-up")
+    span = ends[-1] - ends[warm]
+    rate = timed * FULL_ACQ.ascans_per_buffer / span
+    wire_bytes = (FULL_ACQ.samples_per_buffer * 3 // 2 if wire == "packed12"
+                  else FULL_ACQ.bytes_per_buffer)
+    return {"ascans_per_s": rate, "mhz": rate / 1e6, "timed_buffers": timed,
+            "timed_s": span, "buffers": n, "wall_s": wall,
+            "wire_mb_per_s": timed * wire_bytes / span / 1e6,
+            "window_mhz": [w.ascans_per_s / 1e6 for w in windows[1:]]}
+
+
+def transfer_ms(device, source_u16, source_p12, reps: int = 5) -> Dict[str, float]:
+    """The engine's per-buffer transfer stages on their own, at full size:
+    ``stage`` (host copy of a buffer into pinned memory, host clock, uint16
+    and packed-12), ``h2d`` (pinned -> device, both wires), ``unpack``
+    (packed-12 -> uint16 on the device) and ``d2h`` (the 12-bit quantized
+    image, device -> pinned), CUDA events."""
+    from .ops.convert import unpack_uint12_device
+    from .ops.quantize import quantize
+
+    out = {}
+    for wire, src in (("uint16", source_u16), ("packed12", source_p12)):
+        host = torch.from_numpy(np.ascontiguousarray(src.read_buffer(0)))
+        pinned = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            pinned.copy_(host)
+        out[f"stage_{wire}"] = (time.perf_counter() - t0) / reps * 1e3
+        dev = torch.empty(host.shape, dtype=host.dtype, device=device)
+        out[f"h2d_{wire}"] = cuda_ms(lambda: dev.copy_(pinned, non_blocking=True), reps)
+        if wire == "packed12":
+            out["unpack"] = cuda_ms(lambda: unpack_uint12_device(dev, FULL_ACQ.samples_per_buffer),
+                                    reps)
+    img = quantize(torch.rand(FULL_ACQ.processed_buffer_shape, device=device), 12)
+    back = torch.empty(img.shape, dtype=img.dtype, pin_memory=True)
+    out["d2h"] = cuda_ms(lambda: back.copy_(img, non_blocking=True), reps)
+    return out
+
+
+def stream_path_record(device) -> Dict[str, object]:
+    """The ``paths.stream`` record: the concat path's steady state and the
+    engine's rate on both wires, per buffer and in batch chunks of four,
+    at the default and "high" rungs."""
+    lines = FULL_ACQ.ascans_per_buffer
+    out = {"config": "bench_config(fold_concat=True), stream_to_host, streaming_skip=0",
+           "rungs": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        sources = stream_sources(tmp)
+        out["transfer_ms"] = transfer_ms(device, sources["uint16"], sources["packed12"])
+        for rung in TIMED_RUNGS:
+            cfg = bench_config(fold_concat=True, matmul_precision=rung)
+            ms = steady_ms_per_buffer(cfg, device)
+            rec = {"ms_per_buffer": ms, "equivalent_ascan_rate": lines / ms / 1e3}
+            for wire, src in sources.items():
+                for chunk in (1, 4):
+                    rec[f"engine_{wire}_chunk{chunk}"] = engine_rate(cfg, device, src, wire,
+                                                                    chunk)
+            out["rungs"][rung] = rec
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("octproz_tpu_torch.bench: no CUDA device; the bench "
@@ -359,7 +488,7 @@ def main() -> None:
         "oracle_psnr_db": psnr,
         "golden_psnr_db": float(golden.psnr_db),
         "kernels": kernel_times(device),
-        "paths": {"fft": fft_path_record(device)},
+        "paths": {"fft": fft_path_record(device), "stream": stream_path_record(device)},
         "platform": info["platform"],
         "device_name": info["device_name"],
         "power_limit": info["power_limit"],

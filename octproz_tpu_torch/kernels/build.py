@@ -23,8 +23,8 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("fold_gemm.cu", "prep_gemm.cu")
-HEADERS = ("gemm_common.cuh",)
+SOURCES = ("fold_gemm.cu", "fold_concat.cu", "prep_gemm.cu")
+HEADERS = ("gemm_common.cuh", "fold_gemm.cuh")
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -89,6 +89,9 @@ def load() -> ctypes.CDLL:
     lib.fold_gemm_scale.argtypes = [vp, i32, i32, i32, vp, vp, vp, vp, vp, vp,
                                     vp, vp, i32, i32, f32, f32, i64, i32, i32, vp]
     lib.fold_gemm_scale.restype = i32
+    lib.fold_gemm_scale_concat.argtypes = [vp, i32, i32, i32, vp, vp, vp, vp, vp, i32,
+                                           i32, f32, f32, i64, i32, i32, vp]
+    lib.fold_gemm_scale_concat.restype = i32
     lib.prep_gemm_phase.argtypes = [vp, i32, i32, i32, vp, vp, vp, vp, vp, vp,
                                     i64, i32, i32, vp]
     lib.prep_gemm_phase.restype = i32

@@ -16,10 +16,15 @@ per curve update on the host.  At run time one kernel per call does
                 complex64 spectra (or y alone without dispersion), which
                 the FFT stage then transforms.
 
-This module holds, for each of the eight kernel families:
+With ``fold_concat`` the steady-state kernel runs one GEMM against the
+concatenated operator ``[W_re | W_im]`` (n_in, 2*half) and slices re and im
+from it in the epilogue.
 
-* the CUDA kernel (``csrc/fold_gemm.cu``, ``csrc/prep_gemm.cu``, built by
-  :mod:`.build`), which a wrapper launches for CUDA tensors;
+This module holds, for each of the ten kernel families:
+
+* the CUDA kernel (``csrc/fold_gemm.cu``, ``csrc/fold_concat.cu``,
+  ``csrc/prep_gemm.cu``, built by :mod:`.build`), which a wrapper launches
+  for CUDA tensors;
 * its plain PyTorch version (``*_plain``), which the wrapper uses for CPU
   tensors and which the tests and ``chip_smoke.py`` hold the kernel to;
 * a launch count in :data:`LAUNCHES`, raised only where the kernel is
@@ -32,6 +37,8 @@ family (LAUNCHES key)       replaces (octproz_tpu/pallas/fused_prep.py)
 ``depth_split``             ``_kernel_depth_split``
 ``depth_scale``             ``_kernel_depth_scale``
 ``depth_scale_split``       ``_kernel_depth_scale_split``
+``depth_scale_concat``      ``_kernel_depth_scale_concat``
+``depth_scale_concat_split``  ``_kernel_depth_scale_concat_split``
 ``prep_phase``              ``_kernel_phase``
 ``prep_phase_split``        ``_kernel_phase_split``
 ``prep_real``               ``_kernel_real``
@@ -57,7 +64,8 @@ _SPLIT_PARTS = {"high": 2, "highest": 3}
 
 #: Kernel launches per family since the last :func:`reset_launch_counts`.
 LAUNCHES = {"depth": 0, "depth_split": 0, "depth_scale": 0,
-            "depth_scale_split": 0, "prep_phase": 0, "prep_phase_split": 0,
+            "depth_scale_split": 0, "depth_scale_concat": 0,
+            "depth_scale_concat_split": 0, "prep_phase": 0, "prep_phase_split": 0,
             "prep_real": 0, "prep_real_split": 0}
 
 
@@ -283,6 +291,23 @@ def depth_scale_plain(raw2d, w_re_parts, w_im_parts, mean2, *, bitshift: bool,
     return out.to(out_dtype)
 
 
+def depth_scale_concat_plain(raw2d, w_parts, mean2, *, bitshift: bool,
+                             log_scaling: bool, a: float, b: float,
+                             out_dtype: torch.dtype = torch.float32):
+    """``_kernel_depth_scale_concat`` (one float32 (n_in, 2*half) operator
+    [W_re | W_im]) and ``_kernel_depth_scale_concat_split`` (2 or 3 bf16
+    parts of it): decode, ONE GEMM against the wide operator, re and im
+    sliced from it, FPN mean subtraction, the scale epilogue and the store
+    in ``out_dtype``."""
+    x = _decode_block(raw2d, bitshift)
+    y = _gemm(x, w_parts)
+    half = y.shape[-1] // 2
+    re = y[:, :half] - mean2[0:1, :]
+    im = y[:, half:] - mean2[1:2, :]
+    p = re * re + im * im
+    return _scale_epilogue(p, log_scaling=log_scaling, a=a, b=b).to(out_dtype)
+
+
 def prep_phase_plain(raw2d, op_parts, cos_row, sin_row, *, bitshift: bool):
     """``_kernel_phase`` (one float32 operator) and ``_kernel_phase_split``
     (2 or 3 bf16 parts): decode, y = x @ P, then (y cos, y sin).  Returns
@@ -412,6 +437,21 @@ def _check_launch(raw2d, w_re_parts, w_im_parts, mean2=None):
     return lines, n_in, half
 
 
+def _check_concat_launch(raw2d, w_parts, mean2):
+    """Validate what a concat fold kernel reads; returns (lines, n_in, half)."""
+    lines, n_in = _check_raw(raw2d, "fold")
+    if len(w_parts) not in (1, 2, 3):
+        raise ValueError(f"concat fold kernel takes 1, 2 or 3 operator parts, "
+                         f"got {len(w_parts)}")
+    width = _check_parts(w_parts, n_in, raw2d.device, "concat fold",
+                         split=len(w_parts) > 1)
+    if width % 2:
+        raise ValueError(f"the concatenated operator [W_re | W_im] has an even "
+                         f"width, got {width}")
+    _check_row(mean2, (2, width // 2), raw2d.device, "mean2")
+    return lines, n_in, width // 2
+
+
 def _check_prep_launch(raw2d, op_parts, cos_row=None, sin_row=None):
     """Validate what a prep kernel reads; returns (lines, n_in, n_out)."""
     lines, n_in = _check_raw(raw2d, "prep")
@@ -487,6 +527,30 @@ def _launch_depth_scale(raw2d, w_re_parts, w_im_parts, mean2, *, bitshift,
     return out
 
 
+def _launch_depth_scale_concat(raw2d, w_parts, mean2, *, bitshift, log_scaling,
+                               a, b, out_dtype):
+    from . import build
+
+    lines, n_in, half = _check_concat_launch(raw2d, w_parts, mean2)
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fold kernel stores float32 or bfloat16, got {out_dtype}")
+    out = torch.empty((lines, half), dtype=out_dtype, device=raw2d.device)
+    if lines == 0:
+        return out
+    lib = build.load()
+    passes = 2 * len(w_parts) - 1
+    with torch.cuda.device(raw2d.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.fold_gemm_scale_concat(
+            raw2d.data_ptr(), _IN_KIND[raw2d.dtype], int(bitshift), passes,
+            *_ptrs(w_parts), mean2.data_ptr(), out.data_ptr(),
+            int(out_dtype == torch.bfloat16), _MODE_LOG if log_scaling else _MODE_LIN,
+            ctypes.c_float(a), ctypes.c_float(b), lines, n_in, half, stream)
+    _raise_on(rc, lib, "fold_gemm_scale_concat")
+    LAUNCHES["depth_scale_concat" if passes == 1 else "depth_scale_concat_split"] += 1
+    return out
+
+
 def _launch_prep(raw2d, op_parts, cos_row, sin_row, *, bitshift: bool):
     """The phase kernel (cos_row and sin_row given; complex64 out) or the
     real kernel (both None; float32 out)."""
@@ -548,6 +612,18 @@ def fold_depth_scale(raw2d, w_re_parts, w_im_parts, mean2, *, bitshift: bool,
     return depth_scale_plain(raw2d, w_re_parts, w_im_parts, mean2, **kw)
 
 
+def fold_depth_scale_concat(raw2d, w_parts, mean2, *, bitshift: bool,
+                            log_scaling: bool, a: float, b: float,
+                            out_dtype: torch.dtype = torch.float32):
+    """Scaled magnitude of (lines, n_in) input through the concatenated
+    operator parts: the CUDA kernel for a CUDA tensor, the plain version
+    for a CPU tensor."""
+    kw = dict(bitshift=bitshift, log_scaling=log_scaling, a=a, b=b, out_dtype=out_dtype)
+    if _on_cuda(raw2d):
+        return _launch_depth_scale_concat(raw2d, w_parts, mean2, **kw)
+    return depth_scale_concat_plain(raw2d, w_parts, mean2, **kw)
+
+
 def prep_phase(raw2d, op_parts, cos_row, sin_row, *, bitshift: bool):
     """Phasor-multiplied prep spectra, complex64 (lines, n_out), of
     (lines, n_in) input: the CUDA kernel for a CUDA tensor, the plain
@@ -584,6 +660,19 @@ def _operator_parts(w, precision: str) -> Tuple[torch.Tensor, ...]:
     return _split_bf16(w, parts) if parts > 1 else (w.to(torch.float32).contiguous(),)
 
 
+def concat_operator(w_re, w_im, precision: str) -> Tuple[torch.Tensor, ...]:
+    """The concatenated operator [W_re | W_im] (n_in, 2*half) as the concat
+    kernels take it at ``precision``.  From the float32 operators it is
+    concatenated, then split, as the JAX package does; from parts already
+    split per axis (``Curves.depth_parts``) each part pair is concatenated,
+    which gives the same parts: the split is elementwise."""
+    if isinstance(w_re, (tuple, list)):
+        return tuple(torch.cat([r, i], dim=1)
+                     for r, i in zip(_operator_parts(w_re, precision),
+                                     _operator_parts(w_im, precision)))
+    return _operator_parts(torch.cat([w_re, w_im], dim=1), precision)
+
+
 def _check_compute_dtype(cfg: ProcConfig) -> None:
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(
@@ -612,24 +701,30 @@ def fused_depth_scale(
     (zeros when FPN is off).  The store dtype is ``cfg.output_dtype``.
     ``depth_op_re``/``depth_op_im`` are the float32 operators or their parts
     already split for ``cfg.matmul_precision`` (``Curves.depth_parts``).
+    With ``cfg.fold_concat`` the concat kernels run against the operators
+    concatenated here (:func:`concat_operator`): a part pair per rung part,
+    or the float32 operators concatenated, then split.
     ``cfg.fold_k_split`` and ``cfg.pallas_tile`` do not change the result."""
     _check_fold_config(cfg, depth_op_re, depth_op_im)
-    if cfg.fold_concat:
-        raise NotImplementedError(
-            "fold_concat is not ported yet (ROADMAP.md Queue 2, B5/B6)")
     lead_shape = raw.shape[:-1]
     raw2d = _predecode(raw.reshape(-1, raw.shape[-1]).contiguous(),
                        acq.bit_depth, cfg.bitshift)
-    w_re = _operator_parts(depth_op_re, cfg.matmul_precision)
-    w_im = _operator_parts(depth_op_im, cfg.matmul_precision)
-    a, b = _scale_affine(cfg.log_scaling, w_re[0].shape[-1],
-                         cfg.grayscale_min, cfg.grayscale_max, cfg.addend,
-                         cfg.multiplicator)
-    mag = fold_depth_scale(
-        raw2d, w_re, w_im, mean2.to(torch.float32).contiguous(), bitshift=cfg.bitshift,
-        log_scaling=cfg.log_scaling, a=a, b=b, fast_log=cfg.fast_log,
-        out_dtype=(torch.bfloat16 if cfg.output_dtype == "bfloat16"
-                   else torch.float32))
+    mean2 = mean2.to(torch.float32).contiguous()
+    out_dtype = torch.bfloat16 if cfg.output_dtype == "bfloat16" else torch.float32
+    half = mean2.shape[-1]
+    a, b = _scale_affine(cfg.log_scaling, half, cfg.grayscale_min, cfg.grayscale_max,
+                         cfg.addend, cfg.multiplicator)
+    if cfg.fold_concat:
+        wide = concat_operator(depth_op_re, depth_op_im, cfg.matmul_precision)
+        mag = fold_depth_scale_concat(raw2d, wide, mean2, bitshift=cfg.bitshift,
+                                      log_scaling=cfg.log_scaling, a=a, b=b,
+                                      out_dtype=out_dtype)
+    else:
+        mag = fold_depth_scale(
+            raw2d, _operator_parts(depth_op_re, cfg.matmul_precision),
+            _operator_parts(depth_op_im, cfg.matmul_precision), mean2,
+            bitshift=cfg.bitshift, log_scaling=cfg.log_scaling, a=a, b=b,
+            fast_log=cfg.fast_log, out_dtype=out_dtype)
     return mag.reshape(*lead_shape, mag.shape[-1])
 
 

@@ -72,9 +72,16 @@ class FdOctModel:
         # thread never pairs an old step with new curves.
         self._exec = (self.cfg, self.curves, self._step)
 
+    @property
+    def is_multihost(self) -> bool:
+        """False: multi-device meshes are ROADMAP.md Queue 1, A13."""
+        return False
+
     def put_buffer(self, raw) -> torch.Tensor:
-        """Commit a host raw buffer to the model's device: a pinned host
-        tensor and a non-blocking copy on the current stream."""
+        """Commit a host raw buffer to the model's device: a non-blocking
+        copy on the current stream from pinned host memory (the host tensor
+        itself when it is pinned already, as the streaming engine's upload
+        ring is, else a pinned copy of it)."""
         if isinstance(raw, torch.Tensor):
             if raw.device == self.device:
                 return raw
@@ -85,11 +92,24 @@ class FdOctModel:
             host = torch.from_numpy(np.ascontiguousarray(raw))
         if self.device.type != "cuda":
             return host.to(self.device)
-        return host.pin_memory().to(self.device, non_blocking=True)
+        if not host.is_pinned():
+            host = host.pin_memory()
+        return host.to(self.device, non_blocking=True)
 
-    def put_packed_buffer(self, packed):
-        raise NotImplementedError(
-            "the packed-12 wire format is not ported yet (ROADMAP.md Queue 1, A9)")
+    def put_packed_buffer(self, packed) -> torch.Tensor:
+        """Upload a packed-12-bit wire buffer (1.5 bytes per sample, 25 %
+        fewer than the 12-in-16 container) and unpack it on the model's
+        device -> uint16 (bscans, ascans, samples).  The unpack runs on the
+        current stream after the copy (ops.convert.unpack_uint12_device)."""
+        from ..ops.convert import unpack_uint12_device
+
+        if self.acq.bit_depth != 12:
+            raise ValueError("packed-12 wire format needs bit_depth=12")
+        if not isinstance(packed, torch.Tensor):
+            packed = np.asarray(packed, np.uint8)
+        wire = self.put_buffer(packed)
+        return unpack_uint12_device(wire, self.acq.samples_per_buffer).reshape(
+            self.acq.buffer_shape)
 
     def fetch(self, arr: torch.Tensor) -> np.ndarray:
         """Device-to-host fetch of a processed buffer as numpy (bfloat16

@@ -11,7 +11,8 @@ Fold path (``fft_via_matmul=True``):
   6.   log/lin dynamic-range scaling
 
 After FPN determination (or with FPN off) stages 1-6 run as ONE kernel
-(``fused_depth_scale``).
+(``fused_depth_scale``; with ``fold_concat`` one GEMM against the
+concatenated operator [W_re | W_im]).
 
 FFT path (``fft_via_matmul=False``), the reference's own order:
 
@@ -46,9 +47,6 @@ from .params import AcqParams, Curves, FpnMode, FpnState, ProcConfig
 def check_supported(cfg: ProcConfig) -> None:
     """Raise NotImplementedError for configurations this package does not
     run yet, naming the ROADMAP.md item that ports them."""
-    if cfg.fft_via_matmul and cfg.fold_concat:
-        raise NotImplementedError(
-            "fold_concat is not ported yet (ROADMAP.md Queue 2, B5/B6)")
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(
             "compute_dtype='bfloat16' is not ported yet (ROADMAP.md Queue 1, A14)")

@@ -153,6 +153,8 @@ CURVE_CFGS = [
     dict(resampling=True, windowing=True, dispersion=True),
     dict(resampling=True, resample_via_matmul=False, sinusoidal_correction=True,
          post_background_removal=True),
+    dict(fft_via_matmul=True, fold_concat=True, resampling=True, windowing=True,
+         dispersion=True, matmul_precision="highest"),
 ]
 
 

@@ -1,5 +1,6 @@
-"""The fold and prep kernels: each plain PyTorch version against the JAX
-package's Pallas kernel (run in interpret mode on the CPU, as its own tests
+"""The fold (one operator per axis, and concatenated [W_re | W_im]) and
+prep kernels: each plain PyTorch version against the JAX package's Pallas
+kernel (run in interpret mode on the CPU, as its own tests
 run it; JAX's own tests never run the prep kernels at "high" or "highest",
 these do), and -- on a CUDA GPU only -- each CUDA kernel against its plain
 version.
@@ -109,7 +110,7 @@ def _jax_depth(jfp, raw, wre, wim, precision, bitshift, bit_depth=12):
 
 
 def _jax_scale(jfp, raw, wre, wim, mean2, precision, bitshift, *, log_scaling=True,
-               fast_log=False, output_dtype="float32", bit_depth=12):
+               fast_log=False, output_dtype="float32", bit_depth=12, fold_concat=False):
     import jax.numpy as jnp
 
     out = jfp._fused_depth_scale_impl(
@@ -117,7 +118,7 @@ def _jax_scale(jfp, raw, wre, wim, mean2, precision, bitshift, *, log_scaling=Tr
         bit_depth=bit_depth, bitshift=bitshift, compute_dtype="float32",
         precision=precision, log_scaling=log_scaling, gmin=0.0, gmax=60.0,
         addend=0.0, coeff=1.0, output_dtype=output_dtype, fast_log=fast_log,
-        interpret=True)
+        fold_concat=fold_concat, interpret=True)
     return np.asarray(out, np.float32)
 
 
@@ -302,7 +303,7 @@ def test_wrappers_refuse_unported_configs():
     raw = torch.zeros(acq.buffer_shape, dtype=torch.uint16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfp.fused_depth_scale(raw, w, w, torch.zeros(2, N // 2), acq,
-                              dataclasses.replace(cfg, fold_concat=True))
+                              dataclasses.replace(cfg, compute_dtype="bfloat16"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfp.fused_depth_transform(raw, w, w, acq,
                                   dataclasses.replace(cfg, compute_dtype="bfloat16"))
@@ -338,6 +339,156 @@ def test_launch_checks_reject_what_the_kernel_does_not_take():
         tfp._check_launch(raw, (w[:, :10],), (w,))
     with pytest.raises(ValueError):
         tfp._check_launch(raw, (w,), (w,), torch.zeros((2, 3)))
+
+
+# ---------------------------------------------------------------------------
+# The concat fold kernels (fold_concat): plain versions vs the Pallas kernels
+# ---------------------------------------------------------------------------
+
+def _wide(wre, wim, precision):
+    """The concatenated operator's parts as the concat kernels take them."""
+    return tfp.concat_operator(torch.from_numpy(wre), torch.from_numpy(wim), precision)
+
+
+CONCAT_CASES = [
+    # (precision, lines, bitshift, log_scaling, output_dtype)
+    ("default", 256, True, True, "float32"),
+    ("high", 256, True, True, "float32"),
+    ("highest", 256, True, True, "float32"),
+    ("default", 256, True, False, "float32"),
+    ("high", 256, True, False, "float32"),
+    ("highest", 256, True, False, "float32"),
+    ("default", 256, True, True, "bfloat16"),
+    ("high", 256, True, True, "bfloat16"),
+    ("highest", 256, True, False, "bfloat16"),
+    ("high", 105, False, True, "float32"),
+    ("highest", 105, False, True, "float32"),
+]
+
+
+@pytest.mark.parametrize("precision,lines,bitshift,log_scaling,output_dtype", CONCAT_CASES)
+def test_depth_scale_concat_plain_matches_pallas(jfp, np_rng, precision, lines, bitshift,
+                                                 log_scaling, output_dtype):
+    """_kernel_depth_scale_concat (default) and
+    _kernel_depth_scale_concat_split (high, highest): one GEMM against the
+    wide operator, log/lin epilogue, f32/bf16 store; unshifted 12-bit
+    samples make the split rungs' x_lo terms nonzero, 105 lines is odd."""
+    wre, wim = _operators()
+    raw = _raw(np_rng, lines)
+    mean2 = np_rng.normal(0, 50.0, size=(2, N // 2)).astype(np.float32)
+    a, b = tfp._scale_affine(log_scaling, N // 2, 0.0, 60.0, 0.0, 1.0)
+    odt = torch.bfloat16 if output_dtype == "bfloat16" else torch.float32
+    got = tfp.fold_depth_scale_concat(torch.from_numpy(raw), _wide(wre, wim, precision),
+                                      torch.from_numpy(mean2), bitshift=bitshift,
+                                      log_scaling=log_scaling, a=a, b=b, out_dtype=odt)
+    assert got.dtype == odt and tuple(got.shape) == (lines, N // 2)
+    want = _jax_scale(jfp, raw, wre, wim, mean2, precision, bitshift,
+                      log_scaling=log_scaling, output_dtype=output_dtype, fold_concat=True)
+    _scale_close(got, want)
+
+
+@pytest.mark.parametrize("precision", RUNGS)
+def test_split_commutes_with_concatenation(precision):
+    """_split_bf16 is elementwise, so the parts of [W_re | W_im] are the
+    concatenations of the parts of each half -- exactly; and the concat
+    wrapper reaches the same parts from the float32 operators and from
+    parts split per axis (Curves.depth_parts)."""
+    wre, wim = (torch.from_numpy(w) for w in _operators())
+    wide = tfp._operator_parts(torch.cat([wre, wim], dim=1), precision)
+    per_axis = (tfp._operator_parts(wre, precision), tfp._operator_parts(wim, precision))
+    for w, r, i in zip(wide, *per_axis):
+        assert torch.equal(w, torch.cat([r, i], dim=1))
+    for got in (tfp.concat_operator(wre, wim, precision),
+                tfp.concat_operator(*per_axis, precision)):
+        assert len(got) == len(wide) and all(torch.equal(g, w) for g, w in zip(got, wide))
+
+
+@pytest.mark.parametrize("precision", RUNGS)
+def test_concat_equals_two_operator_kernel(np_rng, precision):
+    """The concat kernels compute the terms of the two-operator kernels:
+    within the scale bounds of the same input on every rung."""
+    wre, wim = _operators()
+    x = torch.from_numpy(_raw(np_rng, 256))
+    mean2 = torch.from_numpy(np_rng.normal(0, 50.0, size=(2, N // 2)).astype(np.float32))
+    a, b = tfp._scale_affine(True, N // 2, 0.0, 60.0, 0.0, 1.0)
+    kw = dict(bitshift=True, log_scaling=True, a=a, b=b)
+    got = tfp.depth_scale_concat_plain(x, _wide(wre, wim, precision), mean2, **kw)
+    want = tfp.depth_scale_plain(x, _parts(wre, precision), _parts(wim, precision), mean2,
+                                 **kw)
+    assert tfp.scale_error(got, want)[2]
+
+
+def test_concat_gates_separate_the_rungs_and_columns(np_rng):
+    """Controls for the concat kernels: the "highest" wide parts through the
+    3-pass math, the 3-pass math without x_lo, and a wide operator whose im
+    half is read one column early (the im column of bin j at half - 1 + j)
+    all fail the scale bounds.  Swapping re and im would not: p is
+    symmetric in them."""
+    wre, wim = _operators()
+    x = torch.from_numpy(_raw(np_rng, 256).astype(np.float32))
+    mean2 = torch.from_numpy(np_rng.normal(0, 50.0, size=(2, N // 2)).astype(np.float32))
+    a, b = tfp._scale_affine(True, N // 2, 0.0, 60.0, 0.0, 1.0)
+    kw = dict(bitshift=False, log_scaling=True, a=a, b=b)
+    p5, p3 = _wide(wre, wim, "highest"), _wide(wre, wim, "high")
+    (w1,) = _wide(wre, wim, "default")
+    shifted = torch.cat([w1[:, :N // 2 + 1], w1[:, N // 2:-1]], dim=1).contiguous()
+    swapped = torch.cat([w1[:, N // 2:], w1[:, :N // 2]], dim=1).contiguous()
+    mean_swapped = mean2.flip(0).contiguous()
+    for (xa, wa), (xb, wb) in [((x, p5[:2]), (x, p5)),
+                               ((tfp._bf16_trunc(x), p3), (x, p3)),
+                               ((x, (shifted,)), (x, (w1,)))]:
+        rms, _, ok = tfp.scale_error(tfp.depth_scale_concat_plain(xa, wa, mean2, **kw),
+                                     tfp.depth_scale_concat_plain(xb, wb, mean2, **kw))
+        assert not ok and rms > 2 * tfp.SCALE_RMS, rms
+    assert torch.equal(tfp.depth_scale_concat_plain(x, (swapped,), mean_swapped, **kw),
+                       tfp.depth_scale_concat_plain(x, (w1,), mean2, **kw))
+
+
+@pytest.mark.parametrize("precision", RUNGS)
+@pytest.mark.parametrize("stack", [False, True])
+def test_fused_depth_scale_concat_wrapper_matches(jfp, np_rng, precision, stack):
+    """The public wrapper with fold_concat on a buffer and on a stack (the
+    batch strategy's call) against JAX's; the parts split once per axis
+    (Curves.depth_parts) and the float32 operators give the same output."""
+    import jax.numpy as jnp
+
+    acq, cfg, jacq, jcfg = _acq_cfg(matmul_precision=precision, fold_concat=True)
+    cv = tcurves.make_curves(acq, cfg, resample_coeffs=(0.0, N - 1.0, 10.0, -4.0),
+                             dispersion_coeffs=(0.0, 0.0, 8.0, 0.0), device="cpu")
+    assert len(cv.depth_parts[0]) == tfp._SPLIT_PARTS.get(precision, 1)
+    shape = ((2,) if stack else ()) + acq.buffer_shape
+    raw = np_rng.integers(0, 4096, size=shape).astype(np.uint16)
+    mean2 = np_rng.normal(0, 50.0, size=(2, N // 2)).astype(np.float32)
+    t_raw, t_mean = torch.from_numpy(raw), torch.from_numpy(mean2)
+    got = tfp.fused_depth_scale(t_raw, *cv.depth_parts, t_mean, acq, cfg)
+    assert tuple(got.shape) == shape[:-1] + (N // 2,)
+    assert torch.equal(tfp.fused_depth_scale(t_raw, cv.depth_op_re, cv.depth_op_im,
+                                             t_mean, acq, cfg), got)
+    want = jfp.fused_depth_scale(jnp.asarray(raw), jnp.asarray(cv.depth_op_re.numpy()),
+                                 jnp.asarray(cv.depth_op_im.numpy()), jnp.asarray(mean2),
+                                 jacq, jcfg, interpret=True)
+    _scale_close(got, np.asarray(want))
+
+
+def test_concat_launch_checks_reject_what_the_kernel_does_not_take():
+    """The concat launch checks before any pointer reaches the kernel: an
+    odd operator width, parts of other widths or types, a mean line that
+    does not match half the width."""
+    raw = torch.zeros((8, N), dtype=torch.uint16)
+    w = torch.zeros((N, N))
+    mean2 = torch.zeros((2, N // 2))
+    assert tfp._check_concat_launch(raw, (w,), mean2) == (8, N, N // 2)
+    with pytest.raises(ValueError, match="even"):
+        tfp._check_concat_launch(raw, (w[:, :-1].contiguous(),), torch.zeros((2, 127)))
+    with pytest.raises(ValueError):
+        tfp._check_concat_launch(raw, (w, w), mean2)  # split parts must be bf16
+    with pytest.raises(ValueError):
+        tfp._check_concat_launch(raw, (w,), torch.zeros((2, N)))
+    with pytest.raises(ValueError):
+        tfp._check_concat_launch(raw, tuple(w.to(torch.bfloat16) for _ in range(4)), mean2)
+    with pytest.raises(RuntimeError, match="no fold kernel"):
+        tfp.fold_depth_scale_concat(raw.to("meta"), (w.to("meta"),), mean2.to("meta"),
+                                    bitshift=True, log_scaling=True, a=1.0, b=0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -697,3 +848,116 @@ def test_cuda_fft_model_matches_cpu_model(cuda_device, dispersion):
     for raw in raws:
         _scale_close(gpu.fetch(gpu.process_buffer(raw)), cpu.fetch(cpu.process_buffer(raw)))
     assert tfp.LAUNCHES[family] == before + 3
+
+
+# ---------------------------------------------------------------------------
+# The concat fold kernels on the GPU
+# ---------------------------------------------------------------------------
+
+CONCAT_CUDA_CASES = [
+    # (n_in, lines, input dtype, bitshift, passes, log_scaling, out dtype)
+    (256, 300, torch.uint16, True, 1, True, torch.float32),
+    (256, 300, torch.uint16, True, 3, True, torch.float32),
+    (256, 300, torch.uint16, True, 5, True, torch.float32),
+    (256, 300, torch.uint16, False, 3, True, torch.float32),
+    (256, 300, torch.uint16, False, 5, False, torch.float32),
+    (256, 300, torch.uint16, True, 1, False, torch.bfloat16),
+    (1664, 70, torch.uint8, False, 3, True, torch.float32),
+    (1664, 70, torch.float32, False, 5, True, torch.bfloat16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_in,lines,in_dtype,bitshift,passes,log_scaling,out_dtype",
+                         CONCAT_CUDA_CASES)
+def test_cuda_concat_kernel_matches_plain(cuda_device, np_rng, n_in, lines, in_dtype,
+                                          bitshift, passes, log_scaling, out_dtype):
+    precision = {1: "default", 3: "high", 5: "highest"}[passes]
+    wre, wim = (torch.from_numpy(w).to(cuda_device) for w in _operators(n_in))
+    wide = tfp.concat_operator(wre, wim, precision)
+    raw = _cuda_raw(np_rng, lines, n_in, in_dtype, cuda_device)
+    mean2 = torch.from_numpy(np_rng.normal(0, 50.0, size=(2, n_in // 2))
+                             .astype(np.float32)).to(cuda_device)
+    a, b = tfp._scale_affine(log_scaling, n_in // 2, 0.0, 60.0, 0.0, 1.0)
+    kw = dict(bitshift=bitshift, log_scaling=log_scaling, a=a, b=b, out_dtype=out_dtype)
+    family = "depth_scale_concat" + ("_split" if passes > 1 else "")
+    before = tfp.LAUNCHES[family]
+    got = tfp.fold_depth_scale_concat(raw, wide, mean2, **kw)
+    want = tfp.depth_scale_concat_plain(raw, wide, mean2, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype
+    _scale_close(got, want.float().cpu().numpy())
+    assert tfp.LAUNCHES[family] == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_concat_bounds_catch_a_wrong_column(cuda_device, np_rng):
+    """Control: the concat kernel fed a wide operator whose im half starts
+    one column early disagrees with the plain version of the right one."""
+    wre, wim = (torch.from_numpy(w).to(cuda_device) for w in _operators())
+    (w1,) = tfp.concat_operator(wre, wim, "default")
+    shifted = torch.cat([w1[:, :N // 2 + 1], w1[:, N // 2:-1]], dim=1).contiguous()
+    raw = _cuda_raw(np_rng, 300, N, torch.uint16, cuda_device)
+    mean2 = torch.zeros((2, N // 2), device=cuda_device)
+    a, b = tfp._scale_affine(True, N // 2, 0.0, 60.0, 0.0, 1.0)
+    kw = dict(bitshift=False, log_scaling=True, a=a, b=b)
+    got = tfp.fold_depth_scale_concat(raw, (shifted,), mean2, **kw)
+    assert not tfp.scale_error(got, tfp.depth_scale_concat_plain(raw, (w1,), mean2, **kw))[2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk,wire", [(1, "uint16"), (3, "packed12")])
+def test_cuda_engine_matches_cpu_engine(cuda_device, tmp_path, chunk, wire):
+    """The streaming engine on the GPU (upload stream, pinned ring, events,
+    D2H stream; the concat kernels) and on the CPU (plain versions): the
+    same float32 recorder stream within the scale bounds, the same
+    quantized stream within one code; every in-flight entry carries an
+    event on the GPU."""
+    from octproz_tpu_torch.io.recorder import RecordingParams
+    from octproz_tpu_torch.io.source import SyntheticSource
+    from octproz_tpu_torch.models.fdoct import FdOctModel
+    from octproz_tpu_torch.ops.convert import pack_uint12
+    from octproz_tpu_torch.runtime import StreamingEngine
+
+    acq = AcqParams(samples_per_line=N, ascans_per_bscan=32, bscans_per_buffer=8,
+                    buffers_per_volume=2)
+    cfg = dataclasses.replace(default_full_config(), bitshift=True, bscans_for_noise=2,
+                              fold_concat=True, matmul_precision="high")
+    synth = SyntheticSource(acq, seed=3)
+    bufs = [synth.read_buffer(i) for i in range(7)]
+    src = [pack_uint12(b) for b in bufs] if wire == "packed12" else bufs
+    kw = dict(resample_coeffs=(0.0, N - 1.0, 10.0, -4.0),
+              dispersion_coeffs=(0.0, 0.0, 8.0, 0.0))
+
+    class Source:
+        def buffers(self):
+            yield from src
+
+    out = {}
+    for dev in (cuda_device, "cpu"):
+        tag = str(dev)
+        quant = []
+        eng = StreamingEngine(FdOctModel(acq, cfg, **kw, device=dev), Source(),
+                              wire_format=wire, stream_to_host=True, dispatch_chunk=chunk,
+                              on_processed=lambda b, nr: quant.append(b.copy()))
+        eng.start_recording(RecordingParams(save_dir=str(tmp_path / tag.replace(":", "")),
+                                            buffers_to_record=7, save_raw=False,
+                                            save_processed=True, save_as_32bit_float=True,
+                                            save_meta=False))
+        drained = []
+        orig = eng._drain_one
+        eng._drain_one = lambda fl: (drained.append(fl[0][-1]), orig(fl))
+        before = dict(tfp.LAUNCHES)
+        assert eng.run() == 7
+        if dev != "cpu":
+            assert all(isinstance(e, torch.cuda.Event) for e in drained)
+            assert tfp.LAUNCHES["depth_split"] == before["depth_split"] + 1
+            assert tfp.LAUNCHES["depth_scale_concat_split"] > before["depth_scale_concat_split"]
+            assert tfp.LAUNCHES["depth_scale_split"] == before["depth_scale_split"]
+        rec = np.fromfile(eng.processed_recorder.last_file, np.float32)
+        out[tag] = (rec.reshape(7, *acq.processed_buffer_shape), quant)
+    (g_f, g_q), (c_f, c_q) = out[str(cuda_device)], out["cpu"]
+    for a, b in zip(g_f, c_f):
+        _scale_close(torch.from_numpy(a), b)
+    for a, b in zip(g_q, c_q):
+        assert np.abs(a.astype(np.int64) - b.astype(np.int64)).max() <= 1

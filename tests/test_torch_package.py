@@ -16,7 +16,11 @@ MODULES = ["octproz_tpu_torch", "octproz_tpu_torch.models.fdoct",
            "octproz_tpu_torch.models.presets", "octproz_tpu_torch.ops.fft",
            "octproz_tpu_torch.kernels.fused_prep", "octproz_tpu_torch.kernels.build",
            "octproz_tpu_torch.bench", "octproz_tpu_torch.interop",
-           "octproz_tpu_torch.utils.fidelity", "octproz_tpu_torch.utils.memory"]
+           "octproz_tpu_torch.utils.fidelity", "octproz_tpu_torch.utils.memory",
+           "octproz_tpu_torch.runtime", "octproz_tpu_torch.io.source",
+           "octproz_tpu_torch.io.recorder", "octproz_tpu_torch.io.volume",
+           "octproz_tpu_torch.plugins", "octproz_tpu_torch.ops.quantize",
+           "octproz_tpu_torch.utils.configmap"]
 
 
 @pytest.mark.parametrize("module", MODULES)

@@ -121,6 +121,15 @@ SLICE_CONFIGS = {
     "fold-post-stages-bf16": dict(bscan_flip=True, sinusoidal_correction=True,
                                   post_background_removal=True, output_dtype="bfloat16"),
     "fold-ignores-use-pallas-prep": dict(use_pallas_prep=True),
+    # the concat fold kernels (one GEMM against [W_re | W_im]); the FPN
+    # buffer still runs the two-operator planar kernels
+    "fold-concat": dict(fold_concat=True),
+    "fold-concat-high": dict(fold_concat=True, matmul_precision="high"),
+    "fold-concat-highest": dict(fold_concat=True, matmul_precision="highest"),
+    "fold-concat-lin-bf16": dict(fold_concat=True, log_scaling=False, output_dtype="bfloat16"),
+    "fold-concat-fpn-off": dict(fold_concat=True, fpn_mode=FpnMode.OFF),
+    "fold-concat-post-stages": dict(fold_concat=True, bscan_flip=True,
+                                    sinusoidal_correction=True),
     # the FFT path: the prep kernels (phase with dispersion, real without)
     "fft-prep-default": dict(fft_via_matmul=False, use_pallas_prep=True),
     "fft-prep-high": dict(fft_via_matmul=False, use_pallas_prep=True, matmul_precision="high"),
@@ -235,7 +244,7 @@ def test_set_config_splits_the_operator_once():
     assert all(p.dtype == torch.bfloat16 for parts in curves.depth_parts for p in parts)
 
 
-UNPORTED = [dict(fold_concat=True), dict(compute_dtype="bfloat16")]
+UNPORTED = [dict(compute_dtype="bfloat16"), dict(fold_concat=True, compute_dtype="bfloat16")]
 
 
 @pytest.mark.parametrize("changes", UNPORTED)
@@ -259,8 +268,7 @@ def test_unported_entry_points_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         FdOctModel(acq, default_full_config(), mesh=object(), device="cpu")
     tm, _ = _models()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tm.put_packed_buffer(np.zeros(10, np.uint8))
+    assert tm.is_multihost is False
 
 
 @pytest.mark.parametrize("changes", [
@@ -496,3 +504,23 @@ def test_interop_round_trip_fft_path():
     assert "prep_parts" not in back and "depth_parts" not in back
     np.testing.assert_array_equal(back["prep_operator"], fields["prep_operator"])
     np.testing.assert_array_equal(back["phase"], fields["phase"])
+
+
+def test_interop_round_trip_fold_concat():
+    """Curves carried in from the JAX package hold no split parts: the
+    wrapper concatenates the float32 operators and splits them per call, and
+    the port continues the JAX model's stream through the concat kernels."""
+    tm, jm = _models(fold_concat=True, matmul_precision="high")
+    raws = _buffers(2, seed=6)
+    jm.process_buffer(raws[0])
+    jc = jm.curves
+    fields = {f.name: (None if getattr(jc, f.name) is None else np.asarray(getattr(jc, f.name)))
+              for f in dataclasses.fields(jcurves.Curves)}
+    carried = interop.curves_from_numpy(fields, "cpu")
+    assert carried.depth_parts is None and len(tm.curves.depth_parts[0]) == 2
+    state = interop.fpn_state_from_numpy(np.asarray(jm.fpn_state.mean_line),
+                                         bool(jm.fpn_state.determined), "cpu")
+    got, _ = tpipeline.process_buffer(torch.from_numpy(raws[1]), carried, state,
+                                      tm.acq, tm.cfg)
+    _close(got, np.asarray(jm.process_buffer(raws[1]), np.float32))
+    assert "depth_parts" not in interop.to_numpy(tm.curves)
