@@ -9,10 +9,10 @@ nonzero and the final line is not printed:
 2. build: the CUDA kernels from ``octproz_tpu_torch/kernels/csrc``;
 3. kernels: each kernel family (four fold, two concat fold, four prep)
    against its plain PyTorch version on the card, at the main path's
-   widths, an odd line count and 1664-sample lines (and 1100 for the prep
-   kernels), then controls (a kernel computing a neighbouring rung, or for
-   the concat kernels reading the im half one column early) that must
-   fail;
+   widths, an odd line count and 1664-sample lines (and 1100 for the split
+   fold and the prep kernels: 550 bins, not a multiple of the 64-bin tile),
+   then controls (a kernel computing a neighbouring rung, or for the
+   concat kernels reading the im half one column early) that must fail;
 4. fold path: ``FdOctModel`` on full 1024 x 512 x 256 buffers of the
    reference benchmark chain on the folded GEMM -- FPN determination,
    steady buffers and a batched chunk -- at the default and the "high"
@@ -39,7 +39,8 @@ nonzero and the final line is not printed:
 7. fidelity: the golden pair and the float64-oracle ladder on both paths;
 8. times: steady-state ms per buffer and MHz on both paths (the FFT path
    split into prep kernel, FFT and FPN plus scaling), and each kernel
-   beside its plain version.
+   beside its plain version, the library call for its product
+   (``bench.library_operands``) and its bound (``bench.kernel_bound``).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the kernels' JSON record.  JAX is never imported: the oracle comes from
@@ -62,9 +63,9 @@ PALLAS = "octproz_tpu/pallas/fused_prep.py:"
 # family -> (source, Pallas kernel body it replaces)
 KERNELS = {
     "depth": ("fold_gemm.cu", 261),
-    "depth_split": ("fold_gemm.cu", 271),
+    "depth_split": ("fold_split.cu", 271),
     "depth_scale": ("fold_gemm.cu", 375),
-    "depth_scale_split": ("fold_gemm.cu", 422),
+    "depth_scale_split": ("fold_split.cu", 422),
     "depth_scale_concat": ("fold_concat.cu", 337),
     "depth_scale_concat_split": ("fold_concat.cu", 354),
     "prep_phase": ("prep_gemm.cu", 228),
@@ -219,6 +220,14 @@ def phase_kernels():
         (1024, 2048, "u8", 1, "log", f32),
         (1024, 2048, "f32", 5, None, None),
         (1024, 2048, "f32", 3, "log", f32),
+        # the split kernels' ragged edges: 550 bins (1100 samples) and 4133
+        # lines against their 64-bin and 128-line tiles; uint8 input
+        (1100, 999, "u16", 3, None, None),
+        (1100, 999, "u16s", 3, "log", f32),
+        (1100, 999, "u16", 5, "log", f32),
+        (1024, 4133, "u16s", 3, None, None),
+        (1024, 2048, "u8", 3, None, None),
+        (1024, 2048, "u8", 3, "log", f32),
     ]
     ops = {}
     for n_in in sorted({c[0] for c in cases}):
@@ -930,7 +939,9 @@ def phase_times(info):
             + ", ".join(f"{k} {v:.4f} ms" for k, v in stages.items()) + f" ({card})")
     times = bench.kernel_times(dev, tuple(KERNELS))
     for name, t in times.items():
-        log(f"[times] {name:<17} kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms ({card})")
+        log(f"[times] {name:<24} kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
+            f"library {t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms "
+            f"({t['bound_by']}; kernel at {100 * t['bound_ms'] / t['ms']:.1f} % of it) ({card})")
     return times
 
 
@@ -944,8 +955,9 @@ def main() -> None:
     times = phase_times(info)
     kernels = [{"name": name, "route": "cuda", "source": CSRC + source,
                 "replaces": PALLAS + str(line), "launches": launches[name],
-                "max_abs_err": worst[name], "ms": times[name]["ms"],
-                "plain_ms": times[name]["plain_ms"]}
+                "max_abs_err": worst[name],
+                **{k: times[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                               "library_ms")}}
                for name, (source, line) in KERNELS.items()]
     print(info["nvidia_smi"])
     print(json.dumps({"kernels": kernels}))

@@ -257,59 +257,137 @@ def fft_stage_ms(cfg: ProcConfig, device, ring: int = 4,
     return totals
 
 
-def _kernel_and_plain(name: str, device):
-    """(kernel, plain) closures for one kernel family at the main path's
-    shapes: one 131072-line buffer of 1024 uint16 samples; the fold
-    families -> 512 bins, the prep families -> 1024 columns; the split
-    families at the "high" rung (3 passes)."""
+#: Published peaks of one H100 SXM (NVIDIA's data sheet, dense, 700 W):
+#: bf16 on the tensor cores, float32 outside them, and HBM3.
+PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
+
+def kernel_bound(name: str, lines: int, n_in: int, n_out: int, *, parts: int = 1,
+                 in_itemsize: int = 2, out_itemsize: int = 4,
+                 x_lo_zero: bool = True) -> Dict[str, object]:
+    """The least time one H100 could take for a kernel family's work: the
+    larger of its FLOPs over the peak of their type and its bytes over the
+    memory rate.  ``n_out`` is ``half`` for the fold families and the
+    operator's width for the prep families; ``parts`` the operator parts
+    per axis (1, or 2/3 at the split rungs).
+
+    FLOPs follow the Pallas cost estimates (octproz_tpu/pallas/fused_prep.py:
+    482, 494, 597, 617, 655, 680, 704): 2*lines*n_in*n_out per GEMM (two
+    GEMMs, re and im, for the fold families; one for prep) and pass term,
+    counting only the terms the input needs -- with ``x_lo_zero`` (x exact
+    in bf16, as shifted 12-bit samples are) the x_lo terms vanish and
+    ``parts`` terms remain of 2*parts - 1.  The split rungs' products are
+    bf16 x bf16 (989 TFLOP/s), the one-pass rung's float32 (67 TFLOP/s).
+    Bytes: the raw input, every operator part (float32 unsplit, bf16 split),
+    the FPN mean line or phasor rows, and the output, each once."""
+    split = parts > 1
+    terms = (parts if x_lo_zero else 2 * parts - 1) if split else 1
+    gemms = 1 if name.startswith("prep") else 2
+    flops = terms * gemms * 2 * lines * n_in * n_out
+    op_bytes = gemms * parts * n_in * n_out * (2 if split else 4)
+    if name.startswith("prep_phase"):
+        extra, out = 2 * n_out * 4, lines * n_out * 8          # complex64 spectra
+    elif name.startswith("prep"):
+        extra, out = 0, lines * n_out * 4
+    elif name.startswith("depth_scale"):
+        extra, out = 2 * n_out * 4, lines * n_out * out_itemsize
+    else:
+        extra, out = 0, 2 * lines * n_out * 4                   # planar re, im
+    nbytes = lines * n_in * in_itemsize + op_bytes + extra + out
+    flop_ms = flops / (PEAK_BF16_FLOPS if split else PEAK_FP32_FLOPS) * 1e3
+    byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return {"bound_ms": max(flop_ms, byte_ms),
+            "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+            "flops": flops, "bytes": nbytes}
+
+
+def library_operands(x: torch.Tensor, axes: Sequence[Sequence[torch.Tensor]]):
+    """The yardstick of a kernel family's product: ``torch.matmul(a, b)`` of
+    the decoded input ``x`` by the operator parts of every axis
+    concatenated along N -- float32 (x, with TF32 off) at one part, bf16
+    (x_hi, the mask truncation) by the bf16 parts at the split rungs.  It
+    computes the products of the terms x_hi needs; the kernel's epilogue and
+    its other terms are not in it.  Returns (a, b)."""
+    from .kernels import fused_prep as fp
+
+    b = torch.cat([w for parts in axes for w in parts], dim=1).contiguous()
+    if b.dtype == torch.bfloat16:
+        return fp._bf16_trunc(x).to(torch.bfloat16), b
+    return x, b
+
+
+def _kernel_cases(name: str, device):
+    """(kernel, plain, library, bound) for one kernel family at the main
+    path's shapes: one 131072-line buffer of 1024 uint16 12-bit samples
+    (shifted: x_lo is zero); the fold families -> 512 bins, the prep
+    families -> 1024 columns; the split families at the "high" rung (3
+    passes).  ``library`` is the matmul of :func:`library_operands`; the
+    bound is :func:`kernel_bound` with x_lo_zero read from the data."""
     from . import curves as curves_mod
     from .kernels import fused_prep as fp
 
     precision = "high" if name.endswith("_split") else "default"
     raw2d = random_buffers(FULL_ACQ, 1, device, seed=5).reshape(-1, FULL_ACQ.samples_per_line)
+    x = fp._decode_block(raw2d, True)
+    shape = dict(lines=raw2d.shape[0], n_in=raw2d.shape[1],
+                 parts=fp._SPLIT_PARTS.get(precision, 1),
+                 x_lo_zero=bool(torch.equal(x, fp._bf16_trunc(x))))
     if name.startswith("prep"):
         cv = curves_mod.make_curves(FULL_ACQ, fft_config(), **CURVE_KW, device=device)
         parts = fp._operator_parts(cv.prep_operator, precision)
+        a, b = library_operands(x, [parts])
+        bound = kernel_bound(name, n_out=parts[0].shape[1], **shape)
         if name.startswith("prep_phase"):
             rows = (cv.phase.real.contiguous(), cv.phase.imag.contiguous())
             return (lambda: fp._launch_prep(raw2d, parts, *rows, bitshift=True),
-                    lambda: fp.prep_phase_plain(raw2d, parts, *rows, bitshift=True))
+                    lambda: fp.prep_phase_plain(raw2d, parts, *rows, bitshift=True),
+                    lambda: torch.matmul(a, b), bound)
         return (lambda: fp._launch_prep(raw2d, parts, None, None, bitshift=True),
-                lambda: fp.prep_real_plain(raw2d, parts, bitshift=True))
+                lambda: fp.prep_real_plain(raw2d, parts, bitshift=True),
+                lambda: torch.matmul(a, b), bound)
     cfg = bench_config()
     cv = curves_mod.make_curves(FULL_ACQ, cfg, **CURVE_KW, device=device)
     wre = fp._operator_parts(cv.depth_op_re, precision)
     wim = fp._operator_parts(cv.depth_op_im, precision)
+    a, b = library_operands(x, [wre, wim])
+    bound = kernel_bound(name, n_out=wre[0].shape[1], **shape)
+    library = lambda: torch.matmul(a, b)  # noqa: E731
     if name.startswith("depth_scale"):
         mean2 = torch.zeros((2, FULL_ACQ.output_ascan_length), dtype=torch.float32,
                             device=device)
-        a, b = fp._scale_affine(True, FULL_ACQ.output_ascan_length, cfg.grayscale_min,
-                                cfg.grayscale_max, cfg.addend, cfg.multiplicator)
-        kw = dict(bitshift=True, log_scaling=True, a=a, b=b, out_dtype=torch.float32)
+        a_s, b_s = fp._scale_affine(True, FULL_ACQ.output_ascan_length, cfg.grayscale_min,
+                                    cfg.grayscale_max, cfg.addend, cfg.multiplicator)
+        kw = dict(bitshift=True, log_scaling=True, a=a_s, b=b_s, out_dtype=torch.float32)
         if name.startswith("depth_scale_concat"):
             wide = fp.concat_operator(cv.depth_op_re, cv.depth_op_im, precision)
             return (lambda: fp._launch_depth_scale_concat(raw2d, wide, mean2, **kw),
-                    lambda: fp.depth_scale_concat_plain(raw2d, wide, mean2, **kw))
+                    lambda: fp.depth_scale_concat_plain(raw2d, wide, mean2, **kw),
+                    library, bound)
         return (lambda: fp._launch_depth_scale(raw2d, wre, wim, mean2, fast_log=False,
                                                **kw),
-                lambda: fp.depth_scale_plain(raw2d, wre, wim, mean2, **kw))
+                lambda: fp.depth_scale_plain(raw2d, wre, wim, mean2, **kw), library, bound)
     return (lambda: fp._launch_depth(raw2d, wre, wim, bitshift=True),
-            lambda: fp.depth_plain(raw2d, wre, wim, bitshift=True))
+            lambda: fp.depth_plain(raw2d, wre, wim, bitshift=True), library, bound)
 
 
 def kernel_times(device, names: Sequence[str] = FOLD_KERNELS,
-                 iters: int = 5) -> Dict[str, Dict[str, float]]:
+                 iters: int = 5) -> Dict[str, Dict[str, object]]:
     """Each kernel family in ``names`` beside its plain version at the main
-    path's shapes (see :func:`_kernel_and_plain`), in turns plain, kernel,
-    kernel, plain."""
+    path's shapes (see :func:`_kernel_cases`), in turns plain, kernel,
+    kernel, plain; then the library call, and the bound computed from the
+    same inputs."""
     out = {}
     for name in names:
-        kernel, plain = _kernel_and_plain(name, device)
+        kernel, plain, library, bound = _kernel_cases(name, device)
         p1 = cuda_ms(plain, iters, warmup=1)
         k1 = cuda_ms(kernel, iters, warmup=1)
         k2 = cuda_ms(kernel, iters, warmup=0)
         p2 = cuda_ms(plain, iters, warmup=0)
-        out[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2}
+        lib = cuda_ms(library, iters, warmup=1)
+        out[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": lib,
+                     "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
     return out
 
 

@@ -1,16 +1,42 @@
-// Folded-GEMM kernels with one operator per axis (template and design notes
-// in fold_gemm.cuh).  Four instantiation families, each the counterpart of
-// a Pallas kernel in octproz_tpu/pallas/fused_prep.py:
+// Folded-GEMM kernels with one operator per axis.  Four instantiation
+// families, each the counterpart of a Pallas kernel in
+// octproz_tpu/pallas/fused_prep.py:
 //
 //   fold_gemm<EPI=PLANAR, PASSES=1>    _kernel_depth              (:261-268)
-//   fold_gemm<EPI=PLANAR, PASSES=3|5>  _kernel_depth_split        (:271-280)
+//   fold_split<EPI=PLANAR>  (3|5)      _kernel_depth_split        (:271-280)
 //   fold_gemm<EPI=SCALE,  PASSES=1>    _kernel_depth_scale        (:375-419)
-//   fold_gemm<EPI=SCALE,  PASSES=3|5>  _kernel_depth_scale_split  (:422-438)
+//   fold_split<EPI=SCALE>   (3|5)      _kernel_depth_scale_split  (:422-438)
 //
-// with InT in {uint8, uint16, float} (raw samples; float is input the
-// wrapper decoded already) and OutT in {float, bf16} for SCALE.
+// The one-pass rung runs the float32-FMA template of fold_gemm.cuh; the
+// split rungs run the bf16 tensor-core kernels of fold_split.cuh (launched
+// from fold_split.cu).  InT in {uint8, uint16, float} (raw samples; float
+// is input the wrapper decoded already) and OutT in {float, bf16} for SCALE.
 
 #include "fold_gemm.cuh"
+
+extern "C" {
+int fold_split_planar(const void* raw, int in_kind, int bitshift, int passes,
+                      const void* const wre[3], const void* const wim[3], float* re_out,
+                      float* im_out, long long lines, int n_in, int half, void* stream);
+int fold_split_scale(const void* raw, int in_kind, int bitshift, int passes,
+                     const void* const wre[3], const void* const wim[3], const float* mean2,
+                     void* out, int out_bf16, int mode, float a, float b, long long lines,
+                     int n_in, int half, void* stream);
+}
+
+namespace {
+
+template <int EPI, typename OutT>
+int one_pass(int in_kind, const Args& args, cudaStream_t stream) {
+  switch (in_kind) {
+    case 0: return launch<uint8_t, 1, EPI, OutT, false>(args, stream);
+    case 1: return launch<uint16_t, 1, EPI, OutT, false>(args, stream);
+    case 2: return launch<float, 1, EPI, OutT, false>(args, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -21,18 +47,23 @@ int fold_gemm_planar(const void* raw, int in_kind, int bitshift, int passes,
                      const void* wim0, const void* wim1, const void* wim2,
                      float* re_out, float* im_out, long long lines, int n_in,
                      int half, void* stream) {
+  if (passes != 1) {
+    const void* const wre[3] = {wre0, wre1, wre2};
+    const void* const wim[3] = {wim0, wim1, wim2};
+    return fold_split_planar(raw, in_kind, bitshift, passes, wre, wim, re_out, im_out,
+                             lines, n_in, half, stream);
+  }
   Args args = {};
   args.raw = raw;
-  args.wre[0] = wre0; args.wre[1] = wre1; args.wre[2] = wre2;
-  args.wim[0] = wim0; args.wim[1] = wim1; args.wim[2] = wim2;
+  args.wre[0] = wre0;
+  args.wim[0] = wim0;
   args.re_out = re_out;
   args.im_out = im_out;
   args.lines = lines;
   args.n_in = n_in;
   args.half = half;
   args.bitshift = bitshift;
-  return dispatch<PLANAR, float, false>(in_kind, passes, args,
-                                        static_cast<cudaStream_t>(stream));
+  return one_pass<PLANAR, float>(in_kind, args, static_cast<cudaStream_t>(stream));
 }
 
 // mode: 0 log (a*log10(p)+b), 1 lin (a*sqrt(p)+b), 2 fast log
@@ -43,10 +74,16 @@ int fold_gemm_scale(const void* raw, int in_kind, int bitshift, int passes,
                     const float* mean2, void* out, int out_bf16, int mode,
                     float a, float b, long long lines, int n_in, int half,
                     void* stream) {
+  if (passes != 1) {
+    const void* const wre[3] = {wre0, wre1, wre2};
+    const void* const wim[3] = {wim0, wim1, wim2};
+    return fold_split_scale(raw, in_kind, bitshift, passes, wre, wim, mean2, out, out_bf16,
+                            mode, a, b, lines, n_in, half, stream);
+  }
   Args args = {};
   args.raw = raw;
-  args.wre[0] = wre0; args.wre[1] = wre1; args.wre[2] = wre2;
-  args.wim[0] = wim0; args.wim[1] = wim1; args.wim[2] = wim2;
+  args.wre[0] = wre0;
+  args.wim[0] = wim0;
   args.mean2 = mean2;
   args.out = out;
   args.lines = lines;
@@ -57,8 +94,8 @@ int fold_gemm_scale(const void* raw, int in_kind, int bitshift, int passes,
   args.a = a;
   args.b = b;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return out_bf16 ? dispatch<SCALE, __nv_bfloat16, false>(in_kind, passes, args, s)
-                  : dispatch<SCALE, float, false>(in_kind, passes, args, s);
+  return out_bf16 ? one_pass<SCALE, __nv_bfloat16>(in_kind, args, s)
+                  : one_pass<SCALE, float>(in_kind, args, s);
 }
 
 const char* fold_gemm_error_string(int code) {

@@ -1,7 +1,10 @@
-// The folded-GEMM kernel template for Hopper (sm_90a): decode ->
+// The folded-GEMM SIMT kernel template for Hopper (sm_90a): decode ->
 // x @ W_re, x @ W_im with a planar store or a fused FPN-subtract +
-// dynamic-range-scale epilogue.  Instantiated by fold_gemm.cu (one operator
-// per axis) and fold_concat.cu (one concatenated [W_re | W_im] operator).
+// dynamic-range-scale epilogue, on the CUDA cores.  Instantiated by
+// fold_gemm.cu for the one-pass rung with one operator per axis (B1, B2)
+// and by fold_concat.cu (one concatenated [W_re | W_im] operator, every
+// rung: B5, B6).  The split rungs with one operator per axis (B3, B4) run
+// on the bf16 tensor cores instead (fold_split.cuh).
 //
 // What bounds it: at the main path's geometry (131072 lines x 1024 samples
 // -> 512 depth bins) one buffer is 4*131072*1024*512 = 275 GFLOP per pass
@@ -25,8 +28,9 @@
 // x_lo = bf16_rn(x - x_hi), each pass term has its own float32 accumulator,
 // and the terms are summed low-order first in the epilogue.  A product of
 // two bf16 values is exact in float32, so the FMAs compute the same terms
-// the bf16 passes do.  Moving those products to bf16 tensor cores is
-// later work.
+// the bf16 passes do, at the CUDA cores' 67 TFLOP/s peak; fold_split.cuh
+// runs them on the tensor cores, and the concat split rung (B6) is next
+// (ROADMAP Queue 4).
 //
 // Launch contract: the kernel runs on the caller's stream, allocates
 // nothing and does not synchronise; launch() returns cudaGetLastError().

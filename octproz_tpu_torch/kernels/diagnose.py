@@ -1,0 +1,123 @@
+"""What limits the split-rung fold kernels (B3/B4) on the card.
+
+    python -m octproz_tpu_torch.kernels.diagnose     (from the root of a checkout, one GPU)
+
+builds the kernel library again for each diagnostic variant of
+``csrc/fold_split.cuh`` (``-DFOLD_SPLIT_VARIANT=...``, which ``build.py``
+never sets) into its own build directory, and prints one JSON line with
+the card's name and power limit and:
+
+* ``rel_l2``: the planar kernel's relative L2 error against the plain
+  version (the bound is ``fused_prep.PLANAR_REL_L2``) for the shipped
+  kernel and for ``one_chain`` -- the same terms summed across n_in in one
+  wgmma chain instead of folded into a float32 sum every 64-sample stage --
+  on shifted and unshifted 12-bit samples, float input and n_in = 1664;
+* ``ms``: B3 and B4 at the main path's shapes (one 131072-line buffer of
+  shifted 12-bit samples, "high") and B4 on uint8 samples of the same
+  shape, for the shipped kernel, ``one_chain``, and the timing-only
+  variants that refill no stage after the ring's first fill
+  (``no_loads``), issue no wgmma (``no_mma``), or both -- what is left is
+  the consumers' own path: waits, decode, vote, fold and epilogue.
+
+Only ``one_chain`` computes the right terms; the other variants' output is
+wrong by design and only their time is read.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+
+import torch
+
+from .. import bench
+from . import build
+from . import fused_prep as fp
+
+VARIANTS = {"shipped": 0, "one_chain": 1, "no_loads": 2, "no_mma": 4, "no_loads_no_mma": 6}
+#: (name, n_in, lines, samples, passes) of the agreement cases
+ERROR_CASES = (("u16 shifted", 1024, 4096, "u16s", 3), ("u16", 1024, 4096, "u16", 3),
+               ("u16", 1024, 4096, "u16", 5), ("u16 n_in=1664", 1664, 1000, "u16", 5),
+               ("float", 1024, 2048, "f32", 5))
+
+
+@contextlib.contextmanager
+def variant(number: int):
+    """The kernel library built with FOLD_SPLIT_VARIANT=number while inside."""
+    flags = build.NVCC_FLAGS
+    build.NVCC_FLAGS = flags + ((f"-DFOLD_SPLIT_VARIANT={number}",) if number else ())
+    build.load.cache_clear()
+    try:
+        build.load()
+        yield
+    finally:
+        build.NVCC_FLAGS = flags
+        build.load.cache_clear()
+
+
+def _raw(kind: str, lines: int, n_in: int, g, dev):
+    if kind == "f32":
+        return torch.randint(0, 1 << 24, (lines, n_in), generator=g, device=dev).float()
+    return torch.randint(0, 4096, (lines, n_in), dtype=torch.int16, generator=g,
+                         device=dev).view(torch.uint16)
+
+
+def errors(dev) -> dict:
+    from .. import curves as curves_mod
+    from ..params import AcqParams
+
+    out = {}
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    for name, n_in, lines, kind, passes in ERROR_CASES:
+        acq = AcqParams(samples_per_line=n_in, ascans_per_bscan=8, bscans_per_buffer=1)
+        cv = curves_mod.make_curves(acq, bench.bench_config(), **{
+            **bench.CURVE_KW, "resample_coeffs": (0.0, n_in - 1.0, 20.0, -10.0)}, device=dev)
+        precision = "high" if passes == 3 else "highest"
+        parts = [fp._operator_parts(w, precision) for w in (cv.depth_op_re, cv.depth_op_im)]
+        raw = _raw(kind, lines, n_in, g, dev)
+        shift = kind == "u16s"
+        got = fp.fold_depth(raw, *parts, bitshift=shift)
+        out[f"{name}, {passes} passes"] = fp.planar_error(
+            got, fp.depth_plain(raw, *parts, bitshift=shift))
+    return out
+
+
+def times(dev) -> dict:
+    out = {}
+    for name in ("depth_split", "depth_scale_split"):
+        kernel = bench._kernel_cases(name, dev)[0]
+        out[name] = bench.cuda_ms(kernel, 10, 2)
+    from .. import curves as curves_mod
+
+    cv = curves_mod.make_curves(bench.FULL_ACQ, bench.bench_config(), **bench.CURVE_KW,
+                                device=dev)
+    parts = [fp._operator_parts(w, "high") for w in (cv.depth_op_re, cv.depth_op_im)]
+    raw8 = torch.randint(0, 256, (bench.FULL_ACQ.ascans_per_buffer, 1024), dtype=torch.uint8,
+                         device=dev)
+    mean2 = torch.zeros((2, 512), device=dev)
+    out["depth_scale_split uint8"] = bench.cuda_ms(
+        lambda: fp.fold_depth_scale(raw8, *parts, mean2, bitshift=False, log_scaling=True,
+                                    a=1.0, b=0.0), 10, 2)
+    return out
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("octproz_tpu_torch.kernels.diagnose: no CUDA device; it measures "
+                         "the GPU only")
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in true float32
+    dev = torch.device("cuda", 0)
+    info = bench.device_info()
+    record = {"device_name": info["device_name"], "power_limit": info["power_limit"],
+              "rel_l2": {}, "ms": {}}
+    for name, number in VARIANTS.items():
+        with variant(number):
+            if name in ("shipped", "one_chain"):
+                record["rel_l2"][name] = errors(dev)
+            record["ms"][name] = times(dev)
+    print(json.dumps(record))
+
+
+if __name__ == "__main__":
+    main()

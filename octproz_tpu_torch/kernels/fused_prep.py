@@ -22,9 +22,10 @@ from it in the epilogue.
 
 This module holds, for each of the ten kernel families:
 
-* the CUDA kernel (``csrc/fold_gemm.cu``, ``csrc/fold_concat.cu``,
-  ``csrc/prep_gemm.cu``, built by :mod:`.build`), which a wrapper launches
-  for CUDA tensors;
+* the CUDA kernel (``csrc/fold_gemm.cu`` -- the one-pass rung; its split
+  rungs launch the bf16 tensor-core kernels of ``csrc/fold_split.cu`` --,
+  ``csrc/fold_concat.cu``, ``csrc/prep_gemm.cu``, built by :mod:`.build`),
+  which a wrapper launches for CUDA tensors;
 * its plain PyTorch version (``*_plain``), which the wrapper uses for CPU
   tensors and which the tests and ``chip_smoke.py`` hold the kernel to;
 * a launch count in :data:`LAUNCHES`, raised only where the kernel is

@@ -511,6 +511,13 @@ CUDA_CASES = [
     (256, 300, torch.uint16, True, 1, "fast_log", torch.bfloat16),
     (256, 300, torch.uint8, False, 1, "lin", torch.float32),
     (1664, 70, torch.float32, False, 3, "log", torch.bfloat16),
+    # the split kernels' ragged edges: 550 bins (not a multiple of the
+    # 64-bin tile) and 300 lines (not a multiple of 128); uint8 input
+    (1100, 300, torch.uint16, False, 3, None, None),
+    (1100, 300, torch.uint16, True, 3, "log", torch.float32),
+    (1100, 300, torch.uint16, False, 5, "lin", torch.float32),
+    (256, 300, torch.uint8, False, 3, None, None),
+    (256, 300, torch.uint8, False, 3, "log", torch.float32),
 ]
 
 

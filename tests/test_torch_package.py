@@ -20,7 +20,8 @@ MODULES = ["octproz_tpu_torch", "octproz_tpu_torch.models.fdoct",
            "octproz_tpu_torch.runtime", "octproz_tpu_torch.io.source",
            "octproz_tpu_torch.io.recorder", "octproz_tpu_torch.io.volume",
            "octproz_tpu_torch.plugins", "octproz_tpu_torch.ops.quantize",
-           "octproz_tpu_torch.utils.configmap"]
+           "octproz_tpu_torch.utils.configmap", "octproz_tpu_torch.ab",
+           "octproz_tpu_torch.kernels.diagnose"]
 
 
 @pytest.mark.parametrize("module", MODULES)

@@ -1,0 +1,254 @@
+"""The split-rung fold kernels on bf16 tensor cores (``csrc/fold_split.cuh``)
+and the bench's kernel yardsticks.
+
+The CUDA kernel cannot run here, so its arithmetic is emulated in torch
+(:func:`staged`): per stage of 64 samples, the pass terms go low-order first
+-- x_lo w_(P-2), ..., x_lo w_0, then x_hi w_(P-1), ..., x_hi w_0 -- into
+one float32 partial sum per axis, which is then added to the running sum;
+a 64-line group skips a stage's x_lo terms when its x_lo tile is zero.  That
+order is held against the plain versions (``depth_plain`` /
+``depth_scale_plain``, one float32 product per term over the whole
+contraction, summed low-order first) within the kernels' own bounds
+(``fused_prep.PLANAR_REL_L2``, ``SCALE_RMS``, ``SCALE_MAX``, reasons stated
+there), and the two controls -- the "highest" parts through the 3-pass
+math, the 3-pass math without x_lo -- still fail them.  The kernel itself
+is held to the same bounds on the card (``tests/test_torch_kernels.py``,
+``chip_smoke.py``).
+"""
+
+import dataclasses
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from octproz_tpu_torch import bench
+from octproz_tpu_torch import curves as tcurves
+from octproz_tpu_torch.kernels import fused_prep as tfp
+from octproz_tpu_torch.params import AcqParams, default_full_config
+
+STAGE = 64   # samples per pipeline stage (split.DEPTH)
+GROUP = 64   # lines per consumer warpgroup
+
+
+def _operators(n):
+    acq = AcqParams(samples_per_line=n, ascans_per_bscan=8, bscans_per_buffer=1)
+    cfg = dataclasses.replace(default_full_config(), bitshift=True)
+    cv = tcurves.make_curves(acq, cfg, resample_coeffs=(0.0, n - 1.0, 10.0, -4.0),
+                             dispersion_coeffs=(0.0, 0.0, 8.0, 0.0), device="cpu")
+    return cv.depth_op_re, cv.depth_op_im
+
+
+def _input(kind, lines, n, seed=11):
+    """(raw, bitshift): shifted 12-bit samples (x_lo zero, as on the main
+    path), unshifted 12-bit, or 24-bit float input decoded before the kernel."""
+    rng = np.random.default_rng(seed)
+    if kind == "f32":
+        return torch.from_numpy(rng.integers(0, 1 << 24, size=(lines, n)).astype(np.float32)), False
+    raw = torch.from_numpy(rng.integers(0, 4096, size=(lines, n)).astype(np.uint16))
+    return raw, kind == "u16s"
+
+
+def staged(x, parts, vote=True):
+    """The kernel's sum of the pass terms of ``x @ w`` (w in bf16 ``parts``)."""
+    hi = tfp._bf16_trunc(x)
+    lo = (x - hi).to(torch.bfloat16).to(torch.float32)
+    w = [p.to(torch.float32) for p in parts]
+    acc = torch.zeros((x.shape[0], w[0].shape[1]))
+    for k0 in range(0, x.shape[1], STAGE):
+        ks = slice(k0, k0 + STAGE)
+        for m0 in range(0, x.shape[0], GROUP):
+            ms = slice(m0, m0 + GROUP)
+            has_lo = not vote or bool(lo[ms, ks].ne(0).any())
+            terms = ([lo[ms, ks] @ w[j][ks] for j in range(len(w) - 2, -1, -1)]
+                     if has_lo else []) + [hi[ms, ks] @ w[j][ks]
+                                           for j in range(len(w) - 1, -1, -1)]
+            part = terms[0]
+            for t in terms[1:]:
+                part = part + t
+            acc[ms] = acc[ms] + part
+    return acc
+
+
+def _staged_scale(x, wre, wim, mean2, a, b):
+    re = staged(x, wre) - mean2[0:1]
+    im = staged(x, wim) - mean2[1:2]
+    return tfp._scale_epilogue(re * re + im * im, log_scaling=True, a=a, b=b)
+
+
+def _scale_args(half, seed=5):
+    mean2 = torch.from_numpy(np.random.default_rng(seed).normal(0, 50.0, size=(2, half))
+                             .astype(np.float32))
+    a, b = tfp._scale_affine(True, half, 0.0, 60.0, 0.0, 1.0)
+    return mean2, a, b
+
+
+@pytest.mark.parametrize("precision", ["high", "highest"])
+@pytest.mark.parametrize("kind", ["u16s", "u16", "f32"])
+@pytest.mark.parametrize("n,lines", [(256, 200), (320, 130)])
+def test_staged_order_within_the_planar_bound(precision, kind, n, lines):
+    """The staged order against depth_plain: n = 320 ends on a partial
+    stage, 130 and 200 lines on a partial 64-line group."""
+    wre, wim = (tfp._operator_parts(w, precision) for w in _operators(n))
+    raw, bitshift = _input(kind, lines, n)
+    x = tfp._decode_block(raw, bitshift)
+    err = tfp.planar_error((staged(x, wre), staged(x, wim)),
+                           tfp.depth_plain(raw, wre, wim, bitshift=bitshift))
+    assert err <= tfp.PLANAR_REL_L2, err
+
+
+@pytest.mark.parametrize("precision", ["high", "highest"])
+@pytest.mark.parametrize("kind", ["u16s", "u16", "f32"])
+def test_staged_order_within_the_scale_bounds(precision, kind):
+    wre, wim = (tfp._operator_parts(w, precision) for w in _operators(256))
+    raw, bitshift = _input(kind, 200, 256)
+    mean2, a, b = _scale_args(128)
+    got = _staged_scale(tfp._decode_block(raw, bitshift), wre, wim, mean2, a, b)
+    want = tfp.depth_scale_plain(raw, wre, wim, mean2, bitshift=bitshift, log_scaling=True,
+                                 a=a, b=b)
+    rms, worst, ok = tfp.scale_error(got, want)
+    assert ok, (rms, worst)
+
+
+@pytest.mark.parametrize("epi", ["planar", "scale"])
+@pytest.mark.parametrize("control", ["3-pass math on the highest parts", "no x_lo"])
+def test_controls_still_fail_under_the_staged_order(epi, control):
+    """A kernel computing a neighbouring rung in the staged order fails the
+    bounds against the plain version of the right rung."""
+    wre, wim = _operators(256)
+    raw, _ = _input("u16", 200, 256)
+    x = raw.to(torch.float32)
+    if control == "no x_lo":
+        parts = [tfp._operator_parts(w, "high") for w in (wre, wim)]
+        kernel_x, kernel_parts = tfp._bf16_trunc(x), parts
+    else:
+        parts = [tfp._operator_parts(w, "highest") for w in (wre, wim)]
+        kernel_x, kernel_parts = x, [p[:2] for p in parts]
+    if epi == "planar":
+        err = tfp.planar_error([staged(kernel_x, p) for p in kernel_parts],
+                               tfp.depth_plain(x, *parts, bitshift=False))
+        assert err > 2 * tfp.PLANAR_REL_L2, err
+    else:
+        mean2, a, b = _scale_args(128)
+        rms, _, ok = tfp.scale_error(_staged_scale(kernel_x, *kernel_parts, mean2, a, b),
+                                     tfp.depth_scale_plain(x, *parts, mean2, bitshift=False,
+                                                           log_scaling=True, a=a, b=b))
+        assert not ok and rms > 2 * tfp.SCALE_RMS, rms
+
+
+@pytest.mark.parametrize("precision", ["high", "highest"])
+def test_skipping_zero_x_lo_changes_no_bit(precision):
+    """Shifted 12-bit samples are exact in bf16, so every x_lo tile is zero:
+    the vote skips those terms and the sums are bit for bit those with
+    them."""
+    wre, _ = _operators(256)
+    parts = tfp._operator_parts(wre, precision)
+    raw, bitshift = _input("u16s", 200, 256)
+    x = tfp._decode_block(raw, bitshift)
+    assert torch.equal(x, tfp._bf16_trunc(x))
+    assert torch.equal(staged(x, parts, vote=True), staged(x, parts, vote=False))
+
+
+# ---------------------------------------------------------------------------
+# The bound and the library call of each kernel family (bench.py)
+# ---------------------------------------------------------------------------
+
+MAIN = dict(lines=131072, n_in=1024)
+BOUNDS = [
+    # (family, n_out, parts, bound ms) at the main path's shapes, x_lo zero
+    ("depth", 512, 1, 4.1027),
+    ("depth_split", 512, 2, 0.5559),
+    ("depth_scale", 512, 1, 4.1027),
+    ("depth_scale_split", 512, 2, 0.5559),
+    ("depth_scale_concat", 512, 1, 4.1027),
+    ("depth_scale_concat_split", 512, 2, 0.5559),
+    ("prep_phase", 1024, 1, 4.1027),
+    ("prep_phase_split", 1024, 2, 0.5559),
+    ("prep_real", 1024, 1, 4.1027),
+    ("prep_real_split", 1024, 2, 0.5559),
+]
+
+
+@pytest.mark.parametrize("name,n_out,parts,ms", BOUNDS)
+def test_kernel_bound_hand_values(name, n_out, parts, ms):
+    """0.556 ms for the split rungs at "high" (two bf16 terms of 275 GFLOP
+    at 989 TFLOP/s, x_lo being zero), 4.10 ms at one pass (275 GFLOP of
+    float32 at 67 TFLOP/s): every family is bound by its operations."""
+    got = bench.kernel_bound(name, n_out=n_out, parts=parts, **MAIN)
+    assert got["bound_ms"] == pytest.approx(ms, abs=1e-4)
+    assert got["bound_by"] == "operations"
+    assert got["flops"] == parts * 4 * 131072 * 1024 * 512  # 2.75e11 per term
+
+
+def test_kernel_bound_counts_terms_and_bytes():
+    """With x_lo nonzero all three "high" terms count (0.834 ms); B4 moves
+    the raw buffer, four bf16 parts, the mean line and the float32 image
+    (0.54 GB), B3 two float32 planes (0.81 GB); a contraction of 16 samples
+    is bound by its bytes."""
+    full = bench.kernel_bound("depth_split", n_out=512, parts=2, x_lo_zero=False, **MAIN)
+    assert full["bound_ms"] == pytest.approx(0.8338, abs=1e-4)
+    b4 = bench.kernel_bound("depth_scale_split", n_out=512, parts=2, **MAIN)
+    assert b4["bytes"] == 131072 * 1024 * 2 + 4 * 1024 * 512 * 2 + 2 * 512 * 4 + 131072 * 512 * 4
+    b3 = bench.kernel_bound("depth_split", n_out=512, parts=2, **MAIN)
+    assert b3["bytes"] == 131072 * 1024 * 2 + 4 * 1024 * 512 * 2 + 2 * 131072 * 512 * 4
+    bf16_out = bench.kernel_bound("depth_scale_split", n_out=512, parts=2, out_itemsize=2,
+                                  **MAIN)
+    assert b4["bytes"] - bf16_out["bytes"] == 131072 * 512 * 2
+    short = bench.kernel_bound("depth_scale", lines=131072, n_in=16, n_out=512)
+    assert short["bound_by"] == "bytes"
+    assert short["bound_ms"] == pytest.approx(short["bytes"] / 3.35e12 * 1e3)
+
+
+@pytest.mark.parametrize("precision", ["default", "high", "highest"])
+def test_library_operands_compute_the_kernels_product(precision):
+    """The yardstick's matmul: float32 x by [W_re | W_im] at one part, bf16
+    x_hi by every bf16 part of both axes at the split rungs; its FLOPs are
+    the bound's, and its column blocks summed per axis are x_hi @ W."""
+    wre, wim = (tfp._operator_parts(w, precision) for w in _operators(256))
+    raw, bitshift = _input("u16s", 64, 256)
+    x = tfp._decode_block(raw, bitshift)
+    a, b = bench.library_operands(x, [wre, wim])
+    parts = len(wre)
+    assert a.dtype == b.dtype == (torch.float32 if parts == 1 else torch.bfloat16)
+    assert tuple(b.shape) == (256, 2 * parts * 128)
+    bound = bench.kernel_bound("depth_split" if parts > 1 else "depth", lines=64, n_in=256,
+                               n_out=128, parts=parts)
+    assert 2 * a.shape[0] * a.shape[1] * b.shape[1] == bound["flops"]
+    y = a.to(torch.float32) @ b.to(torch.float32)
+    for axis, w in enumerate((wre, wim)):
+        blocks = y[:, axis * parts * 128:(axis + 1) * parts * 128].reshape(64, parts, 128)
+        want = tfp._bf16_trunc(x) @ sum(p.to(torch.float32) for p in w)
+        assert tfp.planar_error([blocks.sum(1)], [want]) <= 1e-6
+
+
+@pytest.mark.parametrize("module", ["octproz_tpu_torch.ab", "octproz_tpu_torch.kernels.diagnose"])
+def test_measurement_scripts_need_a_gpu(module):
+    """The A/B timing and the split kernels' diagnostics measure the card
+    only: without CUDA they exit nonzero before they build or time
+    anything."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-m", module, root], cwd=root,
+                          capture_output=True, text=True, timeout=300,
+                          env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr and '"turns"' not in proc.stdout
+    assert '"ms"' not in proc.stdout
+
+
+def test_diagnostic_variants_build_apart():
+    """A diagnostic variant (-DFOLD_SPLIT_VARIANT) builds into a library of
+    its own, and the kernels' own build never sets it."""
+    from octproz_tpu_torch.kernels import build
+
+    flags = build.NVCC_FLAGS
+    base = build.library_path()
+    try:
+        build.NVCC_FLAGS = flags + ("-DFOLD_SPLIT_VARIANT=2",)
+        assert build.library_path() != base
+    finally:
+        build.NVCC_FLAGS = flags
+    assert build.library_path() == base
+    assert not any("FOLD_SPLIT_VARIANT" in f for f in flags)
