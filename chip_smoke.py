@@ -19,11 +19,12 @@ nonzero and the final line is not printed:
    rung, then the handheld preset (post stages, batched chunk), with the
    fold kernels' launch counts read around that run; each rung's steady
    output and buffer 0's GEMM against the plain versions at full size;
-5. FFT path: the same chain through the prep kernels and cuFFT at both
-   rungs (scan chunk against per-buffer steps), its dispersion-free variant
-   and the handheld preset, with the prep kernels' launch counts read
-   around that run; each rung's full-size prep output against the plain
-   versions;
+5. FFT path: the same chain through the prep kernels and cuFFT at the
+   default, "high" and "highest" rungs (scan chunk against per-buffer
+   steps), its dispersion-free variant and the handheld preset, with the
+   prep kernels' launch counts read around that run and the split kernels'
+   around each split rung's runs; each rung's full-size prep output against
+   the plain versions;
 6. stream: ``StreamingEngine`` over full 12-bit buffers replayed from RAM
    by ``VirtualOctSource``, the benchmark chain with ``fold_concat`` at the
    default and the "high" rung, per buffer and in batch chunks of four, on
@@ -69,9 +70,9 @@ KERNELS = {
     "depth_scale_concat": ("fold_concat.cu", 337),
     "depth_scale_concat_split": ("fold_concat.cu", 354),
     "prep_phase": ("prep_gemm.cu", 228),
-    "prep_phase_split": ("prep_gemm.cu", 245),
+    "prep_phase_split": ("prep_split.cu", 245),
     "prep_real": ("prep_gemm.cu", 238),
-    "prep_real_split": ("prep_gemm.cu", 254),
+    "prep_real_split": ("prep_split.cu", 254),
 }
 CONCAT = ("depth_scale_concat", "depth_scale_concat_split")
 TWO_OPERATOR = ("depth_scale", "depth_scale_split")
@@ -97,6 +98,8 @@ PREP = tuple(k for k in KERNELS if k.startswith("prep"))
 # prep output before the FFT, where each rung keeps its own error budget
 # (``_prep_snr_db``).
 RUNG_GAP_DB = 20.0
+#: The precision rungs the FFT path phase drives.
+RUNGS = ("default", "high", "highest")
 
 
 def log(msg: str) -> None:
@@ -404,9 +407,10 @@ def _prep_operators(n_in, background_removal, dev):
 def _prep_kernel_cases(worst, g, dev):
     """The prep families on the fold kernels' grid -- rungs 1/3/5, shifted
     and unshifted 12-bit, uint8 and float inputs, an odd line count,
-    n_in = 1664 -- plus n_in = 1100 (ragged in n_in and n_out) and the
-    operator with background removal folded in (denser, so more
-    reordering); then the controls, which must fail."""
+    n_in = 1664 -- plus n_in = 1100 (ragged in n_in and n_out), 1088 (a
+    half-empty last tile of the split kernels) and the operator with
+    background removal folded in (denser, so more reordering); then the
+    controls, which must fail."""
     import torch
 
     from octproz_tpu_torch.kernels import fused_prep as fp
@@ -435,6 +439,15 @@ def _prep_kernel_cases(worst, g, dev):
         (1024, 2048, "u8", 1, "phase", False),
         (1024, 2048, "f32", 5, "phase", False),
         (1024, 2048, "f32", 3, "real", False),
+        # the split kernels' ragged edges: a TMA-aligned n_out whose last
+        # 128-column tile is half empty (1088), 4133 lines, background
+        # removal at 5 passes, uint8 input
+        (1088, 999, "u16", 3, "phase", False),
+        (1088, 999, "u16", 3, "real", False),
+        (1088, 4133, "u16s", 3, "phase", True),
+        (1024, 4133, "u16", 5, "real", True),
+        (1024, 2048, "u8", 3, "phase", False),
+        (1024, 2048, "u8", 3, "real", False),
     ]
     ops = {(n, bg): _prep_operators(n, bg, dev) for n, bg in {(c[0], c[5]) for c in cases}}
     for n_in, lines, kind, passes, epi, bg in cases:
@@ -656,9 +669,10 @@ def _run_fft_path(model, host_raw, bufs, tag):
 
 def phase_fft_path(worst):
     """The FFT path at full width: the benchmark chain (phase kernels) at
-    both rungs, its dispersion-free variant (real kernels) and the handheld
-    preset, with the prep kernels' launch counts read around the run; then
-    each rung's full-size prep output against the plain versions."""
+    every rung, its dispersion-free variant (real kernels) and the handheld
+    preset, with the prep kernels' launch counts read around the run (and
+    the split kernels' around each split rung); then each rung's full-size
+    prep output against the plain versions."""
     import torch
 
     from octproz_tpu_torch import bench
@@ -681,13 +695,20 @@ def phase_fft_path(worst):
 
     fp.reset_launch_counts()
     t0 = time.perf_counter()
-    for rung in ("default", "high"):
+    for rung in RUNGS:
+        before = dict(fp.LAUNCHES)
         for epi, model in models.items():
             if rung != "default":
                 model.set_config(matmul_precision=rung)
                 model.redetermine_fpn()
             _run_fft_path(model, host_raw, bufs,
                           f"{rung} rung, {'dispersion' if epi == 'phase' else 'no dispersion'}")
+        if rung != "default":  # each split rung's own runs went through the split kernels
+            ran = {k: fp.LAUNCHES[k] - before[k] for k in PREP if k.endswith("_split")}
+            log(f"[fft] {rung} rung launches {ran}")
+            if not all(ran.values()):
+                raise AssertionError(f"FFT path at {rung!r} never launched a split prep "
+                                     f"kernel: {ran}")
     _run_handheld(handheld, bufs, "FFT path, handheld preset", batch=False)
     launches = _read_launches(PREP, t0, "FFT path")
     del handheld
@@ -695,7 +716,7 @@ def phase_fft_path(worst):
     # Full-size prep output of each rung against the plain version, after
     # the counts were read.
     raw2d = bufs[0].reshape(-1, acq.samples_per_line)
-    for rung in ("default", "high"):
+    for rung in RUNGS:
         for epi, model in models.items():
             if model.cfg.matmul_precision != rung:
                 model.set_config(matmul_precision=rung)

@@ -233,8 +233,10 @@ def fft_stage_ms(cfg: ProcConfig, device, ring: int = 4,
     half = acq.output_ascan_length
     scale = postprocess.scale_log if cfg.log_scaling else postprocess.scale_lin
     names = ("prep", "fft", "fpn_scale")
-    totals = dict.fromkeys(names, 0.0)
     warmup = 2
+    # No synchronisation inside the loop: the host runs ahead, so an event
+    # pair spans device work and not the host's enqueueing of it.
+    events = []
     for i in range(warmup + iters):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
         raw = bufs[i % ring]
@@ -248,10 +250,10 @@ def fft_stage_ms(cfg: ProcConfig, device, ring: int = 4,
         mag = pipeline.narrow(scale(z, half, cfg.grayscale_min, cfg.grayscale_max,
                                     cfg.addend, cfg.multiplicator), cfg)
         ev[3].record()
-        ev[3].synchronize()
-        if i >= warmup:
-            for k, name in enumerate(names):
-                totals[name] += ev[k].elapsed_time(ev[k + 1]) / iters
+        events.append(ev)
+    events[-1][-1].synchronize()
+    totals = {name: sum(ev[k].elapsed_time(ev[k + 1]) for ev in events[warmup:]) / iters
+              for k, name in enumerate(names)}
     if not torch.equal(mag, model.process_buffer(raw)):
         raise AssertionError("the timed stages differ from process_buffer")
     return totals

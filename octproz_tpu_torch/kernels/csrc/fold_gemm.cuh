@@ -46,7 +46,6 @@
 
 namespace {
 
-enum Epi { PLANAR = 0, SCALE = 1 };
 enum Mode { MODE_LOG = 0, MODE_LIN = 1, MODE_FAST_LOG = 2 };
 
 struct Args {

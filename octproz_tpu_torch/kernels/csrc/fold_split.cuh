@@ -1,67 +1,80 @@
-// The split-rung fold kernels on Hopper's bf16 tensor cores (sm_90a):
-// decode -> x_hi/x_lo split -> the pass terms of _dot_split for x @ W_re and
-// x @ W_im with bf16 wgmma and float32 accumulation -> the planar store or
-// the fused FPN-subtract + dynamic-range-scale epilogue.  Instantiated by
-// fold_split.cu for the two-operator families at 3 and 5 passes:
+// The split rungs on Hopper's bf16 tensor cores (sm_90a): decode -> x_hi/
+// x_lo split -> the pass terms of _dot_split against bf16 operator parts
+// with bf16 wgmma and float32 accumulation -> an epilogue.  This header
+// holds the pipeline the split kernels share (mainloop()) and the fold
+// kernel with its planar store or fused FPN-subtract + dynamic-range-scale
+// epilogue; fold_split.cu and prep_split.cu launch them:
 //
 //   fold_split<EPI=PLANAR>  _kernel_depth_split        (octproz_tpu/pallas/fused_prep.py:271-280)
 //   fold_split<EPI=SCALE>   _kernel_depth_scale_split  (:422-438)
+//   prep_split<EPI=PHASE>   _kernel_phase_split        (:245-251, prep_split.cu)
+//   prep_split<EPI=REAL>    _kernel_real_split         (:254-258, prep_split.cu)
 //
-// What bounds it: at the main path's geometry (131072 lines x 1024 samples
-// -> 512 bins, "high") the pass terms are 2-3 bf16 GEMMs of 275 GFLOP each
-// against ~0.54-0.81 GB of raw input, operator parts and output: compute
-// bound at 989 TFLOP/s (0.56 ms for the two terms shifted 12-bit samples
-// need, x_lo being zero).  The float32-FMA template of fold_gemm.cuh ran
-// the same terms on the CUDA cores at 67 TFLOP/s peak.
+// What bounds them: at the main path's geometry (131072 lines x 1024
+// samples -> 512 bins re and im, or 1024 prep columns; "high") the pass
+// terms are 2-3 bf16 GEMMs of 275 GFLOP each against ~0.54-1.3 GB of raw
+// input, operator parts and output: compute bound at 989 TFLOP/s (0.56 ms
+// for the two terms shifted 12-bit samples need, x_lo being zero).  A
+// float32-FMA template runs the same terms on the CUDA cores at 67 TFLOP/s
+// peak.
 //
-// Design.  A block owns 128 lines x 64 bins of re AND im and walks n_in in
-// stages of 64:
+// Design.  A block owns 128 lines and two halves of 64 operator columns,
+// each a (tensor map, column offset) pair: the fold kernels take
+// (W_re, n0) and (W_im, n0) -- bin n0 + j's re and im meet in one thread,
+// COLS = 64 columns per block --, the prep kernels (P, n0) and (P, n0 + 64)
+// -- COLS = 128.  It walks n_in in stages of 64:
 // * one producer warp fills a ring of STAGES shared-memory stages: the
-//   operator parts (2 axes x 2-3 parts, (n_in, half) row-major bf16, i.e.
-//   MN-major for wgmma) by TMA into 128-byte-swizzled 64 x 64 tiles, and
-//   the raw integer tile (uint8/uint16/float32, 128 lines x 64 samples) by
-//   16-byte cp.async into padded rows, both signalling one mbarrier per
-//   stage; out-of-range lines, samples and bins arrive as zeros.  Where
-//   TMA cannot describe the operator (half not a multiple of 8) or the
-//   rows are not 16-byte aligned, the producer stores the same layout
-//   element by element (slow; no shape of the main path takes it);
+//   operator parts (2 halves x 2-3 parts, (n_in, width) row-major bf16,
+//   i.e. MN-major for wgmma) by TMA into 128-byte-swizzled 64 x 64 tiles,
+//   and the raw integer tile (uint8/uint16/float32, 128 lines x 64
+//   samples) by 16-byte cp.async into padded rows, both signalling one
+//   mbarrier per stage; out-of-range lines, samples and columns arrive as
+//   zeros, and a half that lies wholly past the operator's width is not
+//   loaded at all (its columns are never stored).  Where TMA cannot
+//   describe the operator (width not a multiple of 8) or the rows are not
+//   16-byte aligned, the producer stores the same layout element by
+//   element (slow; no shape of the main path takes it);
 // * two consumer warpgroups of 64 lines each decode their rows of the raw
 //   tile straight into the register fragment of wgmma's A operand (>> 4
 //   when bitshift is set), split it there into x_hi (mask) and
 //   x_lo = bf16_rn(x - x_hi), and run bf16 wgmma against the
 //   stage's operator tiles -- one m64n128k16 per part and 16 samples, its
-//   128 columns the part's re and im tiles -- so the decoded x never
-//   leaves registers;
-// * the terms of a stage go low-order first into one float32 accumulator
-//   per axis -- [x_lo w_(P-2), ..., x_lo w_0, x_hi w_(P-1), ..., x_hi w_0]
-//   -- which is then added to the running sum with ordinary float32 adds.
-//   The tensor cores sum inside one wgmma chain with their own alignment
-//   and truncation; folding every 64 samples bounds that error to a
-//   stage's partial sums (summed across n_in in one chain instead, the
-//   kernel missed the planar bound by up to 3x on the card);
+//   128 columns the part's two half tiles -- so the decoded x never leaves
+//   registers;
+// * the terms of a stage go low-order first into one float32 partial sum
+//   -- [x_lo w_(P-2), ..., x_lo w_0, x_hi w_(P-1), ..., x_hi w_0] -- which
+//   is then added to the running sum with ordinary float32 adds.  The
+//   tensor cores sum inside one wgmma chain with their own alignment and
+//   truncation; folding every stage bounds that error to a stage's 64
+//   samples (summed across n_in in one chain instead, the fold kernel
+//   missed the planar bound by up to 3x on the card);
 // * a warpgroup skips a stage's x_lo terms when every integer sample of
 //   its tile is below 256, or every float sample exact in bf16 (a vote over
 //   its 128 threads): x_lo is then zero, and adding exact zeros changes no
 //   sum.  Shifted 12-bit samples fit, so the main path runs 2 of the 3
 //   "high" terms.  A stage with x_lo runs its x_lo group first and then
 //   decodes x_hi again, so only one set of A fragments is ever live (with
-//   the two 64-float accumulators of each axis, the block's 288 threads --
-//   sized by ptxas as 384, 168 registers each -- leave no room for two);
-// * the epilogue stages each warp's 16 x 64 re and im sums in shared
-//   memory and walks them with one lane per bin: FPN subtraction,
+//   the two 64-float sums, the block's 288 threads -- sized by ptxas as
+//   384, 168 registers each -- leave no room for two);
+// * the epilogue stages each warp's 16 x 128 sums in shared memory
+//   (stage_sums) and walks them with one lane per column: FPN subtraction,
 //   p = re^2 + im^2, log / lin / fast log and the float32 or bf16 store (or
-//   the planar float32 store) run there with few registers live, and
-//   every store is a whole 128-byte line.
+//   the planar float32 store) run there with few registers live, and every
+//   store is a whole 128-byte line.
 //
-// Launch contract: the kernel runs on the caller's stream, allocates
-// nothing and does not synchronise; the launch returns cudaGetLastError()
-// (or the error of encoding a tensor map or raising the dynamic shared
-// memory limit).  Built without --use_fast_math: log10f(0) is -inf on the
-// exact path, as in the JAX package.
+// Launch contract: the kernels run on the caller's stream, allocate
+// nothing and do not synchronise; launch() returns cudaGetLastError() (or
+// the error of encoding a tensor map or raising the dynamic shared memory
+// limit).  Built without --use_fast_math: log10f(0) is -inf on the exact
+// path, as in the JAX package.  The operator parts' tensor maps are encoded
+// on the host for every launch (a few microseconds); cuTensorMapEncodeTiled
+// is reached through the runtime's driver entry point, so the library does
+// not link libcuda.
 
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only; no libcuda link)
+#include <cudaTypedefs.h>
 
 #include "fold_gemm.cuh"
 
@@ -69,11 +82,11 @@ namespace {
 namespace split {
 
 constexpr int LINES = 128;  // lines per block: two consumer warpgroups of 64
-constexpr int BINS = 64;    // depth bins per block, for re and for im
+constexpr int BINS = 64;    // operator columns per half
 constexpr int DEPTH = 64;   // samples (n_in) per stage: one 128-byte bf16 row
 constexpr int CONSUMERS = 256;
 constexpr int THREADS = CONSUMERS + 32;  // + the producer warp
-constexpr int B_TILE = DEPTH * BINS * 2;  // one operator part of one axis
+constexpr int B_TILE = DEPTH * BINS * 2;  // one operator part of one half
 constexpr int SMEM_BUDGET = 220 * 1024;   // the pipeline's stages
 constexpr int EPI_ROW = BINS + 8;         // floats per staged output row
 
@@ -110,14 +123,16 @@ struct Layout {
 
 struct Params {
   const void* raw;
-  const __nv_bfloat16* w[2][3];  // [axis][part], (n_in, half) row-major
-  const float* mean2;            // SCALE: (2, half), re then im
+  const __nv_bfloat16* w[2][3];  // [map][part], (n_in, width) row-major; prep: map 0 only
+  const float* mean2;            // SCALE: (2, width), re then im
+  const float* cos_row;          // PHASE: (width,)
+  const float* sin_row;          // PHASE: (width,)
   float* re_out;                 // PLANAR
   float* im_out;                 // PLANAR
-  void* out;                     // SCALE
+  void* out;                     // SCALE, PHASE, REAL
   long long lines;
   int n_in;
-  int half;
+  int width;  // the operator's columns: half (fold) or n_out (prep)
   int bitshift;
   int mode;
   float a;
@@ -126,8 +141,22 @@ struct Params {
 };
 
 struct Maps {
-  CUtensorMap m[2][3];  // [axis][part]: 64 bins x 64 samples, 128-byte swizzle
+  CUtensorMap m[2][3];  // [map][part]: 64 columns x 64 samples, 128-byte swizzle
 };
+
+// The block's tile: lines m0 .. m0 + LINES - 1, operator columns n0 ..
+// n0 + COLS - 1.  Half c of it is map c % n_maps at column n0 +
+// c * (COLS - BINS): the fold kernels' two maps at n0, or the prep
+// kernels' one map at n0 and n0 + 64.
+template <int COLS>
+__host__ __device__ __forceinline__ constexpr int n_maps() {
+  return COLS == BINS ? 2 : 1;
+}
+
+template <int COLS>
+__host__ __device__ __forceinline__ int col_tiles(const Params& p) {
+  return (p.width + COLS - 1) / COLS;
+}
 
 // --- PTX wrappers ----------------------------------------------------------
 
@@ -201,9 +230,9 @@ __device__ __forceinline__ bool warpgroup_any(bool v, int bar_id) {
 }
 
 // Shared-memory matrix descriptor of a part's MN-major operator tiles as
-// one 16 x 128 B operand: 64 bins (128 bytes) per sample row, 128-byte
-// swizzle, the next 8 sample rows 1024 bytes on (SBO), and the next 64 bins
-// -- the same part's im tile -- PARTS tiles on (LBO).
+// one 16 x 128 B operand: 64 columns (128 bytes) per sample row, 128-byte
+// swizzle, the next 8 sample rows 1024 bytes on (SBO), and the next 64
+// columns -- the same part's second half tile -- PARTS tiles on (LBO).
 template <int PARTS>
 __device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
@@ -229,7 +258,8 @@ __device__ __forceinline__ void pin(float (&d)[64]) {
 }
 
 // D(64x128, f32) (+)= A(64x16, bf16 registers) B(16x128, bf16 shared,
-// MN-major): columns 0-63 of D are re (d[0..31]), 64-127 im (d[32..63]).
+// MN-major): columns 0-63 of D are the first half (d[0..31]), 64-127 the
+// second (d[32..63]).
 __device__ __forceinline__ void wgmma_n128(float (&d)[64], const uint32_t (&a)[4],
                                            uint64_t desc, int accumulate) {
   asm volatile(
@@ -310,7 +340,7 @@ __device__ __forceinline__ uint32_t pack_lo(float v0, float v1) {
 
 // --- the producer warp -----------------------------------------------------
 
-template <typename InT, int PARTS>
+template <typename InT, int PARTS, int COLS>
 __device__ __forceinline__ void produce(const Params& p, const Maps& maps, uint8_t* smem,
                                         uint32_t base, uint32_t full, uint32_t empty,
                                         long long m0, int n0, int nkb, int lane) {
@@ -319,6 +349,11 @@ __device__ __forceinline__ void produce(const Params& p, const Maps& maps, uint8
   constexpr int CHUNKS = DEPTH / ELEMS;                      // per raw row
   constexpr int ROW = RawTile<InT>::ROW;
   const InT* raw = static_cast<const InT*>(p.raw);
+  static_assert(COLS == BINS || COLS == 2 * BINS, "COLS: 64 or 128");
+  constexpr int OFF = COLS - BINS;  // the second half's column offset
+  constexpr int MAPS = n_maps<COLS>();
+  // the first half always starts inside the operator; the second may not
+  const bool second = OFF == 0 || n0 + OFF < p.width;
   for (int kb = 0; kb < nkb; ++kb) {
     const int s = kb % L::STAGES;
     mbar_wait(empty + 8 * s, ((kb / L::STAGES) & 1) ^ 1);
@@ -332,12 +367,14 @@ __device__ __forceinline__ void produce(const Params& p, const Maps& maps, uint8
     }
     if (p.tma) {
       if (lane == 0) {
-        mbar_expect_tx(full + 8 * s, L::B_BYTES);
+        mbar_expect_tx(full + 8 * s, second ? L::B_BYTES : L::B_BYTES / 2);
 #pragma unroll
         for (int c = 0; c < 2; ++c)
 #pragma unroll
           for (int q = 0; q < PARTS; ++q)
-            tma_load(stage + (c * PARTS + q) * B_TILE, &maps.m[c][q], n0, k0, full + 8 * s);
+            if (c == 0 || second)
+              tma_load(stage + (c * PARTS + q) * B_TILE, &maps.m[c % MAPS][q], n0 + c * OFF,
+                       k0, full + 8 * s);
       }
       for (int e = lane; e < LINES * CHUNKS; e += 32) {
         const int r = e / CHUNKS;
@@ -349,23 +386,26 @@ __device__ __forceinline__ void produce(const Params& p, const Maps& maps, uint8
       }
       cp_async_arrive(full + 8 * s);
     } else {
-      // The operator tiles as TMA would write them: bin n of sample row r
-      // at r*128 + ((n/8) ^ (r%8))*16 + (n%8)*2.
+      // The operator tiles as TMA would write them: column n of sample row
+      // r at r*128 + ((n/8) ^ (r%8))*16 + (n%8)*2.
       uint8_t* st = smem + (stage - base);
       for (int e = lane; e < DEPTH * BINS; e += 32) {
         const int r = e / BINS;
         const int n = e % BINS;
         const int k = k0 + r;
-        const bool ok = k < p.n_in && n0 + n < p.half;
         const int off = r * 128 + ((((n >> 3) ^ (r & 7)) << 4) | ((n & 7) * 2));
 #pragma unroll
-        for (int c = 0; c < 2; ++c)
+        for (int c = 0; c < 2; ++c) {
+          const int col = n0 + c * OFF + n;
+          const bool ok = k < p.n_in && col < p.width;
 #pragma unroll
           for (int q = 0; q < PARTS; ++q) {
-            const __nv_bfloat16 v = ok ? p.w[c][q][static_cast<long long>(k) * p.half + n0 + n]
-                                       : __float2bfloat16_rn(0.f);
+            const __nv_bfloat16* const w = p.w[c % MAPS][q];
+            const __nv_bfloat16 v =
+                ok ? w[static_cast<long long>(k) * p.width + col] : __float2bfloat16_rn(0.f);
             *reinterpret_cast<__nv_bfloat16*>(st + (c * PARTS + q) * B_TILE + off) = v;
           }
+        }
       }
       uint8_t* rt = st + L::B_BYTES;
       for (int e = lane; e < LINES * DEPTH; e += 32) {
@@ -405,9 +445,9 @@ __device__ __forceinline__ void fragments(const uint8_t* tile, int row0, int t, 
     }
 }
 
-// One group of a stage's pass terms into d[axis]: x_hi w_j for j = P-1 .. 0
-// (HI), or x_lo w_j for j = P-2 .. 0 -- low-order first.  The group's first
-// instruction overwrites d unless accumulate is set.
+// One group of a stage's pass terms into d: x_hi w_j for j = P-1 .. 0
+// (HI), or x_lo w_j for j = P-2 .. 0 -- low-order first.  The group's
+// first instruction overwrites d unless accumulate is set.
 template <int PARTS, bool HI>
 __device__ __forceinline__ void stage_terms(float (&d)[64], const uint32_t (&x)[4][4],
                                             uint32_t stage, bool accumulate) {
@@ -425,25 +465,25 @@ __device__ __forceinline__ void stage_terms(float (&d)[64], const uint32_t (&x)[
   pin(d);
 }
 
-// --- the kernel ------------------------------------------------------------
+// --- the pipeline ------------------------------------------------------------
 
-template <typename InT, int PARTS, int EPI, typename OutT>
-__global__ void __launch_bounds__(THREADS, 1)
-    fold_split(const __grid_constant__ Params p, const __grid_constant__ Maps maps) {
+// The shared pipeline of the split kernels: sets up the ring in the
+// block's dynamic shared memory (aligned to 1024 bytes at smem), runs the
+// producer warp, which returns false, and gives each consumer thread its
+// share of the block's 128 x (2 x 64) sums in acc (wgmma's n128 layout:
+// the first half's columns in acc[0..31], the second's in acc[32..63]) and
+// returns true.
+template <typename InT, int PARTS, int COLS>
+__device__ __forceinline__ bool mainloop(const Params& p, const Maps& maps, uint8_t* smem,
+                                         long long m0, int n0, float (&acc)[64]) {
   using L = Layout<InT, PARTS>;
-  extern __shared__ uint8_t smem_raw[];
-  const uint32_t raw_addr = smem_u32(smem_raw);
-  const uint32_t base = (raw_addr + 1023u) & ~1023u;
-  uint8_t* const smem = smem_raw + (base - raw_addr);
+  const uint32_t base = smem_u32(smem);
   const uint32_t full = base + L::STAGES * L::STAGE;  // one mbarrier per stage
   const uint32_t empty = full + 8 * L::STAGES;
 
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int n_tiles = (p.half + BINS - 1) / BINS;
-  const long long m0 = static_cast<long long>(blockIdx.x / n_tiles) * LINES;
-  const int n0 = static_cast<int>(blockIdx.x % n_tiles) * BINS;
   const int nkb = (p.n_in + DEPTH - 1) / DEPTH;
 
   if (tid == 0) {
@@ -456,8 +496,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   __syncthreads();
 
   if (warp == CONSUMERS / 32) {
-    produce<InT, PARTS>(p, maps, smem, base, full, empty, m0, n0, nkb, lane);
-    return;
+    produce<InT, PARTS, COLS>(p, maps, smem, base, full, empty, m0, n0, nkb, lane);
+    return false;
   }
 
   const int wg = warp / 4;  // consumer warpgroup: lines 64*wg .. 64*wg + 63
@@ -466,7 +506,6 @@ __global__ void __launch_bounds__(THREADS, 1)
   const int t = lane % 4;
   const int row0 = wg * 64 + w4 * 16 + g;  // this thread's lines: row0, row0 + 8
 
-  float acc[64];   // running sums: re in 0-31, im in 32-63 (wgmma's n128 layout)
   float part[64];  // one stage's terms
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
@@ -502,45 +541,87 @@ __global__ void __launch_bounds__(THREADS, 1)
       for (int i = 0; i < 64; ++i) acc[i] += part[i];
     }
   }
+  return true;
+}
 
-  // Epilogue.  Both warpgroups are past the pipeline, so its shared memory
-  // takes each warp's 16 x 64 re and im tiles (row pitch EPI_ROW floats);
-  // the warp then walks its 16 lines with one lane per bin, so the scale
-  // math runs with few registers live and every store is a 128-byte line.
+// Once both warpgroups are past the pipeline, its shared memory takes each
+// warp's 16 x 128 sums: columns 0-63 (the first half) at the returned
+// tile, 64-127 16 * EPI_ROW floats on, row pitch EPI_ROW.  A warp then
+// walks its 16 lines with one lane per column, so each epilogue runs with
+// few registers live and every store is a whole line.
+__device__ __forceinline__ const float* stage_sums(uint8_t* smem, const float (&acc)[64]) {
+  const int warp = threadIdx.x / 32;
+  const int g = threadIdx.x % 32 / 4;
+  const int t = threadIdx.x % 4;
   named_sync(3, CONSUMERS);
-  float* const tile_re = reinterpret_cast<float*>(smem) + warp * 2 * 16 * EPI_ROW;
-  float* const tile_im = tile_re + 16 * EPI_ROW;
+  float* const tile = reinterpret_cast<float*>(smem) + warp * 2 * 16 * EPI_ROW;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int col = 8 * j + 2 * t;
 #pragma unroll
     for (int c = 0; c < 2; ++c) {
-      float* const tl = c == 0 ? tile_re : tile_im;
+      float* const tl = tile + c * 16 * EPI_ROW;
       const float* const z = acc + 32 * c + 4 * j;
       *reinterpret_cast<float2*>(tl + g * EPI_ROW + col) = make_float2(z[0], z[1]);
       *reinterpret_cast<float2*>(tl + (g + 8) * EPI_ROW + col) = make_float2(z[2], z[3]);
     }
   }
   __syncwarp();
+  return tile;
+}
+
+// The block's first line, first column and 1024-byte aligned dynamic
+// shared memory.
+struct Block {
+  uint8_t* smem;
+  long long m0;
+  int n0;
+};
+
+template <int COLS>
+__device__ __forceinline__ Block block_of(const Params& p, uint8_t* smem_raw) {
+  const uint32_t raw_addr = smem_u32(smem_raw);
+  const uint32_t base = (raw_addr + 1023u) & ~1023u;
+  const int n_tiles = col_tiles<COLS>(p);
+  return {smem_raw + (base - raw_addr),
+          static_cast<long long>(blockIdx.x / n_tiles) * LINES,
+          static_cast<int>(blockIdx.x % n_tiles) * COLS};
+}
+
+// --- the fold kernel ---------------------------------------------------------
+
+template <typename InT, int PARTS, int EPI, typename OutT>
+__global__ void __launch_bounds__(THREADS, 1)
+    fold_split(const __grid_constant__ Params p, const __grid_constant__ Maps maps) {
+  extern __shared__ uint8_t smem_raw[];
+  const Block blk = block_of<BINS>(p, smem_raw);
+  float acc[64];  // re in 0-31, im in 32-63
+  if (!mainloop<InT, PARTS, BINS>(p, maps, blk.smem, blk.m0, blk.n0, acc)) return;
+
+  const float* const tile_re = stage_sums(blk.smem, acc);
+  const float* const tile_im = tile_re + 16 * EPI_ROW;
+  const int half = p.width;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
   float mean[2][2];  // [axis][h] of bin n0 + lane + 32h
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int bin = n0 + lane + 32 * h;
-    const bool in = EPI == SCALE && bin < p.half;
+    const int bin = blk.n0 + lane + 32 * h;
+    const bool in = EPI == SCALE && bin < half;
     mean[0][h] = in ? p.mean2[bin] : 0.f;
-    mean[1][h] = in ? p.mean2[p.half + bin] : 0.f;
+    mean[1][h] = in ? p.mean2[half + bin] : 0.f;
   }
-  const long long line0 = m0 + wg * 64 + w4 * 16;
+  const long long line0 = blk.m0 + warp * 16;
 #pragma unroll 4
   for (int rr = 0; rr < 16; ++rr) {
     const long long line = line0 + rr;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int bin = n0 + lane + 32 * h;
-      if (line >= p.lines || bin >= p.half) continue;
+      const int bin = blk.n0 + lane + 32 * h;
+      if (line >= p.lines || bin >= half) continue;
       const float zr = tile_re[rr * EPI_ROW + lane + 32 * h];
       const float zi = tile_im[rr * EPI_ROW + lane + 32 * h];
-      const long long o = line * p.half + bin;
+      const long long o = line * half + bin;
       if constexpr (EPI == PLANAR) {
         p.re_out[o] = zr;
         p.im_out[o] = zi;
@@ -559,6 +640,96 @@ __global__ void __launch_bounds__(THREADS, 1)
       }
     }
   }
+}
+
+// --- host side ---------------------------------------------------------------
+
+PFN_cuTensorMapEncodeTiled_v12000 encoder() {
+  static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// TMA describes an operator part when its rows are 16-byte multiples and
+// it starts 16-byte aligned; the raw rows likewise for the cp.async path.
+inline bool aligned16(const void* q) { return (reinterpret_cast<uintptr_t>(q) & 15) == 0; }
+
+inline int encode_maps(const Params& p, int n, int parts, Maps* maps) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = encoder();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  for (int c = 0; c < n; ++c)
+    for (int q = 0; q < parts; ++q) {
+      const cuuint64_t dims[2] = {static_cast<cuuint64_t>(p.width),
+                                  static_cast<cuuint64_t>(p.n_in)};
+      const cuuint64_t strides[1] = {static_cast<cuuint64_t>(p.width) * 2};
+      const cuuint32_t box[2] = {BINS, DEPTH};
+      const cuuint32_t unit[2] = {1, 1};
+      const CUresult r = encode(&maps->m[c][q], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                                const_cast<__nv_bfloat16*>(p.w[c][q]), dims, strides, box, unit,
+                                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      if (r != CUDA_SUCCESS) return static_cast<int>(cudaErrorInvalidValue);
+    }
+  return 0;
+}
+
+using Kernel = void (*)(Params, Maps);
+
+// Above 48 KB the dynamic shared memory is opt-in: once per kernel (the
+// caller keeps the result in a function-local static).
+template <typename InT, int PARTS>
+cudaError_t opt_in(Kernel kernel) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              Layout<InT, PARTS>::SMEM);
+}
+
+// The checks, tensor maps and launch of one split kernel of COLS columns
+// per block; attr is its opt_in result.
+template <typename InT, int PARTS, int COLS>
+int launch(Params p, Kernel kernel, cudaError_t attr, cudaStream_t stream) {
+  if (p.lines <= 0 || p.width <= 0 || p.n_in <= 0) return 0;
+  const long long blocks = ((p.lines + LINES - 1) / LINES) * col_tiles<COLS>(p);
+  if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
+  bool tma = p.width % 8 == 0 && (static_cast<long long>(p.n_in) * sizeof(InT)) % 16 == 0 &&
+             aligned16(p.raw);
+  for (int c = 0; c < n_maps<COLS>(); ++c)
+    for (int q = 0; q < PARTS; ++q) tma = tma && aligned16(p.w[c][q]);
+  Maps maps = {};
+  if (tma) {
+    const int rc = encode_maps(p, n_maps<COLS>(), PARTS, &maps);
+    if (rc != 0) return rc;
+  }
+  p.tma = tma ? 1 : 0;
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  kernel<<<static_cast<unsigned>(blocks), THREADS, Layout<InT, PARTS>::SMEM, stream>>>(p, maps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The launch of K<InT, PARTS>::run (a struct template of the including
+// file) for in_kind (0 uint8, 1 uint16, 2 float32) and passes (3 or 5).
+template <template <typename, int> class K>
+int dispatch(int in_kind, int passes, const Params& p, cudaStream_t stream) {
+  if (passes != 3 && passes != 5) return static_cast<int>(cudaErrorInvalidValue);
+  const bool five = passes == 5;
+  switch (in_kind) {
+    case 0: return five ? K<uint8_t, 3>::run(p, stream) : K<uint8_t, 2>::run(p, stream);
+    case 1: return five ? K<uint16_t, 3>::run(p, stream) : K<uint16_t, 2>::run(p, stream);
+    case 2: return five ? K<float, 3>::run(p, stream) : K<float, 2>::run(p, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace split

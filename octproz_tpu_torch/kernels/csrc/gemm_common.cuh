@@ -1,6 +1,7 @@
-// Pieces shared by the GEMM kernels of this directory (fold_gemm.cu,
-// prep_gemm.cu): the tile geometry, the in-kernel decode, operator loads
-// and the bf16 split of x for the multi-pass precision rungs.
+// Pieces shared by the GEMM kernels of this directory (fold_gemm.cuh,
+// prep_gemm.cu, fold_split.cuh): the epilogues, the SIMT tile geometry, the
+// in-kernel decode, operator loads and the bf16 split of x for the
+// multi-pass precision rungs.
 
 #pragma once
 
@@ -9,6 +10,10 @@
 #include <stdint.h>
 
 namespace {
+
+// PLANAR: (re, im) float32 planes; SCALE: FPN subtraction and the
+// dynamic-range scale; PHASE: (y cos, y sin) as complex64; REAL: float32 y.
+enum Epi { PLANAR = 0, SCALE = 1, PHASE = 2, REAL = 3 };
 
 constexpr int BM = 64;       // lines per block tile
 constexpr int BK = 16;       // contraction (n_in) per K step

@@ -4,52 +4,52 @@
 // epilogue (re = y*cos, im = y*sin, stored as complex64) or a plain float32
 // store.
 //
-// One template, four instantiation families, each the counterpart of a
-// Pallas kernel in octproz_tpu/pallas/fused_prep.py:
+// The C entry points prep_gemm_phase and prep_gemm_real take every rung.
+// This file runs the one-pass rung on the CUDA cores; the split rungs (3
+// and 5 passes) go to the bf16 tensor-core kernel of prep_split.cu:
 //
-//   prep_gemm<EPI=PHASE, PASSES=1>    _kernel_phase        (:228-235)
-//   prep_gemm<EPI=PHASE, PASSES=3|5>  _kernel_phase_split  (:245-251)
-//   prep_gemm<EPI=REAL,  PASSES=1>    _kernel_real         (:238-242)
-//   prep_gemm<EPI=REAL,  PASSES=3|5>  _kernel_real_split   (:254-258)
+//   prep_gemm<EPI=PHASE>           _kernel_phase        (octproz_tpu/pallas/fused_prep.py:228-235)
+//   prep_split<EPI=PHASE> (3|5)    _kernel_phase_split  (:245-251)
+//   prep_gemm<EPI=REAL>            _kernel_real         (:238-242)
+//   prep_split<EPI=REAL>  (3|5)    _kernel_real_split   (:254-258)
 //
 // with InT in {uint8, uint16, float} (raw samples; float is input the
 // wrapper decoded already).
 //
 // What bounds it: at the FFT path's geometry (131072 lines x 1024 samples
-// -> 1024) one buffer is 2*131072*1024*1024 = 275 GFLOP per pass against
-// ~1.3 GB moved (0.27 GB of uint16 in, 1.07 GB of complex64 out), ~200 FLOP
-// per byte: compute bound in float32 FMA.  The design follows fold_gemm.cu
-// with one operator axis: each block owns a 64-line x BN-column output tile,
-// stages one decoded (and, for the split rungs, split) x tile and every
-// operator part in shared memory per K step, keeps one float32 accumulator
-// per pass term in registers, and runs the epilogue there.  The phase
-// epilogue writes (re, im) as one 8-byte store into the interleaved
-// complex64 tensor that the FFT reads, so no separate pass packs the
-// complex spectra.  The operator is dense; most of it is zero without
-// background removal, and a banded or gather formulation is later work.
-//
-// Precision rungs: PASSES=1 is a float32-FMA GEMM.  PASSES=3/5 mirror
-// _dot_split: the operator arrives as 2/3 bf16 parts (mask truncation, on
-// the host), x is split here into x_hi and x_lo, each pass term has its own
-// float32 accumulator, and the terms are summed low-order first before the
-// phasor multiply -- the Pallas body's order.
+// -> 1024) one buffer is 2*131072*1024*1024 = 275 GFLOP against ~1.3 GB
+// moved (0.27 GB of uint16 in, 1.07 GB of complex64 out), ~200 FLOP per
+// byte: compute bound in float32 FMA.  The design follows fold_gemm.cuh
+// with one operator axis: each block owns a 64-line x 128-column output
+// tile, stages one decoded x tile and the operator tile in shared memory
+// per K step, keeps the float32 accumulators in registers, and runs the
+// epilogue there.  The phase epilogue writes (re, im) as one 8-byte store
+// into the interleaved complex64 tensor that the FFT reads, so no separate
+// pass packs the complex spectra.  The operator is dense; most of it is
+// zero without background removal, and a banded or gather formulation is
+// later work.
 //
 // Launch contract: the kernel runs on the caller's stream, allocates
 // nothing and does not synchronise; the C entry points return
 // cudaGetLastError().  Ragged edges (lines, n_out and n_in not multiples of
 // the tile) are masked inside the kernel.
 
-#include <type_traits>
-
 #include "gemm_common.cuh"
+
+extern "C" {
+int prep_split_phase(const void* raw, int in_kind, int bitshift, int passes,
+                     const void* const w[3], const float* cos_row, const float* sin_row,
+                     void* out, long long lines, int n_in, int n_out, void* stream);
+int prep_split_real(const void* raw, int in_kind, int bitshift, int passes,
+                    const void* const w[3], void* out, long long lines, int n_in, int n_out,
+                    void* stream);
+}
 
 namespace {
 
-enum Epi { PHASE = 0, REAL = 1 };
-
 struct PrepArgs {
   const void* raw;
-  const void* w[3];
+  const float* w;
   const float* cos_row;  // PHASE: (n_out,)
   const float* sin_row;  // PHASE: (n_out,)
   float* out;            // PHASE: interleaved (re, im) (lines, n_out); REAL: (lines, n_out)
@@ -59,18 +59,14 @@ struct PrepArgs {
   int bitshift;
 };
 
-// TN: output columns per thread (BN = 16 * TN).  One operator axis keeps
-// half the fold kernel's accumulators, so TN=8 at 1 and 3 passes; 5 passes
-// (5 accumulators per output) take TN=4 to stay clear of spills.
-template <typename InT, typename WT, int PASSES, int EPI, int TN>
+constexpr int TN = 8;        // output columns per thread
+constexpr int BN = 16 * TN;  // output columns per block
+
+template <typename InT, int EPI>
 __global__ void __launch_bounds__(THREADS)
     prep_gemm(const PrepArgs args) {
-  constexpr int PARTS = (PASSES + 1) / 2;  // operator parts
-  constexpr int XT = PASSES == 1 ? 1 : 2;  // x terms: x, or x_hi and x_lo
-  constexpr int BN = 16 * TN;
-
-  __shared__ float xs[XT][BK][BM + 1];  // +1: conflict-free transposed store
-  __shared__ float ws[PARTS][BK][BN];
+  __shared__ float xs[BK][BM + 1];  // +1: conflict-free transposed store
+  __shared__ float ws[BK][BN];
 
   const int tid = threadIdx.x;
   const int tx = tid % 16;
@@ -80,15 +76,11 @@ __global__ void __launch_bounds__(THREADS)
   const int n0 = static_cast<int>(blockIdx.x % n_col_tiles) * BN;
   const InT* raw = static_cast<const InT*>(args.raw);
 
-  // acc[term][i][j]; term t < PARTS is x_hi * w_t, t >= PARTS is
-  // x_lo * w_(t-PARTS) -- the order of _dot_split's term list.
-  float acc[PASSES][TM][TN];
+  float acc[TM][TN];
 #pragma unroll
-  for (int t = 0; t < PASSES; ++t)
+  for (int i = 0; i < TM; ++i)
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[t][i][j] = 0.f;
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
   for (int k0 = 0; k0 < args.n_in; k0 += BK) {
     for (int e = tid; e < BM * BK; e += THREADS) {
@@ -99,13 +91,7 @@ __global__ void __launch_bounds__(THREADS)
       float v = 0.f;
       if (line < args.lines && k < args.n_in)
         v = decode<InT>(raw[line * args.n_in + k], args.bitshift);
-      if constexpr (XT == 1) {
-        xs[0][c][r] = v;
-      } else {
-        const float hi = x_hi(v);
-        xs[0][c][r] = hi;
-        xs[1][c][r] = x_lo(v, hi);
-      }
+      xs[c][r] = v;
     }
     for (int e = tid; e < BK * BN; e += THREADS) {
       const int r = e / BN;
@@ -113,37 +99,22 @@ __global__ void __launch_bounds__(THREADS)
       const int k = k0 + r;
       const int n = n0 + c;
       const bool ok = k < args.n_in && n < args.n_out;
-      const long long off = static_cast<long long>(k) * args.n_out + n;
-#pragma unroll
-      for (int p = 0; p < PARTS; ++p)
-        ws[p][r][c] = ok ? load_w<WT>(args.w[p], off) : 0.f;
+      ws[r][c] = ok ? load_w<float>(args.w, static_cast<long long>(k) * args.n_out + n) : 0.f;
     }
     __syncthreads();
 
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
-      float xr[XT][TM];
+      float xr[TM];
 #pragma unroll
-      for (int s = 0; s < XT; ++s)
+      for (int i = 0; i < TM; ++i) xr[i] = xs[kk][ty + TY * i];
+      float wr[TN];
 #pragma unroll
-        for (int i = 0; i < TM; ++i) xr[s][i] = xs[s][kk][ty + TY * i];
+      for (int j = 0; j < TN; ++j) wr[j] = ws[kk][tx + 16 * j];
 #pragma unroll
-      for (int p = 0; p < PARTS; ++p) {
-        float wr[TN];
+      for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) wr[j] = ws[p][kk][tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) {
-            acc[p][i][j] = fmaf(xr[0][i], wr[j], acc[p][i][j]);
-            if constexpr (XT == 2) {
-              if (p < PARTS - 1)
-                acc[PARTS + p][i][j] =
-                    fmaf(xr[XT - 1][i], wr[j], acc[PARTS + p][i][j]);
-            }
-          }
-      }
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(xr[i], wr[j], acc[i][j]);
     }
     __syncthreads();
   }
@@ -156,9 +127,7 @@ __global__ void __launch_bounds__(THREADS)
     for (int j = 0; j < TN; ++j) {
       const int col = n0 + tx + 16 * j;
       if (col >= args.n_out) continue;
-      float y = acc[PASSES - 1][i][j];  // low-order terms first
-#pragma unroll
-      for (int t = PASSES - 2; t >= 0; --t) y = y + acc[t][i][j];
+      const float y = acc[i][j];
       const long long o = line * args.n_out + col;
       if constexpr (EPI == PHASE) {
         reinterpret_cast<float2*>(args.out)[o] =
@@ -170,46 +139,31 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <typename InT, int PASSES, int EPI>
+template <typename InT, int EPI>
 int launch(const PrepArgs& args, cudaStream_t stream) {
-  using WT = typename std::conditional<PASSES == 1, float, __nv_bfloat16>::type;
-  constexpr int TN = PASSES == 5 ? 4 : 8;
-  constexpr int BN = 16 * TN;
   if (args.lines <= 0 || args.n_out <= 0 || args.n_in <= 0) return 0;
   const long long blocks =
       ((args.lines + BM - 1) / BM) * ((args.n_out + BN - 1) / BN);
   if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-  prep_gemm<InT, WT, PASSES, EPI, TN>
-      <<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(args);
+  prep_gemm<InT, EPI><<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(args);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int EPI, typename InT>
-int by_passes(int passes, const PrepArgs& args, cudaStream_t stream) {
-  switch (passes) {
-    case 1: return launch<InT, 1, EPI>(args, stream);
-    case 3: return launch<InT, 3, EPI>(args, stream);
-    case 5: return launch<InT, 5, EPI>(args, stream);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 template <int EPI>
-int dispatch(int in_kind, int passes, const PrepArgs& args, cudaStream_t stream) {
+int one_pass(int in_kind, const PrepArgs& args, cudaStream_t stream) {
   switch (in_kind) {
-    case 0: return by_passes<EPI, uint8_t>(passes, args, stream);
-    case 1: return by_passes<EPI, uint16_t>(passes, args, stream);
-    case 2: return by_passes<EPI, float>(passes, args, stream);
+    case 0: return launch<uint8_t, EPI>(args, stream);
+    case 1: return launch<uint16_t, EPI>(args, stream);
+    case 2: return launch<float, EPI>(args, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-PrepArgs make_args(const void* raw, int bitshift, const void* w0,
-                   const void* w1, const void* w2, void* out, long long lines,
+PrepArgs make_args(const void* raw, int bitshift, const void* w0, void* out, long long lines,
                    int n_in, int n_out) {
   PrepArgs args = {};
   args.raw = raw;
-  args.w[0] = w0; args.w[1] = w1; args.w[2] = w2;
+  args.w = static_cast<const float*>(w0);
   args.out = static_cast<float*>(out);
   args.lines = lines;
   args.n_in = n_in;
@@ -229,18 +183,27 @@ int prep_gemm_phase(const void* raw, int in_kind, int bitshift, int passes,
                     const void* w0, const void* w1, const void* w2,
                     const float* cos_row, const float* sin_row, void* out,
                     long long lines, int n_in, int n_out, void* stream) {
-  PrepArgs args = make_args(raw, bitshift, w0, w1, w2, out, lines, n_in, n_out);
+  if (passes != 1) {
+    const void* const w[3] = {w0, w1, w2};
+    return prep_split_phase(raw, in_kind, bitshift, passes, w, cos_row, sin_row, out, lines,
+                            n_in, n_out, stream);
+  }
+  PrepArgs args = make_args(raw, bitshift, w0, out, lines, n_in, n_out);
   args.cos_row = cos_row;
   args.sin_row = sin_row;
-  return dispatch<PHASE>(in_kind, passes, args, static_cast<cudaStream_t>(stream));
+  return one_pass<PHASE>(in_kind, args, static_cast<cudaStream_t>(stream));
 }
 
 // As prep_gemm_phase without the phasor; out: float32 (lines, n_out).
 int prep_gemm_real(const void* raw, int in_kind, int bitshift, int passes,
                    const void* w0, const void* w1, const void* w2, void* out,
                    long long lines, int n_in, int n_out, void* stream) {
-  PrepArgs args = make_args(raw, bitshift, w0, w1, w2, out, lines, n_in, n_out);
-  return dispatch<REAL>(in_kind, passes, args, static_cast<cudaStream_t>(stream));
+  if (passes != 1) {
+    const void* const w[3] = {w0, w1, w2};
+    return prep_split_real(raw, in_kind, bitshift, passes, w, out, lines, n_in, n_out, stream);
+  }
+  PrepArgs args = make_args(raw, bitshift, w0, out, lines, n_in, n_out);
+  return one_pass<REAL>(in_kind, args, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

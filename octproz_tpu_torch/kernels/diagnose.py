@@ -1,20 +1,22 @@
-"""What limits the split-rung fold kernels (B3/B4) on the card.
+"""What limits the split-rung kernels (B3/B4, B9/B10) on the card.
 
     python -m octproz_tpu_torch.kernels.diagnose     (from the root of a checkout, one GPU)
 
-builds the kernel library again for each diagnostic variant of
-``csrc/fold_split.cuh`` (``-DFOLD_SPLIT_VARIANT=...``, which ``build.py``
-never sets) into its own build directory, and prints one JSON line with
-the card's name and power limit and:
+builds the kernel library again for each diagnostic variant of the split
+pipeline in ``csrc/fold_split.cuh`` (``-DFOLD_SPLIT_VARIANT=...``, which
+``build.py`` never sets) into its own build directory, and prints one JSON
+line with the card's name and power limit and:
 
-* ``rel_l2``: the planar kernel's relative L2 error against the plain
-  version (the bound is ``fused_prep.PLANAR_REL_L2``) for the shipped
-  kernel and for ``one_chain`` -- the same terms summed across n_in in one
-  wgmma chain instead of folded into a float32 sum every 64-sample stage --
-  on shifted and unshifted 12-bit samples, float input and n_in = 1664;
-* ``ms``: B3 and B4 at the main path's shapes (one 131072-line buffer of
-  shifted 12-bit samples, "high") and B4 on uint8 samples of the same
-  shape, for the shipped kernel, ``one_chain``, and the timing-only
+* ``rel_l2``: the kernels' relative L2 error against their plain versions
+  -- the fold planar kernel (bound ``fused_prep.PLANAR_REL_L2``) on shifted
+  and unshifted 12-bit samples, float input and n_in = 1664, and the prep
+  real kernel (bound ``fused_prep.PREP_REL_L2``) on the same inputs with
+  and without background removal in the operator -- for the shipped
+  kernel and ``one_chain`` (the same terms summed across n_in in one wgmma
+  chain instead of folded into a float32 sum every 64-sample stage);
+* ``ms``: B3, B4, B9 and B10 at the main path's shapes (one 131072-line
+  buffer of shifted 12-bit samples, "high") and B4 on uint8 samples of the
+  same shape, for the shipped kernel, ``one_chain``, and the timing-only
   variants that refill no stage after the ring's first fill
   (``no_loads``), issue no wgmma (``no_mma``), or both -- what is left is
   the consumers' own path: waits, decode, vote, fold and epilogue.
@@ -35,10 +37,19 @@ from . import build
 from . import fused_prep as fp
 
 VARIANTS = {"shipped": 0, "one_chain": 1, "no_loads": 2, "no_mma": 4, "no_loads_no_mma": 6}
-#: (name, n_in, lines, samples, passes) of the agreement cases
+#: (name, n_in, lines, samples, passes) of the fold agreement cases
 ERROR_CASES = (("u16 shifted", 1024, 4096, "u16s", 3), ("u16", 1024, 4096, "u16", 3),
                ("u16", 1024, 4096, "u16", 5), ("u16 n_in=1664", 1664, 1000, "u16", 5),
                ("float", 1024, 2048, "f32", 5))
+#: (name, n_in, lines, samples, passes, background removal) of the prep cases
+PREP_ERROR_CASES = (("u16 shifted", 1024, 4096, "u16s", 3, False),
+                    ("u16", 1024, 4096, "u16", 3, False),
+                    ("u16", 1024, 4096, "u16", 5, False),
+                    ("float", 1024, 2048, "f32", 5, False),
+                    ("u16 shifted, background", 1024, 4096, "u16s", 3, True),
+                    ("u16, background", 1024, 4096, "u16", 3, True),
+                    ("u16, background", 1024, 4096, "u16", 5, True),
+                    ("u16 n_in=1664, background", 1664, 1000, "u16", 5, True))
 
 
 @contextlib.contextmanager
@@ -62,36 +73,45 @@ def _raw(kind: str, lines: int, n_in: int, g, dev):
                          device=dev).view(torch.uint16)
 
 
-def errors(dev) -> dict:
+def _curves(n_in: int, cfg, dev):
     from .. import curves as curves_mod
     from ..params import AcqParams
 
+    acq = AcqParams(samples_per_line=n_in, ascans_per_bscan=8, bscans_per_buffer=1)
+    return curves_mod.make_curves(acq, cfg, **{
+        **bench.CURVE_KW, "resample_coeffs": (0.0, n_in - 1.0, 20.0, -10.0)}, device=dev)
+
+
+def errors(dev) -> dict:
     out = {}
     g = torch.Generator(device=dev)
     g.manual_seed(3)
     for name, n_in, lines, kind, passes in ERROR_CASES:
-        acq = AcqParams(samples_per_line=n_in, ascans_per_bscan=8, bscans_per_buffer=1)
-        cv = curves_mod.make_curves(acq, bench.bench_config(), **{
-            **bench.CURVE_KW, "resample_coeffs": (0.0, n_in - 1.0, 20.0, -10.0)}, device=dev)
+        cv = _curves(n_in, bench.bench_config(), dev)
         precision = "high" if passes == 3 else "highest"
         parts = [fp._operator_parts(w, precision) for w in (cv.depth_op_re, cv.depth_op_im)]
         raw = _raw(kind, lines, n_in, g, dev)
         shift = kind == "u16s"
         got = fp.fold_depth(raw, *parts, bitshift=shift)
-        out[f"{name}, {passes} passes"] = fp.planar_error(
+        out[f"depth_split {name}, {passes} passes"] = fp.planar_error(
             got, fp.depth_plain(raw, *parts, bitshift=shift))
+    for name, n_in, lines, kind, passes, bg in PREP_ERROR_CASES:
+        cv = _curves(n_in, bench.fft_config(background_removal=bg), dev)
+        parts = fp._operator_parts(cv.prep_operator, "high" if passes == 3 else "highest")
+        raw = _raw(kind, lines, n_in, g, dev)
+        shift = kind == "u16s"
+        out[f"prep_real_split {name}, {passes} passes"] = fp.prep_error(
+            fp.prep_real(raw, parts, bitshift=shift),
+            fp.prep_real_plain(raw, parts, bitshift=shift))
     return out
 
 
 def times(dev) -> dict:
     out = {}
-    for name in ("depth_split", "depth_scale_split"):
+    for name in ("depth_split", "depth_scale_split", "prep_phase_split", "prep_real_split"):
         kernel = bench._kernel_cases(name, dev)[0]
         out[name] = bench.cuda_ms(kernel, 10, 2)
-    from .. import curves as curves_mod
-
-    cv = curves_mod.make_curves(bench.FULL_ACQ, bench.bench_config(), **bench.CURVE_KW,
-                                device=dev)
+    cv = _curves(1024, bench.bench_config(), dev)
     parts = [fp._operator_parts(w, "high") for w in (cv.depth_op_re, cv.depth_op_im)]
     raw8 = torch.randint(0, 256, (bench.FULL_ACQ.ascans_per_buffer, 1024), dtype=torch.uint8,
                          device=dev)

@@ -22,10 +22,11 @@ from it in the epilogue.
 
 This module holds, for each of the ten kernel families:
 
-* the CUDA kernel (``csrc/fold_gemm.cu`` -- the one-pass rung; its split
-  rungs launch the bf16 tensor-core kernels of ``csrc/fold_split.cu`` --,
-  ``csrc/fold_concat.cu``, ``csrc/prep_gemm.cu``, built by :mod:`.build`),
-  which a wrapper launches for CUDA tensors;
+* the CUDA kernel (``csrc/fold_gemm.cu`` and ``csrc/prep_gemm.cu`` -- the
+  one-pass rung; their split rungs launch the bf16 tensor-core kernels of
+  ``csrc/fold_split.cu`` and ``csrc/prep_split.cu`` --, and
+  ``csrc/fold_concat.cu``, built by :mod:`.build`), which a wrapper
+  launches for CUDA tensors;
 * its plain PyTorch version (``*_plain``), which the wrapper uses for CPU
   tensors and which the tests and ``chip_smoke.py`` hold the kernel to;
 * a launch count in :data:`LAUNCHES`, raised only where the kernel is
@@ -344,11 +345,14 @@ def prep_real_plain(raw2d, op_parts, *, bitshift: bool):
 # * prep spectra (complex64 as (re, im), or float32): relative L2 <= 1e-6.
 #   Measured on the CPU at n = 1024 and 1664, 12-bit (shifted and not) and
 #   float inputs, with and without background removal in the operator: a
-#   sequential float32 sum over n_in (the kernel's order) differs from the
-#   plain version by at most 1.44e-7, and each from a float64 evaluation of
-#   the same pass terms by at most 2.8e-7; the nearest wrong rung -- the
-#   "highest" parts through the 3-pass math -- is 8.5e-6 or more off, and
-#   the 3-pass math without x_lo 2.7e-3 or more.
+#   sequential float32 sum over n_in differs from the plain version by at
+#   most 1.44e-7, and each from a float64 evaluation of the same pass terms
+#   by at most 2.8e-7; the nearest wrong rung -- the "highest" parts through
+#   the 3-pass math -- is 8.5e-6 or more off, and the 3-pass math without
+#   x_lo 2.7e-3 or more.  On an H100 the split prep kernel (bf16 wgmma, a
+#   float32 fold every 64 samples) reads 5.9e-8 to 1.7e-7, the highest with
+#   background removal; summed over n_in in one wgmma chain it read up to
+#   1.8e-6 there.
 
 PLANAR_REL_L2 = 3e-6
 PREP_REL_L2 = 1e-6

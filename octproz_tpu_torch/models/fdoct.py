@@ -65,7 +65,7 @@ class FdOctModel:
         )
         self.curves: Curves = curves_mod.make_curves(acq, cfg, **self._curve_kwargs,
                                                      device=self.device)
-        self.fpn_state: FpnState = pipeline.initial_fpn_state(acq, self.device)
+        self.fpn_state: FpnState = pipeline.initial_fpn_state(acq, device=self.device)
         self._step = pipeline.make_step(self.acq, self.cfg)
         # One published snapshot (cfg, curves, step): the hot path reads this
         # single attribute, so a set_config / curve rebuild from another
@@ -148,7 +148,7 @@ class FdOctModel:
 
     def redetermine_fpn(self) -> None:
         """Reference: redetermineFixedPatternNoise request (cuda_code.cu:1521)."""
-        self.fpn_state = pipeline.initial_fpn_state(self.acq, self.device)
+        self.fpn_state = pipeline.initial_fpn_state(self.acq, device=self.device)
 
     def set_config(self, **changes) -> None:
         """Replace ProcConfig fields mid-stream (grayscale range, FPN mode,

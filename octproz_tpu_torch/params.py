@@ -295,7 +295,7 @@ class FpnState:
     determined: bool = False
 
     @staticmethod
-    def initial(samples_per_line: int, device=None) -> "FpnState":
+    def initial(samples_per_line: int, *, device) -> "FpnState":
         return FpnState(
             mean_line=torch.zeros((2, samples_per_line), dtype=torch.float32,
                                   device=device),

@@ -226,6 +226,7 @@ def make_scan_step(acq: AcqParams, cfg: ProcConfig):
     return scan_step
 
 
-def initial_fpn_state(acq: AcqParams, device=None) -> FpnState:
-    """FPN state sized for the truncated (positive-depth) half."""
+def initial_fpn_state(acq: AcqParams, *, device) -> FpnState:
+    """FPN state sized for the truncated (positive-depth) half, on
+    ``device`` (required: the state lives where the buffers run)."""
     return FpnState.initial(acq.output_ascan_length, device=device)

@@ -785,6 +785,9 @@ PREP_CUDA_CASES = [
     (1664, 70, torch.uint16, True, 1, "phase", False),
     (1100, 65, torch.uint8, False, 3, "real", False),
     (1100, 65, torch.float32, False, 5, "phase", True),
+    # the split kernels' TMA path with a half-empty last 128-column tile
+    (1088, 130, torch.uint16, False, 3, "phase", False),
+    (1088, 130, torch.uint8, False, 3, "real", True),
 ]
 
 

@@ -423,7 +423,7 @@ def test_jax_step_functions_agree():
                                bscans_for_noise=2)
     jcv = jcurves.make_curves(jacq, jcfg, **JKW)
     raws = _buffers(2, seed=11)
-    st = tpipeline.initial_fpn_state(tm.acq)
+    st = tpipeline.initial_fpn_state(tm.acq, device="cpu")
     assert tuple(st.mean_line.shape) == (2, N // 2) and not st.determined
     step = tpipeline.make_step(tm.acq, tm.cfg)
     jstep = jpipeline.make_step(jacq, jcfg)
@@ -434,7 +434,21 @@ def test_jax_step_functions_agree():
         _close(got, np.asarray(want))
 
 
-PRESET_CASES = [("benchmark", False), ("minimal", False), ("handheld", False),
+@pytest.mark.parametrize("make", ["initial_fpn_state", "FpnState.initial"])
+def test_fpn_state_needs_a_device(make):
+    """The FPN state's device is a required keyword, as for make_curves and
+    FdOctModel: a call without it raises instead of landing on the CPU."""
+    from octproz_tpu_torch.params import FpnState
+
+    acq = AcqParams(samples_per_line=N, ascans_per_bscan=ASCANS, bscans_per_buffer=BSCANS)
+    fn = {"initial_fpn_state": lambda **kw: tpipeline.initial_fpn_state(acq, **kw),
+          "FpnState.initial": lambda **kw: FpnState.initial(N // 2, **kw)}[make]
+    with pytest.raises(TypeError):
+        fn()
+    assert fn(device="cpu").mean_line.device.type == "cpu"
+
+
+PRESET_CASES =[("benchmark", False), ("minimal", False), ("handheld", False),
                 ("handheld", True)]
 
 

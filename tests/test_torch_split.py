@@ -1,5 +1,5 @@
-"""The split-rung fold kernels on bf16 tensor cores (``csrc/fold_split.cuh``)
-and the bench's kernel yardsticks.
+"""The split-rung kernels on bf16 tensor cores (``csrc/fold_split.cuh``,
+``csrc/prep_split.cu``) and the bench's kernel yardsticks.
 
 The CUDA kernel cannot run here, so its arithmetic is emulated in torch
 (:func:`staged`): per stage of 64 samples, the pass terms go low-order first
@@ -7,10 +7,11 @@ The CUDA kernel cannot run here, so its arithmetic is emulated in torch
 one float32 partial sum per axis, which is then added to the running sum;
 a 64-line group skips a stage's x_lo terms when its x_lo tile is zero.  That
 order is held against the plain versions (``depth_plain`` /
-``depth_scale_plain``, one float32 product per term over the whole
-contraction, summed low-order first) within the kernels' own bounds
-(``fused_prep.PLANAR_REL_L2``, ``SCALE_RMS``, ``SCALE_MAX``, reasons stated
-there), and the two controls -- the "highest" parts through the 3-pass
+``depth_scale_plain`` / ``prep_phase_plain`` / ``prep_real_plain``, one
+float32 product per term over the whole contraction, summed low-order
+first) within the kernels' own bounds (``fused_prep.PLANAR_REL_L2``,
+``SCALE_RMS``, ``SCALE_MAX``, ``PREP_REL_L2``, reasons stated there), and
+the two controls -- the "highest" parts through the 3-pass
 math, the 3-pass math without x_lo -- still fail them.  The kernel itself
 is held to the same bounds on the card (``tests/test_torch_kernels.py``,
 ``chip_smoke.py``).
@@ -150,6 +151,74 @@ def test_skipping_zero_x_lo_changes_no_bit(precision):
     x = tfp._decode_block(raw, bitshift)
     assert torch.equal(x, tfp._bf16_trunc(x))
     assert torch.equal(staged(x, parts, vote=True), staged(x, parts, vote=False))
+
+
+# ---------------------------------------------------------------------------
+# The split-rung prep kernels (csrc/prep_split.cu): the same pipeline with
+# one operator, the prep operator P, against prep_phase_plain /
+# prep_real_plain within PREP_REL_L2
+# ---------------------------------------------------------------------------
+
+def _prep_operator(n, background_removal):
+    """The FFT path's prep operator (n, n) and phasor rows at n samples."""
+    acq = AcqParams(samples_per_line=n, ascans_per_bscan=8, bscans_per_buffer=1)
+    cfg = bench.fft_config(background_removal=background_removal)
+    cv = tcurves.make_curves(acq, cfg, resample_coeffs=(0.0, n - 1.0, 10.0, -4.0),
+                             dispersion_coeffs=(0.0, 0.0, 8.0, 0.0), device="cpu")
+    return cv.prep_operator, (cv.phase.real.contiguous(), cv.phase.imag.contiguous())
+
+
+def _staged_prep(x, parts, rows):
+    y = staged(x, parts)
+    return y if rows is None else torch.complex(y * rows[0], y * rows[1])
+
+
+def _prep_plain(raw, parts, rows, bitshift):
+    if rows is None:
+        return tfp.prep_real_plain(raw, parts, bitshift=bitshift)
+    return tfp.prep_phase_plain(raw, parts, *rows, bitshift=bitshift)
+
+
+@pytest.mark.parametrize("epi", ["phase", "real"])
+@pytest.mark.parametrize("background_removal", [False, True])
+@pytest.mark.parametrize("precision", ["high", "highest"])
+@pytest.mark.parametrize("kind", ["u16s", "u16", "f32"])
+@pytest.mark.parametrize("n,lines", [(256, 200), (300, 130)])
+def test_prep_staged_order_within_the_prep_bound(epi, background_removal, precision, kind,
+                                                 n, lines):
+    """The staged order on the prep operator against the plain versions:
+    n = 300 ends on a partial stage and its n_out on a partial 128-column
+    tile, 130 and 200 lines on a partial 64-line group.  With background
+    removal the operator is dense within its band and the output cancels
+    the DC level: the hardest case for the bound."""
+    op, rows = _prep_operator(n, background_removal)
+    parts = tfp._operator_parts(op, precision)
+    raw, bitshift = _input(kind, lines, n)
+    rows = rows if epi == "phase" else None
+    err = tfp.prep_error(_staged_prep(tfp._decode_block(raw, bitshift), parts, rows),
+                         _prep_plain(raw, parts, rows, bitshift))
+    assert err <= tfp.PREP_REL_L2, err
+
+
+@pytest.mark.parametrize("epi", ["phase", "real"])
+@pytest.mark.parametrize("background_removal", [False, True])
+@pytest.mark.parametrize("control", ["3-pass math on the highest parts", "no x_lo"])
+def test_prep_controls_still_fail_under_the_staged_order(epi, background_removal, control):
+    """A prep kernel computing a neighbouring rung in the staged order fails
+    the bound against the plain version of the right rung."""
+    op, rows = _prep_operator(256, background_removal)
+    rows = rows if epi == "phase" else None
+    raw, _ = _input("u16", 200, 256)
+    x = raw.to(torch.float32)
+    if control == "no x_lo":
+        parts = tfp._operator_parts(op, "high")
+        kernel_x, kernel_parts = tfp._bf16_trunc(x), parts
+    else:
+        parts = tfp._operator_parts(op, "highest")
+        kernel_x, kernel_parts = x, parts[:2]
+    err = tfp.prep_error(_staged_prep(kernel_x, kernel_parts, rows),
+                         _prep_plain(x, parts, rows, False))
+    assert err > 2 * tfp.PREP_REL_L2, err
 
 
 # ---------------------------------------------------------------------------
