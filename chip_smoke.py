@@ -11,8 +11,11 @@ nonzero and the final line is not printed:
    against its plain PyTorch version on the card, at the main path's
    widths, an odd line count and 1664-sample lines (and 1100 for the split
    fold and the prep kernels: 550 bins, not a multiple of the 64-bin tile),
-   then controls (a kernel computing a neighbouring rung, or for the
-   concat kernels reading the im half one column early) that must fail;
+   the one-pass fold kernels on both of their routes (uint8/uint16 lines on
+   the tensor cores, float32 lines on the float32-FMA kernel, the route
+   read back and logged), then controls (a kernel computing a neighbouring
+   rung, or for the concat kernels reading the im half one column early)
+   that must fail;
 4. fold path: ``FdOctModel`` on full 1024 x 512 x 256 buffers of the
    reference benchmark chain on the folded GEMM -- FPN determination,
    steady buffers and a batched chunk -- at the default and the "high"
@@ -61,11 +64,13 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CSRC = "octproz_tpu_torch/kernels/csrc/"
 PALLAS = "octproz_tpu/pallas/fused_prep.py:"
-# family -> (source, Pallas kernel body it replaces)
+# family -> (source of the kernel the main path launches, Pallas kernel body
+# it replaces); depth and depth_scale enter through fold_gemm.cu, which keeps
+# their float32-FMA kernel for float32 lines
 KERNELS = {
-    "depth": ("fold_gemm.cu", 261),
+    "depth": ("fold_split.cu", 261),
     "depth_split": ("fold_split.cu", 271),
-    "depth_scale": ("fold_gemm.cu", 375),
+    "depth_scale": ("fold_split.cu", 375),
     "depth_scale_split": ("fold_split.cu", 422),
     "depth_scale_concat": ("fold_concat.cu", 337),
     "depth_scale_concat_split": ("fold_concat.cu", 354),
@@ -98,6 +103,9 @@ PREP = tuple(k for k in KERNELS if k.startswith("prep"))
 # prep output before the FFT, where each rung keeps its own error budget
 # (``_prep_snr_db``).
 RUNG_GAP_DB = 20.0
+#: Display floor (dB) of the one-pass kernel cases by sample kind: 20 log10 of
+#: the samples' range over that of 8-bit values (12, 16 and 24 bits).
+ONE_PASS_FLOOR_DB = {"u16": 24.0, "u16f": 48.0, "f32": 96.0}
 #: The precision rungs the FFT path phase drives.
 RUNGS = ("default", "high", "highest")
 
@@ -140,10 +148,13 @@ def phase_build():
 
 def _raw(kind, lines, n_in, g, dev):
     """Random raw lines: "u16s" 12-bit samples shifted to 8 bits (as on the
-    main path: x_lo = 0), "u16" 12 bits unshifted (x_lo != 0), "u8", or
-    "f32" (a 24-bit source decoded before the kernel)."""
+    main path: x_lo = 0), "u16" 12 bits unshifted (x_lo != 0), "u16f" all 16
+    bits, "u8", or "f32" (a 24-bit source decoded before the kernel)."""
     import torch
 
+    if kind == "u16f":
+        return torch.randint(-32768, 32768, (lines, n_in), dtype=torch.int16,
+                             generator=g, device=dev).view(torch.uint16)
     if kind in ("u16", "u16s"):
         return torch.randint(0, 4096, (lines, n_in), dtype=torch.int16,
                              generator=g, device=dev).view(torch.uint16)
@@ -154,9 +165,10 @@ def _raw(kind, lines, n_in, g, dev):
                          generator=g, device=dev).to(torch.float32)
 
 
-def _compare(raw, wre, wim, bitshift, mode, odt, g, ref=None):
+def _compare(raw, wre, wim, bitshift, mode, odt, g, ref=None, floor_db=0.0):
     """The kernel on (raw, wre, wim) against the plain version on ``ref``
-    (default the same inputs).  Returns (max |err|, detail, within bounds)."""
+    (default the same inputs), log scaling over the 60 dB from ``floor_db``
+    up.  Returns (max |err|, detail, within bounds)."""
     import torch
 
     from octproz_tpu_torch.kernels import fused_prep as fp
@@ -171,7 +183,8 @@ def _compare(raw, wre, wim, bitshift, mode, odt, g, ref=None):
                        f"max|err| {worst:.3e}"), err <= fp.PLANAR_REL_L2
     half = wre[0].shape[1]
     mean2 = torch.randn((2, half), generator=g, device=raw.device) * 50.0
-    a, b = fp._scale_affine(mode != "lin", half, 0.0, 60.0, 0.0, 1.0)
+    lo = 0.0 if mode == "lin" else floor_db
+    a, b = fp._scale_affine(mode != "lin", half, lo, lo + 60.0, 0.0, 1.0)
     kw = dict(bitshift=bitshift, log_scaling=mode != "lin", a=a, b=b,
               fast_log=mode == "fast_log", out_dtype=odt)
     got = fp.fold_depth_scale(raw, wre, wim, mean2, **kw)
@@ -184,10 +197,12 @@ def _compare(raw, wre, wim, bitshift, mode, odt, g, ref=None):
 
 
 def phase_kernels():
-    """Each family at rungs 1/3/5 -- the split rungs with x_lo terms zero
-    (shifted 12-bit samples, as on the main path) and nonzero (unshifted
-    12-bit and float inputs) --, fast_log, lin, float32 and bf16 stores,
-    uint8/uint16/float inputs, an odd line count and n_in = 1664; then the
+    """Each family at rungs 1/3/5 -- with x_lo terms zero (shifted 12-bit
+    samples, as on the main path) and nonzero (unshifted 12-bit, full 16-bit
+    and float inputs) --, fast_log, lin, float32 and bf16 stores,
+    uint8/uint16/float inputs, an odd line count and n_in = 1664; the
+    one-pass rung's route is read back after each of its cases (tensor cores
+    for integer lines, the float32-FMA kernel for float32 lines); then the
     controls, which must fail."""
     import torch
 
@@ -244,20 +259,7 @@ def phase_kernels():
 
     g = torch.Generator(device=dev)
     g.manual_seed(3)
-    for n_in, lines, kind, passes, mode, odt in cases:
-        precision = {1: "default", 3: "high", 5: "highest"}[passes]
-        raw = _raw(kind, lines, n_in, g, dev)
-        err, detail, ok = _compare(raw, *parts(n_in, precision), kind == "u16s",
-                                   mode, odt, g)
-        torch.cuda.synchronize()
-        family = ("depth" if mode is None else "depth_scale") + ("_split" if passes > 1 else "")
-        if n_in == 1024 and kind == "u16s" and odt in (None, f32):
-            worst[family] = max(worst[family], err)  # the main path's inputs
-        log(f"[kernels] {family:<17} n_in={n_in} lines={lines} {kind} passes={passes} "
-            f"{mode or 'planar'} {str(odt).replace('torch.', '') if odt else ''}: "
-            f"{detail} -> {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"{family} kernel disagrees with its plain version")
+    _fold_cases(cases, parts, worst, g, dev)
 
     # Controls: a kernel that computed a neighbouring rung must fail.
     raw = _raw("u16", 4096, 1024, g, dev)
@@ -267,18 +269,115 @@ def phase_kernels():
         ("3-pass kernel on the highest parts", (raw, p5[0][:2], p5[1][:2]), (raw, *p5)),
         ("3-pass kernel without x_lo (x_hi input)", (x_hi, *p3), (raw, *p3)),
     ]
+    _fold_controls(controls, g)
+    _concat_kernel_cases(worst, ops, g, dev)
+    _prep_kernel_cases(worst, g, dev)
+    _one_pass_kernel_cases(worst, parts, dev)
+    return worst
+
+
+def _fold_cases(cases, parts, worst, g, dev):
+    """Each (n_in, lines, input, passes, scale mode or None, out dtype) of
+    the two-operator fold kernels against its plain version; a one-pass
+    case's route is read back and must follow its input type."""
+    import torch
+
+    from octproz_tpu_torch.kernels import fused_prep as fp
+
+    f32 = torch.float32
+    for n_in, lines, kind, passes, mode, odt in cases:
+        precision = {1: "default", 3: "high", 5: "highest"}[passes]
+        raw = _raw(kind, lines, n_in, g, dev)
+        fp.reset_launch_counts()
+        # At one pass the plain version is a float32 product of its own, so
+        # both sides carry their rounding, and log10 amplifies it without
+        # bound in the nulls: the display floor stays 36 dB under the mean
+        # level of the samples, where 8-bit values have it at 0 dB.
+        floor_db = ONE_PASS_FLOOR_DB.get(kind, 0.0) if passes == 1 else 0.0
+        err, detail, ok = _compare(raw, *parts(n_in, precision), kind == "u16s",
+                                   mode, odt, g, floor_db=floor_db)
+        torch.cuda.synchronize()
+        family = ("depth" if mode is None else "depth_scale") + ("_split" if passes > 1 else "")
+        if n_in == 1024 and kind == "u16s" and odt in (None, f32):
+            worst[family] = max(worst[family], err)  # the main path's inputs
+        route = ""
+        if passes == 1:  # the input type alone picks the one-pass route
+            want = "simt" if kind == "f32" else "tensor_core"
+            if fp.ONE_PASS_ROUTES[family] != {**dict.fromkeys(("tensor_core", "simt"), 0),
+                                              want: 1}:
+                raise AssertionError(f"{family} on {kind} lines took the routes "
+                                     f"{fp.ONE_PASS_ROUTES[family]}, want {want}")
+            route = f" [route: {want}]"
+        log(f"[kernels] {family:<17} n_in={n_in} lines={lines} {kind} passes={passes} "
+            f"{mode or 'planar'} {str(odt).replace('torch.', '') if odt else ''}{route}: "
+            f"{detail} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{family} kernel disagrees with its plain version")
+
+
+def _fold_controls(controls, g, floor_db=0.0):
+    """Each (name, kernel inputs, plain inputs): a kernel computing a
+    neighbouring rung must fail the bounds, planar and scaled (display floor
+    at ``floor_db``)."""
+    import torch
+
     for name, kernel_in, plain_in in controls:
         for mode in (None, "log"):
-            _, detail, ok = _compare(*kernel_in, False, mode, f32, g, ref=plain_in)
+            _, detail, ok = _compare(*kernel_in, False, mode, torch.float32, g, ref=plain_in,
+                                     floor_db=floor_db)
             torch.cuda.synchronize()
             log(f"[kernels] control: {name}, {mode or 'planar'}: {detail} -> "
                 f"{'passes (BAD)' if ok else 'fails, as it must'}")
             if ok:
                 raise AssertionError(f"control {name!r} passed: the bounds do "
                                      f"not separate the rungs")
-    _concat_kernel_cases(worst, ops, g, dev)
-    _prep_kernel_cases(worst, g, dev)
-    return worst
+
+
+def _one_pass_kernel_cases(worst, parts, dev):
+    """The one-pass rung of the two-operator fold kernels beyond the main
+    path's inputs, on data of its own generator: on the tensor cores with
+    x_lo nonzero (unshifted 12-bit and full 16-bit samples: five terms),
+    uint8, every scale mode and store, n_in = 1664 and the ragged shapes;
+    float32 lines on the float32-FMA kernel; then its controls, which must
+    fail against the float32 product: the "high" parts (two of its three,
+    the third zeroed) through its entry, and its three-part math without
+    x_lo (x_hi as uint16 samples)."""
+    import torch
+
+    from octproz_tpu_torch.kernels import fused_prep as fp
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [
+        # lin on 8-bit values: its bounds are absolute display units
+        (1024, 4096, "u16", 1, None, None),
+        (1024, 4096, "u16f", 1, None, None),
+        (1024, 4096, "u16", 1, "log", f32),
+        (1024, 4096, "u16f", 1, "log", f32),
+        (1024, 4096, "u16", 1, "fast_log", f32),
+        (1024, 4096, "u8", 1, "lin", f32),
+        (1024, 4096, "u16", 1, "log", bf16),
+        (1024, 2048, "u8", 1, None, None),
+        (1024, 4133, "u16f", 1, None, None),
+        (1664, 1000, "u16", 1, None, None),
+        (1100, 999, "u16", 1, None, None),
+        (1100, 999, "u16s", 1, "log", f32),
+        (1100, 999, "u8", 1, "lin", f32),
+        # float32 lines at one pass keep the float32-FMA kernel
+        (1024, 2048, "f32", 1, None, None),
+        (1024, 2048, "f32", 1, "log", f32),
+    ]
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    _fold_cases(cases, parts, worst, g, dev)
+    raw = _raw("u16", 4096, 1024, g, dev)
+    p1 = parts(1024, "default")
+    two = tuple(fp.OnePass(w[0], split=(*w.split[:2], torch.zeros_like(w.split[2])))
+                for w in p1)
+    x_hi16 = fp._bf16_trunc(raw.to(f32)).to(torch.int16).view(torch.uint16)
+    _fold_controls([
+        ("one-pass kernel on two of its three parts", (raw, *two), (raw, *p1)),
+        ("one-pass kernel without x_lo (x_hi input)", (x_hi16, *p1), (raw, *p1)),
+    ], g, floor_db=ONE_PASS_FLOOR_DB["u16"])
 
 
 def _compare_concat(raw, wide, bitshift, log_scaling, odt, g, ref=None):
@@ -627,6 +726,12 @@ def phase_main_path(worst):
         del out
     _run_handheld(handheld, bufs, "fold path, handheld preset", batch=True)
     launches = _read_launches(FOLD, t0, "fold path")
+    routes = {k: dict(v) for k, v in fp.ONE_PASS_ROUTES.items()}
+    log(f"[main] fold path one-pass routes {routes}")
+    for family, by_route in routes.items():  # uint16 lines: all on the tensor cores
+        if by_route != {"tensor_core": launches[family], "simt": 0}:
+            raise AssertionError(f"fold path: {family} launches by route {by_route}, want "
+                                 f"all {launches[family]} on the tensor cores")
     del handheld
 
     # Buffer 0's GEMM (the depth families) at full size on buffer 0's input,

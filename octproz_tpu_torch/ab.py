@@ -6,8 +6,8 @@ runs four turns -- OTHER_ROOT, this checkout, this checkout, OTHER_ROOT --
 each in a fresh process that imports that checkout's ``octproz_tpu_torch``
 (and builds its kernels there), times all ten kernel families with its own
 ``bench.kernel_times``, the steady state with
-``bench.steady_ms_per_buffer`` at the default and "high" rungs on the fold
-path and on the FFT path, and the FFT path's stages with
+``bench.steady_ms_per_buffer`` at every rung on the fold path and at the
+default and "high" rungs on the FFT path, and the FFT path's stages with
 ``bench.fft_stage_ms`` at both rungs, and prints one JSON line: the card's
 name and power limit, and per turn the kernel and plain-version
 milliseconds, the steady milliseconds per buffer of each path and the FFT
@@ -38,7 +38,7 @@ torch.backends.cuda.matmul.allow_tf32 = False
 dev = torch.device("cuda", 0)
 k = bench.kernel_times(dev, {names!r})
 s = {{r: bench.steady_ms_per_buffer(bench.bench_config(matmul_precision=r), dev)
-     for r in ("default", "high")}}
+     for r in ("default", "high", "highest")}}
 f = {{r: bench.steady_ms_per_buffer(bench.fft_config(matmul_precision=r), dev)
      for r in ("default", "high")}}
 st = {{r: bench.fft_stage_ms(bench.fft_config(matmul_precision=r), dev)

@@ -75,7 +75,7 @@ _TESTS = os.path.join(_REPO, "tests")
 
 
 #: The rungs the steady state is timed at.
-TIMED_RUNGS = ("default", "high")
+TIMED_RUNGS = ("default", "high", "highest")
 FOLD_KERNELS = ("depth", "depth_split", "depth_scale", "depth_scale_split",
                 "depth_scale_concat", "depth_scale_concat_split")
 PREP_KERNELS = ("prep_phase", "prep_phase_split", "prep_real", "prep_real_split")
@@ -273,7 +273,7 @@ def kernel_bound(name: str, lines: int, n_in: int, n_out: int, *, parts: int = 1
     larger of its FLOPs over the peak of their type and its bytes over the
     memory rate.  ``n_out`` is ``half`` for the fold families and the
     operator's width for the prep families; ``parts`` the operator parts
-    per axis (1, or 2/3 at the split rungs).
+    per axis as the wrapper takes them (1, or 2/3 at the split rungs).
 
     FLOPs follow the Pallas cost estimates (octproz_tpu/pallas/fused_prep.py:
     482, 494, 597, 617, 655, 680, 704): 2*lines*n_in*n_out per GEMM (two
@@ -281,9 +281,17 @@ def kernel_bound(name: str, lines: int, n_in: int, n_out: int, *, parts: int = 1
     counting only the terms the input needs -- with ``x_lo_zero`` (x exact
     in bf16, as shifted 12-bit samples are) the x_lo terms vanish and
     ``parts`` terms remain of 2*parts - 1.  The split rungs' products are
-    bf16 x bf16 (989 TFLOP/s), the one-pass rung's float32 (67 TFLOP/s).
-    Bytes: the raw input, every operator part (float32 unsplit, bf16 split),
-    the FPN mean line or phasor rows, and the output, each once."""
+    bf16 x bf16 (989 TFLOP/s), the one-pass rung's float32 (67 TFLOP/s) --
+    but for ``depth`` and ``depth_scale`` on uint8/uint16 lines
+    (``in_itemsize`` <= 2), whose one pass runs as the bf16 terms of the
+    float32 operator's three parts: the bound is the work of that route.
+    Bytes: the raw input, every operator part the kernel reads (float32
+    unsplit, bf16 split), the FPN mean line or phasor rows, and the output,
+    each once."""
+    from .kernels.fused_prep import _ONE_PASS_PARTS
+
+    if parts == 1 and name in ("depth", "depth_scale") and in_itemsize <= 2:
+        parts = _ONE_PASS_PARTS
     split = parts > 1
     terms = (parts if x_lo_zero else 2 * parts - 1) if split else 1
     gemms = 1 if name.startswith("prep") else 2

@@ -267,10 +267,13 @@ def make_curves(
     Fields named by :func:`consumed_fields` become tensors on ``device``;
     everything else stays a host numpy array.  With ``fft_via_matmul``,
     ``depth_parts`` holds the depth operator split for
-    ``cfg.matmul_precision`` on ``device``; where the prep kernels consume
-    the prep operator, ``prep_parts`` holds it split the same way.
+    ``cfg.matmul_precision`` on ``device`` -- at the default rung the float32
+    operator with the three bf16 parts the tensor-core fold kernels read
+    (``fused_prep.OnePass``), split here unless ``fold_concat`` runs the
+    concat kernels --; where the prep kernels consume the prep operator,
+    ``prep_parts`` holds it split the same way.
     """
-    from .kernels.fused_prep import (_operator_parts, build_depth_operator,
+    from .kernels.fused_prep import (OnePass, _operator_parts, build_depth_operator,
                                      build_prep_operator)
 
     used = consumed_fields(cfg)
@@ -304,6 +307,10 @@ def make_curves(
         dop_re, dop_im = place("depth_op_re", re_np), place("depth_op_im", im_np)
         depth_parts = (_operator_parts(dop_re, cfg.matmul_precision),
                        _operator_parts(dop_im, cfg.matmul_precision))
+        if not cfg.fold_concat:  # the concat kernels read the float32 operator
+            for parts in depth_parts:
+                if isinstance(parts, OnePass):
+                    parts.split  # noqa: B018 -- made here, once per curve build
     if cfg.dispersion:
         phase = place("phase", phase_np)
     if cfg.sinusoidal_correction:

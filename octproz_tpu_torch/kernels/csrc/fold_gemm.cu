@@ -2,15 +2,18 @@
 // families, each the counterpart of a Pallas kernel in
 // octproz_tpu/pallas/fused_prep.py:
 //
-//   fold_gemm<EPI=PLANAR, PASSES=1>    _kernel_depth              (:261-268)
+//   fold_split<EPI=PLANAR, 3 parts> | fold_gemm<EPI=PLANAR, PASSES=1>  _kernel_depth  (:261-268)
 //   fold_split<EPI=PLANAR>  (3|5)      _kernel_depth_split        (:271-280)
-//   fold_gemm<EPI=SCALE,  PASSES=1>    _kernel_depth_scale        (:375-419)
+//   fold_split<EPI=SCALE, 3 parts> | fold_gemm<EPI=SCALE, PASSES=1>  _kernel_depth_scale  (:375-419)
 //   fold_split<EPI=SCALE>   (3|5)      _kernel_depth_scale_split  (:422-438)
 //
-// The one-pass rung runs the float32-FMA template of fold_gemm.cuh; the
-// split rungs run the bf16 tensor-core kernels of fold_split.cuh (launched
-// from fold_split.cu).  InT in {uint8, uint16, float} (raw samples; float
-// is input the wrapper decoded already) and OutT in {float, bf16} for SCALE.
+// The split rungs run the bf16 tensor-core kernels of fold_split.cuh
+// (launched from fold_split.cu), and so does the one-pass rung for uint8
+// and uint16 lines, against three bf16 parts of its float32 operator.  For
+// float32 lines -- samples above 16 bits, decoded by the wrapper, which the
+// x_hi + x_lo split cannot carry -- the one-pass rung runs the float32-FMA
+// template of fold_gemm.cuh against the float32 operator.  The input type
+// alone picks the route.  OutT in {float, bf16} for SCALE.
 
 #include "fold_gemm.cuh"
 
@@ -26,28 +29,28 @@ int fold_split_scale(const void* raw, int in_kind, int bitshift, int passes,
 
 namespace {
 
+constexpr int IN_FLOAT = 2;
+
+// The one-pass rung on float32 lines.
 template <int EPI, typename OutT>
-int one_pass(int in_kind, const Args& args, cudaStream_t stream) {
-  switch (in_kind) {
-    case 0: return launch<uint8_t, 1, EPI, OutT, false>(args, stream);
-    case 1: return launch<uint16_t, 1, EPI, OutT, false>(args, stream);
-    case 2: return launch<float, 1, EPI, OutT, false>(args, stream);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+int one_pass(const Args& args, cudaStream_t stream) {
+  return launch<float, 1, EPI, OutT, false>(args, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// in_kind: 0 uint8, 1 uint16, 2 float32.  passes: 1, 3 or 5 (with 1, 2 or
-// 3 operator parts per axis; unused part pointers may be NULL).
+// in_kind: 0 uint8, 1 uint16, 2 float32.  passes: 3 or 5 with 2 or 3 bf16
+// operator parts per axis; 1 with the float32 operator in wre0 / wim0 for
+// float32 lines, and with its three bf16 parts for uint8/uint16 lines.
+// Unused part pointers may be NULL.
 int fold_gemm_planar(const void* raw, int in_kind, int bitshift, int passes,
                      const void* wre0, const void* wre1, const void* wre2,
                      const void* wim0, const void* wim1, const void* wim2,
                      float* re_out, float* im_out, long long lines, int n_in,
                      int half, void* stream) {
-  if (passes != 1) {
+  if (passes != 1 || in_kind != IN_FLOAT) {
     const void* const wre[3] = {wre0, wre1, wre2};
     const void* const wim[3] = {wim0, wim1, wim2};
     return fold_split_planar(raw, in_kind, bitshift, passes, wre, wim, re_out, im_out,
@@ -63,7 +66,7 @@ int fold_gemm_planar(const void* raw, int in_kind, int bitshift, int passes,
   args.n_in = n_in;
   args.half = half;
   args.bitshift = bitshift;
-  return one_pass<PLANAR, float>(in_kind, args, static_cast<cudaStream_t>(stream));
+  return one_pass<PLANAR, float>(args, static_cast<cudaStream_t>(stream));
 }
 
 // mode: 0 log (a*log10(p)+b), 1 lin (a*sqrt(p)+b), 2 fast log
@@ -74,7 +77,7 @@ int fold_gemm_scale(const void* raw, int in_kind, int bitshift, int passes,
                     const float* mean2, void* out, int out_bf16, int mode,
                     float a, float b, long long lines, int n_in, int half,
                     void* stream) {
-  if (passes != 1) {
+  if (passes != 1 || in_kind != IN_FLOAT) {
     const void* const wre[3] = {wre0, wre1, wre2};
     const void* const wim[3] = {wim0, wim1, wim2};
     return fold_split_scale(raw, in_kind, bitshift, passes, wre, wim, mean2, out, out_bf16,
@@ -94,8 +97,7 @@ int fold_gemm_scale(const void* raw, int in_kind, int bitshift, int passes,
   args.a = a;
   args.b = b;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return out_bf16 ? one_pass<SCALE, __nv_bfloat16>(in_kind, args, s)
-                  : one_pass<SCALE, float>(in_kind, args, s);
+  return out_bf16 ? one_pass<SCALE, __nv_bfloat16>(args, s) : one_pass<SCALE, float>(args, s);
 }
 
 const char* fold_gemm_error_string(int code) {

@@ -1,10 +1,11 @@
 // The folded-GEMM SIMT kernel template for Hopper (sm_90a): decode ->
 // x @ W_re, x @ W_im with a planar store or a fused FPN-subtract +
 // dynamic-range-scale epilogue, on the CUDA cores.  Instantiated by
-// fold_gemm.cu for the one-pass rung with one operator per axis (B1, B2)
-// and by fold_concat.cu (one concatenated [W_re | W_im] operator, every
-// rung: B5, B6).  The split rungs with one operator per axis (B3, B4) run
-// on the bf16 tensor cores instead (fold_split.cuh).
+// fold_gemm.cu for the one-pass rung with one operator per axis on float32
+// lines (B1, B2 on samples above 16 bits) and by fold_concat.cu (one
+// concatenated [W_re | W_im] operator, every rung: B5, B6).  With one
+// operator per axis the split rungs (B3, B4), and the one-pass rung on
+// uint8/uint16 lines, run on the bf16 tensor cores instead (fold_split.cuh).
 //
 // What bounds it: at the main path's geometry (131072 lines x 1024 samples
 // -> 512 depth bins) one buffer is 4*131072*1024*512 = 275 GFLOP per pass

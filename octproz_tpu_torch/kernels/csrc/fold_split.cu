@@ -1,11 +1,29 @@
-// The split-rung fold kernels on bf16 tensor cores (template and design
+// The two-operator fold kernels on bf16 tensor cores (template and design
 // notes in fold_split.cuh): the launches behind fold_gemm_planar and
-// fold_gemm_scale at 3 and 5 passes (fold_gemm.cu keeps the one-pass rung).
+// fold_gemm_scale (fold_gemm.cu) at 3 and 5 passes,
 //
 //   fold_split<EPI=PLANAR>  _kernel_depth_split        (octproz_tpu/pallas/fused_prep.py:271-280)
 //   fold_split<EPI=SCALE>   _kernel_depth_scale_split  (:422-438)
 //
-// with InT in {uint8, uint16, float} and OutT in {float, bf16} for SCALE.
+// with InT in {uint8, uint16, float} and OutT in {float, bf16} for SCALE,
+// and at one pass on uint8/uint16 lines,
+//
+//   fold_split<EPI=PLANAR, PARTS=3>  _kernel_depth        (:261-268)
+//   fold_split<EPI=SCALE,  PARTS=3>  _kernel_depth_scale  (:375-419)
+//
+// The one-pass rung is a float32 product.  Its float32 operator arrives
+// here as three bf16 parts (two mask truncations and a rounded remainder:
+// ~24 mantissa bits), and an integer sample of at most 16 bits is exactly
+// x_hi + x_lo, so the terms x_hi w_2, x_hi w_1, x_hi w_0 and, where a stage
+// holds a sample of 256 or more, x_lo w_1, x_lo w_0 -- those of "highest",
+// the same instantiations -- give that product at float32 grade on the
+// tensor cores: for shifted 12-bit samples 3 x 275 GFLOP of bf16 products,
+// 0.83 ms at 989 TFLOP/s, where the float32-FMA kernel is bound to 4.1 ms
+// at 67 TFLOP/s.  float32 lines (samples above 16 bits, of which x_hi +
+// x_lo keeps 16) stay on the float32-FMA kernel of fold_gemm.cu: the
+// caller routes by input type, and a float32 launch at one pass is refused
+// here.
+//
 // A block's two operator halves are (W_re, n0) and (W_im, n0): 64 bins of
 // re and im (COLS = BINS).
 
@@ -25,6 +43,15 @@ struct Fold {
     }
   };
 };
+
+// The pass terms a launch runs: those of its passes, and at one pass (three
+// parts, integer lines only) the five of "highest"; 0 for a launch this
+// file does not take.
+int terms(int in_kind, int passes, const void* const wre[3], const void* const wim[3]) {
+  if (passes != 1) return passes;
+  const bool three = wre[0] && wre[1] && wre[2] && wim[0] && wim[1] && wim[2];
+  return three && (in_kind == 0 || in_kind == 1) ? 5 : 0;
+}
 
 Params params(const void* raw, int bitshift, const void* const wre[3], const void* const wim[3],
               long long lines, int n_in, int half) {
@@ -46,16 +73,18 @@ Params params(const void* raw, int bitshift, const void* const wre[3], const voi
 
 extern "C" {
 
-// The 3/5-pass launches of fold_gemm_planar / fold_gemm_scale (fold_gemm.cu),
-// with the same arguments.
+// The tensor-core launches of fold_gemm_planar / fold_gemm_scale
+// (fold_gemm.cu), with the same arguments: 3 or 5 passes against 2 or 3
+// bf16 parts per axis, or 1 pass on uint8/uint16 lines against the float32
+// operator's three bf16 parts.
 int fold_split_planar(const void* raw, int in_kind, int bitshift, int passes,
                       const void* const wre[3], const void* const wim[3], float* re_out,
                       float* im_out, long long lines, int n_in, int half, void* stream) {
   split::Params p = split::params(raw, bitshift, wre, wim, lines, n_in, half);
   p.re_out = re_out;
   p.im_out = im_out;
-  return split::dispatch<split::Fold<PLANAR, float>::K>(in_kind, passes, p,
-                                                        static_cast<cudaStream_t>(stream));
+  return split::dispatch<split::Fold<PLANAR, float>::K>(
+      in_kind, split::terms(in_kind, passes, wre, wim), p, static_cast<cudaStream_t>(stream));
 }
 
 int fold_split_scale(const void* raw, int in_kind, int bitshift, int passes,
@@ -69,8 +98,9 @@ int fold_split_scale(const void* raw, int in_kind, int bitshift, int passes,
   p.a = a;
   p.b = b;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return out_bf16 ? split::dispatch<split::Fold<SCALE, __nv_bfloat16>::K>(in_kind, passes, p, s)
-                  : split::dispatch<split::Fold<SCALE, float>::K>(in_kind, passes, p, s);
+  const int terms = split::terms(in_kind, passes, wre, wim);
+  return out_bf16 ? split::dispatch<split::Fold<SCALE, __nv_bfloat16>::K>(in_kind, terms, p, s)
+                  : split::dispatch<split::Fold<SCALE, float>::K>(in_kind, terms, p, s);
 }
 
 }  // extern "C"

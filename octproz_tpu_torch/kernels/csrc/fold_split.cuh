@@ -10,6 +10,12 @@
 //   prep_split<EPI=PHASE>   _kernel_phase_split        (:245-251, prep_split.cu)
 //   prep_split<EPI=REAL>    _kernel_real_split         (:254-258, prep_split.cu)
 //
+// and, on uint8/uint16 lines, the one-pass rung of the two-operator fold
+// kernels, whose float32 operator arrives as three bf16 parts (fold_split.cu):
+//
+//   fold_split<EPI=PLANAR, PARTS=3>  _kernel_depth        (:261-268)
+//   fold_split<EPI=SCALE,  PARTS=3>  _kernel_depth_scale  (:375-419)
+//
 // What bounds them: at the main path's geometry (131072 lines x 1024
 // samples -> 512 bins re and im, or 1024 prep columns; "high") the pass
 // terms are 2-3 bf16 GEMMs of 275 GFLOP each against ~0.54-1.3 GB of raw
@@ -30,10 +36,14 @@
 //   samples) by 16-byte cp.async into padded rows, both signalling one
 //   mbarrier per stage; out-of-range lines, samples and columns arrive as
 //   zeros, and a half that lies wholly past the operator's width is not
-//   loaded at all (its columns are never stored).  Where TMA cannot
-//   describe the operator (width not a multiple of 8) or the rows are not
-//   16-byte aligned, the producer stores the same layout element by
-//   element (slow; no shape of the main path takes it);
+//   loaded at all (its columns are never stored).  The warp starts a
+//   stage's 512-2048 raw copies itself, so their loop is kept to the copy
+//   and two adds: a lane keeps its chunk and walks down the rows (with
+//   the row, chunk and bounds worked out per copy, the producer warp and
+//   not the memory system set the pace of every kernel here).  Where TMA
+//   cannot describe the operator (width not a multiple of 8) or the rows
+//   are not 16-byte aligned, the producer stores the same layout element
+//   by element (slow; no shape of the main path takes it);
 // * two consumer warpgroups of 64 lines each decode their rows of the raw
 //   tile straight into the register fragment of wgmma's A operand (>> 4
 //   when bitshift is set), split it there into x_hi (mask) and
@@ -56,6 +66,11 @@
 //   decodes x_hi again, so only one set of A fragments is ever live (with
 //   the two 64-float sums, the block's 288 threads -- sized by ptxas as
 //   384, 168 registers each -- leave no room for two);
+// * the two warpgroups take turns starting a stage's wgmma (named barriers
+//   4 and 5; the turn passes once the group is committed, not when it is
+//   done), which staggers them: one decodes, votes and folds while the
+//   other's terms run, instead of both reaching the tensor cores at once
+//   and both leaving them idle afterwards;
 // * the epilogue stages each warp's 16 x 128 sums in shared memory
 //   (stage_sums) and walks them with one lane per column: FPN subtraction,
 //   p = re^2 + im^2, log / lin / fast log and the float32 or bf16 store (or
@@ -92,14 +107,17 @@ constexpr int EPI_ROW = BINS + 8;         // floats per staged output row
 
 // Diagnostic builds only (kernels/diagnose.py; build.py never sets it):
 // 1 sums all of n_in in one wgmma chain instead of folding every stage --
-// the same terms, other rounding; 2 refills no stage after the ring's
-// first fill and 4 issues no wgmma -- timing only, the output is wrong.
+// the same terms, other rounding; 8 lets the warpgroups start their wgmma
+// without taking turns -- the same output; 2 refills no stage after the
+// ring's first fill and 4 runs no wgmma -- timing only, the output is
+// wrong.
 #ifndef FOLD_SPLIT_VARIANT
 #define FOLD_SPLIT_VARIANT 0
 #endif
 constexpr bool ONE_CHAIN = FOLD_SPLIT_VARIANT & 1;
 constexpr bool NO_LOADS = FOLD_SPLIT_VARIANT & 2;
 constexpr bool NO_MMA = FOLD_SPLIT_VARIANT & 4;
+constexpr bool TURNS = !(FOLD_SPLIT_VARIANT & 8);
 
 // The raw tile's row pitch: 64 samples plus 16 bytes, so the A-fragment
 // reads of a warp (8 rows x 4 column pairs) hit 32 different banks.
@@ -213,6 +231,11 @@ __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
 
 __device__ __forceinline__ void named_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Counts this warp at the named barrier without waiting there.
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // True on every thread of a warpgroup if v is true on any of its 128.
@@ -376,13 +399,26 @@ __device__ __forceinline__ void produce(const Params& p, const Maps& maps, uint8
               tma_load(stage + (c * PARTS + q) * B_TILE, &maps.m[c % MAPS][q], n0 + c * OFF,
                        k0, full + 8 * s);
       }
-      for (int e = lane; e < LINES * CHUNKS; e += 32) {
-        const int r = e / CHUNKS;
-        const int col = k0 + (e % CHUNKS) * ELEMS;
-        const long long line = m0 + r;
-        const bool ok = line < p.lines && col < p.n_in;
-        cp_async16(tile + r * ROW + (e % CHUNKS) * 16, ok ? raw + line * p.n_in + col : raw,
-                   ok ? 16 : 0);
+      // A pass of the warp covers PASS rows: lane -> (row lane / CHUNKS,
+      // chunk lane % CHUNKS), so only the row moves inside the loop; ok
+      // counts this lane's copies that lie inside the input.
+      constexpr int PASS = 32 / CHUNKS;
+      const int r0 = lane / CHUNKS;
+      const int col = k0 + (lane % CHUNKS) * ELEMS;
+      const long long left = p.lines - m0 - r0;  // lines from this lane's first row on
+      const int ok = col >= p.n_in || left <= 0 ? 0
+                     : left > LINES - PASS      ? LINES / PASS
+                                                : static_cast<int>((left + PASS - 1) / PASS);
+      const InT* const src = raw + (m0 + r0) * p.n_in + col;
+      const uint32_t dst = tile + r0 * ROW + (lane % CHUNKS) * 16;
+      const long long step = static_cast<long long>(PASS) * p.n_in;
+      if (ok == LINES / PASS) {
+#pragma unroll 8
+        for (int i = 0; i < LINES / PASS; ++i)
+          cp_async16(dst + i * PASS * ROW, src + i * step, 16);
+      } else {
+        for (int i = 0; i < LINES / PASS; ++i)
+          cp_async16(dst + i * PASS * ROW, i < ok ? src + i * step : raw, i < ok ? 16 : 0);
       }
       cp_async_arrive(full + 8 * s);
     } else {
@@ -447,10 +483,12 @@ __device__ __forceinline__ void fragments(const uint8_t* tile, int row0, int t, 
 
 // One group of a stage's pass terms into d: x_hi w_j for j = P-1 .. 0
 // (HI), or x_lo w_j for j = P-2 .. 0 -- low-order first.  The group's
-// first instruction overwrites d unless accumulate is set.
+// first instruction overwrites d unless accumulate is set.  Once the group
+// is committed, named barrier committed (if not negative) is told so.
 template <int PARTS, bool HI>
 __device__ __forceinline__ void stage_terms(float (&d)[64], const uint32_t (&x)[4][4],
-                                            uint32_t stage, bool accumulate) {
+                                            uint32_t stage, bool accumulate,
+                                            int committed = -1) {
   pin(d);
   wgmma_fence();
 #pragma unroll
@@ -461,6 +499,7 @@ __device__ __forceinline__ void stage_terms(float (&d)[64], const uint32_t (&x)[
         wgmma_n128(d, x[kk], b_desc<PARTS>(stage + j * B_TILE + kk * 2048),
                    accumulate || j != (HI ? PARTS - 1 : PARTS - 2) || kk > 0);
   wgmma_commit();
+  if (committed >= 0) named_arrive(committed, CONSUMERS);
   wgmma_wait_all();
   pin(d);
 }
@@ -510,6 +549,11 @@ __device__ __forceinline__ bool mainloop(const Params& p, const Maps& maps, uint
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
 
+  // Named barrier 4 + wg is warpgroup wg's turn to start a stage's wgmma
+  // (128 threads wait there, the other 128 arrive); warpgroup 0 has the
+  // first.
+  if (TURNS && wg == 1) named_arrive(4, CONSUMERS);
+
   for (int kb = 0; kb < nkb; ++kb) {
     const int s = kb % L::STAGES;
     mbar_wait(full + 8 * s, (kb / L::STAGES) & 1);
@@ -524,15 +568,20 @@ __device__ __forceinline__ bool mainloop(const Params& p, const Maps& maps, uint
 #endif
     fragments<InT, true>(tile, row0, t, p.bitshift, x, wide);
     // uint8 samples are exact in bf16: x_lo is zero by construction
-    if (sizeof(InT) == 1 || !warpgroup_any(wide != 0, 1 + wg)) {
-      stage_terms<PARTS, true>(sum, x, stage, ONE_CHAIN);
+    const bool lo = sizeof(InT) != 1 && warpgroup_any(wide != 0, 1 + wg);
+    // the turn passes with this stage's last group, but for warpgroup 1's
+    // last stage: nobody waits for that one
+    const int next = TURNS && !(wg == 1 && kb == nkb - 1) ? 4 + (wg ^ 1) : -1;
+    if (TURNS) named_sync(4 + wg, CONSUMERS);
+    if (!lo) {
+      stage_terms<PARTS, true>(sum, x, stage, ONE_CHAIN, next);
     } else {
       // x_lo's group first, then x_hi decoded again: the two fragment sets
       // are never live together
       fragments<InT, false>(tile, row0, t, p.bitshift, x, wide);
       stage_terms<PARTS, false>(sum, x, stage, ONE_CHAIN);
       fragments<InT, true>(tile, row0, t, p.bitshift, x, wide);
-      stage_terms<PARTS, true>(sum, x, stage, true);
+      stage_terms<PARTS, true>(sum, x, stage, true, next);
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(empty + 8 * s);
@@ -719,7 +768,8 @@ int launch(Params p, Kernel kernel, cudaError_t attr, cudaStream_t stream) {
 }
 
 // The launch of K<InT, PARTS>::run (a struct template of the including
-// file) for in_kind (0 uint8, 1 uint16, 2 float32) and passes (3 or 5).
+// file) for in_kind (0 uint8, 1 uint16, 2 float32) and passes (3 or 5: 2 or
+// 3 parts).
 template <template <typename, int> class K>
 int dispatch(int in_kind, int passes, const Params& p, cudaStream_t stream) {
   if (passes != 3 && passes != 5) return static_cast<int>(cudaErrorInvalidValue);

@@ -24,7 +24,9 @@ This module holds, for each of the ten kernel families:
 
 * the CUDA kernel (``csrc/fold_gemm.cu`` and ``csrc/prep_gemm.cu`` -- the
   one-pass rung; their split rungs launch the bf16 tensor-core kernels of
-  ``csrc/fold_split.cu`` and ``csrc/prep_split.cu`` --, and
+  ``csrc/fold_split.cu`` and ``csrc/prep_split.cu``, and so does the
+  one-pass rung of the two-operator fold kernels on integer samples, as
+  three bf16 parts of the float32 operator (:class:`OnePass`) --, and
   ``csrc/fold_concat.cu``, built by :mod:`.build`), which a wrapper
   launches for CUDA tensors;
 * its plain PyTorch version (``*_plain``), which the wrapper uses for CPU
@@ -64,16 +66,32 @@ from ..params import AcqParams, ProcConfig
 #: (3 passes), "highest" -> 3 parts (5 passes).
 _SPLIT_PARTS = {"high": 2, "highest": 3}
 
+#: bf16 parts of the float32 operator that the one-pass rung's tensor-core
+#: fold kernels read: ~24 mantissa bits, the "highest" split.
+_ONE_PASS_PARTS = 3
+
 #: Kernel launches per family since the last :func:`reset_launch_counts`.
+#: The key follows the rung, not the kernel's pass terms: a one-pass launch
+#: counts as ``depth`` / ``depth_scale`` on either of its routes.
 LAUNCHES = {"depth": 0, "depth_split": 0, "depth_scale": 0,
             "depth_scale_split": 0, "depth_scale_concat": 0,
             "depth_scale_concat_split": 0, "prep_phase": 0, "prep_phase_split": 0,
             "prep_real": 0, "prep_real_split": 0}
 
+#: The one-pass launches of ``depth`` and ``depth_scale`` by route:
+#: ``tensor_core`` (uint8/uint16 lines: bf16 wgmma on the operator's three
+#: parts) or ``simt`` (float32 lines: the float32-FMA kernel).  The route
+#: follows the input type alone.
+ONE_PASS_ROUTES = {"depth": {"tensor_core": 0, "simt": 0},
+                   "depth_scale": {"tensor_core": 0, "simt": 0}}
+
 
 def reset_launch_counts() -> None:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
+    for routes in ONE_PASS_ROUTES.values():
+        for key in routes:
+            routes[key] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -184,6 +202,26 @@ def _split_bf16(w: torch.Tensor, parts: int = 2) -> Tuple[torch.Tensor, ...]:
         out.append(p.to(torch.bfloat16))
         rem = rem - p
     return tuple(out)
+
+
+class OnePass(tuple):
+    """The one-pass rung's operator as the wrappers take it: a 1-tuple of
+    the float32 operator -- what the plain versions, the SIMT kernels and the
+    concat kernels read -- that also carries ``split``, its three bf16 parts
+    (:func:`_split_bf16`), which the tensor-core fold kernels read for
+    integer lines.  ``split`` is computed at first use and kept, so an
+    operator held in ``Curves.depth_parts`` is split once per curve build;
+    one made per call is split per call."""
+
+    def __new__(cls, w: torch.Tensor, split=None):
+        self = super().__new__(cls, (w.to(torch.float32).contiguous(),))
+        if split is not None:
+            self.split = tuple(split)
+        return self
+
+    @functools.cached_property
+    def split(self) -> Tuple[torch.Tensor, ...]:
+        return _split_bf16(self[0], _ONE_PASS_PARTS)
 
 
 def _dot_split(x: torch.Tensor, w_parts: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -481,6 +519,30 @@ def _raise_on(rc: int, lib, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc} ({msg})")
 
 
+def _kernel_operands(raw2d, w_re_parts, w_im_parts, family: str):
+    """What a two-operator fold kernel reads for parts the launch checks
+    passed: (passes, re parts, im parts, LAUNCHES key, route or None).  The
+    one-pass rung runs on the tensor cores against the float32 operator's
+    three bf16 parts for uint8/uint16 lines, and on the float32-FMA kernel
+    for float32 lines (samples above 16 bits, which x_hi + x_lo cannot
+    carry): the input type alone decides, never a failed build or launch."""
+    passes = 2 * len(w_re_parts) - 1
+    if passes > 1:
+        return passes, w_re_parts, w_im_parts, family + "_split", None
+    if raw2d.dtype == torch.float32:
+        return 1, w_re_parts, w_im_parts, family, "simt"
+    split = [w.split if isinstance(w, OnePass) else _split_bf16(w[0], _ONE_PASS_PARTS)
+             for w in (w_re_parts, w_im_parts)]
+    _check_parts((*split[0], *split[1]), raw2d.shape[1], raw2d.device, "fold", split=True)
+    return 1, split[0], split[1], family, "tensor_core"
+
+
+def _count_launch(key: str, route) -> None:
+    LAUNCHES[key] += 1
+    if route is not None:
+        ONE_PASS_ROUTES[key][route] += 1
+
+
 def _launch_depth(raw2d, w_re_parts, w_im_parts, *, bitshift: bool):
     from . import build
 
@@ -490,15 +552,15 @@ def _launch_depth(raw2d, w_re_parts, w_im_parts, *, bitshift: bool):
     if lines == 0:
         return re, im
     lib = build.load()
-    passes = 2 * len(w_re_parts) - 1
+    passes, w_re, w_im, key, route = _kernel_operands(raw2d, w_re_parts, w_im_parts, "depth")
     with torch.cuda.device(raw2d.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.fold_gemm_planar(
             raw2d.data_ptr(), _IN_KIND[raw2d.dtype], int(bitshift), passes,
-            *_ptrs(w_re_parts), *_ptrs(w_im_parts),
+            *_ptrs(w_re), *_ptrs(w_im),
             re.data_ptr(), im.data_ptr(), lines, n_in, half, stream)
     _raise_on(rc, lib, "fold_gemm_planar")
-    LAUNCHES["depth" if passes == 1 else "depth_split"] += 1
+    _count_launch(key, route)
     return re, im
 
 
@@ -519,16 +581,17 @@ def _launch_depth_scale(raw2d, w_re_parts, w_im_parts, mean2, *, bitshift,
     else:
         mode, a_k = _MODE_LOG, a
     lib = build.load()
-    passes = 2 * len(w_re_parts) - 1
+    passes, w_re, w_im, key, route = _kernel_operands(raw2d, w_re_parts, w_im_parts,
+                                                      "depth_scale")
     with torch.cuda.device(raw2d.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.fold_gemm_scale(
             raw2d.data_ptr(), _IN_KIND[raw2d.dtype], int(bitshift), passes,
-            *_ptrs(w_re_parts), *_ptrs(w_im_parts), mean2.data_ptr(),
+            *_ptrs(w_re), *_ptrs(w_im), mean2.data_ptr(),
             out.data_ptr(), int(out_dtype == torch.bfloat16), mode,
             ctypes.c_float(a_k), ctypes.c_float(b), lines, n_in, half, stream)
     _raise_on(rc, lib, "fold_gemm_scale")
-    LAUNCHES["depth_scale" if passes == 1 else "depth_scale_split"] += 1
+    _count_launch(key, route)
     return out
 
 
@@ -651,18 +714,18 @@ def prep_real(raw2d, op_parts, *, bitshift: bool):
 # ---------------------------------------------------------------------------
 
 def _operator_parts(w, precision: str) -> Tuple[torch.Tensor, ...]:
-    """The operator as the kernel takes it at ``precision``: one float32
-    part, or 2/3 bf16 parts.  ``w`` is the float32 operator (split here) or
-    a tuple of parts already split for ``precision`` (as
-    ``Curves.depth_parts`` and ``Curves.prep_parts`` hold them), which is
+    """The operator as the wrappers take it at ``precision``: one float32
+    part (an :class:`OnePass`), or 2/3 bf16 parts.  ``w`` is the float32
+    operator (split here) or a tuple of parts already made for ``precision``
+    (as ``Curves.depth_parts`` and ``Curves.prep_parts`` hold them), which is
     returned as is."""
     parts = _SPLIT_PARTS.get(precision, 1)
     if isinstance(w, (tuple, list)):
         if len(w) != parts:
             raise ValueError(f"matmul_precision={precision!r} takes {parts} "
                              f"operator part(s), got {len(w)}")
-        return tuple(w)
-    return _split_bf16(w, parts) if parts > 1 else (w.to(torch.float32).contiguous(),)
+        return w if isinstance(w, OnePass) else tuple(w)
+    return _split_bf16(w, parts) if parts > 1 else OnePass(w)
 
 
 def concat_operator(w_re, w_im, precision: str) -> Tuple[torch.Tensor, ...]:

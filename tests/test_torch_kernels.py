@@ -518,6 +518,18 @@ CUDA_CASES = [
     (1100, 300, torch.uint16, False, 5, "lin", torch.float32),
     (256, 300, torch.uint8, False, 3, None, None),
     (256, 300, torch.uint8, False, 3, "log", torch.float32),
+    # the one-pass rung on the tensor cores (integer lines: x_lo nonzero
+    # unshifted, the ragged edges) and on the float32-FMA kernel (float32)
+    (256, 300, torch.uint16, False, 1, None, None),
+    (256, 300, torch.uint16, False, 1, "log", torch.float32),
+    (256, 300, torch.uint16, False, 1, "fast_log", torch.float32),
+    (256, 300, torch.uint16, True, 1, "lin", torch.bfloat16),
+    (256, 300, torch.uint8, False, 1, None, None),
+    (1664, 70, torch.uint16, False, 1, None, None),
+    (1100, 300, torch.uint16, False, 1, None, None),
+    (1100, 300, torch.uint16, True, 1, "log", torch.float32),
+    (256, 300, torch.float32, False, 1, None, None),
+    (256, 300, torch.float32, False, 1, "log", torch.float32),
 ]
 
 
@@ -558,6 +570,45 @@ def test_cuda_kernel_matches_plain(cuda_device, np_rng, n_in, lines, in_dtype, b
         _scale_close(got, want.float().cpu().numpy())
         family = "depth_scale" if passes == 1 else "depth_scale_split"
     assert tfp.LAUNCHES[family] == before[family] + 1
+
+
+@pytest.mark.cuda
+def test_cuda_one_pass_route_follows_the_input_type(cuda_device, np_rng):
+    """At one pass uint8/uint16 lines run on the tensor cores and float32
+    lines on the float32-FMA kernel; both count as ``depth``; full 16-bit
+    samples (x_lo in every stage) stay within the planar bound."""
+    wre, wim = (tfp._operator_parts(torch.from_numpy(w).to(cuda_device), "default")
+                for w in _operators())
+    full = torch.from_numpy(np_rng.integers(0, 1 << 16, size=(300, N)).astype(np.uint16))
+    for raw, route in ((full.to(cuda_device), "tensor_core"),
+                       (full.to(cuda_device).float(), "simt")):
+        tfp.reset_launch_counts()
+        got = tfp.fold_depth(raw, wre, wim, bitshift=False)
+        torch.cuda.synchronize()
+        assert tfp.LAUNCHES["depth"] == 1 and tfp.LAUNCHES["depth_split"] == 0
+        assert tfp.ONE_PASS_ROUTES["depth"] == {**{"tensor_core": 0, "simt": 0}, route: 1}
+        err = tfp.planar_error(got, tfp.depth_plain(raw, wre, wim, bitshift=False))
+        assert err <= tfp.PLANAR_REL_L2, (route, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("control", ["two of the three parts", "no x_lo"])
+def test_cuda_gates_catch_the_one_pass_neighbours(cuda_device, np_rng, control):
+    """Controls: the one-pass kernel on the "high" parts (the third zeroed),
+    or on x_hi alone, differs from the float32 product by more than the
+    planar bound."""
+    ops = [tfp._operator_parts(torch.from_numpy(w).to(cuda_device), "default")
+           for w in _operators()]
+    raw = _cuda_raw(np_rng, 300, N, torch.uint16, cuda_device)
+    want = tfp.depth_plain(raw, *ops, bitshift=False)
+    if control == "no x_lo":
+        x_hi = tfp._bf16_trunc(raw.to(torch.float32)).to(torch.int16).view(torch.uint16)
+        got = tfp.fold_depth(x_hi, *ops, bitshift=False)
+    else:
+        two = [tfp.OnePass(w[0], split=(*w.split[:2], torch.zeros_like(w.split[2])))
+               for w in ops]
+        got = tfp.fold_depth(raw, *two, bitshift=False)
+    assert tfp.planar_error(got, want) > 2 * tfp.PLANAR_REL_L2
 
 
 @pytest.mark.cuda

@@ -56,26 +56,33 @@ def _jax_cfg(cfg: ProcConfig):
                  else getattr(cfg, f.name)) for f in dataclasses.fields(cfg)})
 
 
-def _models(base_cfg=None, **changes):
+def _models(base_cfg=None, bit_depth=12, window=None, **changes):
     """The port's and the JAX package's model on the same configuration:
     ``base_cfg`` (default: the benchmark chain) with bitshift and FPN from
-    the first two B-scans, then ``changes``; the same post background line
-    where the configuration removes one."""
+    the first two B-scans, then ``changes``; samples of ``bit_depth`` bits;
+    ``window`` (type, center, fill factor) in place of the Hann window; the
+    same post background line where the configuration removes one."""
     cfg = dataclasses.replace(base_cfg or default_full_config(), bitshift=True,
                               bscans_for_noise=2)
     cfg = dataclasses.replace(cfg, **changes)
-    acq = AcqParams(samples_per_line=N, ascans_per_bscan=ASCANS, bscans_per_buffer=BSCANS)
-    jacq = jparams.AcqParams(samples_per_line=N, ascans_per_bscan=ASCANS,
-                             bscans_per_buffer=BSCANS)
+    geometry = dict(samples_per_line=N, ascans_per_bscan=ASCANS, bscans_per_buffer=BSCANS,
+                    bit_depth=bit_depth)
     post = dict(post_background=POST_BG) if cfg.post_background_removal else {}
-    tm = FdOctModel(acq, cfg, **KW, **post, device="cpu")
-    jm = jfdoct.FdOctModel(jacq, _jax_cfg(cfg), **JKW, **post)
+    kw, jkw = dict(KW), dict(JKW)
+    if window is not None:
+        kind, center, fill = window
+        kw.update(window_type=kind, window_center=center, window_fill_factor=fill)
+        jkw.update(kw, window_type=jparams.WindowType(kind.value))
+    tm = FdOctModel(AcqParams(**geometry), cfg, **kw, **post, device="cpu")
+    jm = jfdoct.FdOctModel(jparams.AcqParams(**geometry), _jax_cfg(cfg), **jkw, **post)
     return tm, jm
 
 
-def _buffers(count, seed=99):
+def _buffers(count, seed=99, bit_depth=12):
+    """Raw buffers of ``bit_depth``-bit samples in their container type."""
     rng = np.random.default_rng(seed)
-    return [rng.integers(0, 4096, size=(BSCANS, ASCANS, N)).astype(np.uint16)
+    dtype = np.uint8 if bit_depth <= 8 else np.uint16 if bit_depth <= 16 else np.uint32
+    return [rng.integers(0, 1 << bit_depth, size=(BSCANS, ASCANS, N)).astype(dtype)
             for _ in range(count)]
 
 
@@ -155,6 +162,41 @@ SLICE_CONFIGS = {
     "fft-post-stages-bf16": dict(fft_via_matmul=False, use_pallas_prep=True, bscan_flip=True,
                                  sinusoidal_correction=True, post_background_removal=True,
                                  output_dtype="bfloat16"),
+    # beyond 12-bit input: the sample widths on which the one-pass fold
+    # kernel's two routes differ (integers of up to 16 bits go through the
+    # three-part split, wider samples are decoded to float32 first), with and
+    # without the 4-bit shift
+    "fold-8bit": dict(bit_depth=8, bitshift=False),
+    "fold-8bit-shift": dict(bit_depth=8),
+    "fold-10bit": dict(bit_depth=10, bitshift=False),
+    "fold-10bit-shift": dict(bit_depth=10),
+    "fold-16bit": dict(bit_depth=16, bitshift=False),
+    "fold-16bit-shift": dict(bit_depth=16),
+    "fold-24bit": dict(bit_depth=24, bitshift=False),
+    # (the shift of a wide container scales to [0, 1): a display range for it)
+    "fold-24bit-shift": dict(bit_depth=24, grayscale_min=-120.0, grayscale_max=40.0),
+    "fold-32bit": dict(bit_depth=32, bitshift=False),
+    "fold-32bit-shift": dict(bit_depth=32, grayscale_min=-120.0, grayscale_max=40.0),
+    "fold-16bit-high": dict(bit_depth=16, bitshift=False, matmul_precision="high"),
+    "fold-16bit-fast-log": dict(bit_depth=16, bitshift=False, fast_log=True),
+    # other operators folded into the depth GEMM
+    "fold-background": dict(background_removal=True, rolling_average_window=8),
+    "fold-background-high": dict(background_removal=True, rolling_average_window=8,
+                                 matmul_precision="high"),
+    "fold-linear": dict(interpolation=Interpolation.LINEAR),
+    "fold-quadratic": dict(interpolation=Interpolation.QUADRATIC),
+    "fold-lanczos": dict(interpolation=Interpolation.LANCZOS),
+    "fold-no-resampling": dict(resampling=False),
+    "fold-gauss-window": dict(window=(WindowType.GAUSS, 0.5, 0.8)),
+    "fold-taylor-window": dict(window=(WindowType.TAYLOR, 0.45, 0.9)),
+    "fold-highest-continuous": dict(matmul_precision="highest", fpn_mode=FpnMode.CONTINUOUS),
+    "fft-prep-8bit": dict(fft_via_matmul=False, use_pallas_prep=True, bit_depth=8,
+                          bitshift=False),
+    "fft-prep-16bit-high": dict(fft_via_matmul=False, use_pallas_prep=True, bit_depth=16,
+                                bitshift=False, matmul_precision="high"),
+    "fft-gather-linear-16bit": dict(fft_via_matmul=False, resample_via_matmul=False,
+                                    interpolation=Interpolation.LINEAR, bit_depth=16,
+                                    bitshift=False),
 }
 
 
@@ -163,7 +205,7 @@ def test_model_matches_jax_buffer_by_buffer(name):
     """Buffer 0 (FPN determination), two steady buffers, then a chunk of two
     with strategy "auto" (batch wherever the JAX model batches)."""
     tm, jm = _models(**SLICE_CONFIGS[name])
-    raws = _buffers(5)
+    raws = _buffers(5, bit_depth=tm.acq.bit_depth)
     for raw in raws[:3]:
         got = tm.process_buffer(raw)
         want = jm.process_buffer(raw)
@@ -237,6 +279,10 @@ def test_set_config_splits_the_operator_once():
     rung change rebuilds the parts in the published snapshot."""
     tm, _ = _models()
     assert [len(p) for p in tm.curves.depth_parts] == [1, 1]
+    # the default rung's float32 operator carries its three bf16 parts, made
+    # with the curves (not with the concat kernels, which never read them)
+    assert all("split" in vars(p) and len(p.split) == 3 for p in tm.curves.depth_parts)
+    assert not any("split" in vars(p) for p in _models(fold_concat=True)[0].curves.depth_parts)
     tm.set_config(matmul_precision="highest")
     cfg, curves, _ = tm._exec
     assert cfg.matmul_precision == "highest"

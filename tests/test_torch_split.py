@@ -1,5 +1,7 @@
-"""The split-rung kernels on bf16 tensor cores (``csrc/fold_split.cuh``,
-``csrc/prep_split.cu``) and the bench's kernel yardsticks.
+"""The kernels on bf16 tensor cores (``csrc/fold_split.cuh``,
+``csrc/prep_split.cu``) -- the split rungs, and the one-pass rung of the
+two-operator fold kernels on three bf16 parts of its float32 operator -- and
+the bench's kernel yardsticks.
 
 The CUDA kernel cannot run here, so its arithmetic is emulated in torch
 (:func:`staged`): per stage of 64 samples, the pass terms go low-order first
@@ -15,6 +17,13 @@ the two controls -- the "highest" parts through the 3-pass
 math, the 3-pass math without x_lo -- still fail them.  The kernel itself
 is held to the same bounds on the card (``tests/test_torch_kernels.py``,
 ``chip_smoke.py``).
+
+At the default rung the plain version is the semantics, one float32 product
+per axis, and not a replay of the kernel's terms: the staged three-part terms
+are held against it for integer samples of up to 16 bits, its own controls
+(two of the three parts; no x_lo) fail, and float32 lines above 16 bits miss
+the bound through the split, which is why they keep the float32-FMA kernel
+(:func:`simt`).
 """
 
 import dataclasses
@@ -45,10 +54,15 @@ def _operators(n):
 
 def _input(kind, lines, n, seed=11):
     """(raw, bitshift): shifted 12-bit samples (x_lo zero, as on the main
-    path), unshifted 12-bit, or 24-bit float input decoded before the kernel."""
+    path), unshifted 12-bit, full 16-bit ("u16f"), uint8, or 24-bit float
+    input decoded before the kernel."""
     rng = np.random.default_rng(seed)
     if kind == "f32":
         return torch.from_numpy(rng.integers(0, 1 << 24, size=(lines, n)).astype(np.float32)), False
+    if kind == "u8":
+        return torch.from_numpy(rng.integers(0, 256, size=(lines, n)).astype(np.uint8)), False
+    if kind == "u16f":
+        return torch.from_numpy(rng.integers(0, 1 << 16, size=(lines, n)).astype(np.uint16)), False
     raw = torch.from_numpy(rng.integers(0, 4096, size=(lines, n)).astype(np.uint16))
     return raw, kind == "u16s"
 
@@ -74,10 +88,32 @@ def staged(x, parts, vote=True):
     return acc
 
 
-def _staged_scale(x, wre, wim, mean2, a, b):
-    re = staged(x, wre) - mean2[0:1]
-    im = staged(x, wim) - mean2[1:2]
-    return tfp._scale_epilogue(re * re + im * im, log_scaling=True, a=a, b=b)
+def simt(x, w):
+    """The float32-FMA kernel's sum of ``x @ w``: one float32 sum over the
+    contraction, sample by sample."""
+    acc = torch.zeros((x.shape[0], w.shape[1]))
+    for k in range(x.shape[1]):
+        acc = acc + x[:, k:k + 1] * w[k:k + 1]
+    return acc
+
+
+def kernel_sums(raw, x, parts):
+    """The sums of the kernel that a launch on (raw, parts) runs: the staged
+    terms of the bf16 parts -- at one pass the float32 operator's three, for
+    integer lines -- or, at one pass on float32 lines, the float32-FMA sum."""
+    if isinstance(parts, tfp.OnePass):
+        if raw.dtype == torch.float32:
+            return simt(x, parts[0])
+        parts = parts.split
+    return staged(x, parts)
+
+
+def _staged_scale(x, wre, wim, mean2, a, b, raw=None, fast_log=False):
+    raw = x if raw is None else raw
+    re = kernel_sums(raw, x, wre) - mean2[0:1]
+    im = kernel_sums(raw, x, wim) - mean2[1:2]
+    return tfp._scale_epilogue(re * re + im * im, log_scaling=True, a=a, b=b,
+                               fast_log=fast_log)
 
 
 def _scale_args(half, seed=5):
@@ -87,31 +123,111 @@ def _scale_args(half, seed=5):
     return mean2, a, b
 
 
-@pytest.mark.parametrize("precision", ["high", "highest"])
-@pytest.mark.parametrize("kind", ["u16s", "u16", "f32"])
+@pytest.mark.parametrize("precision", ["default", "high", "highest"])
+@pytest.mark.parametrize("kind", ["u16s", "u16", "u16f", "u8", "f32"])
 @pytest.mark.parametrize("n,lines", [(256, 200), (320, 130)])
 def test_staged_order_within_the_planar_bound(precision, kind, n, lines):
     """The staged order against depth_plain: n = 320 ends on a partial
-    stage, 130 and 200 lines on a partial 64-line group."""
+    stage, 130 and 200 lines on a partial 64-line group.  At "default" the
+    reference is the float32 product and the kernel's sums are the three-part
+    terms (the float32-FMA sum for float32 lines)."""
     wre, wim = (tfp._operator_parts(w, precision) for w in _operators(n))
     raw, bitshift = _input(kind, lines, n)
     x = tfp._decode_block(raw, bitshift)
-    err = tfp.planar_error((staged(x, wre), staged(x, wim)),
+    err = tfp.planar_error((kernel_sums(raw, x, wre), kernel_sums(raw, x, wim)),
                            tfp.depth_plain(raw, wre, wim, bitshift=bitshift))
     assert err <= tfp.PLANAR_REL_L2, err
 
 
-@pytest.mark.parametrize("precision", ["high", "highest"])
-@pytest.mark.parametrize("kind", ["u16s", "u16", "f32"])
+@pytest.mark.parametrize("precision", ["default", "high", "highest"])
+@pytest.mark.parametrize("kind", ["u16s", "u16", "u16f", "u8", "f32"])
 def test_staged_order_within_the_scale_bounds(precision, kind):
     wre, wim = (tfp._operator_parts(w, precision) for w in _operators(256))
     raw, bitshift = _input(kind, 200, 256)
     mean2, a, b = _scale_args(128)
-    got = _staged_scale(tfp._decode_block(raw, bitshift), wre, wim, mean2, a, b)
+    got = _staged_scale(tfp._decode_block(raw, bitshift), wre, wim, mean2, a, b, raw=raw)
     want = tfp.depth_scale_plain(raw, wre, wim, mean2, bitshift=bitshift, log_scaling=True,
                                  a=a, b=b)
     rms, worst, ok = tfp.scale_error(got, want)
     assert ok, (rms, worst)
+
+
+@pytest.mark.parametrize("kind", ["u16s", "u16f"])
+def test_staged_order_within_the_scale_bounds_with_fast_log(kind):
+    """The default rung is the only one the wrapper passes ``fast_log`` to:
+    the three-part terms through the polynomial log2 against the plain
+    version's."""
+    wre, wim = (tfp._operator_parts(w, "default") for w in _operators(256))
+    raw, bitshift = _input(kind, 200, 256)
+    mean2, a, b = _scale_args(128)
+    got = _staged_scale(tfp._decode_block(raw, bitshift), wre, wim, mean2, a, b, raw=raw,
+                        fast_log=True)
+    want = tfp.depth_scale_plain(raw, wre, wim, mean2, bitshift=bitshift, log_scaling=True,
+                                 a=a, b=b, fast_log=True)
+    rms, worst, ok = tfp.scale_error(got, want)
+    assert ok, (rms, worst)
+
+
+@pytest.mark.parametrize("epi", ["planar", "scale"])
+@pytest.mark.parametrize("control", ["two of the three parts", "no x_lo"])
+def test_default_rung_controls_fail_under_the_staged_order(epi, control):
+    """The one-pass rung's neighbours -- the "high" parts, or the three-part
+    math without x_lo on unshifted samples -- fail the bounds against the
+    float32 product."""
+    ops = [tfp._operator_parts(w, "default") for w in _operators(256)]
+    raw, _ = _input("u16", 200, 256)
+    x = raw.to(torch.float32)
+    if control == "no x_lo":
+        kernel_x, kernel_parts = tfp._bf16_trunc(x), [w.split for w in ops]
+    else:
+        kernel_x, kernel_parts = x, [w.split[:2] for w in ops]
+    if epi == "planar":
+        err = tfp.planar_error([staged(kernel_x, p) for p in kernel_parts],
+                               tfp.depth_plain(x, *ops, bitshift=False))
+        assert err > 2 * tfp.PLANAR_REL_L2, err
+    else:
+        mean2, a, b = _scale_args(128)
+        rms, _, ok = tfp.scale_error(_staged_scale(kernel_x, *kernel_parts, mean2, a, b),
+                                     tfp.depth_scale_plain(x, *ops, mean2, bitshift=False,
+                                                           log_scaling=True, a=a, b=b))
+        assert not ok and rms > 2 * tfp.SCALE_RMS, rms
+
+
+@pytest.mark.parametrize("epi", ["planar", "scale"])
+def test_float_lines_above_16_bits_miss_the_bound_through_the_split(epi):
+    """x_hi + x_lo keeps 16 bits of a sample: 24-bit float32 lines through
+    the three-part terms miss the one-pass rung's bounds, so that input stays
+    on the float32-FMA kernel, which holds them."""
+    ops = [tfp._operator_parts(w, "default") for w in _operators(256)]
+    raw, _ = _input("f32", 200, 256)
+    if epi == "planar":
+        want = tfp.depth_plain(raw, *ops, bitshift=False)
+        assert tfp.planar_error([staged(raw, w.split) for w in ops], want) > 2 * tfp.PLANAR_REL_L2
+        assert tfp.planar_error([simt(raw, w[0]) for w in ops], want) <= tfp.PLANAR_REL_L2
+    else:
+        mean2, a, b = _scale_args(128)
+        want = tfp.depth_scale_plain(raw, *ops, mean2, bitshift=False, log_scaling=True, a=a, b=b)
+        rms, _, ok = tfp.scale_error(_staged_scale(raw, *[w.split for w in ops], mean2, a, b), want)
+        assert not ok and rms > 2 * tfp.SCALE_RMS, rms
+        assert tfp.scale_error(_staged_scale(raw, *ops, mean2, a, b), want)[2]
+
+
+def test_one_pass_operator_carries_its_parts_once():
+    """An OnePass is the 1-tuple of the float32 operator the plain versions
+    read; its three bf16 parts are made at first use and kept, pass through
+    ``_operator_parts`` unchanged, and sum to the operator to ~2^-24."""
+    w = _operators(256)[0]
+    op = tfp._operator_parts(w, "default")
+    assert isinstance(op, tfp.OnePass) and len(op) == 1 and torch.equal(op[0], w)
+    assert "split" not in vars(op)
+    parts = op.split
+    assert op.split is parts and tfp._operator_parts(op, "default") is op
+    assert len(parts) == 3 and all(q.dtype == torch.bfloat16 for q in parts)
+    assert all(torch.equal(q, r) for q, r in zip(parts, tfp._operator_parts(w, "highest")))
+    total = sum(q.double() for q in parts)
+    assert float((total - w.double()).abs().max()) <= 2.0 ** -22 * float(w.abs().max())
+    given = tfp.OnePass(w, split=parts[:2])
+    assert given.split == tuple(parts[:2])
 
 
 @pytest.mark.parametrize("epi", ["planar", "scale"])
@@ -227,29 +343,56 @@ def test_prep_controls_still_fail_under_the_staged_order(epi, background_removal
 
 MAIN = dict(lines=131072, n_in=1024)
 BOUNDS = [
-    # (family, n_out, parts, bound ms) at the main path's shapes, x_lo zero
-    ("depth", 512, 1, 4.1027),
-    ("depth_split", 512, 2, 0.5559),
-    ("depth_scale", 512, 1, 4.1027),
-    ("depth_scale_split", 512, 2, 0.5559),
-    ("depth_scale_concat", 512, 1, 4.1027),
-    ("depth_scale_concat_split", 512, 2, 0.5559),
-    ("prep_phase", 1024, 1, 4.1027),
-    ("prep_phase_split", 1024, 2, 0.5559),
-    ("prep_real", 1024, 1, 4.1027),
-    ("prep_real_split", 1024, 2, 0.5559),
+    # (family, n_out, parts, x_lo zero, terms, bound ms) at the main path's shapes
+    ("depth", 512, 1, True, 3, 0.8338),
+    ("depth_split", 512, 2, True, 2, 0.5559),
+    ("depth_scale", 512, 1, True, 3, 0.8338),
+    ("depth_scale_split", 512, 2, True, 2, 0.5559),
+    ("depth_scale_concat", 512, 1, True, 1, 4.1027),
+    ("depth_scale_concat_split", 512, 2, True, 2, 0.5559),
+    ("prep_phase", 1024, 1, True, 1, 4.1027),
+    ("prep_phase_split", 1024, 2, True, 2, 0.5559),
+    ("prep_real", 1024, 1, True, 1, 4.1027),
+    ("prep_real_split", 1024, 2, True, 2, 0.5559),
+    # x_lo nonzero: five terms on the one-pass tensor-core route; the
+    # float32-FMA families do not split x
+    ("depth", 512, 1, False, 5, 1.3897),
+    ("depth_scale", 512, 1, False, 5, 1.3897),
+    ("depth_scale_concat", 512, 1, False, 1, 4.1027),
+    ("prep_phase", 1024, 1, False, 1, 4.1027),
+    ("prep_real", 1024, 1, False, 1, 4.1027),
 ]
 
 
-@pytest.mark.parametrize("name,n_out,parts,ms", BOUNDS)
-def test_kernel_bound_hand_values(name, n_out, parts, ms):
+@pytest.mark.parametrize("name,n_out,parts,x_lo_zero,terms,ms", BOUNDS)
+def test_kernel_bound_hand_values(name, n_out, parts, x_lo_zero, terms, ms):
     """0.556 ms for the split rungs at "high" (two bf16 terms of 275 GFLOP
-    at 989 TFLOP/s, x_lo being zero), 4.10 ms at one pass (275 GFLOP of
-    float32 at 67 TFLOP/s): every family is bound by its operations."""
-    got = bench.kernel_bound(name, n_out=n_out, parts=parts, **MAIN)
+    at 989 TFLOP/s, x_lo being zero); 0.834 ms for the two-operator fold
+    kernels at one pass on integer samples (three bf16 terms; 1.390 ms for
+    the five that samples with x_lo need); 4.10 ms for the other one-pass
+    families (275 GFLOP of float32 at 67 TFLOP/s): every family is bound by
+    its operations."""
+    got = bench.kernel_bound(name, n_out=n_out, parts=parts, x_lo_zero=x_lo_zero, **MAIN)
     assert got["bound_ms"] == pytest.approx(ms, abs=1e-4)
     assert got["bound_by"] == "operations"
-    assert got["flops"] == parts * 4 * 131072 * 1024 * 512  # 2.75e11 per term
+    assert got["flops"] == terms * 4 * 131072 * 1024 * 512  # 2.75e11 per term
+
+
+@pytest.mark.parametrize("name", ["depth", "depth_scale"])
+def test_kernel_bound_of_the_one_pass_routes(name):
+    """uint8/uint16 lines run the tensor-core route (three bf16 parts per
+    axis to read, bf16 peak); float32 lines keep the float32-FMA kernel and
+    its float32 bound, with the float32 operator's bytes."""
+    u16 = bench.kernel_bound(name, n_out=512, **MAIN)
+    u8 = bench.kernel_bound(name, n_out=512, in_itemsize=1, **MAIN)
+    f32 = bench.kernel_bound(name, n_out=512, in_itemsize=4, **MAIN)
+    assert u16["bound_ms"] == u8["bound_ms"] == pytest.approx(0.8338, abs=1e-4)
+    assert u16["bytes"] - u8["bytes"] == 131072 * 1024
+    assert f32["bound_ms"] == pytest.approx(4.1027, abs=1e-4)
+    assert f32["flops"] == 4 * 131072 * 1024 * 512
+    out = 131072 * 512 * 4 * (2 if name == "depth" else 1) + (2 * 512 * 4 if name != "depth" else 0)
+    assert u16["bytes"] == 131072 * 1024 * 2 + 2 * 3 * 1024 * 512 * 2 + out
+    assert f32["bytes"] == 131072 * 1024 * 4 + 2 * 1024 * 512 * 4 + out
 
 
 def test_kernel_bound_counts_terms_and_bytes():
@@ -275,7 +418,9 @@ def test_kernel_bound_counts_terms_and_bytes():
 def test_library_operands_compute_the_kernels_product(precision):
     """The yardstick's matmul: float32 x by [W_re | W_im] at one part, bf16
     x_hi by every bf16 part of both axes at the split rungs; its FLOPs are
-    the bound's, and its column blocks summed per axis are x_hi @ W."""
+    the bound's (at one part a third of them: the one float32 product the
+    kernel's three bf16 terms stand for), and its column blocks summed per
+    axis are x_hi @ W."""
     wre, wim = (tfp._operator_parts(w, precision) for w in _operators(256))
     raw, bitshift = _input("u16s", 64, 256)
     x = tfp._decode_block(raw, bitshift)
@@ -285,7 +430,8 @@ def test_library_operands_compute_the_kernels_product(precision):
     assert tuple(b.shape) == (256, 2 * parts * 128)
     bound = bench.kernel_bound("depth_split" if parts > 1 else "depth", lines=64, n_in=256,
                                n_out=128, parts=parts)
-    assert 2 * a.shape[0] * a.shape[1] * b.shape[1] == bound["flops"]
+    terms_per_product = 3 if parts == 1 else 1
+    assert terms_per_product * 2 * a.shape[0] * a.shape[1] * b.shape[1] == bound["flops"]
     y = a.to(torch.float32) @ b.to(torch.float32)
     for axis, w in enumerate((wre, wim)):
         blocks = y[:, axis * parts * 128:(axis + 1) * parts * 128].reshape(64, parts, 128)
