@@ -10,8 +10,11 @@ nonzero and the final line is not printed:
 3. kernels: each kernel family (four fold, two concat fold, four prep)
    against its plain PyTorch version on the card, at the main path's
    widths, an odd line count and 1664-sample lines (and 1100 for the split
-   fold and the prep kernels: 550 bins, not a multiple of the 64-bin tile),
-   the one-pass fold kernels on both of their routes (uint8/uint16 lines on
+   fold, the concat and the prep kernels: 550 bins, not a multiple of the
+   64-bin tile, and for the concat kernel's split rung an im view that is
+   not 16-byte aligned, read element by element; 1088 for the concat and
+   the prep kernels: 544 bins, a half-empty last tile), the one-pass fold
+   and phase prep kernels on both of their routes (uint8/uint16 lines on
    the tensor cores, float32 lines on the float32-FMA kernel, the route
    read back and logged), then controls (a kernel computing a neighbouring
    rung, or for the concat kernels reading the im half one column early)
@@ -25,9 +28,10 @@ nonzero and the final line is not printed:
 5. FFT path: the same chain through the prep kernels and cuFFT at the
    default, "high" and "highest" rungs (scan chunk against per-buffer
    steps), its dispersion-free variant and the handheld preset, with the
-   prep kernels' launch counts read around that run and the split kernels'
-   around each split rung's runs; each rung's full-size prep output against
-   the plain versions;
+   prep kernels' launch counts read around that run (every default-rung
+   phase launch on the tensor cores) and the split kernels' around each
+   split rung's runs; each rung's full-size prep output against the plain
+   versions;
 6. stream: ``StreamingEngine`` over full 12-bit buffers replayed from RAM
    by ``VirtualOctSource``, the benchmark chain with ``fold_concat`` at the
    default and the "high" rung, per buffer and in batch chunks of four, on
@@ -65,16 +69,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CSRC = "octproz_tpu_torch/kernels/csrc/"
 PALLAS = "octproz_tpu/pallas/fused_prep.py:"
 # family -> (source of the kernel the main path launches, Pallas kernel body
-# it replaces); depth and depth_scale enter through fold_gemm.cu, which keeps
-# their float32-FMA kernel for float32 lines
+# it replaces); depth and depth_scale enter through fold_gemm.cu and
+# prep_phase through prep_gemm.cu, which keep their float32-FMA kernel for
+# float32 lines, and depth_scale_concat_split through fold_concat.cu
 KERNELS = {
     "depth": ("fold_split.cu", 261),
     "depth_split": ("fold_split.cu", 271),
     "depth_scale": ("fold_split.cu", 375),
     "depth_scale_split": ("fold_split.cu", 422),
     "depth_scale_concat": ("fold_concat.cu", 337),
-    "depth_scale_concat_split": ("fold_concat.cu", 354),
-    "prep_phase": ("prep_gemm.cu", 228),
+    "depth_scale_concat_split": ("fold_split.cu", 354),
+    "prep_phase": ("prep_split.cu", 228),
     "prep_phase_split": ("prep_split.cu", 245),
     "prep_real": ("prep_gemm.cu", 238),
     "prep_real_split": ("prep_split.cu", 254),
@@ -248,7 +253,7 @@ def phase_kernels():
         (1024, 2048, "u8", 3, "log", f32),
     ]
     ops = {}
-    for n_in in sorted({c[0] for c in cases}):
+    for n_in in sorted({c[0] for c in cases} | {1088}):  # 1088: the concat cases
         acq = AcqParams(samples_per_line=n_in, ascans_per_bscan=8, bscans_per_buffer=1)
         cv = curves_mod.make_curves(acq, bench.bench_config(), **{
             **bench.CURVE_KW, "resample_coeffs": (0.0, n_in - 1.0, 20.0, -10.0)}, device=dev)
@@ -406,9 +411,10 @@ def _concat_kernel_cases(worst, ops, g, dev):
     """The concat fold families (B5/B6) on the two-operator families' grid
     -- rungs 1/3/5 with x_lo zero and nonzero, log and lin, float32 and
     bf16 stores, uint8/uint16/float inputs, an odd line count, n_in = 1664
-    -- then the controls, which must fail: the wrong rung, and the im half
-    read one column early (swapping re and im would not do: p is symmetric
-    in them)."""
+    --, the split rung's own ragged shapes (n_in = 1088 and 1100), then the
+    controls, which must fail: the wrong rung, and the im half read one
+    column early at one and at three passes (swapping re and im would not
+    do: p is symmetric in them)."""
     import torch
 
     from octproz_tpu_torch.kernels import fused_prep as fp
@@ -433,31 +439,39 @@ def _concat_kernel_cases(worst, ops, g, dev):
         (1024, 2048, "f32", 3, True, f32),
         (1024, 2048, "f32", 5, True, f32),
     ]
-    for n_in, lines, kind, passes, log_scaling, odt in cases:
-        precision = {1: "default", 3: "high", 5: "highest"}[passes]
-        raw = _raw(kind, lines, n_in, g, dev)
-        wide = fp.concat_operator(*ops[n_in], precision)
-        err, detail, ok = _compare_concat(raw, wide, kind == "u16s", log_scaling, odt, g)
-        torch.cuda.synchronize()
-        family = "depth_scale_concat" + ("_split" if passes > 1 else "")
-        if n_in == 1024 and kind == "u16s" and odt == f32:
-            worst[family] = max(worst[family], err)  # the main path's inputs
-        log(f"[kernels] {family:<24} n_in={n_in} lines={lines} {kind} passes={passes} "
-            f"{'log' if log_scaling else 'lin'} {str(odt).replace('torch.', '')}: "
-            f"{detail} -> {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"{family} kernel disagrees with its plain version")
+    _concat_cases(cases, ops, worst, g, dev)
+    # The split rung on the tensor-core pipeline, which reads each wide part
+    # as two views at row pitch 2 * half: 544 bins (a half-empty last 64-bin
+    # tile), 550 bins (the im view not 16-byte aligned: the element-wise
+    # producer), uint8, a bf16 store at 5 passes; on a generator of their
+    # own, so the cases after them keep their data.
+    g_split = torch.Generator(device=dev)
+    g_split.manual_seed(7)
+    _concat_cases([
+        (1088, 999, "u16", 3, True, f32),
+        (1088, 4133, "u16s", 3, True, f32),
+        (1100, 999, "u16", 3, True, f32),
+        (1100, 999, "u16s", 5, False, f32),
+        (1024, 2048, "u8", 3, True, f32),
+        (1024, 4096, "u16s", 5, True, bf16),
+    ], ops, worst, g_split, dev)
 
     raw = _raw("u16", 4096, 1024, g, dev)
     p5, p3 = (fp.concat_operator(*ops[1024], r) for r in ("highest", "high"))
     (w1,) = fp.concat_operator(*ops[1024], "default")
     half = w1.shape[1] // 2
-    shifted = torch.cat([w1[:, :half + 1], w1[:, half:-1]], dim=1).contiguous()
+
+    def im_early(w):  # the im column of bin j at half - 1 + j
+        return torch.cat([w[:, :half + 1], w[:, half:-1]], dim=1).contiguous()
+
     x_hi = fp._bf16_trunc(raw.to(torch.float32))
     controls = [
         ("3-pass concat kernel on the highest parts", (raw, p5[:2]), (raw, p5)),
         ("3-pass concat kernel without x_lo (x_hi input)", (x_hi, p3), (raw, p3)),
-        ("concat kernel reading im at column half - 1 + j", (raw, (shifted,)), (raw, (w1,))),
+        ("concat kernel reading im at column half - 1 + j", (raw, (im_early(w1),)),
+         (raw, (w1,))),
+        ("3-pass concat kernel reading im at column half - 1 + j",
+         (raw, tuple(im_early(w) for w in p3)), (raw, p3)),
     ]
     for name, kernel_in, plain_in in controls:
         _, detail, ok = _compare_concat(*kernel_in, False, True, f32, g, ref=plain_in)
@@ -466,6 +480,29 @@ def _concat_kernel_cases(worst, ops, g, dev):
             f"{'passes (BAD)' if ok else 'fails, as it must'}")
         if ok:
             raise AssertionError(f"control {name!r} passed: the bounds do not catch it")
+
+
+def _concat_cases(cases, ops, worst, g, dev):
+    """Each (n_in, lines, input, passes, log scaling, out dtype) of the
+    concat fold kernels against its plain version."""
+    import torch
+
+    from octproz_tpu_torch.kernels import fused_prep as fp
+
+    for n_in, lines, kind, passes, log_scaling, odt in cases:
+        precision = {1: "default", 3: "high", 5: "highest"}[passes]
+        raw = _raw(kind, lines, n_in, g, dev)
+        wide = fp.concat_operator(*ops[n_in], precision)
+        err, detail, ok = _compare_concat(raw, wide, kind == "u16s", log_scaling, odt, g)
+        torch.cuda.synchronize()
+        family = "depth_scale_concat" + ("_split" if passes > 1 else "")
+        if n_in == 1024 and kind == "u16s" and odt == torch.float32:
+            worst[family] = max(worst[family], err)  # the main path's inputs
+        log(f"[kernels] {family:<24} n_in={n_in} lines={lines} {kind} passes={passes} "
+            f"{'log' if log_scaling else 'lin'} {str(odt).replace('torch.', '')}: "
+            f"{detail} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{family} kernel disagrees with its plain version")
 
 
 def _compare_prep(raw, parts, rows, bitshift, ref=None):
@@ -507,9 +544,13 @@ def _prep_kernel_cases(worst, g, dev):
     """The prep families on the fold kernels' grid -- rungs 1/3/5, shifted
     and unshifted 12-bit, uint8 and float inputs, an odd line count,
     n_in = 1664 -- plus n_in = 1100 (ragged in n_in and n_out), 1088 (a
-    half-empty last tile of the split kernels) and the operator with
-    background removal folded in (denser, so more reordering); then the
-    controls, which must fail."""
+    half-empty last tile of the tensor-core kernels) and the operator with
+    background removal folded in (denser, so more reordering); the phase
+    kernel's one pass on both of its routes (uint8/uint16 lines on the
+    tensor cores, float32 lines on the float32-FMA kernel, the route read
+    back after each one-pass case); then the controls, which must fail --
+    at the split rungs a neighbouring rung, at one pass the phase kernel on
+    two of its three parts and without x_lo, against the float32 product."""
     import torch
 
     from octproz_tpu_torch.kernels import fused_prep as fp
@@ -548,21 +589,24 @@ def _prep_kernel_cases(worst, g, dev):
         (1024, 2048, "u8", 3, "phase", False),
         (1024, 2048, "u8", 3, "real", False),
     ]
-    ops = {(n, bg): _prep_operators(n, bg, dev) for n, bg in {(c[0], c[5]) for c in cases}}
-    for n_in, lines, kind, passes, epi, bg in cases:
-        precision = {1: "default", 3: "high", 5: "highest"}[passes]
-        op, rows = ops[(n_in, bg)]
-        raw = _raw(kind, lines, n_in, g, dev)
-        err, detail, ok = _compare_prep(raw, fp._operator_parts(op, precision),
-                                        rows if epi == "phase" else None, kind == "u16s")
-        torch.cuda.synchronize()
-        family = f"prep_{epi}" + ("_split" if passes > 1 else "")
-        if n_in == 1024 and kind == "u16s" and not bg:
-            worst[family] = max(worst[family], err)  # the main path's inputs
-        log(f"[kernels] {family:<17} n_in={n_in} lines={lines} {kind} passes={passes}"
-            f"{' bg' if bg else ''}: {detail} -> {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError(f"{family} kernel disagrees with its plain version")
+    # The phase kernel's one pass beyond the cases above: unshifted 12-bit
+    # and full 16-bit samples (x_lo terms), background removal, n_in = 1088,
+    # and float32 lines on the float32-FMA kernel; on a generator of their
+    # own, so the controls keep their data.
+    one_pass = [
+        (1024, 4096, "u16", 1, "phase", False),
+        (1024, 4096, "u16f", 1, "phase", False),
+        (1024, 4096, "u16f", 1, "phase", True),
+        (1088, 999, "u16", 1, "phase", False),
+        (1088, 4133, "u16s", 1, "phase", True),
+        (1024, 2048, "f32", 1, "phase", False),
+    ]
+    ops = {(n, bg): _prep_operators(n, bg, dev)
+           for n, bg in {(c[0], c[5]) for c in cases + one_pass}}
+    _prep_cases(cases, ops, worst, g, dev)
+    g_one = torch.Generator(device=dev)
+    g_one.manual_seed(8)
+    _prep_cases(one_pass, ops, worst, g_one, dev)
 
     raw = _raw("u16", 4096, 1024, g, dev)
     op, rows = ops[(1024, False)]
@@ -581,6 +625,50 @@ def _prep_kernel_cases(worst, g, dev):
             if ok:
                 raise AssertionError(f"control {name!r} passed: the prep bound does "
                                      f"not separate the rungs")
+    p1 = fp._operator_parts(op, "default")
+    two = fp.OnePass(p1[0], split=(*p1.split[:2], torch.zeros_like(p1.split[2])))
+    x_hi16 = x_hi.to(torch.int16).view(torch.uint16)
+    for name, kernel_in in (("one-pass phase kernel on two of its three parts", (raw, two)),
+                            ("one-pass phase kernel without x_lo (x_hi input)", (x_hi16, p1))):
+        _, detail, ok = _compare_prep(*kernel_in, rows, False, ref=(raw, p1))
+        torch.cuda.synchronize()
+        log(f"[kernels] control: {name}: {detail} -> "
+            f"{'passes (BAD)' if ok else 'fails, as it must'}")
+        if ok:
+            raise AssertionError(f"control {name!r} passed: the prep bound does not catch it")
+
+
+def _prep_cases(cases, ops, worst, g, dev):
+    """Each (n_in, lines, input, passes, "phase" or "real", background
+    removal) of the prep kernels against its plain version; a one-pass
+    phase case's route is read back and must follow its input type."""
+    import torch
+
+    from octproz_tpu_torch.kernels import fused_prep as fp
+
+    for n_in, lines, kind, passes, epi, bg in cases:
+        precision = {1: "default", 3: "high", 5: "highest"}[passes]
+        op, rows = ops[(n_in, bg)]
+        raw = _raw(kind, lines, n_in, g, dev)
+        fp.reset_launch_counts()
+        err, detail, ok = _compare_prep(raw, fp._operator_parts(op, precision),
+                                        rows if epi == "phase" else None, kind == "u16s")
+        torch.cuda.synchronize()
+        family = f"prep_{epi}" + ("_split" if passes > 1 else "")
+        if n_in == 1024 and kind == "u16s" and not bg:
+            worst[family] = max(worst[family], err)  # the main path's inputs
+        route = ""
+        if family in fp.ONE_PASS_ROUTES:  # the input type alone picks the route
+            want = "simt" if kind == "f32" else "tensor_core"
+            if fp.ONE_PASS_ROUTES[family] != {**dict.fromkeys(("tensor_core", "simt"), 0),
+                                              want: 1}:
+                raise AssertionError(f"{family} on {kind} lines took the routes "
+                                     f"{fp.ONE_PASS_ROUTES[family]}, want {want}")
+            route = f" [route: {want}]"
+        log(f"[kernels] {family:<17} n_in={n_in} lines={lines} {kind} passes={passes}"
+            f"{' bg' if bg else ''}{route}: {detail} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{family} kernel disagrees with its plain version")
 
 
 def _run_main_path(model, host_raw, bufs, tag):
@@ -682,6 +770,19 @@ def _run_handheld(model, bufs, tag, batch):
     log(f"[main] {tag}: buffer 0 + 2 steady{' + batch of 2 == per-buffer' if batch else ''}")
 
 
+def _check_routes(launches, tag):
+    """Every one-pass launch of a path's run on uint16 lines went to the
+    tensor cores: ``ONE_PASS_ROUTES`` against the run's launch counts (none
+    for a family the path does not launch)."""
+    from octproz_tpu_torch.kernels import fused_prep as fp
+
+    routes = {k: dict(v) for k, v in fp.ONE_PASS_ROUTES.items()}
+    log(f"[main] {tag} one-pass routes {routes}")
+    want = {k: {"tensor_core": launches.get(k, 0), "simt": 0} for k in routes}
+    if routes != want:
+        raise AssertionError(f"{tag}: one-pass launches by route {routes}, want {want}")
+
+
 def _read_launches(families, t0, tag):
     import torch
 
@@ -726,12 +827,7 @@ def phase_main_path(worst):
         del out
     _run_handheld(handheld, bufs, "fold path, handheld preset", batch=True)
     launches = _read_launches(FOLD, t0, "fold path")
-    routes = {k: dict(v) for k, v in fp.ONE_PASS_ROUTES.items()}
-    log(f"[main] fold path one-pass routes {routes}")
-    for family, by_route in routes.items():  # uint16 lines: all on the tensor cores
-        if by_route != {"tensor_core": launches[family], "simt": 0}:
-            raise AssertionError(f"fold path: {family} launches by route {by_route}, want "
-                                 f"all {launches[family]} on the tensor cores")
+    _check_routes(launches, "fold path")
     del handheld
 
     # Buffer 0's GEMM (the depth families) at full size on buffer 0's input,
@@ -816,6 +912,7 @@ def phase_fft_path(worst):
                                      f"kernel: {ran}")
     _run_handheld(handheld, bufs, "FFT path, handheld preset", batch=False)
     launches = _read_launches(PREP, t0, "FFT path")
+    _check_routes(launches, "FFT path")
     del handheld
 
     # Full-size prep output of each rung against the plain version, after

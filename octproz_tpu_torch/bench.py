@@ -282,15 +282,16 @@ def kernel_bound(name: str, lines: int, n_in: int, n_out: int, *, parts: int = 1
     in bf16, as shifted 12-bit samples are) the x_lo terms vanish and
     ``parts`` terms remain of 2*parts - 1.  The split rungs' products are
     bf16 x bf16 (989 TFLOP/s), the one-pass rung's float32 (67 TFLOP/s) --
-    but for ``depth`` and ``depth_scale`` on uint8/uint16 lines
-    (``in_itemsize`` <= 2), whose one pass runs as the bf16 terms of the
-    float32 operator's three parts: the bound is the work of that route.
+    but for the families of ``fused_prep.ONE_PASS_ROUTES`` (``depth``,
+    ``depth_scale``, ``prep_phase``) on uint8/uint16 lines (``in_itemsize``
+    <= 2), whose one pass runs as the bf16 terms of the float32 operator's
+    three parts: the bound is the work of that route.
     Bytes: the raw input, every operator part the kernel reads (float32
     unsplit, bf16 split), the FPN mean line or phasor rows, and the output,
     each once."""
-    from .kernels.fused_prep import _ONE_PASS_PARTS
+    from .kernels.fused_prep import _ONE_PASS_PARTS, ONE_PASS_ROUTES
 
-    if parts == 1 and name in ("depth", "depth_scale") and in_itemsize <= 2:
+    if parts == 1 and name in ONE_PASS_ROUTES and in_itemsize <= 2:
         parts = _ONE_PASS_PARTS
     split = parts > 1
     terms = (parts if x_lo_zero else 2 * parts - 1) if split else 1

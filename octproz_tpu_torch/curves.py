@@ -270,11 +270,14 @@ def make_curves(
     ``cfg.matmul_precision`` on ``device`` -- at the default rung the float32
     operator with the three bf16 parts the tensor-core fold kernels read
     (``fused_prep.OnePass``), split here unless ``fold_concat`` runs the
-    concat kernels --; where the prep kernels consume the prep operator,
-    ``prep_parts`` holds it split the same way.
+    concat kernels --, and with ``fold_concat`` ``depth_concat_parts`` the
+    parts of [W_re | W_im] that the concat kernels read; where the prep
+    kernels consume the prep operator, ``prep_parts`` holds it split the
+    same way (its three bf16 parts made here where the phase kernel reads
+    them: with dispersion).
     """
     from .kernels.fused_prep import (OnePass, _operator_parts, build_depth_operator,
-                                     build_prep_operator)
+                                     build_prep_operator, concat_operator)
 
     used = consumed_fields(cfg)
 
@@ -299,7 +302,9 @@ def make_curves(
                         build_prep_operator(acq, cfg, rm_np, win_np))
         if "prep_operator" in used:
             prep_parts = _operator_parts(prep_op, cfg.matmul_precision)
-    dop_re = dop_im = depth_parts = None
+            if isinstance(prep_parts, OnePass) and cfg.dispersion:
+                prep_parts.split  # noqa: B018 -- made here, once per curve build
+    dop_re = dop_im = depth_parts = depth_concat_parts = None
     phase_np = (np.asarray(dispersion_phase(acq, *dispersion_coeffs))
                 if cfg.dispersion else None)
     if cfg.fft_via_matmul:
@@ -307,7 +312,9 @@ def make_curves(
         dop_re, dop_im = place("depth_op_re", re_np), place("depth_op_im", im_np)
         depth_parts = (_operator_parts(dop_re, cfg.matmul_precision),
                        _operator_parts(dop_im, cfg.matmul_precision))
-        if not cfg.fold_concat:  # the concat kernels read the float32 operator
+        if cfg.fold_concat:
+            depth_concat_parts = concat_operator(*depth_parts, cfg.matmul_precision)
+        else:  # the two-operator kernels read the three bf16 parts at one pass
             for parts in depth_parts:
                 if isinstance(parts, OnePass):
                     parts.split  # noqa: B018 -- made here, once per curve build
@@ -335,4 +342,5 @@ def make_curves(
         post_background=post_bg,
         depth_parts=depth_parts,
         prep_parts=prep_parts,
+        depth_concat_parts=depth_concat_parts,
     )

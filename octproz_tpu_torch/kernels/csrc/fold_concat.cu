@@ -1,25 +1,47 @@
-// Folded-GEMM kernels against one concatenated operator [W_re | W_im]
-// (template and design notes in fold_gemm.cuh).  Two instantiation
-// families, the counterparts of the Pallas kernels in
-// octproz_tpu/pallas/fused_prep.py:
+// The folded-GEMM kernels against one concatenated operator [W_re | W_im],
+// behind the C entry fold_gemm_scale_concat -- the counterparts of the
+// Pallas kernels in octproz_tpu/pallas/fused_prep.py:
 //
-//   fold_gemm<EPI=SCALE, PASSES=1,   CONCAT>  _kernel_depth_scale_concat        (:337-351)
-//   fold_gemm<EPI=SCALE, PASSES=3|5, CONCAT>  _kernel_depth_scale_concat_split  (:354-372)
+//   fold_gemm<EPI=SCALE, CONCAT>  _kernel_depth_scale_concat        (:337-351)
+//                                 (the float32-FMA template of fold_gemm.cuh)
+//   fold_split<EPI=SCALE>         _kernel_depth_scale_concat_split  (:354-372)
+//                                 (bf16 tensor cores, fold_split.cu)
 //
 // The TPU kernels run ONE (tile, n_in) x (n_in, 2*half) MXU pass per tile
 // (per bf16 part for the split rung, whose wide operator is split BEFORE
 // the passes) and slice re = y[:, :half], im = y[:, half:] in the
 // epilogue.  Here a block reads the same wide (n_in, 2*half) parts: for its
 // bins j it stages columns j and j + half of each part, so the epilogue has
-// bin j's re and im in registers, as with one operator per axis.  Each
-// part's wide columns are consumed in one K loop; the split of a
-// concatenation is the concatenation of the splits (the split is
-// elementwise), so these kernels compute the same terms as fold_gemm.cu's
-// SCALE family on the halves.
+// bin j's re and im in registers, as with one operator per axis.  The split
+// of a concatenation is the concatenation of the splits (the split is
+// elementwise), so the split rung is the two-operator split kernel reading
+// two views of each wide part, at W and W + half with row pitch 2*half.
 //
 // InT in {uint8, uint16, float}; OutT in {float, bf16}.
 
 #include "fold_gemm.cuh"
+
+extern "C" {
+int fold_split_scale_concat(const void* raw, int in_kind, int bitshift, int passes,
+                            const void* const w[3], const float* mean2, void* out,
+                            int out_bf16, int mode, float a, float b, long long lines,
+                            int n_in, int half, void* stream);
+}
+
+namespace {
+
+// The one-pass rung for in_kind.
+template <typename OutT>
+int one_pass(int in_kind, const Args& args, cudaStream_t stream) {
+  switch (in_kind) {
+    case IN_U8: return launch<uint8_t, SCALE, OutT, true>(args, stream);
+    case IN_U16: return launch<uint16_t, SCALE, OutT, true>(args, stream);
+    case IN_FLOAT: return launch<float, SCALE, OutT, true>(args, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -34,9 +56,14 @@ int fold_gemm_scale_concat(const void* raw, int in_kind, int bitshift,
                            void* stream) {
   if (mode != MODE_LOG && mode != MODE_LIN)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (passes != 1) {
+    const void* const w[3] = {w0, w1, w2};
+    return fold_split_scale_concat(raw, in_kind, bitshift, passes, w, mean2, out, out_bf16,
+                                   mode, a, b, lines, n_in, half, stream);
+  }
   Args args = {};
   args.raw = raw;
-  args.wre[0] = w0; args.wre[1] = w1; args.wre[2] = w2;
+  args.wre = static_cast<const float*>(w0);
   args.mean2 = mean2;
   args.out = out;
   args.lines = lines;
@@ -47,8 +74,7 @@ int fold_gemm_scale_concat(const void* raw, int in_kind, int bitshift,
   args.a = a;
   args.b = b;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return out_bf16 ? dispatch<SCALE, __nv_bfloat16, true>(in_kind, passes, args, s)
-                  : dispatch<SCALE, float, true>(in_kind, passes, args, s);
+  return out_bf16 ? one_pass<__nv_bfloat16>(in_kind, args, s) : one_pass<float>(in_kind, args, s);
 }
 
 }  // extern "C"

@@ -2,9 +2,9 @@
 // families, each the counterpart of a Pallas kernel in
 // octproz_tpu/pallas/fused_prep.py:
 //
-//   fold_split<EPI=PLANAR, 3 parts> | fold_gemm<EPI=PLANAR, PASSES=1>  _kernel_depth  (:261-268)
+//   fold_split<EPI=PLANAR, 3 parts> | fold_gemm<EPI=PLANAR>  _kernel_depth  (:261-268)
 //   fold_split<EPI=PLANAR>  (3|5)      _kernel_depth_split        (:271-280)
-//   fold_split<EPI=SCALE, 3 parts> | fold_gemm<EPI=SCALE, PASSES=1>  _kernel_depth_scale  (:375-419)
+//   fold_split<EPI=SCALE, 3 parts> | fold_gemm<EPI=SCALE>  _kernel_depth_scale  (:375-419)
 //   fold_split<EPI=SCALE>   (3|5)      _kernel_depth_scale_split  (:422-438)
 //
 // The split rungs run the bf16 tensor-core kernels of fold_split.cuh
@@ -29,12 +29,10 @@ int fold_split_scale(const void* raw, int in_kind, int bitshift, int passes,
 
 namespace {
 
-constexpr int IN_FLOAT = 2;
-
 // The one-pass rung on float32 lines.
 template <int EPI, typename OutT>
 int one_pass(const Args& args, cudaStream_t stream) {
-  return launch<float, 1, EPI, OutT, false>(args, stream);
+  return launch<float, EPI, OutT, false>(args, stream);
 }
 
 }  // namespace
@@ -58,8 +56,8 @@ int fold_gemm_planar(const void* raw, int in_kind, int bitshift, int passes,
   }
   Args args = {};
   args.raw = raw;
-  args.wre[0] = wre0;
-  args.wim[0] = wim0;
+  args.wre = static_cast<const float*>(wre0);
+  args.wim = static_cast<const float*>(wim0);
   args.re_out = re_out;
   args.im_out = im_out;
   args.lines = lines;
@@ -85,8 +83,8 @@ int fold_gemm_scale(const void* raw, int in_kind, int bitshift, int passes,
   }
   Args args = {};
   args.raw = raw;
-  args.wre[0] = wre0;
-  args.wim[0] = wim0;
+  args.wre = static_cast<const float*>(wre0);
+  args.wim = static_cast<const float*>(wim0);
   args.mean2 = mean2;
   args.out = out;
   args.lines = lines;

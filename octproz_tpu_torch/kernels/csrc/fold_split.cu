@@ -6,10 +6,15 @@
 //   fold_split<EPI=SCALE>   _kernel_depth_scale_split  (:422-438)
 //
 // with InT in {uint8, uint16, float} and OutT in {float, bf16} for SCALE,
-// and at one pass on uint8/uint16 lines,
+// at one pass on uint8/uint16 lines,
 //
 //   fold_split<EPI=PLANAR, PARTS=3>  _kernel_depth        (:261-268)
 //   fold_split<EPI=SCALE,  PARTS=3>  _kernel_depth_scale  (:375-419)
+//
+// and the concat kernel's split rung behind fold_gemm_scale_concat
+// (fold_concat.cu) at 3 and 5 passes, the same instantiations:
+//
+//   fold_split<EPI=SCALE>   _kernel_depth_scale_concat_split  (:354-372)
 //
 // The one-pass rung is a float32 product.  Its float32 operator arrives
 // here as three bf16 parts (two mask truncations and a rounded remainder:
@@ -22,10 +27,14 @@
 // at 67 TFLOP/s.  float32 lines (samples above 16 bits, of which x_hi +
 // x_lo keeps 16) stay on the float32-FMA kernel of fold_gemm.cu: the
 // caller routes by input type, and a float32 launch at one pass is refused
-// here.
+// here (terms()).
 //
 // A block's two operator halves are (W_re, n0) and (W_im, n0): 64 bins of
-// re and im (COLS = BINS).
+// re and im (COLS = BINS).  The concat kernel reads one wide (n_in, 2*half)
+// [W_re | W_im] part per part; the split of a concatenation is the
+// concatenation of the splits (the split is elementwise), so its W_re and
+// W_im are two views of that part, at W and W + half with row pitch
+// 2 * half, and it computes the terms of the two-operator kernel.
 
 #include "fold_split.cuh"
 
@@ -44,17 +53,15 @@ struct Fold {
   };
 };
 
-// The pass terms a launch runs: those of its passes, and at one pass (three
-// parts, integer lines only) the five of "highest"; 0 for a launch this
-// file does not take.
-int terms(int in_kind, int passes, const void* const wre[3], const void* const wim[3]) {
-  if (passes != 1) return passes;
-  const bool three = wre[0] && wre[1] && wre[2] && wim[0] && wim[1] && wim[2];
-  return three && (in_kind == 0 || in_kind == 1) ? 5 : 0;
+// terms() of a fold launch: three parts on both axes.
+int fold_terms(int in_kind, int passes, const void* const wre[3], const void* const wim[3]) {
+  return terms(in_kind, passes,
+               wre[0] && wre[1] && wre[2] && wim[0] && wim[1] && wim[2]);
 }
 
+// ld: the parts' row pitch, half for one operator per axis.
 Params params(const void* raw, int bitshift, const void* const wre[3], const void* const wim[3],
-              long long lines, int n_in, int half) {
+              long long lines, int n_in, int half, int ld) {
   Params p = {};
   p.raw = raw;
   for (int q = 0; q < 3; ++q) {
@@ -64,8 +71,22 @@ Params params(const void* raw, int bitshift, const void* const wre[3], const voi
   p.lines = lines;
   p.n_in = n_in;
   p.width = half;
+  p.ld = ld;
   p.bitshift = bitshift;
   return p;
+}
+
+// The SCALE launch of n_terms pass terms (3 or 5).
+int scale(Params p, int in_kind, int n_terms, const float* mean2, void* out, int out_bf16,
+          int mode, float a, float b, void* stream) {
+  p.mean2 = mean2;
+  p.out = out;
+  p.mode = mode;
+  p.a = a;
+  p.b = b;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return out_bf16 ? dispatch<Fold<SCALE, __nv_bfloat16>::K>(in_kind, n_terms, p, s)
+                  : dispatch<Fold<SCALE, float>::K>(in_kind, n_terms, p, s);
 }
 
 }  // namespace split
@@ -76,31 +97,39 @@ extern "C" {
 // The tensor-core launches of fold_gemm_planar / fold_gemm_scale
 // (fold_gemm.cu), with the same arguments: 3 or 5 passes against 2 or 3
 // bf16 parts per axis, or 1 pass on uint8/uint16 lines against the float32
-// operator's three bf16 parts.
+// operator's three bf16 parts (5 terms).
 int fold_split_planar(const void* raw, int in_kind, int bitshift, int passes,
                       const void* const wre[3], const void* const wim[3], float* re_out,
                       float* im_out, long long lines, int n_in, int half, void* stream) {
-  split::Params p = split::params(raw, bitshift, wre, wim, lines, n_in, half);
+  split::Params p = split::params(raw, bitshift, wre, wim, lines, n_in, half, half);
   p.re_out = re_out;
   p.im_out = im_out;
   return split::dispatch<split::Fold<PLANAR, float>::K>(
-      in_kind, split::terms(in_kind, passes, wre, wim), p, static_cast<cudaStream_t>(stream));
+      in_kind, split::fold_terms(in_kind, passes, wre, wim), p,
+      static_cast<cudaStream_t>(stream));
 }
 
 int fold_split_scale(const void* raw, int in_kind, int bitshift, int passes,
                      const void* const wre[3], const void* const wim[3], const float* mean2,
                      void* out, int out_bf16, int mode, float a, float b, long long lines,
                      int n_in, int half, void* stream) {
-  split::Params p = split::params(raw, bitshift, wre, wim, lines, n_in, half);
-  p.mean2 = mean2;
-  p.out = out;
-  p.mode = mode;
-  p.a = a;
-  p.b = b;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int terms = split::terms(in_kind, passes, wre, wim);
-  return out_bf16 ? split::dispatch<split::Fold<SCALE, __nv_bfloat16>::K>(in_kind, terms, p, s)
-                  : split::dispatch<split::Fold<SCALE, float>::K>(in_kind, terms, p, s);
+  return split::scale(split::params(raw, bitshift, wre, wim, lines, n_in, half, half), in_kind,
+                      split::fold_terms(in_kind, passes, wre, wim), mean2, out, out_bf16, mode,
+                      a, b, stream);
+}
+
+// The 3/5-pass launch of fold_gemm_scale_concat (fold_concat.cu): w holds
+// the 2 or 3 bf16 parts of the wide (n_in, 2 * half) operator [W_re | W_im],
+// read as the views (W, n0) and (W + half, n0) at row pitch 2 * half.
+int fold_split_scale_concat(const void* raw, int in_kind, int bitshift, int passes,
+                            const void* const w[3], const float* mean2, void* out,
+                            int out_bf16, int mode, float a, float b, long long lines,
+                            int n_in, int half, void* stream) {
+  const void* wim[3];
+  for (int q = 0; q < 3; ++q)
+    wim[q] = w[q] ? static_cast<const __nv_bfloat16*>(w[q]) + half : nullptr;
+  return split::scale(split::params(raw, bitshift, w, wim, lines, n_in, half, 2 * half),
+                      in_kind, passes, mean2, out, out_bf16, mode, a, b, stream);
 }
 
 }  // extern "C"

@@ -7,14 +7,18 @@
 //
 //   fold_split<EPI=PLANAR>  _kernel_depth_split        (octproz_tpu/pallas/fused_prep.py:271-280)
 //   fold_split<EPI=SCALE>   _kernel_depth_scale_split  (:422-438)
+//   fold_split<EPI=SCALE>   _kernel_depth_scale_concat_split  (:354-372, two views of one
+//                           wide part per part: row pitch ld = 2 * half, fold_split.cu)
 //   prep_split<EPI=PHASE>   _kernel_phase_split        (:245-251, prep_split.cu)
 //   prep_split<EPI=REAL>    _kernel_real_split         (:254-258, prep_split.cu)
 //
 // and, on uint8/uint16 lines, the one-pass rung of the two-operator fold
-// kernels, whose float32 operator arrives as three bf16 parts (fold_split.cu):
+// kernels and of the phase prep kernel, whose float32 operator arrives as
+// three bf16 parts (terms()):
 //
 //   fold_split<EPI=PLANAR, PARTS=3>  _kernel_depth        (:261-268)
 //   fold_split<EPI=SCALE,  PARTS=3>  _kernel_depth_scale  (:375-419)
+//   prep_split<EPI=PHASE,  PARTS=3>  _kernel_phase        (:228-235, prep_split.cu)
 //
 // What bounds them: at the main path's geometry (131072 lines x 1024
 // samples -> 512 bins re and im, or 1024 prep columns; "high") the pass
@@ -27,11 +31,13 @@
 // Design.  A block owns 128 lines and two halves of 64 operator columns,
 // each a (tensor map, column offset) pair: the fold kernels take
 // (W_re, n0) and (W_im, n0) -- bin n0 + j's re and im meet in one thread,
-// COLS = 64 columns per block --, the prep kernels (P, n0) and (P, n0 + 64)
-// -- COLS = 128.  It walks n_in in stages of 64:
+// COLS = 64 columns per block; for the concat kernel W_re and W_im are the
+// two halves of one wide [W_re | W_im] part, views at W and W + half with
+// the wide row pitch --, the prep kernels (P, n0) and (P, n0 + 64) --
+// COLS = 128.  It walks n_in in stages of 64:
 // * one producer warp fills a ring of STAGES shared-memory stages: the
-//   operator parts (2 halves x 2-3 parts, (n_in, width) row-major bf16,
-//   i.e. MN-major for wgmma) by TMA into 128-byte-swizzled 64 x 64 tiles,
+//   operator parts (2 halves x 2-3 parts, (n_in, width) bf16 at row pitch
+//   ld, i.e. MN-major for wgmma) by TMA into 128-byte-swizzled 64 x 64 tiles,
 //   and the raw integer tile (uint8/uint16/float32, 128 lines x 64
 //   samples) by 16-byte cp.async into padded rows, both signalling one
 //   mbarrier per stage; out-of-range lines, samples and columns arrive as
@@ -41,9 +47,11 @@
 //   and two adds: a lane keeps its chunk and walks down the rows (with
 //   the row, chunk and bounds worked out per copy, the producer warp and
 //   not the memory system set the pace of every kernel here).  Where TMA
-//   cannot describe the operator (width not a multiple of 8) or the rows
-//   are not 16-byte aligned, the producer stores the same layout element
-//   by element (slow; no shape of the main path takes it);
+//   cannot describe the operator (a row pitch not a multiple of 8 elements,
+//   or a part or view not 16-byte aligned: the concat kernel's im view when
+//   half % 8 != 0) or the raw rows are not 16-byte aligned, the producer
+//   stores the same layout element by element (slow; no shape of the main
+//   path takes it);
 // * two consumer warpgroups of 64 lines each decode their rows of the raw
 //   tile straight into the register fragment of wgmma's A operand (>> 4
 //   when bitshift is set), split it there into x_hi (mask) and
@@ -151,6 +159,7 @@ struct Params {
   long long lines;
   int n_in;
   int width;  // the operator's columns: half (fold) or n_out (prep)
+  int ld;     // its row pitch in elements: width, or 2 * half for two views of a wide part
   int bitshift;
   int mode;
   float a;
@@ -438,7 +447,7 @@ __device__ __forceinline__ void produce(const Params& p, const Maps& maps, uint8
           for (int q = 0; q < PARTS; ++q) {
             const __nv_bfloat16* const w = p.w[c % MAPS][q];
             const __nv_bfloat16 v =
-                ok ? w[static_cast<long long>(k) * p.width + col] : __float2bfloat16_rn(0.f);
+                ok ? w[static_cast<long long>(k) * p.ld + col] : __float2bfloat16_rn(0.f);
             *reinterpret_cast<__nv_bfloat16*>(st + (c * PARTS + q) * B_TILE + off) = v;
           }
         }
@@ -711,8 +720,11 @@ PFN_cuTensorMapEncodeTiled_v12000 encoder() {
   return fn;
 }
 
-// TMA describes an operator part when its rows are 16-byte multiples and
-// it starts 16-byte aligned; the raw rows likewise for the cp.async path.
+// TMA describes an operator part when its row pitch is a 16-byte multiple
+// and it starts 16-byte aligned; the raw rows likewise for the cp.async
+// path.  A view of width columns at pitch ld > width (half of a wide part)
+// keeps dims = width: columns past it arrive as zeros, never as the other
+// view's.
 inline bool aligned16(const void* q) { return (reinterpret_cast<uintptr_t>(q) & 15) == 0; }
 
 inline int encode_maps(const Params& p, int n, int parts, Maps* maps) {
@@ -722,7 +734,7 @@ inline int encode_maps(const Params& p, int n, int parts, Maps* maps) {
     for (int q = 0; q < parts; ++q) {
       const cuuint64_t dims[2] = {static_cast<cuuint64_t>(p.width),
                                   static_cast<cuuint64_t>(p.n_in)};
-      const cuuint64_t strides[1] = {static_cast<cuuint64_t>(p.width) * 2};
+      const cuuint64_t strides[1] = {static_cast<cuuint64_t>(p.ld) * 2};
       const cuuint32_t box[2] = {BINS, DEPTH};
       const cuuint32_t unit[2] = {1, 1};
       const CUresult r = encode(&maps->m[c][q], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
@@ -752,7 +764,7 @@ int launch(Params p, Kernel kernel, cudaError_t attr, cudaStream_t stream) {
   if (p.lines <= 0 || p.width <= 0 || p.n_in <= 0) return 0;
   const long long blocks = ((p.lines + LINES - 1) / LINES) * col_tiles<COLS>(p);
   if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-  bool tma = p.width % 8 == 0 && (static_cast<long long>(p.n_in) * sizeof(InT)) % 16 == 0 &&
+  bool tma = p.ld % 8 == 0 && (static_cast<long long>(p.n_in) * sizeof(InT)) % 16 == 0 &&
              aligned16(p.raw);
   for (int c = 0; c < n_maps<COLS>(); ++c)
     for (int q = 0; q < PARTS; ++q) tma = tma && aligned16(p.w[c][q]);
@@ -767,6 +779,18 @@ int launch(Params p, Kernel kernel, cudaError_t attr, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The pass terms a launch runs: those of its passes, and at one pass (three
+// parts, integer lines only) the five of "highest"; 0 for a launch the
+// split kernels do not take.  An integer sample of at most 16 bits is
+// exactly x_hi + x_lo and the float32 operator's three parts carry ~24
+// mantissa bits, so x_hi w_2, x_hi w_1, x_hi w_0 and (where a stage holds a
+// sample of 256 or more) x_lo w_1, x_lo w_0 give the one-pass float32
+// product at float32 grade; float32 lines (above 16 bits) are refused.
+inline int terms(int in_kind, int passes, bool three_parts) {
+  if (passes != 1) return passes;
+  return three_parts && (in_kind == IN_U8 || in_kind == IN_U16) ? 5 : 0;
+}
+
 // The launch of K<InT, PARTS>::run (a struct template of the including
 // file) for in_kind (0 uint8, 1 uint16, 2 float32) and passes (3 or 5: 2 or
 // 3 parts).
@@ -775,9 +799,9 @@ int dispatch(int in_kind, int passes, const Params& p, cudaStream_t stream) {
   if (passes != 3 && passes != 5) return static_cast<int>(cudaErrorInvalidValue);
   const bool five = passes == 5;
   switch (in_kind) {
-    case 0: return five ? K<uint8_t, 3>::run(p, stream) : K<uint8_t, 2>::run(p, stream);
-    case 1: return five ? K<uint16_t, 3>::run(p, stream) : K<uint16_t, 2>::run(p, stream);
-    case 2: return five ? K<float, 3>::run(p, stream) : K<float, 2>::run(p, stream);
+    case IN_U8: return five ? K<uint8_t, 3>::run(p, stream) : K<uint8_t, 2>::run(p, stream);
+    case IN_U16: return five ? K<uint16_t, 3>::run(p, stream) : K<uint16_t, 2>::run(p, stream);
+    case IN_FLOAT: return five ? K<float, 3>::run(p, stream) : K<float, 2>::run(p, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -5,16 +5,20 @@
 // store.
 //
 // The C entry points prep_gemm_phase and prep_gemm_real take every rung.
-// This file runs the one-pass rung on the CUDA cores; the split rungs (3
-// and 5 passes) go to the bf16 tensor-core kernel of prep_split.cu:
+// This file runs the one-pass rung on the CUDA cores where the bf16
+// tensor-core kernel of prep_split.cu does not take it; the split rungs (3
+// and 5 passes), and the phase kernel's one pass on uint8/uint16 lines
+// (against three bf16 parts of its float32 operator), go there:
 //
-//   prep_gemm<EPI=PHASE>           _kernel_phase        (octproz_tpu/pallas/fused_prep.py:228-235)
+//   prep_split<EPI=PHASE, 3 parts> | prep_gemm<EPI=PHASE>  _kernel_phase  (octproz_tpu/pallas/fused_prep.py:228-235)
 //   prep_split<EPI=PHASE> (3|5)    _kernel_phase_split  (:245-251)
 //   prep_gemm<EPI=REAL>            _kernel_real         (:238-242)
 //   prep_split<EPI=REAL>  (3|5)    _kernel_real_split   (:254-258)
 //
 // with InT in {uint8, uint16, float} (raw samples; float is input the
-// wrapper decoded already).
+// wrapper decoded already, samples above 16 bits, which the x_hi + x_lo
+// split cannot carry: the phase kernel's one pass keeps this file's kernel
+// for them, and the input type alone picks the route).
 //
 // What bounds it: at the FFT path's geometry (131072 lines x 1024 samples
 // -> 1024) one buffer is 2*131072*1024*1024 = 275 GFLOP against ~1.3 GB
@@ -99,7 +103,7 @@ __global__ void __launch_bounds__(THREADS)
       const int k = k0 + r;
       const int n = n0 + c;
       const bool ok = k < args.n_in && n < args.n_out;
-      ws[r][c] = ok ? load_w<float>(args.w, static_cast<long long>(k) * args.n_out + n) : 0.f;
+      ws[r][c] = ok ? args.w[static_cast<long long>(k) * args.n_out + n] : 0.f;
     }
     __syncthreads();
 
@@ -149,12 +153,11 @@ int launch(const PrepArgs& args, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int EPI>
-int one_pass(int in_kind, const PrepArgs& args, cudaStream_t stream) {
+int one_pass_real(int in_kind, const PrepArgs& args, cudaStream_t stream) {
   switch (in_kind) {
-    case 0: return launch<uint8_t, EPI>(args, stream);
-    case 1: return launch<uint16_t, EPI>(args, stream);
-    case 2: return launch<float, EPI>(args, stream);
+    case IN_U8: return launch<uint8_t, REAL>(args, stream);
+    case IN_U16: return launch<uint16_t, REAL>(args, stream);
+    case IN_FLOAT: return launch<float, REAL>(args, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -176,14 +179,16 @@ PrepArgs make_args(const void* raw, int bitshift, const void* w0, void* out, lon
 
 extern "C" {
 
-// in_kind: 0 uint8, 1 uint16, 2 float32.  passes: 1, 3 or 5 (with 1, 2 or
-// 3 operator parts; unused part pointers may be NULL).  out: complex64
-// (lines, n_out), written as interleaved float pairs.
+// in_kind: 0 uint8, 1 uint16, 2 float32.  passes: 3 or 5 with 2 or 3 bf16
+// operator parts; 1 with the float32 operator in w0 for float32 lines, and
+// with its three bf16 parts for uint8/uint16 lines.  Unused part pointers
+// may be NULL.  out: complex64 (lines, n_out), written as interleaved float
+// pairs.
 int prep_gemm_phase(const void* raw, int in_kind, int bitshift, int passes,
                     const void* w0, const void* w1, const void* w2,
                     const float* cos_row, const float* sin_row, void* out,
                     long long lines, int n_in, int n_out, void* stream) {
-  if (passes != 1) {
+  if (passes != 1 || in_kind != IN_FLOAT) {
     const void* const w[3] = {w0, w1, w2};
     return prep_split_phase(raw, in_kind, bitshift, passes, w, cos_row, sin_row, out, lines,
                             n_in, n_out, stream);
@@ -191,10 +196,11 @@ int prep_gemm_phase(const void* raw, int in_kind, int bitshift, int passes,
   PrepArgs args = make_args(raw, bitshift, w0, out, lines, n_in, n_out);
   args.cos_row = cos_row;
   args.sin_row = sin_row;
-  return one_pass<PHASE>(in_kind, args, static_cast<cudaStream_t>(stream));
+  return launch<float, PHASE>(args, static_cast<cudaStream_t>(stream));
 }
 
-// As prep_gemm_phase without the phasor; out: float32 (lines, n_out).
+// As prep_gemm_phase without the phasor; out: float32 (lines, n_out).  Its
+// one pass takes the float32 operator in w0 for every input type.
 int prep_gemm_real(const void* raw, int in_kind, int bitshift, int passes,
                    const void* w0, const void* w1, const void* w2, void* out,
                    long long lines, int n_in, int n_out, void* stream) {
@@ -203,7 +209,7 @@ int prep_gemm_real(const void* raw, int in_kind, int bitshift, int passes,
     return prep_split_real(raw, in_kind, bitshift, passes, w, out, lines, n_in, n_out, stream);
   }
   PrepArgs args = make_args(raw, bitshift, w0, out, lines, n_in, n_out);
-  return one_pass<REAL>(in_kind, args, static_cast<cudaStream_t>(stream));
+  return one_pass_real(in_kind, args, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

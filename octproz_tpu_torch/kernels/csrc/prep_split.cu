@@ -1,14 +1,21 @@
-// The split-rung prep kernels on Hopper's bf16 tensor cores (sm_90a):
-// stages 1-3 of the FFT path at 3 and 5 passes -- decode, the pass terms of
-// _dot_split for y = x @ P against the operator's 2/3 bf16 parts, then the
-// phasor epilogue (y cos, y sin) into complex64 or a float32 y.  The
-// counterparts of
+// The prep kernels on Hopper's bf16 tensor cores (sm_90a): stages 1-3 of
+// the FFT path at 3 and 5 passes -- decode, the pass terms of _dot_split
+// for y = x @ P against the operator's 2/3 bf16 parts, then the phasor
+// epilogue (y cos, y sin) into complex64 or a float32 y -- and the phase
+// kernel's one-pass rung on uint8/uint16 lines.  The counterparts of
 //
-//   prep_split<EPI=PHASE>  _kernel_phase_split  (octproz_tpu/pallas/fused_prep.py:245-251)
-//   prep_split<EPI=REAL>   _kernel_real_split   (:254-258)
+//   prep_split<EPI=PHASE>            _kernel_phase_split  (octproz_tpu/pallas/fused_prep.py:245-251)
+//   prep_split<EPI=REAL>             _kernel_real_split   (:254-258)
+//   prep_split<EPI=PHASE, PARTS=3>   _kernel_phase        (:228-235, integer lines)
 //
 // with InT in {uint8, uint16, float}, launched by prep_gemm_phase and
-// prep_gemm_real (prep_gemm.cu) at passes != 1.
+// prep_gemm_real (prep_gemm.cu) at passes != 1, and by prep_gemm_phase at
+// one pass for uint8/uint16 lines.  At one pass the float32 operator
+// arrives as its three bf16 parts and the launch runs the five terms of
+// "highest" (terms() in fold_split.cuh): the float32 product at float32
+// grade for samples of at most 16 bits, 3 x 275 GFLOP of bf16 products for
+// shifted 12-bit samples (0.83 ms at 989 TFLOP/s, against 4.1 ms for the
+// float32-FMA kernel at 67 TFLOP/s).  float32 lines keep that kernel.
 //
 // What bounds it: at the FFT path's geometry (131072 lines x 1024 samples
 // -> 1024 columns, "high", shifted 12-bit samples) the two x_hi terms are
@@ -95,6 +102,7 @@ Params params(const void* raw, int bitshift, const void* const w[3], void* out,
   p.lines = lines;
   p.n_in = n_in;
   p.width = n_out;
+  p.ld = n_out;
   p.bitshift = bitshift;
   return p;
 }
@@ -104,16 +112,19 @@ Params params(const void* raw, int bitshift, const void* const w[3], void* out,
 
 extern "C" {
 
-// The 3/5-pass launches of prep_gemm_phase / prep_gemm_real (prep_gemm.cu):
-// w holds the operator's 2 or 3 bf16 parts, (n_in, n_out) row-major.
+// The tensor-core launches of prep_gemm_phase / prep_gemm_real
+// (prep_gemm.cu): w holds the operator's 2 or 3 bf16 parts, (n_in, n_out)
+// row-major, for 3 or 5 passes; for the phase kernel at 1 pass on
+// uint8/uint16 lines the float32 operator's three bf16 parts (5 terms).
 int prep_split_phase(const void* raw, int in_kind, int bitshift, int passes,
                      const void* const w[3], const float* cos_row, const float* sin_row,
                      void* out, long long lines, int n_in, int n_out, void* stream) {
   split::Params p = split::params(raw, bitshift, w, out, lines, n_in, n_out);
   p.cos_row = cos_row;
   p.sin_row = sin_row;
-  return split::dispatch<split::Prep<PHASE>::K>(in_kind, passes, p,
-                                                static_cast<cudaStream_t>(stream));
+  return split::dispatch<split::Prep<PHASE>::K>(
+      in_kind, split::terms(in_kind, passes, w[0] && w[1] && w[2]), p,
+      static_cast<cudaStream_t>(stream));
 }
 
 int prep_split_real(const void* raw, int in_kind, int bitshift, int passes,

@@ -22,13 +22,13 @@ from it in the epilogue.
 
 This module holds, for each of the ten kernel families:
 
-* the CUDA kernel (``csrc/fold_gemm.cu`` and ``csrc/prep_gemm.cu`` -- the
-  one-pass rung; their split rungs launch the bf16 tensor-core kernels of
-  ``csrc/fold_split.cu`` and ``csrc/prep_split.cu``, and so does the
-  one-pass rung of the two-operator fold kernels on integer samples, as
-  three bf16 parts of the float32 operator (:class:`OnePass`) --, and
-  ``csrc/fold_concat.cu``, built by :mod:`.build`), which a wrapper
-  launches for CUDA tensors;
+* the CUDA kernel (``csrc/fold_gemm.cu``, ``csrc/prep_gemm.cu`` and
+  ``csrc/fold_concat.cu`` -- the one-pass rung on the CUDA cores; their
+  split rungs launch the bf16 tensor-core kernels of ``csrc/fold_split.cu``
+  and ``csrc/prep_split.cu``, and so does the one-pass rung of the
+  families in :data:`ONE_PASS_ROUTES` on integer samples, as three bf16
+  parts of the float32 operator (:class:`OnePass`) --, built by
+  :mod:`.build`), which a wrapper launches for CUDA tensors;
 * its plain PyTorch version (``*_plain``), which the wrapper uses for CPU
   tensors and which the tests and ``chip_smoke.py`` hold the kernel to;
 * a launch count in :data:`LAUNCHES`, raised only where the kernel is
@@ -78,12 +78,15 @@ LAUNCHES = {"depth": 0, "depth_split": 0, "depth_scale": 0,
             "depth_scale_concat_split": 0, "prep_phase": 0, "prep_phase_split": 0,
             "prep_real": 0, "prep_real_split": 0}
 
-#: The one-pass launches of ``depth`` and ``depth_scale`` by route:
-#: ``tensor_core`` (uint8/uint16 lines: bf16 wgmma on the operator's three
-#: parts) or ``simt`` (float32 lines: the float32-FMA kernel).  The route
-#: follows the input type alone.
+#: The one-pass launches of the families whose one pass has a tensor-core
+#: route, by route: ``tensor_core`` (uint8/uint16 lines: bf16 wgmma on the
+#: operator's three parts) or ``simt`` (float32 lines: the float32-FMA
+#: kernel).  The route follows the input type alone.  The other one-pass
+#: families (``depth_scale_concat``, ``prep_real``) run the float32-FMA
+#: kernel for every input type.
 ONE_PASS_ROUTES = {"depth": {"tensor_core": 0, "simt": 0},
-                   "depth_scale": {"tensor_core": 0, "simt": 0}}
+                   "depth_scale": {"tensor_core": 0, "simt": 0},
+                   "prep_phase": {"tensor_core": 0, "simt": 0}}
 
 
 def reset_launch_counts() -> None:
@@ -206,12 +209,13 @@ def _split_bf16(w: torch.Tensor, parts: int = 2) -> Tuple[torch.Tensor, ...]:
 
 class OnePass(tuple):
     """The one-pass rung's operator as the wrappers take it: a 1-tuple of
-    the float32 operator -- what the plain versions, the SIMT kernels and the
-    concat kernels read -- that also carries ``split``, its three bf16 parts
-    (:func:`_split_bf16`), which the tensor-core fold kernels read for
-    integer lines.  ``split`` is computed at first use and kept, so an
-    operator held in ``Curves.depth_parts`` is split once per curve build;
-    one made per call is split per call."""
+    the float32 operator -- what the plain versions and the SIMT kernels
+    read -- that also carries ``split``, its three bf16 parts
+    (:func:`_split_bf16`), which the tensor-core kernels of the families in
+    :data:`ONE_PASS_ROUTES` read for integer lines.  ``split`` is computed
+    at first use and kept, so an operator held in ``Curves.depth_parts`` or
+    ``Curves.prep_parts`` is split once per curve build; one made per call
+    is split per call."""
 
     def __new__(cls, w: torch.Tensor, split=None):
         self = super().__new__(cls, (w.to(torch.float32).contiguous(),))
@@ -519,22 +523,30 @@ def _raise_on(rc: int, lib, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc} ({msg})")
 
 
-def _kernel_operands(raw2d, w_re_parts, w_im_parts, family: str):
-    """What a two-operator fold kernel reads for parts the launch checks
-    passed: (passes, re parts, im parts, LAUNCHES key, route or None).  The
-    one-pass rung runs on the tensor cores against the float32 operator's
-    three bf16 parts for uint8/uint16 lines, and on the float32-FMA kernel
-    for float32 lines (samples above 16 bits, which x_hi + x_lo cannot
-    carry): the input type alone decides, never a failed build or launch."""
-    passes = 2 * len(w_re_parts) - 1
+def _kernel_operands(raw2d, axes, family: str):
+    """What a kernel of ``family`` (a one-pass LAUNCHES key) reads for the
+    operator parts of each of its ``axes`` -- (re, im) for the two-operator
+    fold kernels, ([W_re | W_im],) for the concat kernels, (P,) for the prep
+    kernels -- that the launch checks passed: (passes,
+    parts per axis, LAUNCHES key, route or None).  The one-pass rung of the
+    families in :data:`ONE_PASS_ROUTES` runs on the tensor cores against the
+    float32 operator's three bf16 parts for uint8/uint16 lines, and on the
+    float32-FMA kernel for float32 lines (samples above 16 bits, which
+    x_hi + x_lo cannot carry): the input type alone decides, never a failed
+    build or launch.  The other families keep the float32-FMA kernel at one
+    pass."""
+    passes = 2 * len(axes[0]) - 1
     if passes > 1:
-        return passes, w_re_parts, w_im_parts, family + "_split", None
+        return passes, axes, family + "_split", None
+    if family not in ONE_PASS_ROUTES:
+        return 1, axes, family, None
     if raw2d.dtype == torch.float32:
-        return 1, w_re_parts, w_im_parts, family, "simt"
+        return 1, axes, family, "simt"
     split = [w.split if isinstance(w, OnePass) else _split_bf16(w[0], _ONE_PASS_PARTS)
-             for w in (w_re_parts, w_im_parts)]
-    _check_parts((*split[0], *split[1]), raw2d.shape[1], raw2d.device, "fold", split=True)
-    return 1, split[0], split[1], family, "tensor_core"
+             for w in axes]
+    _check_parts([p for parts in split for p in parts], raw2d.shape[1], raw2d.device, family,
+                 split=True)
+    return 1, split, family, "tensor_core"
 
 
 def _count_launch(key: str, route) -> None:
@@ -552,7 +564,8 @@ def _launch_depth(raw2d, w_re_parts, w_im_parts, *, bitshift: bool):
     if lines == 0:
         return re, im
     lib = build.load()
-    passes, w_re, w_im, key, route = _kernel_operands(raw2d, w_re_parts, w_im_parts, "depth")
+    passes, (w_re, w_im), key, route = _kernel_operands(raw2d, (w_re_parts, w_im_parts),
+                                                        "depth")
     with torch.cuda.device(raw2d.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.fold_gemm_planar(
@@ -581,8 +594,8 @@ def _launch_depth_scale(raw2d, w_re_parts, w_im_parts, mean2, *, bitshift,
     else:
         mode, a_k = _MODE_LOG, a
     lib = build.load()
-    passes, w_re, w_im, key, route = _kernel_operands(raw2d, w_re_parts, w_im_parts,
-                                                      "depth_scale")
+    passes, (w_re, w_im), key, route = _kernel_operands(raw2d, (w_re_parts, w_im_parts),
+                                                        "depth_scale")
     with torch.cuda.device(raw2d.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.fold_gemm_scale(
@@ -606,16 +619,16 @@ def _launch_depth_scale_concat(raw2d, w_parts, mean2, *, bitshift, log_scaling,
     if lines == 0:
         return out
     lib = build.load()
-    passes = 2 * len(w_parts) - 1
+    passes, (parts,), key, route = _kernel_operands(raw2d, (w_parts,), "depth_scale_concat")
     with torch.cuda.device(raw2d.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.fold_gemm_scale_concat(
             raw2d.data_ptr(), _IN_KIND[raw2d.dtype], int(bitshift), passes,
-            *_ptrs(w_parts), mean2.data_ptr(), out.data_ptr(),
+            *_ptrs(parts), mean2.data_ptr(), out.data_ptr(),
             int(out_dtype == torch.bfloat16), _MODE_LOG if log_scaling else _MODE_LIN,
             ctypes.c_float(a), ctypes.c_float(b), lines, n_in, half, stream)
     _raise_on(rc, lib, "fold_gemm_scale_concat")
-    LAUNCHES["depth_scale_concat" if passes == 1 else "depth_scale_concat_split"] += 1
+    _count_launch(key, route)
     return out
 
 
@@ -633,9 +646,9 @@ def _launch_prep(raw2d, op_parts, cos_row, sin_row, *, bitshift: bool):
     if lines == 0:
         return out
     lib = build.load()
-    passes = 2 * len(op_parts) - 1
-    args = (raw2d.data_ptr(), _IN_KIND[raw2d.dtype], int(bitshift), passes,
-            *_ptrs(op_parts))
+    family = "prep_phase" if phase else "prep_real"
+    passes, (parts,), key, route = _kernel_operands(raw2d, (op_parts,), family)
+    args = (raw2d.data_ptr(), _IN_KIND[raw2d.dtype], int(bitshift), passes, *_ptrs(parts))
     with torch.cuda.device(raw2d.device):
         stream = torch.cuda.current_stream().cuda_stream
         if phase:  # interleaved (re, im) straight into the complex64 tensor
@@ -643,9 +656,8 @@ def _launch_prep(raw2d, op_parts, cos_row, sin_row, *, bitshift: bool):
                                      out.data_ptr(), lines, n_in, n_out, stream)
         else:
             rc = lib.prep_gemm_real(*args, out.data_ptr(), lines, n_in, n_out, stream)
-    family = "prep_phase" if phase else "prep_real"
     _raise_on(rc, lib, family)
-    LAUNCHES[family if passes == 1 else family + "_split"] += 1
+    _count_launch(key, route)
     return out
 
 
@@ -762,6 +774,8 @@ def fused_depth_scale(
     mean2: torch.Tensor,
     acq: AcqParams,
     cfg: ProcConfig,
+    *,
+    wide: Optional[Tuple[torch.Tensor, ...]] = None,
 ) -> torch.Tensor:
     """Raw uint lines (..., n_in) -> scaled magnitude (..., half) in one
     kernel: decode, folded GEMMs, FPN mean subtraction and dynamic-range
@@ -769,9 +783,11 @@ def fused_depth_scale(
     (zeros when FPN is off).  The store dtype is ``cfg.output_dtype``.
     ``depth_op_re``/``depth_op_im`` are the float32 operators or their parts
     already split for ``cfg.matmul_precision`` (``Curves.depth_parts``).
-    With ``cfg.fold_concat`` the concat kernels run against the operators
-    concatenated here (:func:`concat_operator`): a part pair per rung part,
-    or the float32 operators concatenated, then split.
+    With ``cfg.fold_concat`` the concat kernels run against ``wide``, the
+    concatenated operator's parts made once per curve build
+    (``Curves.depth_concat_parts``), or, where it is None (curves carried in
+    from the JAX package), against the operators concatenated here
+    (:func:`concat_operator`): the same parts either way.
     ``cfg.fold_k_split`` and ``cfg.pallas_tile`` do not change the result."""
     _check_fold_config(cfg, depth_op_re, depth_op_im)
     lead_shape = raw.shape[:-1]
@@ -783,7 +799,8 @@ def fused_depth_scale(
     a, b = _scale_affine(cfg.log_scaling, half, cfg.grayscale_min, cfg.grayscale_max,
                          cfg.addend, cfg.multiplicator)
     if cfg.fold_concat:
-        wide = concat_operator(depth_op_re, depth_op_im, cfg.matmul_precision)
+        if wide is None:
+            wide = concat_operator(depth_op_re, depth_op_im, cfg.matmul_precision)
         mag = fold_depth_scale_concat(raw2d, wide, mean2, bitshift=cfg.bitshift,
                                       log_scaling=cfg.log_scaling, a=a, b=b,
                                       out_dtype=out_dtype)

@@ -224,7 +224,8 @@ class FdOctModel:
         mean = (torch.zeros_like(self.fpn_state.mean_line)
                 if cfg.fpn_mode == FpnMode.OFF else self.fpn_state.mean_line)
         mag = fused_depth_scale(raw_stack, *pipeline.depth_operators(curves),
-                                mean, self.acq, pipeline.kernel_config(cfg))
+                                mean, self.acq, pipeline.kernel_config(cfg),
+                                wide=curves.depth_concat_parts)
         if pipeline.has_post(cfg):
             mag = torch.stack([pipeline.postprocess_volume(m, curves, cfg) for m in mag])
         return pipeline.narrow(mag, cfg)

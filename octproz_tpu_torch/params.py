@@ -283,6 +283,9 @@ class Curves:
     # prep_operator split once for cfg.matmul_precision (the FFT path's
     # counterpart of depth_parts).  None: split per call.
     prep_parts: Optional[object] = None
+    # With fold_concat: the parts of [depth_op_re | depth_op_im] for
+    # cfg.matmul_precision, concatenated once.  None: concatenated per call.
+    depth_concat_parts: Optional[object] = None
 
 
 @dataclasses.dataclass(frozen=True)

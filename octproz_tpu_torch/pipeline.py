@@ -162,7 +162,8 @@ def _fold_branch(raw, curves, fpn_state, acq, cfg):
         # subtracts zeros, ignoring any carried state.
         mean = (torch.zeros_like(fpn_state.mean_line)
                 if cfg.fpn_mode == FpnMode.OFF else fpn_state.mean_line)
-        return fused_depth_scale(raw, op_re, op_im, mean, acq, kernel_config(cfg)), fpn_state
+        return fused_depth_scale(raw, op_re, op_im, mean, acq, kernel_config(cfg),
+                                 wide=curves.depth_concat_parts), fpn_state
     z_re, z_im = fused_depth_transform(raw, op_re, op_im, acq, cfg)
     if cfg.fpn_mode != FpnMode.OFF:
         z_re, z_im, fpn_state = apply_fpn_planar(z_re, z_im, fpn_state, acq, cfg)

@@ -163,7 +163,8 @@ def test_make_curves_equal(flags):
     """Every field of make_curves equals the JAX package's (as numpy), and
     exactly the consumed fields are tensors on the requested device.  The
     port's own ``depth_parts`` is the depth operator split once for the
-    configured rung."""
+    configured rung, and with ``fold_concat`` ``depth_concat_parts`` the
+    concatenated operator split for it."""
     import torch
 
     cfg = tparams.ProcConfig(**flags)
@@ -175,7 +176,8 @@ def test_make_curves_equal(flags):
     jc = jcurves.make_curves(J_ACQ, jcfg, **kw)
     used = tcurves.consumed_fields(cfg)
     assert {f.name for f in dataclasses.fields(tparams.Curves)} == \
-        {f.name for f in dataclasses.fields(jcurves.Curves)} | {"depth_parts", "prep_parts"}
+        {f.name for f in dataclasses.fields(jcurves.Curves)} | {"depth_parts", "prep_parts",
+                                                               "depth_concat_parts"}
     split = {"depth_parts": (tc.depth_op_re, tc.depth_op_im) if cfg.fft_via_matmul else None,
              "prep_parts": (tc.prep_operator,) if "prep_operator" in used else None}
     for name, ops in split.items():
@@ -189,6 +191,13 @@ def test_make_curves_equal(flags):
             want = tfp._operator_parts(op, cfg.matmul_precision)
             assert len(got) == len(want)
             assert all(torch.equal(g, w) for g, w in zip(got, want))
+    wide = tc.depth_concat_parts
+    if not cfg.fold_concat:
+        assert wide is None
+    else:
+        want = tfp._operator_parts(torch.cat([tc.depth_op_re, tc.depth_op_im], dim=1),
+                                   cfg.matmul_precision)
+        assert len(wide) == len(want) and all(torch.equal(g, w) for g, w in zip(wide, want))
     for f in dataclasses.fields(jcurves.Curves):
         t, j = getattr(tc, f.name), getattr(jc, f.name)
         assert (t is None) == (j is None), f.name

@@ -839,6 +839,9 @@ PREP_CUDA_CASES = [
     # the split kernels' TMA path with a half-empty last 128-column tile
     (1088, 130, torch.uint16, False, 3, "phase", False),
     (1088, 130, torch.uint8, False, 3, "real", True),
+    # the phase kernel's one pass on the tensor cores (x_lo terms)
+    (256, 300, torch.uint16, False, 1, "phase", True),
+    (1088, 130, torch.uint16, False, 1, "phase", False),
 ]
 
 
@@ -862,6 +865,49 @@ def test_cuda_prep_kernel_matches_plain(cuda_device, np_rng, n_in, lines, in_dty
     torch.cuda.synchronize()
     _prep_close(got, want.cpu().numpy())
     assert tfp.LAUNCHES[family] == before + 1
+
+
+@pytest.mark.cuda
+def test_cuda_prep_one_pass_route_follows_the_input_type(cuda_device, np_rng):
+    """At one pass the phase kernel runs on the tensor cores for uint16
+    lines and on the float32-FMA kernel for float32 lines, both counted as
+    ``prep_phase``; the real kernel's one pass has no tensor-core route."""
+    op, phase = _prep_operator(background_removal=True)
+    one = tfp._operator_parts(torch.from_numpy(op).to(cuda_device), "default")
+    rows = tuple(r.to(cuda_device) for r in _rows(phase))
+    full = torch.from_numpy(np_rng.integers(0, 1 << 16, size=(300, N)).astype(np.uint16))
+    for raw, route in ((full.to(cuda_device), "tensor_core"),
+                       (full.to(cuda_device).float(), "simt")):
+        tfp.reset_launch_counts()
+        got = tfp.prep_phase(raw, one, *rows, bitshift=False)
+        real = tfp.prep_real(raw, one, bitshift=False)
+        torch.cuda.synchronize()
+        assert tfp.LAUNCHES["prep_phase"] == tfp.LAUNCHES["prep_real"] == 1
+        assert tfp.ONE_PASS_ROUTES["prep_phase"] == {**{"tensor_core": 0, "simt": 0}, route: 1}
+        err = tfp.prep_error(got, tfp.prep_phase_plain(raw, one, *rows, bitshift=False))
+        assert err <= tfp.PREP_REL_L2, (route, err)
+        assert tfp.prep_error(real, tfp.prep_real_plain(raw, one, bitshift=False)) \
+            <= tfp.PREP_REL_L2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("control", ["two of the three parts", "no x_lo"])
+def test_cuda_prep_bound_catches_the_one_pass_neighbours(cuda_device, np_rng, control):
+    """Controls: the one-pass phase kernel on the "high" parts (the third
+    zeroed), or on x_hi alone, differs from the float32 product by more
+    than the prep bound."""
+    op, phase = _prep_operator()
+    one = tfp._operator_parts(torch.from_numpy(op).to(cuda_device), "default")
+    rows = tuple(r.to(cuda_device) for r in _rows(phase))
+    raw = _cuda_raw(np_rng, 300, N, torch.uint16, cuda_device)
+    want = tfp.prep_phase_plain(raw, one, *rows, bitshift=False)
+    if control == "no x_lo":
+        x_hi = tfp._bf16_trunc(raw.to(torch.float32)).to(torch.int16).view(torch.uint16)
+        got = tfp.prep_phase(x_hi, one, *rows, bitshift=False)
+    else:
+        two = tfp.OnePass(one[0], split=(*one.split[:2], torch.zeros_like(one.split[2])))
+        got = tfp.prep_phase(raw, two, *rows, bitshift=False)
+    assert tfp.prep_error(got, want) > 2 * tfp.PREP_REL_L2
 
 
 @pytest.mark.cuda
@@ -925,6 +971,10 @@ CONCAT_CUDA_CASES = [
     (256, 300, torch.uint16, True, 1, False, torch.bfloat16),
     (1664, 70, torch.uint8, False, 3, True, torch.float32),
     (1664, 70, torch.float32, False, 5, True, torch.bfloat16),
+    # the split rung's views: 544 bins (a half-empty last 64-bin tile), and
+    # 550 (the im view not 16-byte aligned: the element-wise producer)
+    (1088, 130, torch.uint16, False, 3, True, torch.float32),
+    (1100, 65, torch.uint16, True, 5, True, torch.float32),
 ]
 
 

@@ -290,6 +290,46 @@ def test_set_config_splits_the_operator_once():
     assert all(p.dtype == torch.bfloat16 for parts in curves.depth_parts for p in parts)
 
 
+@pytest.mark.parametrize("precision", ["default", "high", "highest"])
+def test_fold_concat_operator_made_once_per_curve_build(monkeypatch, precision):
+    """With fold_concat, make_curves holds the parts of [W_re | W_im]
+    (``Curves.depth_concat_parts``, the part pairs of ``depth_parts``
+    concatenated); the steady step and the batch chunk read them and form no
+    operator, and give bit for bit what concatenating per call gives."""
+    from octproz_tpu_torch.kernels import fused_prep as tfp
+
+    tm, _ = _models(fold_concat=True, matmul_precision=precision)
+    wide = tm.curves.depth_concat_parts
+    want = tfp.concat_operator(*tm.curves.depth_parts, precision)
+    assert len(wide) == len(want) and all(torch.equal(a, b) for a, b in zip(wide, want))
+    assert _models()[0].curves.depth_concat_parts is None
+    raws = [torch.from_numpy(r) for r in _buffers(3, seed=12)]
+    tm.process_buffer(raws[0])  # FPN determination
+    per_call = dataclasses.replace(tm.curves, depth_concat_parts=None)
+    steady, _ = tpipeline.process_buffer(raws[1], per_call, tm.fpn_state, tm.acq, tm.cfg)
+    chunk, _ = tpipeline.process_buffer(torch.stack(raws[1:]), per_call, tm.fpn_state,
+                                        tm.acq, tm.cfg)
+
+    def refuse(*args, **kw):
+        raise AssertionError("the step formed the concatenated operator")
+
+    monkeypatch.setattr(tfp, "concat_operator", refuse)
+    assert torch.equal(tm.process_buffer(raws[1]), steady)
+    assert torch.equal(tm.process_chunk(torch.stack(raws[1:]), strategy="batch"), chunk)
+
+
+@pytest.mark.parametrize("dispersion", [True, False])
+def test_prep_operator_split_once_for_the_phase_kernel(dispersion):
+    """On the FFT path at the default rung the prep operator's three bf16
+    parts are made with the curves where the phase kernel reads them (with
+    dispersion); the real kernel's one pass reads the float32 operator
+    alone, so without dispersion none are made."""
+    tm, _ = _models(**FFT_PREP, dispersion=dispersion)
+    parts = tm.curves.prep_parts
+    assert len(parts) == 1 and torch.equal(parts[0], tm.curves.prep_operator)
+    assert ("split" in vars(parts)) == dispersion
+
+
 UNPORTED = [dict(compute_dtype="bfloat16"), dict(fold_concat=True, compute_dtype="bfloat16")]
 
 

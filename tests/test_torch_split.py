@@ -1,7 +1,8 @@
 """The kernels on bf16 tensor cores (``csrc/fold_split.cuh``,
-``csrc/prep_split.cu``) -- the split rungs, and the one-pass rung of the
-two-operator fold kernels on three bf16 parts of its float32 operator -- and
-the bench's kernel yardsticks.
+``csrc/prep_split.cu``) -- the split rungs (the concat kernel's as two views
+of each wide part), and the one-pass rung of the two-operator fold kernels
+and of the phase prep kernel on three bf16 parts of its float32 operator --
+and the bench's kernel yardsticks.
 
 The CUDA kernel cannot run here, so its arithmetic is emulated in torch
 (:func:`staged`): per stage of 64 samples, the pass terms go low-order first
@@ -23,7 +24,7 @@ per axis, and not a replay of the kernel's terms: the staged three-part terms
 are held against it for integer samples of up to 16 bits, its own controls
 (two of the three parts; no x_lo) fail, and float32 lines above 16 bits miss
 the bound through the split, which is why they keep the float32-FMA kernel
-(:func:`simt`).
+(:func:`simt`).  The same holds for the phase prep kernel at one pass.
 """
 
 import dataclasses
@@ -338,6 +339,153 @@ def test_prep_controls_still_fail_under_the_staged_order(epi, background_removal
 
 
 # ---------------------------------------------------------------------------
+# The phase prep kernel's one pass (B7) on the three parts of its float32
+# operator, against the float32 product prep_phase_plain within PREP_REL_L2
+# ---------------------------------------------------------------------------
+
+def _kernel_prep(raw, x, parts, rows):
+    """The phase prep kernel's output on (raw, parts): :func:`kernel_sums`
+    through the phasor epilogue."""
+    y = kernel_sums(raw, x, parts)
+    return torch.complex(y * rows[0], y * rows[1])
+
+
+@pytest.mark.parametrize("background_removal", [False, True])
+@pytest.mark.parametrize("kind", ["u16s", "u16", "u16f", "u8"])
+@pytest.mark.parametrize("n,lines", [(256, 200), (300, 130)])
+def test_prep_phase_one_pass_staged_within_the_prep_bound(background_removal, kind, n, lines):
+    """The one-pass phase kernel on integer lines runs the staged terms of
+    the float32 operator's three parts (five where a stage has x_lo): within
+    the prep bound of the float32 product, with and without background
+    removal, on a partial stage (n = 300) and partial 64-line groups."""
+    op, rows = _prep_operator(n, background_removal)
+    one = tfp._operator_parts(op, "default")
+    raw, bitshift = _input(kind, lines, n)
+    x = tfp._decode_block(raw, bitshift)
+    err = tfp.prep_error(_kernel_prep(raw, x, one, rows),
+                         tfp.prep_phase_plain(raw, one, *rows, bitshift=bitshift))
+    assert err <= tfp.PREP_REL_L2, err
+
+
+@pytest.mark.parametrize("background_removal", [False, True])
+def test_prep_float_lines_above_16_bits_miss_the_bound_through_the_split(background_removal):
+    """24-bit float32 lines through the three-part terms miss the prep bound
+    (x_hi + x_lo keeps 16 bits of a sample), so the phase kernel's one pass
+    keeps the float32-FMA kernel for them, which holds it."""
+    op, rows = _prep_operator(256, background_removal)
+    one = tfp._operator_parts(op, "default")
+    raw, _ = _input("f32", 200, 256)
+    want = tfp.prep_phase_plain(raw, one, *rows, bitshift=False)
+    assert tfp.prep_error(_staged_prep(raw, one.split, rows), want) > 2 * tfp.PREP_REL_L2
+    assert tfp.prep_error(_kernel_prep(raw, raw, one, rows), want) <= tfp.PREP_REL_L2
+
+
+@pytest.mark.parametrize("background_removal", [False, True])
+@pytest.mark.parametrize("control", ["two of the three parts", "no x_lo"])
+def test_prep_phase_one_pass_controls_fail(background_removal, control):
+    """The one-pass phase kernel's neighbours -- the "high" parts (two of the
+    three), or the three-part math without x_lo on unshifted samples -- fail
+    the prep bound against the float32 product."""
+    op, rows = _prep_operator(256, background_removal)
+    one = tfp._operator_parts(op, "default")
+    raw, _ = _input("u16", 200, 256)
+    x = raw.to(torch.float32)
+    if control == "no x_lo":
+        got = _staged_prep(tfp._bf16_trunc(x), one.split, rows)
+    else:
+        got = _staged_prep(x, one.split[:2], rows)
+    err = tfp.prep_error(got, tfp.prep_phase_plain(x, one, *rows, bitshift=False))
+    assert err > 2 * tfp.PREP_REL_L2, err
+
+
+ROUTES = [
+    # (family, input dtype, precision, passes, LAUNCHES key, route)
+    ("prep_phase", torch.uint16, "default", 1, "prep_phase", "tensor_core"),
+    ("prep_phase", torch.uint8, "default", 1, "prep_phase", "tensor_core"),
+    ("prep_phase", torch.float32, "default", 1, "prep_phase", "simt"),
+    ("prep_real", torch.uint16, "default", 1, "prep_real", None),
+    ("prep_real", torch.float32, "default", 1, "prep_real", None),
+    ("prep_phase", torch.uint16, "high", 3, "prep_phase_split", None),
+    ("prep_real", torch.uint16, "highest", 5, "prep_real_split", None),
+    ("depth_scale_concat", torch.uint16, "default", 1, "depth_scale_concat", None),
+    ("depth_scale_concat", torch.uint16, "high", 3, "depth_scale_concat_split", None),
+]
+
+
+@pytest.mark.parametrize("family,dtype,precision,passes,key,route", ROUTES)
+def test_route_helper_follows_the_family_and_the_input_type(family, dtype, precision, passes,
+                                                            key, route):
+    """``_kernel_operands`` for the one-operator kernels: the phase prep
+    kernel's one pass goes to the tensor cores on uint8/uint16 lines (the
+    operator's three bf16 parts, made once and kept) and to the float32-FMA
+    kernel on float32 lines (the float32 operator); the real prep kernel's
+    and the concat kernel's one pass stay on the float32-FMA kernel for
+    every input type; the split rungs pass their parts as they are."""
+    op, _ = _prep_operator(256, False)
+    parts = tfp._operator_parts(op, precision)
+    raw = torch.zeros((8, 256), dtype=dtype)
+    got_passes, (got,), got_key, got_route = tfp._kernel_operands(raw, (parts,), family)
+    assert (got_passes, got_key, got_route) == (passes, key, route)
+    assert got is (parts.split if route == "tensor_core" else parts)
+    if route == "tensor_core":  # a float32 operator without its parts is split per call
+        again = tfp._kernel_operands(raw, ((op,),), family)[1][0]
+        assert all(torch.equal(a, b) for a, b in zip(again, parts.split))
+
+
+# ---------------------------------------------------------------------------
+# The concat kernel's split rung (B6) on the split pipeline: two views of each
+# wide part [W_re | W_im] at row pitch 2 * half
+# ---------------------------------------------------------------------------
+
+def concat_views(wide, im_offset=None):
+    """The two operator halves the concat kernel reads from each wide
+    (n_in, 2 * half) part: views at column 0 and at ``im_offset`` (default
+    half), ``half`` columns wide, with the wide part's row pitch -- the
+    kernel's (pointer, row pitch) pairs."""
+    n_in, width = wide[0].shape
+    half = width // 2
+    off = half if im_offset is None else im_offset
+    return tuple(tuple(torch.as_strided(w, (n_in, half), (width, 1), w.storage_offset() + o)
+                       for w in wide) for o in (0, off))
+
+
+@pytest.mark.parametrize("precision", ["high", "highest"])
+@pytest.mark.parametrize("kind", ["u16s", "u16"])
+@pytest.mark.parametrize("n", [256, 1088])
+def test_concat_views_staged_within_the_scale_bounds(precision, kind, n):
+    """The staged terms of the two views of each wide part against
+    depth_scale_concat_plain within the scale bounds, on shifted (x_lo zero)
+    and unshifted 12-bit samples; n = 1088 gives half = 544, not a multiple
+    of the 64-bin tile.  The views are the per-axis parts exactly: the split
+    commutes with the concatenation."""
+    wre, wim = _operators(n)
+    wide = tfp.concat_operator(wre, wim, precision)
+    views = concat_views(wide)
+    for view, w in zip(views, (wre, wim)):
+        assert all(torch.equal(v, q) for v, q in zip(view, tfp._operator_parts(w, precision)))
+    raw, bitshift = _input(kind, 200, n)
+    mean2, a, b = _scale_args(n // 2)
+    got = _staged_scale(tfp._decode_block(raw, bitshift), *views, mean2, a, b, raw=raw)
+    want = tfp.depth_scale_concat_plain(raw, wide, mean2, bitshift=bitshift, log_scaling=True,
+                                        a=a, b=b)
+    rms, worst, ok = tfp.scale_error(got, want)
+    assert ok, (rms, worst)
+
+
+def test_concat_views_one_column_early_fail():
+    """Control: the im view one column early (bin j's im read at half - 1 + j)
+    fails the scale bounds at 3 passes."""
+    wide = tfp.concat_operator(*_operators(256), "high")
+    raw, _ = _input("u16", 200, 256)
+    x = raw.to(torch.float32)
+    mean2, a, b = _scale_args(128)
+    rms, _, ok = tfp.scale_error(
+        _staged_scale(x, *concat_views(wide, im_offset=127), mean2, a, b),
+        tfp.depth_scale_concat_plain(x, wide, mean2, bitshift=False, log_scaling=True, a=a, b=b))
+    assert not ok and rms > 2 * tfp.SCALE_RMS, rms
+
+
+# ---------------------------------------------------------------------------
 # The bound and the library call of each kernel family (bench.py)
 # ---------------------------------------------------------------------------
 
@@ -350,7 +498,7 @@ BOUNDS = [
     ("depth_scale_split", 512, 2, True, 2, 0.5559),
     ("depth_scale_concat", 512, 1, True, 1, 4.1027),
     ("depth_scale_concat_split", 512, 2, True, 2, 0.5559),
-    ("prep_phase", 1024, 1, True, 1, 4.1027),
+    ("prep_phase", 1024, 1, True, 3, 0.8338),
     ("prep_phase_split", 1024, 2, True, 2, 0.5559),
     ("prep_real", 1024, 1, True, 1, 4.1027),
     ("prep_real_split", 1024, 2, True, 2, 0.5559),
@@ -359,7 +507,7 @@ BOUNDS = [
     ("depth", 512, 1, False, 5, 1.3897),
     ("depth_scale", 512, 1, False, 5, 1.3897),
     ("depth_scale_concat", 512, 1, False, 1, 4.1027),
-    ("prep_phase", 1024, 1, False, 1, 4.1027),
+    ("prep_phase", 1024, 1, False, 5, 1.3897),
     ("prep_real", 1024, 1, False, 1, 4.1027),
 ]
 
@@ -368,10 +516,10 @@ BOUNDS = [
 def test_kernel_bound_hand_values(name, n_out, parts, x_lo_zero, terms, ms):
     """0.556 ms for the split rungs at "high" (two bf16 terms of 275 GFLOP
     at 989 TFLOP/s, x_lo being zero); 0.834 ms for the two-operator fold
-    kernels at one pass on integer samples (three bf16 terms; 1.390 ms for
-    the five that samples with x_lo need); 4.10 ms for the other one-pass
-    families (275 GFLOP of float32 at 67 TFLOP/s): every family is bound by
-    its operations."""
+    kernels and the phase prep kernel at one pass on integer samples (three
+    bf16 terms; 1.390 ms for the five that samples with x_lo need); 4.10 ms
+    for the other one-pass families (275 GFLOP of float32 at 67 TFLOP/s):
+    every family is bound by its operations."""
     got = bench.kernel_bound(name, n_out=n_out, parts=parts, x_lo_zero=x_lo_zero, **MAIN)
     assert got["bound_ms"] == pytest.approx(ms, abs=1e-4)
     assert got["bound_by"] == "operations"
@@ -393,6 +541,21 @@ def test_kernel_bound_of_the_one_pass_routes(name):
     out = 131072 * 512 * 4 * (2 if name == "depth" else 1) + (2 * 512 * 4 if name != "depth" else 0)
     assert u16["bytes"] == 131072 * 1024 * 2 + 2 * 3 * 1024 * 512 * 2 + out
     assert f32["bytes"] == 131072 * 1024 * 4 + 2 * 1024 * 512 * 4 + out
+
+
+@pytest.mark.parametrize("itemsize,ms", [(2, 0.8338), (1, 0.8338), (4, 4.1027)])
+def test_kernel_bound_of_the_prep_one_pass_routes(itemsize, ms):
+    """The phase prep kernel at one pass: three bf16 terms on uint8/uint16
+    lines, the float32 bound on float32 lines, each with the bytes of its
+    operator (three bf16 parts or the float32 one); the real prep kernel
+    keeps its float32-FMA kernel, and bound, for every input type."""
+    phase = bench.kernel_bound("prep_phase", n_out=1024, in_itemsize=itemsize, **MAIN)
+    real = bench.kernel_bound("prep_real", n_out=1024, in_itemsize=itemsize, **MAIN)
+    assert phase["bound_ms"] == pytest.approx(ms, abs=1e-4)
+    assert real["bound_ms"] == pytest.approx(4.1027, abs=1e-4)
+    op = 3 * 1024 * 1024 * 2 if itemsize <= 2 else 1024 * 1024 * 4
+    assert phase["bytes"] == 131072 * 1024 * (itemsize + 8) + op + 2 * 1024 * 4
+    assert real["bytes"] == 131072 * 1024 * (itemsize + 4) + 1024 * 1024 * 4
 
 
 def test_kernel_bound_counts_terms_and_bytes():
