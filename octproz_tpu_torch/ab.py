@@ -6,12 +6,14 @@ runs four turns -- OTHER_ROOT, this checkout, this checkout, OTHER_ROOT --
 each in a fresh process that imports that checkout's ``octproz_tpu_torch``
 (and builds its kernels there), times all ten kernel families with its own
 ``bench.kernel_times``, the steady state with
-``bench.steady_ms_per_buffer`` at every rung on the fold path and at the
-default and "high" rungs on the FFT path, and the FFT path's stages with
-``bench.fft_stage_ms`` at both rungs, and prints one JSON line: the card's
-name and power limit, and per turn the kernel and plain-version
-milliseconds, the steady milliseconds per buffer of each path and the FFT
-path's stage milliseconds.  Both checkouts are timed on
+``bench.steady_ms_per_buffer`` at every rung on the fold path, at the
+default and "high" rungs on the concat fold path (``fold_concat``) and on
+the FFT path, and at the default rung on the FFT path without dispersion,
+and the FFT path's stages with ``bench.fft_stage_ms`` at the same three
+settings, and prints one JSON line: the card's name and power limit, and
+per turn the kernel and plain-version milliseconds, the steady milliseconds
+per buffer of each path and the FFT path's stage milliseconds.  Both
+checkouts are timed on
 one card in one call, so power limit and neighbours are the same; the
 spread between a checkout's two turns is the noise.
 """
@@ -39,13 +41,15 @@ dev = torch.device("cuda", 0)
 k = bench.kernel_times(dev, {names!r})
 s = {{r: bench.steady_ms_per_buffer(bench.bench_config(matmul_precision=r), dev)
      for r in ("default", "high", "highest")}}
-f = {{r: bench.steady_ms_per_buffer(bench.fft_config(matmul_precision=r), dev)
-     for r in ("default", "high")}}
-st = {{r: bench.fft_stage_ms(bench.fft_config(matmul_precision=r), dev)
-      for r in ("default", "high")}}
+c = {{r: bench.steady_ms_per_buffer(bench.bench_config(fold_concat=True, matmul_precision=r),
+                                   dev) for r in ("default", "high")}}
+fft = {{r: bench.fft_config(matmul_precision=r) for r in ("default", "high")}}
+fft["default, no dispersion"] = bench.fft_config(dispersion=False)
+f = {{r: bench.steady_ms_per_buffer(cfg, dev) for r, cfg in fft.items()}}
+st = {{r: bench.fft_stage_ms(cfg, dev) for r, cfg in fft.items()}}
 print(json.dumps({{"kernels": {{n: {{"ms": v["ms"], "plain_ms": v["plain_ms"]}}
-                              for n, v in k.items()}}, "steady_ms": s, "fft_steady_ms": f,
-                  "fft_stage_ms": st}}))
+                              for n, v in k.items()}}, "steady_ms": s, "concat_steady_ms": c,
+                  "fft_steady_ms": f, "fft_stage_ms": st}}))
 """
 
 

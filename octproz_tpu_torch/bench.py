@@ -166,9 +166,12 @@ def oracle_psnr(rungs: Sequence[str], device, cfg: ProcConfig = None) -> Dict[st
     return out
 
 
-def golden_pair(device, **changes):
+def golden_pair(device, steady: bool = False, **changes):
     """The golden pair (tests/data/golden_pair_*) through the port on
-    ``device``; returns utils.fidelity.CompareResult."""
+    ``device``; returns utils.fidelity.CompareResult.  The input buffer
+    determines its FPN; with ``steady`` it then goes through the steady
+    state -- the fused kernel, which subtracts that same mean line -- and
+    that second output is compared."""
     from .models.fdoct import FdOctModel
     from .utils.fidelity import compare_volumes, load_volume
 
@@ -196,7 +199,10 @@ def golden_pair(device, **changes):
     model = FdOctModel(acq, cfg, resample_coeffs=tuple(meta["resample_coeffs"]),
                        dispersion_coeffs=tuple(meta["dispersion_coeffs"]),
                        window_type=WindowType(meta["window_type"]), device=device)
-    return compare_volumes(model.fetch(model.process_buffer(raw)), ref)
+    out = model.process_buffer(raw)
+    if steady:
+        out = model.process_buffer(raw)
+    return compare_volumes(model.fetch(out), ref)
 
 
 def steady_ms_per_buffer(cfg: ProcConfig, device, ring: int = 4,
@@ -281,17 +287,17 @@ def kernel_bound(name: str, lines: int, n_in: int, n_out: int, *, parts: int = 1
     counting only the terms the input needs -- with ``x_lo_zero`` (x exact
     in bf16, as shifted 12-bit samples are) the x_lo terms vanish and
     ``parts`` terms remain of 2*parts - 1.  The split rungs' products are
-    bf16 x bf16 (989 TFLOP/s), the one-pass rung's float32 (67 TFLOP/s) --
-    but for the families of ``fused_prep.ONE_PASS_ROUTES`` (``depth``,
-    ``depth_scale``, ``prep_phase``) on uint8/uint16 lines (``in_itemsize``
-    <= 2), whose one pass runs as the bf16 terms of the float32 operator's
-    three parts: the bound is the work of that route.
+    bf16 x bf16 (989 TFLOP/s), the one-pass rung's float32 (67 TFLOP/s) on
+    float32 lines -- but every family runs its one pass on uint8/uint16
+    lines (``in_itemsize`` <= 2) as the bf16 terms of the float32 operator's
+    three parts (``fused_prep.ONE_PASS_ROUTES``): the bound is the work of
+    the route the input takes.
     Bytes: the raw input, every operator part the kernel reads (float32
     unsplit, bf16 split), the FPN mean line or phasor rows, and the output,
     each once."""
-    from .kernels.fused_prep import _ONE_PASS_PARTS, ONE_PASS_ROUTES
+    from .kernels.fused_prep import _ONE_PASS_PARTS
 
-    if parts == 1 and name in ONE_PASS_ROUTES and in_itemsize <= 2:
+    if parts == 1 and in_itemsize <= 2:
         parts = _ONE_PASS_PARTS
     split = parts > 1
     terms = (parts if x_lo_zero else 2 * parts - 1) if split else 1

@@ -267,19 +267,28 @@ def make_curves(
     Fields named by :func:`consumed_fields` become tensors on ``device``;
     everything else stays a host numpy array.  With ``fft_via_matmul``,
     ``depth_parts`` holds the depth operator split for
-    ``cfg.matmul_precision`` on ``device`` -- at the default rung the float32
-    operator with the three bf16 parts the tensor-core fold kernels read
-    (``fused_prep.OnePass``), split here unless ``fold_concat`` runs the
-    concat kernels --, and with ``fold_concat`` ``depth_concat_parts`` the
-    parts of [W_re | W_im] that the concat kernels read; where the prep
-    kernels consume the prep operator, ``prep_parts`` holds it split the
-    same way (its three bf16 parts made here where the phase kernel reads
-    them: with dispersion).
+    ``cfg.matmul_precision`` on ``device``, and with ``fold_concat``
+    ``depth_concat_parts`` the parts of [W_re | W_im] that the concat
+    kernels read; where the prep kernels consume the prep operator,
+    ``prep_parts`` holds it split the same way.  At the default rung each
+    is the float32 operator with the three bf16 parts that the tensor-core
+    kernels read on integer lines (``fused_prep.OnePass``), split here, once
+    per curve build, for the steady-state kernel: the two-operator fold
+    kernel's ``depth_parts`` (without ``fold_concat``; with it the FPN
+    buffer's kernel splits them at its first launch), the concat kernel's
+    ``depth_concat_parts``, and the prep kernels' ``prep_parts``, with and
+    without dispersion.
     """
     from .kernels.fused_prep import (OnePass, _operator_parts, build_depth_operator,
                                      build_prep_operator, concat_operator)
 
     used = consumed_fields(cfg)
+
+    def held(parts):
+        """``parts`` with the one-pass rung's bf16 parts made now."""
+        if isinstance(parts, OnePass):
+            parts.split  # noqa: B018 -- made here, once per curve build
+        return parts
 
     def place(name, np_arr):
         return torch.from_numpy(np.ascontiguousarray(np_arr)).to(device) \
@@ -301,9 +310,7 @@ def make_curves(
         prep_op = place("prep_operator",
                         build_prep_operator(acq, cfg, rm_np, win_np))
         if "prep_operator" in used:
-            prep_parts = _operator_parts(prep_op, cfg.matmul_precision)
-            if isinstance(prep_parts, OnePass) and cfg.dispersion:
-                prep_parts.split  # noqa: B018 -- made here, once per curve build
+            prep_parts = held(_operator_parts(prep_op, cfg.matmul_precision))
     dop_re = dop_im = depth_parts = depth_concat_parts = None
     phase_np = (np.asarray(dispersion_phase(acq, *dispersion_coeffs))
                 if cfg.dispersion else None)
@@ -313,11 +320,9 @@ def make_curves(
         depth_parts = (_operator_parts(dop_re, cfg.matmul_precision),
                        _operator_parts(dop_im, cfg.matmul_precision))
         if cfg.fold_concat:
-            depth_concat_parts = concat_operator(*depth_parts, cfg.matmul_precision)
-        else:  # the two-operator kernels read the three bf16 parts at one pass
-            for parts in depth_parts:
-                if isinstance(parts, OnePass):
-                    parts.split  # noqa: B018 -- made here, once per curve build
+            depth_concat_parts = held(concat_operator(*depth_parts, cfg.matmul_precision))
+        else:
+            depth_parts = tuple(held(parts) for parts in depth_parts)
     if cfg.dispersion:
         phase = place("phase", phase_np)
     if cfg.sinusoidal_correction:

@@ -25,19 +25,6 @@ int fold_split_scale(const void* raw, int in_kind, int bitshift, int passes,
                      const void* const wre[3], const void* const wim[3], const float* mean2,
                      void* out, int out_bf16, int mode, float a, float b, long long lines,
                      int n_in, int half, void* stream);
-}
-
-namespace {
-
-// The one-pass rung on float32 lines.
-template <int EPI, typename OutT>
-int one_pass(const Args& args, cudaStream_t stream) {
-  return launch<float, EPI, OutT, false>(args, stream);
-}
-
-}  // namespace
-
-extern "C" {
 
 // in_kind: 0 uint8, 1 uint16, 2 float32.  passes: 3 or 5 with 2 or 3 bf16
 // operator parts per axis; 1 with the float32 operator in wre0 / wim0 for
@@ -55,7 +42,7 @@ int fold_gemm_planar(const void* raw, int in_kind, int bitshift, int passes,
                              lines, n_in, half, stream);
   }
   Args args = {};
-  args.raw = raw;
+  args.raw = static_cast<const float*>(raw);
   args.wre = static_cast<const float*>(wre0);
   args.wim = static_cast<const float*>(wim0);
   args.re_out = re_out;
@@ -63,8 +50,7 @@ int fold_gemm_planar(const void* raw, int in_kind, int bitshift, int passes,
   args.lines = lines;
   args.n_in = n_in;
   args.half = half;
-  args.bitshift = bitshift;
-  return one_pass<PLANAR, float>(args, static_cast<cudaStream_t>(stream));
+  return launch<PLANAR, float, false>(args, static_cast<cudaStream_t>(stream));
 }
 
 // mode: 0 log (a*log10(p)+b), 1 lin (a*sqrt(p)+b), 2 fast log
@@ -82,7 +68,7 @@ int fold_gemm_scale(const void* raw, int in_kind, int bitshift, int passes,
                             mode, a, b, lines, n_in, half, stream);
   }
   Args args = {};
-  args.raw = raw;
+  args.raw = static_cast<const float*>(raw);
   args.wre = static_cast<const float*>(wre0);
   args.wim = static_cast<const float*>(wim0);
   args.mean2 = mean2;
@@ -90,12 +76,12 @@ int fold_gemm_scale(const void* raw, int in_kind, int bitshift, int passes,
   args.lines = lines;
   args.n_in = n_in;
   args.half = half;
-  args.bitshift = bitshift;
   args.mode = mode;
   args.a = a;
   args.b = b;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return out_bf16 ? one_pass<SCALE, __nv_bfloat16>(args, s) : one_pass<SCALE, float>(args, s);
+  return out_bf16 ? launch<SCALE, __nv_bfloat16, false>(args, s)
+                  : launch<SCALE, float, false>(args, s);
 }
 
 const char* fold_gemm_error_string(int code) {

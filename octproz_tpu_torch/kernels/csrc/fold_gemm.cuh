@@ -1,22 +1,20 @@
-// The folded-GEMM SIMT kernel template for Hopper (sm_90a): decode ->
-// x @ W_re, x @ W_im as one float32-FMA product each, with a planar store or
-// a fused FPN-subtract + dynamic-range-scale epilogue, on the CUDA cores.
-// The one-pass rung where the bf16 tensor-core kernels (fold_split.cuh) do
-// not take it: instantiated by fold_gemm.cu for one operator per axis on
-// float32 lines (B1, B2 on samples above 16 bits) and by fold_concat.cu for
-// the concatenated [W_re | W_im] operator (B5).  Every split rung (B3, B4,
-// B6) and the one-pass rung of B1/B2 on uint8/uint16 lines run on the
-// tensor cores.
+// The folded-GEMM SIMT kernel template for Hopper (sm_90a): x @ W_re,
+// x @ W_im as one float32-FMA product each, with a planar store or a fused
+// FPN-subtract + dynamic-range-scale epilogue, on the CUDA cores.  It
+// serves the one-pass rung on float32 lines alone -- input the wrapper
+// decoded already, samples above 16 bits, which the x_hi + x_lo split of
+// the tensor-core kernels cannot carry: instantiated by fold_gemm.cu for
+// one operator per axis (B1, B2) and by fold_concat.cu for the concatenated
+// [W_re | W_im] operator (B5).  Every rung of every fold family on
+// uint8/uint16 lines runs on the bf16 tensor cores (fold_split.cuh).
 //
 // What bounds it: at the main path's geometry (131072 lines x 1024 samples
 // -> 512 depth bins) one buffer is 4*131072*1024*512 = 275 GFLOP against
-// ~0.54 GB of raw input and output, ~500 FLOP per byte: compute bound, 4.1
-// ms at the CUDA cores' 67 TFLOP/s float32 peak.  The design keeps
-// everything but the raw integers and the final image out of device
-// memory: each block owns a 64-line x 64-bin output tile and computes BOTH
-// re and im from one decoded x tile staged in shared memory (one decode per
-// K step for both GEMMs), loops over n_in in BK steps, and runs the
-// epilogue on the accumulators in registers.
+// ~0.8 GB of float32 lines and output, ~340 FLOP per byte: compute bound,
+// 4.1 ms at one H100's float32 peak of 67 TFLOP/s (H100 80GB HBM3, 700 W).
+// Each block owns a 64-line x 64-bin output tile and computes BOTH re and
+// im from one x tile staged in shared memory, loops over n_in in BK steps,
+// and runs the epilogue on the accumulators in registers.
 //
 // Operator layouts.  CONCAT=false reads one (n_in, half) row-major float32
 // operator per axis.  CONCAT=true reads one (n_in, 2*half) row-major
@@ -40,7 +38,7 @@ namespace {
 enum Mode { MODE_LOG = 0, MODE_LIN = 1, MODE_FAST_LOG = 2 };
 
 struct Args {
-  const void* raw;
+  const float* raw;    // float32 lines (lines, n_in)
   const float* wre;    // CONCAT: the wide [W_re | W_im] operator
   const float* wim;    // unused with CONCAT
   const float* mean2;  // (2, half): FPN mean line, re then im
@@ -50,7 +48,6 @@ struct Args {
   long long lines;
   int n_in;
   int half;
-  int bitshift;
   int mode;
   float a;
   float b;
@@ -84,7 +81,7 @@ __device__ __forceinline__ float fast_log2(float p) {
 constexpr int TN = 4;        // depth bins per thread
 constexpr int BN = 16 * TN;  // depth bins per block
 
-template <typename InT, int EPI, typename OutT, bool CONCAT>
+template <int EPI, typename OutT, bool CONCAT>
 __global__ void __launch_bounds__(THREADS)
     fold_gemm(const Args args) {
   __shared__ float xs[BK][BM + 1];  // +1: conflict-free transposed store
@@ -96,7 +93,6 @@ __global__ void __launch_bounds__(THREADS)
   const int n_bin_tiles = (args.half + BN - 1) / BN;
   const long long m0 = static_cast<long long>(blockIdx.x / n_bin_tiles) * BM;
   const int n0 = static_cast<int>(blockIdx.x % n_bin_tiles) * BN;
-  const InT* raw = static_cast<const InT*>(args.raw);
 
   float acc[2][TM][TN];  // [axis][line][bin]
 #pragma unroll
@@ -107,16 +103,13 @@ __global__ void __launch_bounds__(THREADS)
       for (int j = 0; j < TN; ++j) acc[c][i][j] = 0.f;
 
   for (int k0 = 0; k0 < args.n_in; k0 += BK) {
-    // Stage the decoded x tile.
+    // Stage the x tile.
     for (int e = tid; e < BM * BK; e += THREADS) {
       const int r = e / BK;
       const int c = e % BK;
       const long long line = m0 + r;
       const int k = k0 + c;
-      float v = 0.f;
-      if (line < args.lines && k < args.n_in)
-        v = decode<InT>(raw[line * args.n_in + k], args.bitshift);
-      xs[c][r] = v;
+      xs[c][r] = line < args.lines && k < args.n_in ? args.raw[line * args.n_in + k] : 0.f;
     }
     // Stage the operator tiles of both axes.
     for (int e = tid; e < BK * BN; e += THREADS) {
@@ -186,13 +179,13 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <typename InT, int EPI, typename OutT, bool CONCAT>
+template <int EPI, typename OutT, bool CONCAT>
 int launch(const Args& args, cudaStream_t stream) {
   if (args.lines <= 0 || args.half <= 0 || args.n_in <= 0) return 0;
   const long long blocks =
       ((args.lines + BM - 1) / BM) * ((args.half + BN - 1) / BN);
   if (blocks > 0x7FFFFFFFLL) return static_cast<int>(cudaErrorInvalidValue);
-  fold_gemm<InT, EPI, OutT, CONCAT>
+  fold_gemm<EPI, OutT, CONCAT>
       <<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(args);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,20 +1,22 @@
-// The two-operator fold kernels on bf16 tensor cores (template and design
-// notes in fold_split.cuh): the launches behind fold_gemm_planar and
-// fold_gemm_scale (fold_gemm.cu) at 3 and 5 passes,
+// The fold kernels on bf16 tensor cores (template and design notes in
+// fold_split.cuh): every rung of every fold family on uint8/uint16 lines.
+// Behind fold_gemm_planar and fold_gemm_scale (fold_gemm.cu) at 3 and 5
+// passes,
 //
 //   fold_split<EPI=PLANAR>  _kernel_depth_split        (octproz_tpu/pallas/fused_prep.py:271-280)
 //   fold_split<EPI=SCALE>   _kernel_depth_scale_split  (:422-438)
 //
 // with InT in {uint8, uint16, float} and OutT in {float, bf16} for SCALE,
-// at one pass on uint8/uint16 lines,
+// and at one pass on uint8/uint16 lines,
 //
 //   fold_split<EPI=PLANAR, PARTS=3>  _kernel_depth        (:261-268)
 //   fold_split<EPI=SCALE,  PARTS=3>  _kernel_depth_scale  (:375-419)
 //
-// and the concat kernel's split rung behind fold_gemm_scale_concat
-// (fold_concat.cu) at 3 and 5 passes, the same instantiations:
+// and behind fold_gemm_scale_concat (fold_concat.cu) the same SCALE
+// instantiations, at 3 and 5 passes and at one pass on uint8/uint16 lines:
 //
-//   fold_split<EPI=SCALE>   _kernel_depth_scale_concat_split  (:354-372)
+//   fold_split<EPI=SCALE>            _kernel_depth_scale_concat_split  (:354-372)
+//   fold_split<EPI=SCALE, PARTS=3>   _kernel_depth_scale_concat        (:337-351)
 //
 // The one-pass rung is a float32 product.  Its float32 operator arrives
 // here as three bf16 parts (two mask truncations and a rounded remainder:
@@ -22,19 +24,23 @@
 // x_hi + x_lo, so the terms x_hi w_2, x_hi w_1, x_hi w_0 and, where a stage
 // holds a sample of 256 or more, x_lo w_1, x_lo w_0 -- those of "highest",
 // the same instantiations -- give that product at float32 grade on the
-// tensor cores: for shifted 12-bit samples 3 x 275 GFLOP of bf16 products,
-// 0.83 ms at 989 TFLOP/s, where the float32-FMA kernel is bound to 4.1 ms
-// at 67 TFLOP/s.  float32 lines (samples above 16 bits, of which x_hi +
-// x_lo keeps 16) stay on the float32-FMA kernel of fold_gemm.cu: the
+// tensor cores.  What bounds it, on one H100 (H100 80GB HBM3, 700 W): at the
+// main path's geometry each term is 275 GFLOP of bf16 products, so shifted
+// 12-bit samples (three terms) are bound to 0.83 ms at 989 TFLOP/s, where
+// the float32-FMA template is bound to 4.1 ms at 67 TFLOP/s.  float32 lines
+// (samples above 16 bits, of which x_hi + x_lo keeps 16) stay on that
+// template (fold_gemm.cuh, through fold_gemm.cu and fold_concat.cu): the
 // caller routes by input type, and a float32 launch at one pass is refused
 // here (terms()).
 //
 // A block's two operator halves are (W_re, n0) and (W_im, n0): 64 bins of
-// re and im (COLS = BINS).  The concat kernel reads one wide (n_in, 2*half)
+// re and im (COLS = BINS).  The concat kernels read one wide (n_in, 2*half)
 // [W_re | W_im] part per part; the split of a concatenation is the
-// concatenation of the splits (the split is elementwise), so its W_re and
+// concatenation of the splits (the split is elementwise), so their W_re and
 // W_im are two views of that part, at W and W + half with row pitch
-// 2 * half, and it computes the terms of the two-operator kernel.
+// 2 * half, and they compute the terms of the two-operator kernel -- at one
+// pass the three parts of both views, six pointers, each checked for TMA's
+// 16-byte alignment (half % 8 != 0 takes the element-wise producer).
 
 #include "fold_split.cuh"
 
@@ -118,9 +124,11 @@ int fold_split_scale(const void* raw, int in_kind, int bitshift, int passes,
                       a, b, stream);
 }
 
-// The 3/5-pass launch of fold_gemm_scale_concat (fold_concat.cu): w holds
-// the 2 or 3 bf16 parts of the wide (n_in, 2 * half) operator [W_re | W_im],
-// read as the views (W, n0) and (W + half, n0) at row pitch 2 * half.
+// The tensor-core launch of fold_gemm_scale_concat (fold_concat.cu): w
+// holds the 2 or 3 bf16 parts of the wide (n_in, 2 * half) operator
+// [W_re | W_im] for 3 or 5 passes, or at 1 pass on uint8/uint16 lines the
+// three bf16 parts of the float32 wide operator (5 terms), each read as the
+// views (W, n0) and (W + half, n0) at row pitch 2 * half.
 int fold_split_scale_concat(const void* raw, int in_kind, int bitshift, int passes,
                             const void* const w[3], const float* mean2, void* out,
                             int out_bf16, int mode, float a, float b, long long lines,
@@ -129,7 +137,8 @@ int fold_split_scale_concat(const void* raw, int in_kind, int bitshift, int pass
   for (int q = 0; q < 3; ++q)
     wim[q] = w[q] ? static_cast<const __nv_bfloat16*>(w[q]) + half : nullptr;
   return split::scale(split::params(raw, bitshift, w, wim, lines, n_in, half, 2 * half),
-                      in_kind, passes, mean2, out, out_bf16, mode, a, b, stream);
+                      in_kind, split::terms(in_kind, passes, w[0] && w[1] && w[2]), mean2,
+                      out, out_bf16, mode, a, b, stream);
 }
 
 }  // extern "C"

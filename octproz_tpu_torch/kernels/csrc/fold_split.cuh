@@ -12,21 +12,25 @@
 //   prep_split<EPI=PHASE>   _kernel_phase_split        (:245-251, prep_split.cu)
 //   prep_split<EPI=REAL>    _kernel_real_split         (:254-258, prep_split.cu)
 //
-// and, on uint8/uint16 lines, the one-pass rung of the two-operator fold
-// kernels and of the phase prep kernel, whose float32 operator arrives as
-// three bf16 parts (terms()):
+// and, on uint8/uint16 lines, the one-pass rung of every family, whose
+// float32 operator arrives as three bf16 parts (terms()):
 //
 //   fold_split<EPI=PLANAR, PARTS=3>  _kernel_depth        (:261-268)
 //   fold_split<EPI=SCALE,  PARTS=3>  _kernel_depth_scale  (:375-419)
+//   fold_split<EPI=SCALE,  PARTS=3>  _kernel_depth_scale_concat  (:337-351, two views)
 //   prep_split<EPI=PHASE,  PARTS=3>  _kernel_phase        (:228-235, prep_split.cu)
+//   prep_split<EPI=REAL,   PARTS=3>  _kernel_real         (:238-242, prep_split.cu)
 //
-// What bounds them: at the main path's geometry (131072 lines x 1024
-// samples -> 512 bins re and im, or 1024 prep columns; "high") the pass
-// terms are 2-3 bf16 GEMMs of 275 GFLOP each against ~0.54-1.3 GB of raw
-// input, operator parts and output: compute bound at 989 TFLOP/s (0.56 ms
-// for the two terms shifted 12-bit samples need, x_lo being zero).  A
-// float32-FMA template runs the same terms on the CUDA cores at 67 TFLOP/s
-// peak.
+// The float32-FMA template of fold_gemm.cuh and prep_gemm.cu serves the
+// one pass on float32 lines alone (samples above 16 bits).
+//
+// What bounds them, on one H100 (H100 80GB HBM3, 700 W: 989 TFLOP/s of
+// dense bf16, 3.35 TB/s): at the main path's geometry (131072 lines x 1024
+// samples -> 512 bins re and im, or 1024 prep columns) each pass term is a
+// bf16 GEMM of 275 GFLOP against ~0.54-1.3 GB of raw input, operator parts
+// and output: compute bound, 0.56 ms for the two terms "high" needs on
+// shifted 12-bit samples (x_lo being zero), 0.83 ms for the three of the
+// one-pass rung (1.39 ms for its five where x_lo is not zero).
 //
 // Design.  A block owns 128 lines and two halves of 64 operator columns,
 // each a (tensor map, column offset) pair: the fold kernels take
@@ -326,8 +330,8 @@ __device__ __forceinline__ float int_to_float(uint32_t v) {
   return __uint_as_float(0x4B000000u | v) - 8388608.f;
 }
 
-// Two neighbouring samples of a raw row in shared memory, decoded as
-// decode<InT> does (uint -> (>> 4) -> float).  wide collects a nonzero bit
+// Two neighbouring samples of a raw row in shared memory, decoded as the
+// wrappers' _decode_block does (uint -> (>> 4) -> float).  wide collects a nonzero bit
 // if either sample may have a nonzero x_lo: an integer sample of 256 or more
 // (below 256 it is exact in bf16), a float whose x - x_hi is not zero.
 template <typename InT>

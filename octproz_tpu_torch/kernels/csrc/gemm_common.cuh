@@ -1,6 +1,6 @@
 // Pieces shared by the GEMM kernels of this directory (fold_gemm.cuh,
 // prep_gemm.cu, fold_split.cuh): the epilogues, the input kinds, the SIMT
-// tile geometry, the in-kernel decode and the bf16 truncation of x.
+// tile geometry of the float32-lines kernels and the bf16 truncation of x.
 
 #pragma once
 
@@ -23,18 +23,6 @@ constexpr int BK = 16;       // contraction (n_in) per K step
 constexpr int TM = 4;        // lines per thread
 constexpr int THREADS = 256; // 16 x 16 threads
 constexpr int TY = THREADS / 16;
-
-// _decode_block: uint -> int32 -> (>> 4) -> float.
-template <typename InT>
-__device__ __forceinline__ float decode(InT v, int bitshift) {
-  int i = static_cast<int>(v);
-  if (bitshift) i >>= 4;
-  return static_cast<float>(i);
-}
-template <>
-__device__ __forceinline__ float decode<float>(float v, int) {
-  return v;
-}
 
 // _dot_split's x split: x_hi = mask truncation to bf16 (x_lo = bf16_rn of
 // the remainder, fold_split.cuh).

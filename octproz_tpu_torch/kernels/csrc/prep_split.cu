@@ -1,27 +1,31 @@
 // The prep kernels on Hopper's bf16 tensor cores (sm_90a): stages 1-3 of
-// the FFT path at 3 and 5 passes -- decode, the pass terms of _dot_split
-// for y = x @ P against the operator's 2/3 bf16 parts, then the phasor
-// epilogue (y cos, y sin) into complex64 or a float32 y -- and the phase
-// kernel's one-pass rung on uint8/uint16 lines.  The counterparts of
+// the FFT path -- decode, the pass terms of _dot_split for y = x @ P
+// against bf16 operator parts, then the phasor epilogue (y cos, y sin) into
+// complex64 or a float32 y -- at every rung on uint8/uint16 lines.  The
+// counterparts of
 //
 //   prep_split<EPI=PHASE>            _kernel_phase_split  (octproz_tpu/pallas/fused_prep.py:245-251)
 //   prep_split<EPI=REAL>             _kernel_real_split   (:254-258)
 //   prep_split<EPI=PHASE, PARTS=3>   _kernel_phase        (:228-235, integer lines)
+//   prep_split<EPI=REAL,  PARTS=3>   _kernel_real         (:238-242, integer lines)
 //
 // with InT in {uint8, uint16, float}, launched by prep_gemm_phase and
-// prep_gemm_real (prep_gemm.cu) at passes != 1, and by prep_gemm_phase at
-// one pass for uint8/uint16 lines.  At one pass the float32 operator
-// arrives as its three bf16 parts and the launch runs the five terms of
-// "highest" (terms() in fold_split.cuh): the float32 product at float32
-// grade for samples of at most 16 bits, 3 x 275 GFLOP of bf16 products for
-// shifted 12-bit samples (0.83 ms at 989 TFLOP/s, against 4.1 ms for the
-// float32-FMA kernel at 67 TFLOP/s).  float32 lines keep that kernel.
+// prep_gemm_real (prep_gemm.cu) at passes != 1, and by both at one pass for
+// uint8/uint16 lines.  At one pass the float32 operator arrives as its three
+// bf16 parts and the launch runs the five terms of "highest" (terms() in
+// fold_split.cuh): the float32 product at float32 grade for samples of at
+// most 16 bits.  float32 lines (samples above 16 bits) keep the float32-FMA
+// kernel of prep_gemm.cu at one pass; the input type alone picks the route,
+// and a float32 launch at one pass is refused here.
 //
-// What bounds it: at the FFT path's geometry (131072 lines x 1024 samples
-// -> 1024 columns, "high", shifted 12-bit samples) the two x_hi terms are
-// 550 GFLOP of bf16 products, 0.56 ms at 989 TFLOP/s, against 0.27 GB in
-// and 1.07 GB (complex64) or 0.54 GB (float32) out -- 0.40 / 0.24 ms at
-// 3.35 TB/s: compute bound, with a store large enough to matter.
+// What bounds it, on one H100 (H100 80GB HBM3, 700 W: 989 TFLOP/s of dense
+// bf16, 3.35 TB/s): at the FFT path's geometry (131072 lines x 1024 samples
+// -> 1024 columns, shifted 12-bit samples, x_lo zero) the x_hi terms are
+// 275 GFLOP of bf16 products each -- two at "high", 0.56 ms; three at one
+// pass, 0.83 ms (five with x_lo, 1.39 ms), where the float32-FMA kernel is
+// bound to 4.1 ms at 67 TFLOP/s -- against 0.27 GB in and 1.07 GB (complex64)
+// or 0.54 GB (float32) out, 0.40 / 0.24 ms: compute bound, with a store
+// large enough to matter.
 //
 // Design: the pipeline of fold_split.cuh (mainloop: TMA ring of operator
 // parts, x decoded and split into wgmma's register operand, one
@@ -114,8 +118,8 @@ extern "C" {
 
 // The tensor-core launches of prep_gemm_phase / prep_gemm_real
 // (prep_gemm.cu): w holds the operator's 2 or 3 bf16 parts, (n_in, n_out)
-// row-major, for 3 or 5 passes; for the phase kernel at 1 pass on
-// uint8/uint16 lines the float32 operator's three bf16 parts (5 terms).
+// row-major, for 3 or 5 passes; at 1 pass on uint8/uint16 lines the float32
+// operator's three bf16 parts (5 terms).
 int prep_split_phase(const void* raw, int in_kind, int bitshift, int passes,
                      const void* const w[3], const float* cos_row, const float* sin_row,
                      void* out, long long lines, int n_in, int n_out, void* stream) {
@@ -131,8 +135,9 @@ int prep_split_real(const void* raw, int in_kind, int bitshift, int passes,
                     const void* const w[3], void* out, long long lines, int n_in, int n_out,
                     void* stream) {
   split::Params p = split::params(raw, bitshift, w, out, lines, n_in, n_out);
-  return split::dispatch<split::Prep<REAL>::K>(in_kind, passes, p,
-                                               static_cast<cudaStream_t>(stream));
+  return split::dispatch<split::Prep<REAL>::K>(
+      in_kind, split::terms(in_kind, passes, w[0] && w[1] && w[2]), p,
+      static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

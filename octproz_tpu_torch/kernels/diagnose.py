@@ -1,5 +1,5 @@
-"""What limits the tensor-core kernels (B1/B2 and B7 at one pass, B3/B4,
-B6, B9/B10) on the card.
+"""What limits the tensor-core kernels (B1/B2, B5, B7 and B8 at one pass,
+B3/B4, B6, B9/B10) on the card.
 
     python -m octproz_tpu_torch.kernels.diagnose     (from the root of a checkout, one GPU)
 
@@ -18,9 +18,10 @@ line with the card's name and power limit and:
   n_in in one wgmma chain instead of folded into a float32 sum every
   64-sample stage) and ``no_turns`` (the two warpgroups start their wgmma
   without taking turns: the same sums);
-* ``ms``: B1, B2 and B7 (one pass), B3, B4, B6, B9 and B10 ("high") at the
-  main path's shapes (one 131072-line buffer of shifted 12-bit samples), B2 on
-  unshifted samples (five terms) and B4 on uint8 samples of the same shape,
+* ``ms``: B1, B2, B5, B7 and B8 (one pass), B3, B4, B6, B9 and B10
+  ("high") at the main path's shapes (one 131072-line buffer of shifted
+  12-bit samples), B2 on unshifted samples (five terms) and B4 on uint8
+  samples of the same shape,
   for the shipped kernel, ``one_chain``, ``no_turns``, and the timing-only
   variants that refill no stage after the ring's first fill
   (``no_loads``), issue no wgmma (``no_mma``), or both -- what is left is
@@ -122,9 +123,7 @@ def errors(dev) -> dict:
 
 def times(dev) -> dict:
     out = {}
-    for name in ("depth", "depth_scale", "depth_split", "depth_scale_split",
-                 "depth_scale_concat_split", "prep_phase", "prep_phase_split",
-                 "prep_real_split"):
+    for name in bench.FOLD_KERNELS + bench.PREP_KERNELS:
         kernel = bench._kernel_cases(name, dev)[0]
         out[name] = bench.cuda_ms(kernel, 10, 2)
     cv = _curves(1024, bench.bench_config(), dev)

@@ -22,12 +22,13 @@ from it in the epilogue.
 
 This module holds, for each of the ten kernel families:
 
-* the CUDA kernel (``csrc/fold_gemm.cu``, ``csrc/prep_gemm.cu`` and
-  ``csrc/fold_concat.cu`` -- the one-pass rung on the CUDA cores; their
-  split rungs launch the bf16 tensor-core kernels of ``csrc/fold_split.cu``
-  and ``csrc/prep_split.cu``, and so does the one-pass rung of the
-  families in :data:`ONE_PASS_ROUTES` on integer samples, as three bf16
-  parts of the float32 operator (:class:`OnePass`) --, built by
+* the CUDA kernel (the C entry points of ``csrc/fold_gemm.cu``,
+  ``csrc/fold_concat.cu`` and ``csrc/prep_gemm.cu``; every rung on
+  uint8/uint16 lines runs the bf16 tensor-core kernels of
+  ``csrc/fold_split.cu`` and ``csrc/prep_split.cu`` -- the one-pass rung as
+  three bf16 parts of the float32 operator (:class:`OnePass`) -- and the
+  one-pass rung on float32 lines the float32-FMA template on the CUDA
+  cores, the route counted in :data:`ONE_PASS_ROUTES`; built by
   :mod:`.build`), which a wrapper launches for CUDA tensors;
 * its plain PyTorch version (``*_plain``), which the wrapper uses for CPU
   tensors and which the tests and ``chip_smoke.py`` hold the kernel to;
@@ -67,26 +68,23 @@ from ..params import AcqParams, ProcConfig
 _SPLIT_PARTS = {"high": 2, "highest": 3}
 
 #: bf16 parts of the float32 operator that the one-pass rung's tensor-core
-#: fold kernels read: ~24 mantissa bits, the "highest" split.
+#: kernels read: ~24 mantissa bits, the "highest" split.
 _ONE_PASS_PARTS = 3
 
 #: Kernel launches per family since the last :func:`reset_launch_counts`.
 #: The key follows the rung, not the kernel's pass terms: a one-pass launch
-#: counts as ``depth`` / ``depth_scale`` on either of its routes.
+#: counts as its family (``depth``, ``prep_real``, ...) on either route.
 LAUNCHES = {"depth": 0, "depth_split": 0, "depth_scale": 0,
             "depth_scale_split": 0, "depth_scale_concat": 0,
             "depth_scale_concat_split": 0, "prep_phase": 0, "prep_phase_split": 0,
             "prep_real": 0, "prep_real_split": 0}
 
-#: The one-pass launches of the families whose one pass has a tensor-core
-#: route, by route: ``tensor_core`` (uint8/uint16 lines: bf16 wgmma on the
-#: operator's three parts) or ``simt`` (float32 lines: the float32-FMA
-#: kernel).  The route follows the input type alone.  The other one-pass
-#: families (``depth_scale_concat``, ``prep_real``) run the float32-FMA
-#: kernel for every input type.
-ONE_PASS_ROUTES = {"depth": {"tensor_core": 0, "simt": 0},
-                   "depth_scale": {"tensor_core": 0, "simt": 0},
-                   "prep_phase": {"tensor_core": 0, "simt": 0}}
+#: The one-pass launches of every family by route: ``tensor_core``
+#: (uint8/uint16 lines: bf16 wgmma on the float32 operator's three parts)
+#: or ``simt`` (float32 lines: the float32-FMA kernel).  The route follows
+#: the input type alone.
+ONE_PASS_ROUTES = {key: {"tensor_core": 0, "simt": 0}
+                   for key in LAUNCHES if not key.endswith("_split")}
 
 
 def reset_launch_counts() -> None:
@@ -211,9 +209,9 @@ class OnePass(tuple):
     """The one-pass rung's operator as the wrappers take it: a 1-tuple of
     the float32 operator -- what the plain versions and the SIMT kernels
     read -- that also carries ``split``, its three bf16 parts
-    (:func:`_split_bf16`), which the tensor-core kernels of the families in
-    :data:`ONE_PASS_ROUTES` read for integer lines.  ``split`` is computed
-    at first use and kept, so an operator held in ``Curves.depth_parts`` or
+    (:func:`_split_bf16`), which the tensor-core kernels read for integer
+    lines.  ``split`` is computed at first use and kept, so an operator held
+    in ``Curves.depth_parts``, ``Curves.depth_concat_parts`` or
     ``Curves.prep_parts`` is split once per curve build; one made per call
     is split per call."""
 
@@ -528,18 +526,14 @@ def _kernel_operands(raw2d, axes, family: str):
     operator parts of each of its ``axes`` -- (re, im) for the two-operator
     fold kernels, ([W_re | W_im],) for the concat kernels, (P,) for the prep
     kernels -- that the launch checks passed: (passes,
-    parts per axis, LAUNCHES key, route or None).  The one-pass rung of the
-    families in :data:`ONE_PASS_ROUTES` runs on the tensor cores against the
-    float32 operator's three bf16 parts for uint8/uint16 lines, and on the
-    float32-FMA kernel for float32 lines (samples above 16 bits, which
-    x_hi + x_lo cannot carry): the input type alone decides, never a failed
-    build or launch.  The other families keep the float32-FMA kernel at one
-    pass."""
+    parts per axis, LAUNCHES key, route or None).  The one-pass rung runs on
+    the tensor cores against the float32 operator's three bf16 parts for
+    uint8/uint16 lines, and on the float32-FMA kernel for float32 lines
+    (samples above 16 bits, which x_hi + x_lo cannot carry): the input type
+    alone decides, never a failed build or launch."""
     passes = 2 * len(axes[0]) - 1
     if passes > 1:
         return passes, axes, family + "_split", None
-    if family not in ONE_PASS_ROUTES:
-        return 1, axes, family, None
     if raw2d.dtype == torch.float32:
         return 1, axes, family, "simt"
     split = [w.split if isinstance(w, OnePass) else _split_bf16(w[0], _ONE_PASS_PARTS)
@@ -742,14 +736,17 @@ def _operator_parts(w, precision: str) -> Tuple[torch.Tensor, ...]:
 
 def concat_operator(w_re, w_im, precision: str) -> Tuple[torch.Tensor, ...]:
     """The concatenated operator [W_re | W_im] (n_in, 2*half) as the concat
-    kernels take it at ``precision``.  From the float32 operators it is
+    kernels take it at ``precision``: at the default rung an
+    :class:`OnePass` of the wide float32 operator, whose three bf16 parts
+    the tensor-core route reads.  From the float32 operators it is
     concatenated, then split, as the JAX package does; from parts already
     split per axis (``Curves.depth_parts``) each part pair is concatenated,
     which gives the same parts: the split is elementwise."""
     if isinstance(w_re, (tuple, list)):
-        return tuple(torch.cat([r, i], dim=1)
+        wide = tuple(torch.cat([r, i], dim=1)
                      for r, i in zip(_operator_parts(w_re, precision),
                                      _operator_parts(w_im, precision)))
+        return OnePass(wide[0]) if len(wide) == 1 else wide
     return _operator_parts(torch.cat([w_re, w_im], dim=1), precision)
 
 

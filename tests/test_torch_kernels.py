@@ -839,9 +839,13 @@ PREP_CUDA_CASES = [
     # the split kernels' TMA path with a half-empty last 128-column tile
     (1088, 130, torch.uint16, False, 3, "phase", False),
     (1088, 130, torch.uint8, False, 3, "real", True),
-    # the phase kernel's one pass on the tensor cores (x_lo terms)
+    # the one pass on the tensor cores (x_lo terms; the element-wise
+    # producer for 1100 uint8 samples, whose rows are not 16-byte aligned)
     (256, 300, torch.uint16, False, 1, "phase", True),
     (1088, 130, torch.uint16, False, 1, "phase", False),
+    (256, 300, torch.uint16, False, 1, "real", True),
+    (1088, 130, torch.uint16, False, 1, "real", False),
+    (1100, 65, torch.uint8, False, 1, "real", False),
 ]
 
 
@@ -869,9 +873,9 @@ def test_cuda_prep_kernel_matches_plain(cuda_device, np_rng, n_in, lines, in_dty
 
 @pytest.mark.cuda
 def test_cuda_prep_one_pass_route_follows_the_input_type(cuda_device, np_rng):
-    """At one pass the phase kernel runs on the tensor cores for uint16
-    lines and on the float32-FMA kernel for float32 lines, both counted as
-    ``prep_phase``; the real kernel's one pass has no tensor-core route."""
+    """At one pass the prep kernels run on the tensor cores for uint16
+    lines and on the float32-FMA kernel for float32 lines, counted as
+    ``prep_phase`` / ``prep_real`` with their route."""
     op, phase = _prep_operator(background_removal=True)
     one = tfp._operator_parts(torch.from_numpy(op).to(cuda_device), "default")
     rows = tuple(r.to(cuda_device) for r in _rows(phase))
@@ -884,6 +888,7 @@ def test_cuda_prep_one_pass_route_follows_the_input_type(cuda_device, np_rng):
         torch.cuda.synchronize()
         assert tfp.LAUNCHES["prep_phase"] == tfp.LAUNCHES["prep_real"] == 1
         assert tfp.ONE_PASS_ROUTES["prep_phase"] == {**{"tensor_core": 0, "simt": 0}, route: 1}
+        assert tfp.ONE_PASS_ROUTES["prep_real"] == {**{"tensor_core": 0, "simt": 0}, route: 1}
         err = tfp.prep_error(got, tfp.prep_phase_plain(raw, one, *rows, bitshift=False))
         assert err <= tfp.PREP_REL_L2, (route, err)
         assert tfp.prep_error(real, tfp.prep_real_plain(raw, one, bitshift=False)) \
@@ -893,21 +898,25 @@ def test_cuda_prep_one_pass_route_follows_the_input_type(cuda_device, np_rng):
 @pytest.mark.cuda
 @pytest.mark.parametrize("control", ["two of the three parts", "no x_lo"])
 def test_cuda_prep_bound_catches_the_one_pass_neighbours(cuda_device, np_rng, control):
-    """Controls: the one-pass phase kernel on the "high" parts (the third
-    zeroed), or on x_hi alone, differs from the float32 product by more
-    than the prep bound."""
+    """Controls: the one-pass prep kernels on the "high" parts (the third
+    zeroed), or on x_hi alone, differ from the float32 product by more than
+    the prep bound, phase and real."""
     op, phase = _prep_operator()
     one = tfp._operator_parts(torch.from_numpy(op).to(cuda_device), "default")
     rows = tuple(r.to(cuda_device) for r in _rows(phase))
     raw = _cuda_raw(np_rng, 300, N, torch.uint16, cuda_device)
-    want = tfp.prep_phase_plain(raw, one, *rows, bitshift=False)
     if control == "no x_lo":
-        x_hi = tfp._bf16_trunc(raw.to(torch.float32)).to(torch.int16).view(torch.uint16)
-        got = tfp.prep_phase(x_hi, one, *rows, bitshift=False)
+        x_in = tfp._bf16_trunc(raw.to(torch.float32)).to(torch.int16).view(torch.uint16)
+        w_in = one
     else:
-        two = tfp.OnePass(one[0], split=(*one.split[:2], torch.zeros_like(one.split[2])))
-        got = tfp.prep_phase(raw, two, *rows, bitshift=False)
-    assert tfp.prep_error(got, want) > 2 * tfp.PREP_REL_L2
+        x_in = raw
+        w_in = tfp.OnePass(one[0], split=(*one.split[:2], torch.zeros_like(one.split[2])))
+    got = tfp.prep_phase(x_in, w_in, *rows, bitshift=False)
+    assert tfp.prep_error(got, tfp.prep_phase_plain(raw, one, *rows, bitshift=False)) \
+        > 2 * tfp.PREP_REL_L2
+    got = tfp.prep_real(x_in, w_in, bitshift=False)
+    assert tfp.prep_error(got, tfp.prep_real_plain(raw, one, bitshift=False)) \
+        > 2 * tfp.PREP_REL_L2
 
 
 @pytest.mark.cuda
@@ -975,6 +984,12 @@ CONCAT_CUDA_CASES = [
     # 550 (the im view not 16-byte aligned: the element-wise producer)
     (1088, 130, torch.uint16, False, 3, True, torch.float32),
     (1100, 65, torch.uint16, True, 5, True, torch.float32),
+    # the one pass on the tensor cores: x_lo terms, then the same two
+    # shapes, each view three parts; float32 lines on the float32-FMA kernel
+    (256, 300, torch.uint16, False, 1, True, torch.float32),
+    (1088, 130, torch.uint16, True, 1, True, torch.float32),
+    (1100, 65, torch.uint16, True, 1, False, torch.float32),
+    (1664, 70, torch.float32, False, 1, True, torch.float32),
 ]
 
 
@@ -999,6 +1014,55 @@ def test_cuda_concat_kernel_matches_plain(cuda_device, np_rng, n_in, lines, in_d
     assert got.dtype == out_dtype
     _scale_close(got, want.float().cpu().numpy())
     assert tfp.LAUNCHES[family] == before + 1
+
+
+def _concat_one_pass(cuda_device, raw, wide, floor_db):
+    """The concat kernel and its plain version at one pass, log scaling
+    over the 60 dB from ``floor_db``: (kernel, plain)."""
+    mean2 = torch.zeros((2, N // 2), device=cuda_device)
+    a, b = tfp._scale_affine(True, N // 2, floor_db, floor_db + 60.0, 0.0, 1.0)
+    kw = dict(bitshift=False, log_scaling=True, a=a, b=b)
+    return (tfp.fold_depth_scale_concat(raw, wide, mean2, **kw),
+            tfp.depth_scale_concat_plain(raw, wide, mean2, **kw))
+
+
+@pytest.mark.cuda
+def test_cuda_concat_one_pass_route_follows_the_input_type(cuda_device, np_rng):
+    """At one pass the concat kernel runs on the tensor cores for uint16
+    lines (unshifted 12-bit: x_lo terms) and on the float32-FMA kernel for
+    float32 lines, both counted as ``depth_scale_concat``, both within the
+    scale bounds (display floor 24 dB, as for 12-bit samples in
+    ``chip_smoke.py``)."""
+    wre, wim = (torch.from_numpy(w).to(cuda_device) for w in _operators())
+    wide = tfp.concat_operator(wre, wim, "default")
+    raw = _cuda_raw(np_rng, 300, N, torch.uint16, cuda_device)
+    for lines, route in ((raw, "tensor_core"), (raw.float(), "simt")):
+        tfp.reset_launch_counts()
+        got, want = _concat_one_pass(cuda_device, lines, wide, 24.0)
+        torch.cuda.synchronize()
+        assert tfp.LAUNCHES["depth_scale_concat"] == 1
+        assert tfp.ONE_PASS_ROUTES["depth_scale_concat"] == \
+            {**{"tensor_core": 0, "simt": 0}, route: 1}
+        _scale_close(got, want.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("control", ["two of the three parts", "no x_lo"])
+def test_cuda_concat_gates_catch_the_one_pass_neighbours(cuda_device, np_rng, control):
+    """Controls: the one-pass concat kernel on the "high" parts of the wide
+    operator (the third zeroed), or on x_hi alone, fails the scale bounds
+    against the float32 product."""
+    wre, wim = (torch.from_numpy(w).to(cuda_device) for w in _operators())
+    wide = tfp.concat_operator(wre, wim, "default")
+    raw = _cuda_raw(np_rng, 300, N, torch.uint16, cuda_device)
+    if control == "no x_lo":
+        x_hi = tfp._bf16_trunc(raw.to(torch.float32)).to(torch.int16).view(torch.uint16)
+        got, _ = _concat_one_pass(cuda_device, x_hi, wide, 24.0)
+    else:
+        two = tfp.OnePass(wide[0], split=(*wide.split[:2], torch.zeros_like(wide.split[2])))
+        got, _ = _concat_one_pass(cuda_device, raw, two, 24.0)
+    _, want = _concat_one_pass(cuda_device, raw, wide, 24.0)
+    assert not tfp.scale_error(got, want)[2]
 
 
 @pytest.mark.cuda

@@ -280,9 +280,13 @@ def test_set_config_splits_the_operator_once():
     tm, _ = _models()
     assert [len(p) for p in tm.curves.depth_parts] == [1, 1]
     # the default rung's float32 operator carries its three bf16 parts, made
-    # with the curves (not with the concat kernels, which never read them)
+    # with the curves for the steady-state kernel: with fold_concat those of
+    # the wide operator, which the concat kernel reads (the per-axis parts
+    # are split by the FPN buffer's kernel, at its first launch)
     assert all("split" in vars(p) and len(p.split) == 3 for p in tm.curves.depth_parts)
-    assert not any("split" in vars(p) for p in _models(fold_concat=True)[0].curves.depth_parts)
+    concat = _models(fold_concat=True)[0].curves
+    assert not any("split" in vars(p) for p in concat.depth_parts)
+    assert "split" in vars(concat.depth_concat_parts) and len(concat.depth_concat_parts.split) == 3
     tm.set_config(matmul_precision="highest")
     cfg, curves, _ = tm._exec
     assert cfg.matmul_precision == "highest"
@@ -321,13 +325,12 @@ def test_fold_concat_operator_made_once_per_curve_build(monkeypatch, precision):
 @pytest.mark.parametrize("dispersion", [True, False])
 def test_prep_operator_split_once_for_the_phase_kernel(dispersion):
     """On the FFT path at the default rung the prep operator's three bf16
-    parts are made with the curves where the phase kernel reads them (with
-    dispersion); the real kernel's one pass reads the float32 operator
-    alone, so without dispersion none are made."""
+    parts are made with the curves: the phase kernel (with dispersion) and
+    the real kernel (without) both read them on integer lines."""
     tm, _ = _models(**FFT_PREP, dispersion=dispersion)
     parts = tm.curves.prep_parts
     assert len(parts) == 1 and torch.equal(parts[0], tm.curves.prep_operator)
-    assert ("split" in vars(parts)) == dispersion
+    assert "split" in vars(parts) and len(parts.split) == 3
 
 
 UNPORTED = [dict(compute_dtype="bfloat16"), dict(fold_concat=True, compute_dtype="bfloat16")]
@@ -384,15 +387,20 @@ FFT_PREP = dict(fft_via_matmul=False, use_pallas_prep=True)
 
 
 @pytest.mark.parametrize("rung", ["default", "high", "highest", "xla", "fft-default",
-                                  "fft-high", "fft-torch"])
+                                  "fft-high", "fft-torch", "concat-default", "concat-high"])
 def test_golden_pair_gate(rung):
     """The gate of tests/test_fidelity.py:125-127 on the port: the fold
     path at each rung and backend, the FFT path through the prep kernels at
-    default and high, and through torch ops."""
+    default and high, and through torch ops; with fold_concat the buffer a
+    second time, once its FPN is determined, so the concat kernel's plain
+    version makes the compared output."""
     changes = {"xla": dict(fold_backend="xla"),
                "fft-default": FFT_PREP,
                "fft-high": dict(FFT_PREP, matmul_precision="high"),
-               "fft-torch": dict(fft_via_matmul=False)}.get(rung, dict(matmul_precision=rung))
+               "fft-torch": dict(fft_via_matmul=False),
+               "concat-default": dict(fold_concat=True, steady=True),
+               "concat-high": dict(fold_concat=True, matmul_precision="high", steady=True),
+               }.get(rung, dict(matmul_precision=rung))
     res = bench.golden_pair("cpu", **changes)
     assert res.psnr_db >= 60.0, res
     assert res.min_bscan_psnr_db >= 55.0, res

@@ -1,8 +1,7 @@
 """The kernels on bf16 tensor cores (``csrc/fold_split.cuh``,
-``csrc/prep_split.cu``) -- the split rungs (the concat kernel's as two views
-of each wide part), and the one-pass rung of the two-operator fold kernels
-and of the phase prep kernel on three bf16 parts of its float32 operator --
-and the bench's kernel yardsticks.
+``csrc/prep_split.cu``) -- the split rungs (the concat kernels' as two views
+of each wide part), and the one-pass rung of every family on three bf16
+parts of its float32 operator -- and the bench's kernel yardsticks.
 
 The CUDA kernel cannot run here, so its arithmetic is emulated in torch
 (:func:`staged`): per stage of 64 samples, the pass terms go low-order first
@@ -24,7 +23,8 @@ per axis, and not a replay of the kernel's terms: the staged three-part terms
 are held against it for integer samples of up to 16 bits, its own controls
 (two of the three parts; no x_lo) fail, and float32 lines above 16 bits miss
 the bound through the split, which is why they keep the float32-FMA kernel
-(:func:`simt`).  The same holds for the phase prep kernel at one pass.
+(:func:`simt`).  The same holds for the concat kernel (two views of the
+wide operator's three parts) and the prep kernels at one pass.
 """
 
 import dataclasses
@@ -169,20 +169,32 @@ def test_staged_order_within_the_scale_bounds_with_fast_log(kind):
     assert ok, (rms, worst)
 
 
-@pytest.mark.parametrize("epi", ["planar", "scale"])
+@pytest.mark.parametrize("epi", ["planar", "scale", "concat"])
 @pytest.mark.parametrize("control", ["two of the three parts", "no x_lo"])
 def test_default_rung_controls_fail_under_the_staged_order(epi, control):
     """The one-pass rung's neighbours -- the "high" parts, or the three-part
     math without x_lo on unshifted samples -- fail the bounds against the
-    float32 product."""
+    float32 product; for the concat kernel on the two views of the wide
+    operator's parts."""
     ops = [tfp._operator_parts(w, "default") for w in _operators(256)]
     raw, _ = _input("u16", 200, 256)
     x = raw.to(torch.float32)
+    split = [w.split for w in ops]
+    if epi == "concat":
+        wide = tfp.concat_operator(*ops, "default")
+        split = concat_views(wide.split)
     if control == "no x_lo":
-        kernel_x, kernel_parts = tfp._bf16_trunc(x), [w.split for w in ops]
+        kernel_x, kernel_parts = tfp._bf16_trunc(x), split
     else:
-        kernel_x, kernel_parts = x, [w.split[:2] for w in ops]
-    if epi == "planar":
+        kernel_x, kernel_parts = x, [w[:2] for w in split]
+    if epi == "concat":
+        mean2, a, b = _scale_args(128)
+        rms, _, ok = tfp.scale_error(
+            _staged_scale(kernel_x, *kernel_parts, mean2, a, b),
+            tfp.depth_scale_concat_plain(x, wide, mean2, bitshift=False, log_scaling=True,
+                                         a=a, b=b))
+        assert not ok and rms > 2 * tfp.SCALE_RMS, rms
+    elif epi == "planar":
         err = tfp.planar_error([staged(kernel_x, p) for p in kernel_parts],
                                tfp.depth_plain(x, *ops, bitshift=False))
         assert err > 2 * tfp.PLANAR_REL_L2, err
@@ -194,14 +206,26 @@ def test_default_rung_controls_fail_under_the_staged_order(epi, control):
         assert not ok and rms > 2 * tfp.SCALE_RMS, rms
 
 
-@pytest.mark.parametrize("epi", ["planar", "scale"])
+@pytest.mark.parametrize("epi", ["planar", "scale", "concat"])
 def test_float_lines_above_16_bits_miss_the_bound_through_the_split(epi):
     """x_hi + x_lo keeps 16 bits of a sample: 24-bit float32 lines through
     the three-part terms miss the one-pass rung's bounds, so that input stays
-    on the float32-FMA kernel, which holds them."""
+    on the float32-FMA kernel, which holds them; for the concat kernel the
+    terms of the two views of the wide operator's parts, and the float32-FMA
+    sum over the two views of the wide float32 operator."""
     ops = [tfp._operator_parts(w, "default") for w in _operators(256)]
     raw, _ = _input("f32", 200, 256)
-    if epi == "planar":
+    if epi == "concat":
+        wide = tfp.concat_operator(*ops, "default")
+        mean2, a, b = _scale_args(128)
+        want = tfp.depth_scale_concat_plain(raw, wide, mean2, bitshift=False, log_scaling=True,
+                                            a=a, b=b)
+        rms, _, ok = tfp.scale_error(_staged_scale(raw, *concat_views(wide.split), mean2, a, b),
+                                     want)
+        assert not ok and rms > 2 * tfp.SCALE_RMS, rms
+        sums = [tfp.OnePass(view[0]) for view in concat_views(wide)]
+        assert tfp.scale_error(_staged_scale(raw, *sums, mean2, a, b), want)[2]
+    elif epi == "planar":
         want = tfp.depth_plain(raw, *ops, bitshift=False)
         assert tfp.planar_error([staged(raw, w.split) for w in ops], want) > 2 * tfp.PLANAR_REL_L2
         assert tfp.planar_error([simt(raw, w[0]) for w in ops], want) <= tfp.PLANAR_REL_L2
@@ -339,15 +363,28 @@ def test_prep_controls_still_fail_under_the_staged_order(epi, background_removal
 
 
 # ---------------------------------------------------------------------------
-# The phase prep kernel's one pass (B7) on the three parts of its float32
-# operator, against the float32 product prep_phase_plain within PREP_REL_L2
+# The prep kernels' one pass (B7 phase, B8 real) on the three parts of their
+# float32 operator, against the float32 product prep_phase_plain /
+# prep_real_plain within PREP_REL_L2
 # ---------------------------------------------------------------------------
 
 def _kernel_prep(raw, x, parts, rows):
-    """The phase prep kernel's output on (raw, parts): :func:`kernel_sums`
-    through the phasor epilogue."""
+    """The prep kernel's output on (raw, parts): :func:`kernel_sums`, through
+    the phasor epilogue for the phase kernel (``rows`` given)."""
     y = kernel_sums(raw, x, parts)
-    return torch.complex(y * rows[0], y * rows[1])
+    return y if rows is None else torch.complex(y * rows[0], y * rows[1])
+
+
+def _one_pass_prep_error(epi, background_removal, kind, n, lines):
+    """The staged terms of the one-pass prep kernel ``epi`` on integer lines
+    (the float32 operator's three parts, five terms where a stage has x_lo)
+    against the float32 product: relative L2."""
+    op, rows = _prep_operator(n, background_removal)
+    rows = rows if epi == "phase" else None
+    one = tfp._operator_parts(op, "default")
+    raw, bitshift = _input(kind, lines, n)
+    x = tfp._decode_block(raw, bitshift)
+    return tfp.prep_error(_kernel_prep(raw, x, one, rows), _prep_plain(raw, one, rows, bitshift))
 
 
 @pytest.mark.parametrize("background_removal", [False, True])
@@ -358,35 +395,42 @@ def test_prep_phase_one_pass_staged_within_the_prep_bound(background_removal, ki
     the float32 operator's three parts (five where a stage has x_lo): within
     the prep bound of the float32 product, with and without background
     removal, on a partial stage (n = 300) and partial 64-line groups."""
-    op, rows = _prep_operator(n, background_removal)
-    one = tfp._operator_parts(op, "default")
-    raw, bitshift = _input(kind, lines, n)
-    x = tfp._decode_block(raw, bitshift)
-    err = tfp.prep_error(_kernel_prep(raw, x, one, rows),
-                         tfp.prep_phase_plain(raw, one, *rows, bitshift=bitshift))
+    err = _one_pass_prep_error("phase", background_removal, kind, n, lines)
     assert err <= tfp.PREP_REL_L2, err
 
 
 @pytest.mark.parametrize("background_removal", [False, True])
-def test_prep_float_lines_above_16_bits_miss_the_bound_through_the_split(background_removal):
+@pytest.mark.parametrize("kind", ["u16s", "u16", "u16f", "u8"])
+@pytest.mark.parametrize("n,lines", [(256, 200), (300, 130)])
+def test_prep_real_one_pass_staged_within_the_prep_bound(background_removal, kind, n, lines):
+    """The one-pass real kernel (B8) as the phase kernel: the staged terms of
+    the three parts within the prep bound of the float32 product."""
+    err = _one_pass_prep_error("real", background_removal, kind, n, lines)
+    assert err <= tfp.PREP_REL_L2, err
+
+
+@pytest.mark.parametrize("epi,background_removal", [
+    pytest.param("phase", False, id="False"), pytest.param("phase", True, id="True"),
+    pytest.param("real", False, id="real-False"), pytest.param("real", True, id="real-True")])
+def test_prep_float_lines_above_16_bits_miss_the_bound_through_the_split(epi, background_removal):
     """24-bit float32 lines through the three-part terms miss the prep bound
-    (x_hi + x_lo keeps 16 bits of a sample), so the phase kernel's one pass
+    (x_hi + x_lo keeps 16 bits of a sample), so the prep kernels' one pass
     keeps the float32-FMA kernel for them, which holds it."""
     op, rows = _prep_operator(256, background_removal)
+    rows = rows if epi == "phase" else None
     one = tfp._operator_parts(op, "default")
     raw, _ = _input("f32", 200, 256)
-    want = tfp.prep_phase_plain(raw, one, *rows, bitshift=False)
+    want = _prep_plain(raw, one, rows, False)
     assert tfp.prep_error(_staged_prep(raw, one.split, rows), want) > 2 * tfp.PREP_REL_L2
     assert tfp.prep_error(_kernel_prep(raw, raw, one, rows), want) <= tfp.PREP_REL_L2
 
 
-@pytest.mark.parametrize("background_removal", [False, True])
-@pytest.mark.parametrize("control", ["two of the three parts", "no x_lo"])
-def test_prep_phase_one_pass_controls_fail(background_removal, control):
-    """The one-pass phase kernel's neighbours -- the "high" parts (two of the
-    three), or the three-part math without x_lo on unshifted samples -- fail
-    the prep bound against the float32 product."""
+def _one_pass_prep_control_error(epi, background_removal, control):
+    """A one-pass prep kernel's neighbour -- the "high" parts (two of the
+    three), or the three-part math without x_lo on unshifted samples --
+    against the float32 product: relative L2."""
     op, rows = _prep_operator(256, background_removal)
+    rows = rows if epi == "phase" else None
     one = tfp._operator_parts(op, "default")
     raw, _ = _input("u16", 200, 256)
     x = raw.to(torch.float32)
@@ -394,7 +438,24 @@ def test_prep_phase_one_pass_controls_fail(background_removal, control):
         got = _staged_prep(tfp._bf16_trunc(x), one.split, rows)
     else:
         got = _staged_prep(x, one.split[:2], rows)
-    err = tfp.prep_error(got, tfp.prep_phase_plain(x, one, *rows, bitshift=False))
+    return tfp.prep_error(got, _prep_plain(x, one, rows, False))
+
+
+@pytest.mark.parametrize("background_removal", [False, True])
+@pytest.mark.parametrize("control", ["two of the three parts", "no x_lo"])
+def test_prep_phase_one_pass_controls_fail(background_removal, control):
+    """The one-pass phase kernel's neighbours fail the prep bound against
+    the float32 product."""
+    err = _one_pass_prep_control_error("phase", background_removal, control)
+    assert err > 2 * tfp.PREP_REL_L2, err
+
+
+@pytest.mark.parametrize("background_removal", [False, True])
+@pytest.mark.parametrize("control", ["two of the three parts", "no x_lo"])
+def test_prep_real_one_pass_controls_fail(background_removal, control):
+    """The one-pass real kernel's neighbours fail the prep bound against the
+    float32 product."""
+    err = _one_pass_prep_control_error("real", background_removal, control)
     assert err > 2 * tfp.PREP_REL_L2, err
 
 
@@ -403,26 +464,33 @@ ROUTES = [
     ("prep_phase", torch.uint16, "default", 1, "prep_phase", "tensor_core"),
     ("prep_phase", torch.uint8, "default", 1, "prep_phase", "tensor_core"),
     ("prep_phase", torch.float32, "default", 1, "prep_phase", "simt"),
-    ("prep_real", torch.uint16, "default", 1, "prep_real", None),
-    ("prep_real", torch.float32, "default", 1, "prep_real", None),
+    ("prep_real", torch.uint16, "default", 1, "prep_real", "tensor_core"),
+    ("prep_real", torch.float32, "default", 1, "prep_real", "simt"),
     ("prep_phase", torch.uint16, "high", 3, "prep_phase_split", None),
     ("prep_real", torch.uint16, "highest", 5, "prep_real_split", None),
-    ("depth_scale_concat", torch.uint16, "default", 1, "depth_scale_concat", None),
+    ("depth_scale_concat", torch.uint16, "default", 1, "depth_scale_concat", "tensor_core"),
     ("depth_scale_concat", torch.uint16, "high", 3, "depth_scale_concat_split", None),
+    ("prep_real", torch.uint8, "default", 1, "prep_real", "tensor_core"),
+    ("depth_scale_concat", torch.uint8, "default", 1, "depth_scale_concat", "tensor_core"),
+    ("depth_scale_concat", torch.float32, "default", 1, "depth_scale_concat", "simt"),
 ]
 
 
 @pytest.mark.parametrize("family,dtype,precision,passes,key,route", ROUTES)
 def test_route_helper_follows_the_family_and_the_input_type(family, dtype, precision, passes,
                                                             key, route):
-    """``_kernel_operands`` for the one-operator kernels: the phase prep
-    kernel's one pass goes to the tensor cores on uint8/uint16 lines (the
-    operator's three bf16 parts, made once and kept) and to the float32-FMA
-    kernel on float32 lines (the float32 operator); the real prep kernel's
-    and the concat kernel's one pass stay on the float32-FMA kernel for
-    every input type; the split rungs pass their parts as they are."""
-    op, _ = _prep_operator(256, False)
-    parts = tfp._operator_parts(op, precision)
+    """``_kernel_operands`` for the one-operator kernels (the prep kernels
+    on P, the concat kernels on [W_re | W_im]): the one pass goes to the
+    tensor cores on uint8/uint16 lines (the operator's three bf16 parts,
+    made once and kept) and to the float32-FMA kernel on float32 lines (the
+    float32 operator); the split rungs pass their parts as they are."""
+    if family.startswith("prep"):
+        op, _ = _prep_operator(256, False)
+        parts = tfp._operator_parts(op, precision)
+    else:
+        wre, wim = _operators(256)
+        op = torch.cat([wre, wim], dim=1)
+        parts = tfp.concat_operator(wre, wim, precision)
     raw = torch.zeros((8, 256), dtype=dtype)
     got_passes, (got,), got_key, got_route = tfp._kernel_operands(raw, (parts,), family)
     assert (got_passes, got_key, got_route) == (passes, key, route)
@@ -472,6 +540,60 @@ def test_concat_views_staged_within_the_scale_bounds(precision, kind, n):
     assert ok, (rms, worst)
 
 
+@pytest.mark.parametrize("kind", ["u16s", "u16", "u16f", "u8"])
+@pytest.mark.parametrize("n", [256, 1088])
+def test_concat_one_pass_views_staged_within_the_scale_bounds(kind, n):
+    """The concat kernel's one pass (B5) on integer lines: the staged terms
+    of the two views of the wide float32 operator's three bf16 parts (five
+    where a stage has x_lo) against the float32 product
+    depth_scale_concat_plain, within the scale bounds over the display
+    range B2's one-pass cases use; n = 1088 gives half = 544, not a multiple
+    of the 64-bin tile.  The views are the per-axis parts exactly."""
+    wre, wim = _operators(n)
+    wide = tfp.concat_operator(wre, wim, "default")
+    views = concat_views(wide.split)
+    for view, w in zip(views, (wre, wim)):
+        assert all(torch.equal(v, q) for v, q in zip(view, tfp._operator_parts(w, "default").split))
+    raw, bitshift = _input(kind, 200, n)
+    mean2, a, b = _scale_args(n // 2)
+    got = _staged_scale(tfp._decode_block(raw, bitshift), *views, mean2, a, b, raw=raw)
+    want = tfp.depth_scale_concat_plain(raw, wide, mean2, bitshift=bitshift, log_scaling=True,
+                                        a=a, b=b)
+    rms, worst, ok = tfp.scale_error(got, want)
+    assert ok, (rms, worst)
+
+
+def test_concat_one_pass_views_one_column_early_fail():
+    """Control: at one pass, the im views of the three parts one column
+    early (bin j's im read at half - 1 + j) fail the scale bounds."""
+    wide = tfp.concat_operator(*_operators(256), "default")
+    raw, _ = _input("u16", 200, 256)
+    x = raw.to(torch.float32)
+    mean2, a, b = _scale_args(128)
+    rms, _, ok = tfp.scale_error(
+        _staged_scale(x, *concat_views(wide.split, im_offset=127), mean2, a, b),
+        tfp.depth_scale_concat_plain(x, wide, mean2, bitshift=False, log_scaling=True, a=a, b=b))
+    assert not ok and rms > 2 * tfp.SCALE_RMS, rms
+
+
+@pytest.mark.parametrize("given", ["float32 operators", "per-axis parts"])
+def test_concat_operator_at_default_is_one_pass(given):
+    """At the default rung the concatenated operator is a OnePass of the
+    wide float32 operator, from the float32 operators or from their
+    per-axis OnePass parts alike, so its three bf16 parts ride with it (made
+    once where it is held); they equal the per-axis parts concatenated."""
+    wre, wim = _operators(256)
+    args = (wre, wim) if given == "float32 operators" else \
+        tuple(tfp._operator_parts(w, "default") for w in (wre, wim))
+    wide = tfp.concat_operator(*args, "default")
+    assert isinstance(wide, tfp.OnePass) and len(wide) == 1
+    assert torch.equal(wide[0], torch.cat([wre, wim], dim=1))
+    per_axis = [tfp._operator_parts(w, "default").split for w in (wre, wim)]
+    assert len(wide.split) == 3
+    assert all(torch.equal(q, torch.cat([r, i], dim=1))
+               for q, r, i in zip(wide.split, *per_axis))
+
+
 def test_concat_views_one_column_early_fail():
     """Control: the im view one column early (bin j's im read at half - 1 + j)
     fails the scale bounds at 3 passes."""
@@ -496,37 +618,34 @@ BOUNDS = [
     ("depth_split", 512, 2, True, 2, 0.5559),
     ("depth_scale", 512, 1, True, 3, 0.8338),
     ("depth_scale_split", 512, 2, True, 2, 0.5559),
-    ("depth_scale_concat", 512, 1, True, 1, 4.1027),
+    ("depth_scale_concat", 512, 1, True, 3, 0.8338),
     ("depth_scale_concat_split", 512, 2, True, 2, 0.5559),
     ("prep_phase", 1024, 1, True, 3, 0.8338),
     ("prep_phase_split", 1024, 2, True, 2, 0.5559),
-    ("prep_real", 1024, 1, True, 1, 4.1027),
+    ("prep_real", 1024, 1, True, 3, 0.8338),
     ("prep_real_split", 1024, 2, True, 2, 0.5559),
-    # x_lo nonzero: five terms on the one-pass tensor-core route; the
-    # float32-FMA families do not split x
+    # x_lo nonzero: five terms on the one-pass tensor-core route
     ("depth", 512, 1, False, 5, 1.3897),
     ("depth_scale", 512, 1, False, 5, 1.3897),
-    ("depth_scale_concat", 512, 1, False, 1, 4.1027),
+    ("depth_scale_concat", 512, 1, False, 5, 1.3897),
     ("prep_phase", 1024, 1, False, 5, 1.3897),
-    ("prep_real", 1024, 1, False, 1, 4.1027),
+    ("prep_real", 1024, 1, False, 5, 1.3897),
 ]
 
 
 @pytest.mark.parametrize("name,n_out,parts,x_lo_zero,terms,ms", BOUNDS)
 def test_kernel_bound_hand_values(name, n_out, parts, x_lo_zero, terms, ms):
     """0.556 ms for the split rungs at "high" (two bf16 terms of 275 GFLOP
-    at 989 TFLOP/s, x_lo being zero); 0.834 ms for the two-operator fold
-    kernels and the phase prep kernel at one pass on integer samples (three
-    bf16 terms; 1.390 ms for the five that samples with x_lo need); 4.10 ms
-    for the other one-pass families (275 GFLOP of float32 at 67 TFLOP/s):
-    every family is bound by its operations."""
+    at 989 TFLOP/s, x_lo being zero); 0.834 ms for every family at one pass
+    on integer samples (three bf16 terms; 1.390 ms for the five that samples
+    with x_lo need): every family is bound by its operations."""
     got = bench.kernel_bound(name, n_out=n_out, parts=parts, x_lo_zero=x_lo_zero, **MAIN)
     assert got["bound_ms"] == pytest.approx(ms, abs=1e-4)
     assert got["bound_by"] == "operations"
     assert got["flops"] == terms * 4 * 131072 * 1024 * 512  # 2.75e11 per term
 
 
-@pytest.mark.parametrize("name", ["depth", "depth_scale"])
+@pytest.mark.parametrize("name", ["depth", "depth_scale", "depth_scale_concat"])
 def test_kernel_bound_of_the_one_pass_routes(name):
     """uint8/uint16 lines run the tensor-core route (three bf16 parts per
     axis to read, bf16 peak); float32 lines keep the float32-FMA kernel and
@@ -545,17 +664,18 @@ def test_kernel_bound_of_the_one_pass_routes(name):
 
 @pytest.mark.parametrize("itemsize,ms", [(2, 0.8338), (1, 0.8338), (4, 4.1027)])
 def test_kernel_bound_of_the_prep_one_pass_routes(itemsize, ms):
-    """The phase prep kernel at one pass: three bf16 terms on uint8/uint16
+    """The prep kernels at one pass: three bf16 terms on uint8/uint16
     lines, the float32 bound on float32 lines, each with the bytes of its
-    operator (three bf16 parts or the float32 one); the real prep kernel
-    keeps its float32-FMA kernel, and bound, for every input type."""
+    operator (three bf16 parts or the float32 one); the real kernel follows
+    the phase kernel, less the phasor rows and half the store."""
     phase = bench.kernel_bound("prep_phase", n_out=1024, in_itemsize=itemsize, **MAIN)
     real = bench.kernel_bound("prep_real", n_out=1024, in_itemsize=itemsize, **MAIN)
     assert phase["bound_ms"] == pytest.approx(ms, abs=1e-4)
-    assert real["bound_ms"] == pytest.approx(4.1027, abs=1e-4)
+    assert real["bound_ms"] == pytest.approx(ms, abs=1e-4)
+    assert real["flops"] == phase["flops"]
     op = 3 * 1024 * 1024 * 2 if itemsize <= 2 else 1024 * 1024 * 4
     assert phase["bytes"] == 131072 * 1024 * (itemsize + 8) + op + 2 * 1024 * 4
-    assert real["bytes"] == 131072 * 1024 * (itemsize + 4) + 1024 * 1024 * 4
+    assert real["bytes"] == 131072 * 1024 * (itemsize + 4) + op
 
 
 def test_kernel_bound_counts_terms_and_bytes():
