@@ -9,14 +9,16 @@ of 12-bit samples:
 
 * ``equivalent_ascan_rate`` (MHz) and ``ms_per_buffer`` of the steady state
   (FPN determined, ``FdOctModel.process_buffer``) at the default rung;
-  ``rungs`` -- the same and the oracle PSNR for every precision rung; and
+  ``rungs`` -- the same and the oracle PSNR for every precision rung and for
+  ``compute_dtype="bfloat16"`` (the rung "bfloat16", :func:`at_rung`); and
   ``in_bound`` -- the fastest rung whose oracle PSNR clears the 50.6 dB
   acquisition SNR bound;
 * ``oracle_psnr_db`` per rung: FPN-off PSNR of one 1024 x 512 x 8 buffer
   against the float64 NumPy oracle (``tests/oracle.py``), each gated;
 * ``golden_psnr_db``: the checked-in golden pair through the port;
 * ``kernels``: each fold kernel's time beside its plain PyTorch version's
-  at the main path's shapes (the concat kernels of ``fold_concat`` too);
+  at the main path's shapes (the concat kernels of ``fold_concat`` too, and
+  the bf16 route of the one-pass families, ``*_bf16``);
 * ``paths.fft``: the FFT path (``presets.benchmark_config(tpu=False)`` with
   the prep kernels, then cuFFT) -- steady ms per buffer and MHz at the
   default and "high" rungs with the step split into prep kernel, FFT and
@@ -59,8 +61,10 @@ from .params import AcqParams, FpnMode, Interpolation, ProcConfig, WindowType, d
 BASELINE_MHZ = 3.40
 #: Acquisition quantization-noise SNR bound (dB) of the in-bound rung.
 IN_BOUND_SNR_DB = 50.6
-#: Per-rung gates on the FPN-off oracle PSNR (dB).
-ORACLE_GATE_DB = {"default": 20.0, "high": 50.0, "highest": 80.0}
+#: Per-rung gates on the FPN-off oracle PSNR (dB); "bfloat16" is
+#: ``compute_dtype="bfloat16"``, the throughput point, gated as "default"
+#: was on the TPU's bf16 MXU.
+ORACLE_GATE_DB = {"default": 20.0, "high": 50.0, "highest": 80.0, "bfloat16": 20.0}
 
 #: The benchmark geometry: one 1024 x 512 x 256 buffer of 12-bit samples.
 FULL_ACQ = AcqParams(samples_per_line=1024, ascans_per_bscan=512,
@@ -74,11 +78,24 @@ _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _TESTS = os.path.join(_REPO, "tests")
 
 
-#: The rungs the steady state is timed at.
-TIMED_RUNGS = ("default", "high", "highest")
+#: The rungs the steady state is timed at (:func:`at_rung`).
+TIMED_RUNGS = ("default", "high", "highest", "bfloat16")
+#: The kernel families timed on their own; ``*_bf16`` is the one-pass
+#: family's bf16 route (``compute_dtype="bfloat16"``).
 FOLD_KERNELS = ("depth", "depth_split", "depth_scale", "depth_scale_split",
-                "depth_scale_concat", "depth_scale_concat_split")
-PREP_KERNELS = ("prep_phase", "prep_phase_split", "prep_real", "prep_real_split")
+                "depth_scale_concat", "depth_scale_concat_split", "depth_bf16",
+                "depth_scale_bf16", "depth_scale_concat_bf16")
+PREP_KERNELS = ("prep_phase", "prep_phase_split", "prep_real", "prep_real_split",
+                "prep_phase_bf16", "prep_real_bf16")
+
+
+def at_rung(cfg: ProcConfig, rung: str) -> ProcConfig:
+    """``cfg`` at ``rung``: a matmul precision of float32 compute, or
+    "bfloat16" -- ``compute_dtype="bfloat16"``, where the precision is
+    ignored."""
+    if rung == "bfloat16":
+        return dataclasses.replace(cfg, compute_dtype="bfloat16")
+    return dataclasses.replace(cfg, matmul_precision=rung)
 
 
 def bench_config(**changes) -> ProcConfig:
@@ -94,12 +111,16 @@ def fft_config(**changes) -> ProcConfig:
 
 
 def device_info() -> Dict[str, object]:
-    """The card's name, count and power limit (nvidia-smi's own line)."""
+    """The card's name and count (``utils.deviceinfo``) and power limit
+    (nvidia-smi's own line)."""
+    from .utils.deviceinfo import device_report
+
+    devices = device_report()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    return {"platform": "gpu", "device_name": torch.cuda.get_device_name(0),
-            "device_count": torch.cuda.device_count(),
+    return {"platform": devices[0]["platform"], "device_name": devices[0]["device_kind"],
+            "device_count": len(devices),
             "power_limit": smi.splitlines()[0].split(",")[-1].strip(),
             "nvidia_smi": smi}
 
@@ -158,8 +179,7 @@ def oracle_psnr(rungs: Sequence[str], device, cfg: ProcConfig = None) -> Dict[st
     ref = np.clip(np.asarray(want, np.float64), 0, 1)
     out = {}
     for rung in rungs:
-        model = FdOctModel(acq, dataclasses.replace(cfg, matmul_precision=rung),
-                           **CURVE_KW, device=device)
+        model = FdOctModel(acq, at_rung(cfg, rung), **CURVE_KW, device=device)
         got = np.clip(model.fetch(model.process_buffer(raw)).astype(np.float64), 0, 1)
         mse = float(np.mean((got - ref) ** 2))
         out[rung] = float(10.0 * np.log10(1.0 / max(mse, 1e-30)))
@@ -274,7 +294,7 @@ PEAK_BYTES_PER_S = 3.35e12
 
 def kernel_bound(name: str, lines: int, n_in: int, n_out: int, *, parts: int = 1,
                  in_itemsize: int = 2, out_itemsize: int = 4,
-                 x_lo_zero: bool = True) -> Dict[str, object]:
+                 x_lo_zero: bool = True, bf16: bool = False) -> Dict[str, object]:
     """The least time one H100 could take for a kernel family's work: the
     larger of its FLOPs over the peak of their type and its bytes over the
     memory rate.  ``n_out`` is ``half`` for the fold families and the
@@ -291,19 +311,21 @@ def kernel_bound(name: str, lines: int, n_in: int, n_out: int, *, parts: int = 1
     float32 lines -- but every family runs its one pass on uint8/uint16
     lines (``in_itemsize`` <= 2) as the bf16 terms of the float32 operator's
     three parts (``fused_prep.ONE_PASS_ROUTES``): the bound is the work of
-    the route the input takes.
+    the route the input takes.  With ``bf16`` (``compute_dtype="bfloat16"``)
+    one bf16 term against one bf16 part, on any input type.
     Bytes: the raw input, every operator part the kernel reads (float32
-    unsplit, bf16 split), the FPN mean line or phasor rows, and the output,
-    each once."""
+    unsplit, bf16 split or rounded), the FPN mean line or phasor rows, and
+    the output, each once."""
     from .kernels.fused_prep import _ONE_PASS_PARTS
 
-    if parts == 1 and in_itemsize <= 2:
+    if parts == 1 and in_itemsize <= 2 and not bf16:
         parts = _ONE_PASS_PARTS
     split = parts > 1
+    on_tensor_cores = split or bf16
     terms = (parts if x_lo_zero else 2 * parts - 1) if split else 1
     gemms = 1 if name.startswith("prep") else 2
     flops = terms * gemms * 2 * lines * n_in * n_out
-    op_bytes = gemms * parts * n_in * n_out * (2 if split else 4)
+    op_bytes = gemms * parts * n_in * n_out * (2 if on_tensor_cores else 4)
     if name.startswith("prep_phase"):
         extra, out = 2 * n_out * 4, lines * n_out * 8          # complex64 spectra
     elif name.startswith("prep"):
@@ -313,7 +335,7 @@ def kernel_bound(name: str, lines: int, n_in: int, n_out: int, *, parts: int = 1
     else:
         extra, out = 0, 2 * lines * n_out * 4                   # planar re, im
     nbytes = lines * n_in * in_itemsize + op_bytes + extra + out
-    flop_ms = flops / (PEAK_BF16_FLOPS if split else PEAK_FP32_FLOPS) * 1e3
+    flop_ms = flops / (PEAK_BF16_FLOPS if on_tensor_cores else PEAK_FP32_FLOPS) * 1e3
     byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     return {"bound_ms": max(flop_ms, byte_ms),
             "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
@@ -323,16 +345,20 @@ def kernel_bound(name: str, lines: int, n_in: int, n_out: int, *, parts: int = 1
 def library_operands(x: torch.Tensor, axes: Sequence[Sequence[torch.Tensor]]):
     """The yardstick of a kernel family's product: ``torch.matmul(a, b)`` of
     the decoded input ``x`` by the operator parts of every axis
-    concatenated along N -- float32 (x, with TF32 off) at one part, bf16
-    (x_hi, the mask truncation) by the bf16 parts at the split rungs.  It
+    concatenated along N -- float32 (x, with TF32 off) at one float32 part,
+    bf16 (x_hi, the mask truncation) by the bf16 parts at the split rungs,
+    and at one bf16 part (``compute_dtype="bfloat16"``) cuBLAS's bf16
+    product of the same rounded operands (x rounded to nearest).  It
     computes the products of the terms x_hi needs; the kernel's epilogue and
     its other terms are not in it.  Returns (a, b)."""
     from .kernels import fused_prep as fp
 
     b = torch.cat([w for parts in axes for w in parts], dim=1).contiguous()
-    if b.dtype == torch.bfloat16:
-        return fp._bf16_trunc(x).to(torch.bfloat16), b
-    return x, b
+    if b.dtype != torch.bfloat16:
+        return x, b
+    if len(axes[0]) == 1:
+        return x.to(torch.bfloat16), b
+    return fp._bf16_trunc(x).to(torch.bfloat16), b
 
 
 def _kernel_cases(name: str, device):
@@ -340,17 +366,19 @@ def _kernel_cases(name: str, device):
     path's shapes: one 131072-line buffer of 1024 uint16 12-bit samples
     (shifted: x_lo is zero); the fold families -> 512 bins, the prep
     families -> 1024 columns; the split families at the "high" rung (3
-    passes).  ``library`` is the matmul of :func:`library_operands`; the
-    bound is :func:`kernel_bound` with x_lo_zero read from the data."""
+    passes), the ``*_bf16`` names the one-pass family's bf16 route.
+    ``library`` is the matmul of :func:`library_operands`; the bound is
+    :func:`kernel_bound` with x_lo_zero read from the data."""
     from . import curves as curves_mod
     from .kernels import fused_prep as fp
 
-    precision = "high" if name.endswith("_split") else "default"
+    precision = ("high" if name.endswith("_split") else fp.BF16 if name.endswith("_bf16")
+                 else "default")
     raw2d = random_buffers(FULL_ACQ, 1, device, seed=5).reshape(-1, FULL_ACQ.samples_per_line)
     x = fp._decode_block(raw2d, True)
     shape = dict(lines=raw2d.shape[0], n_in=raw2d.shape[1],
                  parts=fp._SPLIT_PARTS.get(precision, 1),
-                 x_lo_zero=bool(torch.equal(x, fp._bf16_trunc(x))))
+                 x_lo_zero=bool(torch.equal(x, fp._bf16_trunc(x))), bf16=precision == fp.BF16)
     if name.startswith("prep"):
         cv = curves_mod.make_curves(FULL_ACQ, fft_config(), **CURVE_KW, device=device)
         parts = fp._operator_parts(cv.prep_operator, precision)
@@ -420,7 +448,7 @@ def fft_path_record(device) -> Dict[str, object]:
     lines = FULL_ACQ.ascans_per_buffer
     rungs = {}
     for rung in TIMED_RUNGS:
-        cfg = fft_config(matmul_precision=rung)
+        cfg = at_rung(fft_config(), rung)
         ms = steady_ms_per_buffer(cfg, device)
         rungs[rung] = {"ms_per_buffer": ms, "equivalent_ascan_rate": lines / ms / 1e3,
                        "oracle_psnr_db": psnr[rung], "stages_ms": fft_stage_ms(cfg, device)}
@@ -526,7 +554,7 @@ def transfer_ms(device, source_u16, source_p12, reps: int = 5) -> Dict[str, floa
 def stream_path_record(device) -> Dict[str, object]:
     """The ``paths.stream`` record: the concat path's steady state and the
     engine's rate on both wires, per buffer and in batch chunks of four,
-    at the default and "high" rungs."""
+    at every timed rung."""
     lines = FULL_ACQ.ascans_per_buffer
     out = {"config": "bench_config(fold_concat=True), stream_to_host, streaming_skip=0",
            "rungs": {}}
@@ -534,7 +562,7 @@ def stream_path_record(device) -> Dict[str, object]:
         sources = stream_sources(tmp)
         out["transfer_ms"] = transfer_ms(device, sources["uint16"], sources["packed12"])
         for rung in TIMED_RUNGS:
-            cfg = bench_config(fold_concat=True, matmul_precision=rung)
+            cfg = at_rung(bench_config(fold_concat=True), rung)
             ms = steady_ms_per_buffer(cfg, device)
             rec = {"ms_per_buffer": ms, "equivalent_ascan_rate": lines / ms / 1e3}
             for wire, src in sources.items():
@@ -553,7 +581,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
     info = device_info()
-    psnr = oracle_psnr(("default", "high", "highest"), device)
+    psnr = oracle_psnr(tuple(ORACLE_GATE_DB), device)
     for rung, gate in ORACLE_GATE_DB.items():
         if psnr[rung] < gate:
             raise SystemExit(f"bench: rung {rung!r} failed its fidelity gate: "
@@ -561,7 +589,7 @@ def main() -> None:
     lines = FULL_ACQ.ascans_per_buffer
     rungs = {}
     for rung in ORACLE_GATE_DB:
-        ms_rung = steady_ms_per_buffer(bench_config(matmul_precision=rung), device)
+        ms_rung = steady_ms_per_buffer(at_rung(bench_config(), rung), device)
         rungs[rung] = {"ms_per_buffer": ms_rung,
                        "equivalent_ascan_rate": lines / ms_rung / 1e3,
                        "oracle_psnr_db": psnr[rung]}

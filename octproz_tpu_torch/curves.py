@@ -266,11 +266,13 @@ def make_curves(
 
     Fields named by :func:`consumed_fields` become tensors on ``device``;
     everything else stays a host numpy array.  With ``fft_via_matmul``,
-    ``depth_parts`` holds the depth operator split for
-    ``cfg.matmul_precision`` on ``device``, and with ``fold_concat``
+    ``depth_parts`` holds the depth operator in the form of the
+    configuration's rung (``fused_prep.operator_rung``: split for
+    ``cfg.matmul_precision``, or rounded to one bf16 part at
+    ``compute_dtype="bfloat16"``) on ``device``, and with ``fold_concat``
     ``depth_concat_parts`` the parts of [W_re | W_im] that the concat
     kernels read; where the prep kernels consume the prep operator,
-    ``prep_parts`` holds it split the same way.  At the default rung each
+    ``prep_parts`` holds it in the same form.  At the default rung each
     is the float32 operator with the three bf16 parts that the tensor-core
     kernels read on integer lines (``fused_prep.OnePass``), split here, once
     per curve build, for the steady-state kernel: the two-operator fold
@@ -280,9 +282,10 @@ def make_curves(
     without dispersion.
     """
     from .kernels.fused_prep import (OnePass, _operator_parts, build_depth_operator,
-                                     build_prep_operator, concat_operator)
+                                     build_prep_operator, concat_operator, operator_rung)
 
     used = consumed_fields(cfg)
+    rung = operator_rung(cfg)
 
     def held(parts):
         """``parts`` with the one-pass rung's bf16 parts made now."""
@@ -310,17 +313,16 @@ def make_curves(
         prep_op = place("prep_operator",
                         build_prep_operator(acq, cfg, rm_np, win_np))
         if "prep_operator" in used:
-            prep_parts = held(_operator_parts(prep_op, cfg.matmul_precision))
+            prep_parts = held(_operator_parts(prep_op, rung))
     dop_re = dop_im = depth_parts = depth_concat_parts = None
     phase_np = (np.asarray(dispersion_phase(acq, *dispersion_coeffs))
                 if cfg.dispersion else None)
     if cfg.fft_via_matmul:
         re_np, im_np = build_depth_operator(acq, cfg, rm_np, win_np, phase_np)
         dop_re, dop_im = place("depth_op_re", re_np), place("depth_op_im", im_np)
-        depth_parts = (_operator_parts(dop_re, cfg.matmul_precision),
-                       _operator_parts(dop_im, cfg.matmul_precision))
+        depth_parts = (_operator_parts(dop_re, rung), _operator_parts(dop_im, rung))
         if cfg.fold_concat:
-            depth_concat_parts = held(concat_operator(*depth_parts, cfg.matmul_precision))
+            depth_concat_parts = held(concat_operator(*depth_parts, rung))
         else:
             depth_parts = tuple(held(parts) for parts in depth_parts)
     if cfg.dispersion:

@@ -13,7 +13,9 @@
 // float32 product at float32 grade for samples of at most 16 bits).  The
 // float32-FMA template of fold_gemm.cuh keeps the one pass on float32 lines
 // -- samples above 16 bits, which the x_hi + x_lo split cannot carry --
-// against the float32 wide operator.  The input type alone picks the route.
+// against the float32 wide operator.  The input type alone picks the route
+// at float32 compute; compute_dtype="bfloat16" runs the tensor-core kernel
+// on one rounded wide part for every input type.
 //
 // The TPU kernels run ONE (tile, n_in) x (n_in, 2*half) MXU pass per tile
 // (per bf16 part for the split rung, whose wide operator is split BEFORE
@@ -45,7 +47,8 @@ int fold_split_scale_concat(const void* raw, int in_kind, int bitshift, int pass
 // in_kind: 0 uint8, 1 uint16, 2 float32.  passes: 3 or 5 with 2 or 3 bf16
 // parts of the wide (n_in, 2*half) operator; 1 with the float32 wide
 // operator in w0 for float32 lines, and with its three bf16 parts for
-// uint8/uint16 lines.  Unused part pointers may be NULL.
+// uint8/uint16 lines; BF16_PASS (compute_dtype="bfloat16") with its one
+// rounded bf16 part for any lines.  Unused part pointers may be NULL.
 // mode: 0 log (a*log10(p)+b), 1 lin (a*sqrt(p)+b).
 int fold_gemm_scale_concat(const void* raw, int in_kind, int bitshift,
                            int passes, const void* w0, const void* w1,

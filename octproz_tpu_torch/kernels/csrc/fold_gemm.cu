@@ -13,7 +13,9 @@
 // float32 lines -- samples above 16 bits, decoded by the wrapper, which the
 // x_hi + x_lo split cannot carry -- the one-pass rung runs the float32-FMA
 // template of fold_gemm.cuh against the float32 operator.  The input type
-// alone picks the route.  OutT in {float, bf16} for SCALE.
+// alone picks the route at float32 compute; compute_dtype="bfloat16" runs
+// the tensor-core kernels on every input type.  OutT in {float, bf16} for
+// SCALE.
 
 #include "fold_gemm.cuh"
 
@@ -28,7 +30,9 @@ int fold_split_scale(const void* raw, int in_kind, int bitshift, int passes,
 
 // in_kind: 0 uint8, 1 uint16, 2 float32.  passes: 3 or 5 with 2 or 3 bf16
 // operator parts per axis; 1 with the float32 operator in wre0 / wim0 for
-// float32 lines, and with its three bf16 parts for uint8/uint16 lines.
+// float32 lines, and with its three bf16 parts for uint8/uint16 lines;
+// BF16_PASS (compute_dtype="bfloat16") with one rounded bf16 part per axis
+// for any lines, forwarded to the tensor cores like the split rungs.
 // Unused part pointers may be NULL.
 int fold_gemm_planar(const void* raw, int in_kind, int bitshift, int passes,
                      const void* wre0, const void* wre1, const void* wre2,

@@ -41,6 +41,21 @@
 // 2 * half, and they compute the terms of the two-operator kernel -- at one
 // pass the three parts of both views, six pointers, each checked for TMA's
 // 16-byte alignment (half % 8 != 0 takes the element-wise producer).
+//
+// At compute_dtype="bfloat16" (passes = BF16_PASS) the same three entries
+// launch the PARTS = 1 instantiations on every input type -- uint8, uint16
+// and float32 lines alike, as the JAX package rounds predecoded float32
+// lines too: one bf16 part per axis (the operator rounded to nearest on the
+// host; for the concat entry one rounded wide part, read as its two views),
+// x rounded to nearest in the kernel, one term per 64-sample stage, folded
+// into the float32 sum as at every rung:
+//
+//   fold_split<EPI=PLANAR, PARTS=1>  _kernel_depth               (:261-268, bf16)
+//   fold_split<EPI=SCALE,  PARTS=1>  _kernel_depth_scale         (:375-419, bf16)
+//   fold_split<EPI=SCALE,  PARTS=1>  _kernel_depth_scale_concat  (:337-351, bf16)
+//
+// On one H100 (H100 80GB HBM3, 700 W) the one term is 275 GFLOP: 0.28 ms at
+// 989 TFLOP/s, a third of the one-pass rung's three terms.
 
 #include "fold_split.cuh"
 
@@ -59,10 +74,10 @@ struct Fold {
   };
 };
 
-// terms() of a fold launch: three parts on both axes.
+// terms() of a fold launch: as many parts on both axes.
 int fold_terms(int in_kind, int passes, const void* const wre[3], const void* const wim[3]) {
-  return terms(in_kind, passes,
-               wre[0] && wre[1] && wre[2] && wim[0] && wim[1] && wim[2]);
+  const int parts = parts_of(wre);
+  return terms(in_kind, passes, parts_of(wim) == parts ? parts : 0);
 }
 
 // ld: the parts' row pitch, half for one operator per axis.
@@ -102,8 +117,9 @@ extern "C" {
 
 // The tensor-core launches of fold_gemm_planar / fold_gemm_scale
 // (fold_gemm.cu), with the same arguments: 3 or 5 passes against 2 or 3
-// bf16 parts per axis, or 1 pass on uint8/uint16 lines against the float32
-// operator's three bf16 parts (5 terms).
+// bf16 parts per axis, 1 pass on uint8/uint16 lines against the float32
+// operator's three bf16 parts (5 terms), or BF16_PASS against one rounded
+// bf16 part per axis on any input type (1 term).
 int fold_split_planar(const void* raw, int in_kind, int bitshift, int passes,
                       const void* const wre[3], const void* const wim[3], float* re_out,
                       float* im_out, long long lines, int n_in, int half, void* stream) {
@@ -126,9 +142,10 @@ int fold_split_scale(const void* raw, int in_kind, int bitshift, int passes,
 
 // The tensor-core launch of fold_gemm_scale_concat (fold_concat.cu): w
 // holds the 2 or 3 bf16 parts of the wide (n_in, 2 * half) operator
-// [W_re | W_im] for 3 or 5 passes, or at 1 pass on uint8/uint16 lines the
-// three bf16 parts of the float32 wide operator (5 terms), each read as the
-// views (W, n0) and (W + half, n0) at row pitch 2 * half.
+// [W_re | W_im] for 3 or 5 passes, at 1 pass on uint8/uint16 lines the
+// three bf16 parts of the float32 wide operator (5 terms), or at BF16_PASS
+// the one rounded wide part (1 term), each read as the views (W, n0) and
+// (W + half, n0) at row pitch 2 * half.
 int fold_split_scale_concat(const void* raw, int in_kind, int bitshift, int passes,
                             const void* const w[3], const float* mean2, void* out,
                             int out_bf16, int mode, float a, float b, long long lines,
@@ -137,7 +154,7 @@ int fold_split_scale_concat(const void* raw, int in_kind, int bitshift, int pass
   for (int q = 0; q < 3; ++q)
     wim[q] = w[q] ? static_cast<const __nv_bfloat16*>(w[q]) + half : nullptr;
   return split::scale(split::params(raw, bitshift, w, wim, lines, n_in, half, 2 * half),
-                      in_kind, split::terms(in_kind, passes, w[0] && w[1] && w[2]), mean2,
+                      in_kind, split::terms(in_kind, passes, split::parts_of(w)), mean2,
                       out, out_bf16, mode, a, b, stream);
 }
 

@@ -21,8 +21,13 @@
 //   prep_split<EPI=PHASE,  PARTS=3>  _kernel_phase        (:228-235, prep_split.cu)
 //   prep_split<EPI=REAL,   PARTS=3>  _kernel_real         (:238-242, prep_split.cu)
 //
-// The float32-FMA template of fold_gemm.cuh and prep_gemm.cu serves the
-// one pass on float32 lines alone (samples above 16 bits).
+// and, on every input type, the same five at compute_dtype="bfloat16" with
+// PARTS=1: the operator rounded to one bf16 part on the host, x rounded to
+// nearest bf16 in the kernel (the JAX package's astype on both operands,
+// :231 :240 :264 :344 :401/:409 and :471-472 :572-573 :643-644), one
+// product term accumulated in float32.  The float32-FMA template of
+// fold_gemm.cuh and prep_gemm.cu serves the one pass of float32 compute on
+// float32 lines alone (samples above 16 bits).
 //
 // What bounds them, on one H100 (H100 80GB HBM3, 700 W: 989 TFLOP/s of
 // dense bf16, 3.35 TB/s): at the main path's geometry (131072 lines x 1024
@@ -30,7 +35,9 @@
 // bf16 GEMM of 275 GFLOP against ~0.54-1.3 GB of raw input, operator parts
 // and output: compute bound, 0.56 ms for the two terms "high" needs on
 // shifted 12-bit samples (x_lo being zero), 0.83 ms for the three of the
-// one-pass rung (1.39 ms for its five where x_lo is not zero).
+// one-pass rung (1.39 ms for its five where x_lo is not zero), 0.28 ms for
+// the one term of compute_dtype="bfloat16" (where the output's bytes may
+// bound it instead: 0.40 ms for the phase kernel's complex64).
 //
 // Design.  A block owns 128 lines and two halves of 64 operator columns,
 // each a (tensor map, column offset) pair: the fold kernels take
@@ -59,7 +66,9 @@
 // * two consumer warpgroups of 64 lines each decode their rows of the raw
 //   tile straight into the register fragment of wgmma's A operand (>> 4
 //   when bitshift is set), split it there into x_hi (mask) and
-//   x_lo = bf16_rn(x - x_hi), and run bf16 wgmma against the
+//   x_lo = bf16_rn(x - x_hi) -- or, with one part (PARTS = 1, the bf16
+//   compute route), round it to nearest bf16 and stop there: no x_lo, no
+//   vote --, and run bf16 wgmma against the
 //   stage's operator tiles -- one m64n128k16 per part and 16 samples, its
 //   128 columns the part's two half tiles -- so the decoded x never leaves
 //   registers;
@@ -369,10 +378,17 @@ __device__ __forceinline__ void load_pair<float>(const uint8_t* p, int, float& v
 __device__ __forceinline__ uint32_t pack_hi(float v0, float v1) {
   return __byte_perm(__float_as_uint(v0), __float_as_uint(v1), 0x7632);
 }
-__device__ __forceinline__ uint32_t pack_lo(float v0, float v1) {
-  const __nv_bfloat162 l = __floats2bfloat162_rn(v0 - x_hi(v0), v1 - x_hi(v1));
-  return *reinterpret_cast<const uint32_t*>(&l);
+// Two samples rounded to nearest (even) bf16: the bf16 compute route.
+__device__ __forceinline__ uint32_t pack_rn(float v0, float v1) {
+  const __nv_bfloat162 r = __floats2bfloat162_rn(v0, v1);
+  return *reinterpret_cast<const uint32_t*>(&r);
 }
+__device__ __forceinline__ uint32_t pack_lo(float v0, float v1) {
+  return pack_rn(v0 - x_hi(v0), v1 - x_hi(v1));
+}
+
+// What a fragment register holds: x_hi, x_lo, or x rounded to nearest.
+enum Pack { X_HI, X_LO, X_RN };
 
 // --- the producer warp -----------------------------------------------------
 
@@ -477,8 +493,10 @@ __device__ __forceinline__ void produce(const Params& p, const Maps& maps, uint8
 
 // The A fragments (m64nNk16) of this thread for the stage: register i of
 // chunk kk holds line row0 + 8*(i&1), samples 16*kk + 2t + 8*(i>>1) and the
-// next one -- x_hi (HI) or x_lo = bf16_rn(x - x_hi); wide as in load_pair.
-template <typename InT, bool HI>
+// next one -- x_hi (X_HI), x_lo = bf16_rn(x - x_hi) (X_LO) or bf16_rn(x)
+// (X_RN);
+// wide as in load_pair.
+template <typename InT, Pack PACK>
 __device__ __forceinline__ void fragments(const uint8_t* tile, int row0, int t, int bitshift,
                                           uint32_t (&x)[4][4], uint32_t& wide) {
 #pragma unroll
@@ -490,12 +508,15 @@ __device__ __forceinline__ void fragments(const uint8_t* tile, int row0, int t, 
       float v0, v1;
       load_pair<InT>(tile + r * RawTile<InT>::ROW + col * sizeof(InT), bitshift, v0, v1,
                      wide);
-      x[kk][i] = HI ? pack_hi(v0, v1) : pack_lo(v0, v1);
+      x[kk][i] = PACK == X_HI   ? pack_hi(v0, v1)
+                 : PACK == X_LO ? pack_lo(v0, v1)
+                                : pack_rn(v0, v1);
     }
 }
 
 // One group of a stage's pass terms into d: x_hi w_j for j = P-1 .. 0
-// (HI), or x_lo w_j for j = P-2 .. 0 -- low-order first.  The group's
+// (HI; with P = 1 the one term of the rounded x), or x_lo w_j for
+// j = P-2 .. 0 -- low-order first.  The group's
 // first instruction overwrites d unless accumulate is set.  Once the group
 // is committed, named barrier committed (if not negative) is told so.
 template <int PARTS, bool HI>
@@ -524,7 +545,8 @@ __device__ __forceinline__ void stage_terms(float (&d)[64], const uint32_t (&x)[
 // producer warp, which returns false, and gives each consumer thread its
 // share of the block's 128 x (2 x 64) sums in acc (wgmma's n128 layout:
 // the first half's columns in acc[0..31], the second's in acc[32..63]) and
-// returns true.
+// returns true.  PARTS = 1 is the bf16 compute route: x rounded to nearest,
+// one term per stage, no x_lo group and no vote.
 template <typename InT, int PARTS, int COLS>
 __device__ __forceinline__ bool mainloop(const Params& p, const Maps& maps, uint8_t* smem,
                                          long long m0, int n0, float (&acc)[64]) {
@@ -579,9 +601,11 @@ __device__ __forceinline__ bool mainloop(const Params& p, const Maps& maps, uint
 #else
     float(&sum)[64] = part;  // the stage's terms, folded into acc below
 #endif
-    fragments<InT, true>(tile, row0, t, p.bitshift, x, wide);
-    // uint8 samples are exact in bf16: x_lo is zero by construction
-    const bool lo = sizeof(InT) != 1 && warpgroup_any(wide != 0, 1 + wg);
+    constexpr bool RN_ONLY = PARTS == 1;
+    fragments<InT, RN_ONLY ? X_RN : X_HI>(tile, row0, t, p.bitshift, x, wide);
+    // uint8 samples are exact in bf16: x_lo is zero by construction; the
+    // bf16 route has no x_lo at all
+    const bool lo = !RN_ONLY && sizeof(InT) != 1 && warpgroup_any(wide != 0, 1 + wg);
     // the turn passes with this stage's last group, but for warpgroup 1's
     // last stage: nobody waits for that one
     const int next = TURNS && !(wg == 1 && kb == nkb - 1) ? 4 + (wg ^ 1) : -1;
@@ -591,9 +615,9 @@ __device__ __forceinline__ bool mainloop(const Params& p, const Maps& maps, uint
     } else {
       // x_lo's group first, then x_hi decoded again: the two fragment sets
       // are never live together
-      fragments<InT, false>(tile, row0, t, p.bitshift, x, wide);
+      fragments<InT, X_LO>(tile, row0, t, p.bitshift, x, wide);
       stage_terms<PARTS, false>(sum, x, stage, ONE_CHAIN);
-      fragments<InT, true>(tile, row0, t, p.bitshift, x, wide);
+      fragments<InT, X_HI>(tile, row0, t, p.bitshift, x, wide);
       stage_terms<PARTS, true>(sum, x, stage, true, next);
     }
     __syncwarp();
@@ -783,29 +807,43 @@ int launch(Params p, Kernel kernel, cudaError_t attr, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The pass terms a launch runs: those of its passes, and at one pass (three
-// parts, integer lines only) the five of "highest"; 0 for a launch the
-// split kernels do not take.  An integer sample of at most 16 bits is
-// exactly x_hi + x_lo and the float32 operator's three parts carry ~24
-// mantissa bits, so x_hi w_2, x_hi w_1, x_hi w_0 and (where a stage holds a
-// sample of 256 or more) x_lo w_1, x_lo w_0 give the one-pass float32
-// product at float32 grade; float32 lines (above 16 bits) are refused.
-inline int terms(int in_kind, int passes, bool three_parts) {
+// The operator parts given: the leading non-null pointers of w.
+inline int parts_of(const void* const w[3]) { return !w[0] ? 0 : !w[1] ? 1 : !w[2] ? 2 : 3; }
+
+// The pass terms a launch runs: those of its passes; at one pass (three
+// parts, integer lines only) the five of "highest"; at BF16_PASS (one
+// part, any input type) the one term of x rounded to nearest; 0 for a
+// launch the split kernels do not take.  An integer sample of at most 16
+// bits is exactly x_hi + x_lo and the float32 operator's three parts carry
+// ~24 mantissa bits, so x_hi w_2, x_hi w_1, x_hi w_0 and (where a stage
+// holds a sample of 256 or more) x_lo w_1, x_lo w_0 give the one-pass
+// float32 product at float32 grade; float32 lines (above 16 bits) are
+// refused at one pass.
+inline int terms(int in_kind, int passes, int parts) {
+  if (passes == BF16_PASS) return parts == 1 ? 1 : 0;
   if (passes != 1) return passes;
-  return three_parts && (in_kind == IN_U8 || in_kind == IN_U16) ? 5 : 0;
+  return parts == 3 && (in_kind == IN_U8 || in_kind == IN_U16) ? 5 : 0;
 }
 
 // The launch of K<InT, PARTS>::run (a struct template of the including
-// file) for in_kind (0 uint8, 1 uint16, 2 float32) and passes (3 or 5: 2 or
-// 3 parts).
-template <template <typename, int> class K>
-int dispatch(int in_kind, int passes, const Params& p, cudaStream_t stream) {
-  if (passes != 3 && passes != 5) return static_cast<int>(cudaErrorInvalidValue);
-  const bool five = passes == 5;
+// file) for in_kind (0 uint8, 1 uint16, 2 float32).
+template <template <typename, int> class K, int PARTS>
+int dispatch_input(int in_kind, const Params& p, cudaStream_t stream) {
   switch (in_kind) {
-    case IN_U8: return five ? K<uint8_t, 3>::run(p, stream) : K<uint8_t, 2>::run(p, stream);
-    case IN_U16: return five ? K<uint16_t, 3>::run(p, stream) : K<uint16_t, 2>::run(p, stream);
-    case IN_FLOAT: return five ? K<float, 3>::run(p, stream) : K<float, 2>::run(p, stream);
+    case IN_U8: return K<uint8_t, PARTS>::run(p, stream);
+    case IN_U16: return K<uint16_t, PARTS>::run(p, stream);
+    case IN_FLOAT: return K<float, PARTS>::run(p, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// ... and n_terms (terms(): 1, 3 or 5 with 1, 2 or 3 parts).
+template <template <typename, int> class K>
+int dispatch(int in_kind, int n_terms, const Params& p, cudaStream_t stream) {
+  switch (n_terms) {
+    case 1: return dispatch_input<K, 1>(in_kind, p, stream);
+    case 3: return dispatch_input<K, 2>(in_kind, p, stream);
+    case 5: return dispatch_input<K, 3>(in_kind, p, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -18,6 +18,11 @@ enum Epi { PLANAR = 0, SCALE = 1, PHASE = 2, REAL = 3 };
 // the wrapper decoded already (samples above 16 bits).
 enum InKind { IN_U8 = 0, IN_U16 = 1, IN_FLOAT = 2 };
 
+// The passes argument of every C entry point for compute_dtype="bfloat16":
+// x rounded to nearest bf16 against one bf16 operator part, one product
+// term (the tensor-core kernels of fold_split.cuh, on every input type).
+constexpr int BF16_PASS = 0;
+
 constexpr int BM = 64;       // lines per block tile
 constexpr int BK = 16;       // contraction (n_in) per K step
 constexpr int TM = 4;        // lines per thread

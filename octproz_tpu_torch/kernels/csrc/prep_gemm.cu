@@ -161,8 +161,9 @@ extern "C" {
 
 // in_kind: 0 uint8, 1 uint16, 2 float32.  passes: 3 or 5 with 2 or 3 bf16
 // operator parts; 1 with the float32 operator in w0 for float32 lines, and
-// with its three bf16 parts for uint8/uint16 lines.  Unused part pointers
-// may be NULL.  out: complex64 (lines, n_out), written as interleaved float
+// with its three bf16 parts for uint8/uint16 lines; BF16_PASS
+// (compute_dtype="bfloat16") with its one rounded bf16 part for any lines.
+// Unused part pointers may be NULL.  out: complex64 (lines, n_out), written as interleaved float
 // pairs.
 int prep_gemm_phase(const void* raw, int in_kind, int bitshift, int passes,
                     const void* w0, const void* w1, const void* w2,

@@ -16,7 +16,17 @@
 // fold_split.cuh): the float32 product at float32 grade for samples of at
 // most 16 bits.  float32 lines (samples above 16 bits) keep the float32-FMA
 // kernel of prep_gemm.cu at one pass; the input type alone picks the route,
-// and a float32 launch at one pass is refused here.
+// and a float32 launch at one pass is refused here.  At
+// compute_dtype="bfloat16" (passes = BF16_PASS) both entries launch the
+// PARTS = 1 instantiations on every input type: the operator rounded to
+// one bf16 part on the host, x rounded to nearest in the kernel, one term,
+//
+//   prep_split<EPI=PHASE, PARTS=1>   _kernel_phase        (:228-235, bf16)
+//   prep_split<EPI=REAL,  PARTS=1>   _kernel_real         (:238-242, bf16)
+//
+// bound on one H100 (H100 80GB HBM3, 700 W) by its store more than its one
+// 275 GFLOP term (0.28 ms): 1.07 GB of complex64 out, 0.40 ms at 3.35
+// TB/s, for the phase kernel; 0.28 ms of operations for the real one.
 //
 // What bounds it, on one H100 (H100 80GB HBM3, 700 W: 989 TFLOP/s of dense
 // bf16, 3.35 TB/s): at the FFT path's geometry (131072 lines x 1024 samples
@@ -119,7 +129,8 @@ extern "C" {
 // The tensor-core launches of prep_gemm_phase / prep_gemm_real
 // (prep_gemm.cu): w holds the operator's 2 or 3 bf16 parts, (n_in, n_out)
 // row-major, for 3 or 5 passes; at 1 pass on uint8/uint16 lines the float32
-// operator's three bf16 parts (5 terms).
+// operator's three bf16 parts (5 terms); at BF16_PASS its one rounded bf16
+// part, on any input type (1 term).
 int prep_split_phase(const void* raw, int in_kind, int bitshift, int passes,
                      const void* const w[3], const float* cos_row, const float* sin_row,
                      void* out, long long lines, int n_in, int n_out, void* stream) {
@@ -127,7 +138,7 @@ int prep_split_phase(const void* raw, int in_kind, int bitshift, int passes,
   p.cos_row = cos_row;
   p.sin_row = sin_row;
   return split::dispatch<split::Prep<PHASE>::K>(
-      in_kind, split::terms(in_kind, passes, w[0] && w[1] && w[2]), p,
+      in_kind, split::terms(in_kind, passes, split::parts_of(w)), p,
       static_cast<cudaStream_t>(stream));
 }
 
@@ -136,7 +147,7 @@ int prep_split_real(const void* raw, int in_kind, int bitshift, int passes,
                     void* stream) {
   split::Params p = split::params(raw, bitshift, w, out, lines, n_in, n_out);
   return split::dispatch<split::Prep<REAL>::K>(
-      in_kind, split::terms(in_kind, passes, w[0] && w[1] && w[2]), p,
+      in_kind, split::terms(in_kind, passes, split::parts_of(w)), p,
       static_cast<cudaStream_t>(stream));
 }
 

@@ -28,7 +28,9 @@ This module holds, for each of the ten kernel families:
   ``csrc/fold_split.cu`` and ``csrc/prep_split.cu`` -- the one-pass rung as
   three bf16 parts of the float32 operator (:class:`OnePass`) -- and the
   one-pass rung on float32 lines the float32-FMA template on the CUDA
-  cores, the route counted in :data:`ONE_PASS_ROUTES`; built by
+  cores; ``compute_dtype="bfloat16"`` runs the same tensor-core kernels
+  with x rounded to nearest and one bf16 operator part, on every input
+  type; the route is counted in :data:`ONE_PASS_ROUTES`; built by
   :mod:`.build`), which a wrapper launches for CUDA tensors;
 * its plain PyTorch version (``*_plain``), which the wrapper uses for CPU
   tensors and which the tests and ``chip_smoke.py`` hold the kernel to;
@@ -71,6 +73,13 @@ _SPLIT_PARTS = {"high": 2, "highest": 3}
 #: kernels read: ~24 mantissa bits, the "highest" split.
 _ONE_PASS_PARTS = 3
 
+#: The rung of ``compute_dtype="bfloat16"`` (:func:`operator_rung`): the
+#: operator rounded to one bf16 part, x rounded to bf16, one product.
+BF16 = "bfloat16"
+
+#: The ``passes`` argument of the C entry points for the bf16 route.
+_BF16_PASS = 0
+
 #: Kernel launches per family since the last :func:`reset_launch_counts`.
 #: The key follows the rung, not the kernel's pass terms: a one-pass launch
 #: counts as its family (``depth``, ``prep_real``, ...) on either route.
@@ -80,10 +89,12 @@ LAUNCHES = {"depth": 0, "depth_split": 0, "depth_scale": 0,
             "prep_real": 0, "prep_real_split": 0}
 
 #: The one-pass launches of every family by route: ``tensor_core``
-#: (uint8/uint16 lines: bf16 wgmma on the float32 operator's three parts)
-#: or ``simt`` (float32 lines: the float32-FMA kernel).  The route follows
-#: the input type alone.
-ONE_PASS_ROUTES = {key: {"tensor_core": 0, "simt": 0}
+#: (uint8/uint16 lines: bf16 wgmma on the float32 operator's three parts),
+#: ``simt`` (float32 lines: the float32-FMA kernel) -- at float32 compute
+#: the input type alone picks between those two -- or ``tensor_core_bf16``
+#: (``compute_dtype="bfloat16"``, any input type: x rounded to bf16, one
+#: wgmma term against the one rounded bf16 operator part).
+ONE_PASS_ROUTES = {key: {"tensor_core": 0, "simt": 0, "tensor_core_bf16": 0}
                    for key in LAUNCHES if not key.endswith("_split")}
 
 
@@ -299,20 +310,36 @@ def _predecode(raw2d: torch.Tensor, bit_depth: int, bitshift: bool) -> torch.Ten
     return raw2d
 
 
+def _dot_bf16(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The product of ``compute_dtype="bfloat16"``: x and w rounded to bf16
+    (to nearest even, as the JAX package's ``astype``), then ONE float32
+    product, as ``jnp.dot(..., preferred_element_type=float32)`` keeps it.
+    Each product of two bf16 values is exact in float32.  Not a matmul of
+    the bf16 tensors themselves: PyTorch returns that in bf16, rounding
+    the sum."""
+    return x.to(torch.bfloat16).to(torch.float32) @ w.to(torch.bfloat16).to(torch.float32)
+
+
 # ---------------------------------------------------------------------------
 # Plain versions of the kernels
 # ---------------------------------------------------------------------------
 
 def _gemm(x: torch.Tensor, w_parts: Sequence[torch.Tensor]) -> torch.Tensor:
-    if len(w_parts) == 1:
-        return x @ w_parts[0]
-    return _dot_split(x, w_parts)
+    """x @ w for the operator form of every rung: 2 or 3 bf16 parts (the
+    split rungs), one bf16 part (``compute_dtype="bfloat16"``) or the
+    float32 operator (the one-pass rung)."""
+    if len(w_parts) > 1:
+        return _dot_split(x, w_parts)
+    if w_parts[0].dtype == torch.bfloat16:
+        return _dot_bf16(x, w_parts[0])
+    return x @ w_parts[0]
 
 
 def depth_plain(raw2d, w_re_parts, w_im_parts, *, bitshift: bool):
-    """``_kernel_depth`` (one float32 operator per axis) and
-    ``_kernel_depth_split`` (2 or 3 bf16 parts per axis): decode, then the
-    two GEMMs.  Returns planar (re, im) float32 (lines, half)."""
+    """``_kernel_depth`` (one float32 operator per axis, or at
+    ``compute_dtype="bfloat16"`` one bf16 part) and ``_kernel_depth_split``
+    (2 or 3 bf16 parts per axis): decode, then the two GEMMs (:func:`_gemm`).
+    Returns planar (re, im) float32 (lines, half)."""
     x = _decode_block(raw2d, bitshift)
     return _gemm(x, w_re_parts), _gemm(x, w_im_parts)
 
@@ -450,8 +477,9 @@ def _check_raw(raw2d, family: str):
 
 def _check_parts(parts, n_in: int, dev, family: str, split: bool) -> int:
     """Every operator part a contiguous (n_in, n_out) tensor on ``dev``,
-    float32 for an unsplit operator and bf16 for a split; returns n_out."""
-    want = torch.bfloat16 if split else torch.float32
+    bf16 for a split and float32 for an unsplit operator, or bf16 for the
+    one part of ``compute_dtype="bfloat16"``; returns n_out."""
+    want = torch.bfloat16 if split or parts[0].dtype == torch.bfloat16 else torch.float32
     n_out = parts[0].shape[-1]
     for w in parts:
         if w.device != dev or w.dtype != want or tuple(w.shape) != (n_in, n_out) \
@@ -526,14 +554,18 @@ def _kernel_operands(raw2d, axes, family: str):
     operator parts of each of its ``axes`` -- (re, im) for the two-operator
     fold kernels, ([W_re | W_im],) for the concat kernels, (P,) for the prep
     kernels -- that the launch checks passed: (passes,
-    parts per axis, LAUNCHES key, route or None).  The one-pass rung runs on
-    the tensor cores against the float32 operator's three bf16 parts for
-    uint8/uint16 lines, and on the float32-FMA kernel for float32 lines
-    (samples above 16 bits, which x_hi + x_lo cannot carry): the input type
-    alone decides, never a failed build or launch."""
+    parts per axis, LAUNCHES key, route or None).  One bf16 part per axis is
+    ``compute_dtype="bfloat16"`` (:func:`operator_rung` made that form): the
+    tensor cores, x rounded to bf16 and one term, for every input type.  The
+    one-pass rung runs on the tensor cores against the float32 operator's
+    three bf16 parts for uint8/uint16 lines, and on the float32-FMA kernel
+    for float32 lines (samples above 16 bits, which x_hi + x_lo cannot
+    carry): the input type alone decides, never a failed build or launch."""
     passes = 2 * len(axes[0]) - 1
     if passes > 1:
         return passes, axes, family + "_split", None
+    if axes[0][0].dtype == torch.bfloat16:
+        return _BF16_PASS, axes, family, "tensor_core_bf16"
     if raw2d.dtype == torch.float32:
         return 1, axes, family, "simt"
     split = [w.split if isinstance(w, OnePass) else _split_bf16(w[0], _ONE_PASS_PARTS)
@@ -719,49 +751,53 @@ def prep_real(raw2d, op_parts, *, bitshift: bool):
 # Public wrappers (same signatures as the JAX package, minus ``interpret``)
 # ---------------------------------------------------------------------------
 
-def _operator_parts(w, precision: str) -> Tuple[torch.Tensor, ...]:
-    """The operator as the wrappers take it at ``precision``: one float32
-    part (an :class:`OnePass`), or 2/3 bf16 parts.  ``w`` is the float32
-    operator (split here) or a tuple of parts already made for ``precision``
-    (as ``Curves.depth_parts`` and ``Curves.prep_parts`` hold them), which is
-    returned as is."""
-    parts = _SPLIT_PARTS.get(precision, 1)
+def operator_rung(cfg: ProcConfig) -> str:
+    """The operator form of ``cfg``'s kernels: ``cfg.matmul_precision`` at
+    float32 compute, :data:`BF16` at ``compute_dtype="bfloat16"``, where
+    ``matmul_precision`` is ignored (the JAX package's
+    ``_effective_precision``)."""
+    return BF16 if cfg.compute_dtype == "bfloat16" else cfg.matmul_precision
+
+
+def _operator_parts(w, rung: str) -> Tuple[torch.Tensor, ...]:
+    """The operator as the wrappers take it at ``rung`` (a matmul precision,
+    or :data:`BF16`): one float32 part (an :class:`OnePass`), 2/3 bf16
+    parts, or at :data:`BF16` one bf16 part, the operator rounded to
+    nearest.  ``w`` is the float32 operator (split or rounded here) or a
+    tuple of parts already made for ``rung`` (as ``Curves.depth_parts`` and
+    ``Curves.prep_parts`` hold them), which is returned as is."""
+    parts = _SPLIT_PARTS.get(rung, 1)
     if isinstance(w, (tuple, list)):
-        if len(w) != parts:
-            raise ValueError(f"matmul_precision={precision!r} takes {parts} "
-                             f"operator part(s), got {len(w)}")
+        if len(w) != parts or (parts == 1 and (w[0].dtype == torch.bfloat16) != (rung == BF16)):
+            raise ValueError(f"rung {rung!r} takes {parts} operator part(s)"
+                             f"{' of bf16' if rung == BF16 else ''}, got {len(w)} "
+                             f"of {w[0].dtype}")
         return w if isinstance(w, OnePass) else tuple(w)
+    if rung == BF16:
+        return (w.to(torch.bfloat16).contiguous(),)
     return _split_bf16(w, parts) if parts > 1 else OnePass(w)
 
 
-def concat_operator(w_re, w_im, precision: str) -> Tuple[torch.Tensor, ...]:
+def concat_operator(w_re, w_im, rung: str) -> Tuple[torch.Tensor, ...]:
     """The concatenated operator [W_re | W_im] (n_in, 2*half) as the concat
-    kernels take it at ``precision``: at the default rung an
-    :class:`OnePass` of the wide float32 operator, whose three bf16 parts
-    the tensor-core route reads.  From the float32 operators it is
-    concatenated, then split, as the JAX package does; from parts already
-    split per axis (``Curves.depth_parts``) each part pair is concatenated,
-    which gives the same parts: the split is elementwise."""
+    kernels take it at ``rung``: at the default rung an :class:`OnePass` of
+    the wide float32 operator, whose three bf16 parts the tensor-core route
+    reads.  From the float32 operators it is concatenated, then split or
+    rounded, as the JAX package does; from parts already made per axis
+    (``Curves.depth_parts``) each part pair is concatenated, which gives the
+    same parts: the split and the rounding are elementwise."""
     if isinstance(w_re, (tuple, list)):
-        wide = tuple(torch.cat([r, i], dim=1)
-                     for r, i in zip(_operator_parts(w_re, precision),
-                                     _operator_parts(w_im, precision)))
-        return OnePass(wide[0]) if len(wide) == 1 else wide
-    return _operator_parts(torch.cat([w_re, w_im], dim=1), precision)
+        re, im = _operator_parts(w_re, rung), _operator_parts(w_im, rung)
+        wide = tuple(torch.cat([r, i], dim=1) for r, i in zip(re, im))
+        return OnePass(wide[0]) if isinstance(re, OnePass) else wide
+    return _operator_parts(torch.cat([w_re, w_im], dim=1), rung)
 
 
-def _check_compute_dtype(cfg: ProcConfig) -> None:
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            "compute_dtype='bfloat16' is not ported yet (ROADMAP.md Queue 1, A14)")
-
-
-def _check_fold_config(cfg: ProcConfig, depth_op_re, depth_op_im) -> None:
+def _check_fold_config(depth_op_re, depth_op_im) -> None:
     if depth_op_re is None or depth_op_im is None:
         raise ValueError(
             "cfg.fft_via_matmul is set but curves.depth_op_* is None -- "
             "build the curves with the same config (make_curves(acq, cfg, ...))")
-    _check_compute_dtype(cfg)
 
 
 def fused_depth_scale(
@@ -779,14 +815,15 @@ def fused_depth_scale(
     scaling.  ``mean2`` is float32 (2, half), the (re, im) FPN mean line
     (zeros when FPN is off).  The store dtype is ``cfg.output_dtype``.
     ``depth_op_re``/``depth_op_im`` are the float32 operators or their parts
-    already split for ``cfg.matmul_precision`` (``Curves.depth_parts``).
+    already made for the configuration's rung (:func:`operator_rung`,
+    ``Curves.depth_parts``).
     With ``cfg.fold_concat`` the concat kernels run against ``wide``, the
     concatenated operator's parts made once per curve build
     (``Curves.depth_concat_parts``), or, where it is None (curves carried in
     from the JAX package), against the operators concatenated here
     (:func:`concat_operator`): the same parts either way.
     ``cfg.fold_k_split`` and ``cfg.pallas_tile`` do not change the result."""
-    _check_fold_config(cfg, depth_op_re, depth_op_im)
+    _check_fold_config(depth_op_re, depth_op_im)
     lead_shape = raw.shape[:-1]
     raw2d = _predecode(raw.reshape(-1, raw.shape[-1]).contiguous(),
                        acq.bit_depth, cfg.bitshift)
@@ -795,16 +832,16 @@ def fused_depth_scale(
     half = mean2.shape[-1]
     a, b = _scale_affine(cfg.log_scaling, half, cfg.grayscale_min, cfg.grayscale_max,
                          cfg.addend, cfg.multiplicator)
+    rung = operator_rung(cfg)
     if cfg.fold_concat:
         if wide is None:
-            wide = concat_operator(depth_op_re, depth_op_im, cfg.matmul_precision)
+            wide = concat_operator(depth_op_re, depth_op_im, rung)
         mag = fold_depth_scale_concat(raw2d, wide, mean2, bitshift=cfg.bitshift,
                                       log_scaling=cfg.log_scaling, a=a, b=b,
                                       out_dtype=out_dtype)
     else:
         mag = fold_depth_scale(
-            raw2d, _operator_parts(depth_op_re, cfg.matmul_precision),
-            _operator_parts(depth_op_im, cfg.matmul_precision), mean2,
+            raw2d, _operator_parts(depth_op_re, rung), _operator_parts(depth_op_im, rung), mean2,
             bitshift=cfg.bitshift, log_scaling=cfg.log_scaling, a=a, b=b,
             fast_log=cfg.fast_log, out_dtype=out_dtype)
     return mag.reshape(*lead_shape, mag.shape[-1])
@@ -824,12 +861,12 @@ def fused_depth_transform(
     version (CPU tensors); ``fold_backend="xla"`` is plain torch matmuls on
     any device, as the JAX package's XLA route is plain jnp matmuls.  The
     operators are taken as :func:`fused_depth_scale` takes them."""
-    _check_fold_config(cfg, depth_op_re, depth_op_im)
+    _check_fold_config(depth_op_re, depth_op_im)
     lead_shape = raw.shape[:-1]
     raw2d = _predecode(raw.reshape(-1, raw.shape[-1]).contiguous(),
                        acq.bit_depth, cfg.bitshift)
-    w_re = _operator_parts(depth_op_re, cfg.matmul_precision)
-    w_im = _operator_parts(depth_op_im, cfg.matmul_precision)
+    w_re = _operator_parts(depth_op_re, operator_rung(cfg))
+    w_im = _operator_parts(depth_op_im, operator_rung(cfg))
     if cfg.fold_backend == "xla":
         re, im = depth_plain(raw2d, w_re, w_im, bitshift=cfg.bitshift)
     else:
@@ -848,19 +885,18 @@ def fused_prep(
     """Stages 1-3 of the FFT path in one kernel.
 
     raw: uint (..., n_in); prep_operator: the float32 (n_in, n_out) operator
-    of :func:`build_prep_operator` or its parts already split for
-    ``cfg.matmul_precision`` (``Curves.prep_parts``); phase: complex64
+    of :func:`build_prep_operator` or its parts already made for the
+    configuration's rung (``Curves.prep_parts``); phase: complex64
     (n_out,) phasor or None.  Returns complex64 (phase given) or float32
     (..., n_out).  ``cfg.pallas_tile`` does not change the result."""
     if prep_operator is None:
         raise ValueError(
             "cfg.use_pallas_prep is set but curves.prep_operator is None -- "
             "build the curves with the same config (make_curves(acq, cfg, ...))")
-    _check_compute_dtype(cfg)
     lead_shape = raw.shape[:-1]
     raw2d = _predecode(raw.reshape(-1, raw.shape[-1]).contiguous(),
                        acq.bit_depth, cfg.bitshift)
-    parts = _operator_parts(prep_operator, cfg.matmul_precision)
+    parts = _operator_parts(prep_operator, operator_rung(cfg))
     if phase is None:
         out = prep_real(raw2d, parts, bitshift=cfg.bitshift)
     else:

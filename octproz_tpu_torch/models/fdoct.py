@@ -42,7 +42,6 @@ class FdOctModel:
         if mesh is not None:
             raise NotImplementedError(
                 "multi-device meshes are not ported yet (ROADMAP.md Queue 1, A13)")
-        pipeline.check_supported(cfg)
         self.acq = acq
         self.cfg = cfg
         self.device = torch.device(device)
@@ -152,9 +151,10 @@ class FdOctModel:
 
     def set_config(self, **changes) -> None:
         """Replace ProcConfig fields mid-stream (grayscale range, FPN mode,
-        scaling, precision rung, ...)."""
-        cfg = dataclasses.replace(self.cfg, **changes)
-        step = pipeline.make_step(self.acq, cfg)  # refuses before any change
+        scaling, precision rung, compute dtype, ...); the curves are built
+        anew, so the held operator parts follow the new rung."""
+        cfg = dataclasses.replace(self.cfg, **changes)  # validates before any change
+        step = pipeline.make_step(self.acq, cfg)
         self.cfg = cfg
         self._rebuild_curves(publish=False)
         self._step = step

@@ -100,11 +100,17 @@ def apply_matmul(x: torch.Tensor, resample_matrix: torch.Tensor,
                  precision: str = "default") -> torch.Tensor:
     """Resample spectra by the dense operator: x (..., n_in) @ R.T.
 
-    "high"/"highest" run the same bf16 operand-split passes as the kernels
-    (kernels/fused_prep._dot_split); "default" is one float32 product."""
-    from ..kernels.fused_prep import _SPLIT_PARTS, _dot_split, _split_bf16
+    ``precision`` is a rung (``fused_prep.operator_rung``): "high"/"highest"
+    run the same bf16 operand-split passes as the kernels
+    (kernels/fused_prep._dot_split); "default" is one float32 product;
+    "bfloat16" (``compute_dtype="bfloat16"``) rounds x and R.T to bf16 and
+    takes one float32 product of them, as the JAX package's bf16 matmul
+    with ``preferred_element_type=float32`` does."""
+    from ..kernels.fused_prep import BF16, _SPLIT_PARTS, _dot_bf16, _dot_split, _split_bf16
 
     m = resample_matrix.T.to(torch.float32)
+    if precision == BF16:
+        return _dot_bf16(x.to(torch.float32), m)
     parts = _SPLIT_PARTS.get(precision)
     if parts:
         return _dot_split(x.to(torch.float32), _split_bf16(m, parts))

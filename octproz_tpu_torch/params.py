@@ -8,9 +8,9 @@ settings written for one package mean the same in the other.  What differs:
 * :class:`Curves` and :class:`FpnState` are plain dataclasses of tensors.
   ``FpnState.determined`` is a host ``bool``, so the FPN-once branch of the
   pipeline is a Python ``if`` with no device-to-host synchronisation.
-* Some :class:`ProcConfig` fields select paths this package does not run
-  yet; the pipeline refuses them with ``NotImplementedError`` (see
-  :func:`octproz_tpu_torch.pipeline.check_supported`).
+* ``compute_dtype="bfloat16"`` runs the same bf16 operand rule on the
+  tensor cores (``kernels/fused_prep``: x and the operator rounded to
+  bf16, one float32-accumulated product).
 """
 
 from __future__ import annotations
@@ -175,7 +175,9 @@ class ProcConfig:
     # --- build knobs (no reference equivalent) ---
     # Resample by a dense operator product instead of per-sample gathers.
     resample_via_matmul: bool = True
-    # Compute dtype of the spectral chain: "float32" or "bfloat16".
+    # Compute dtype of the spectral chain: "float32" or "bfloat16" (x and
+    # the operators rounded to bf16, one product accumulated in float32; the
+    # epilogues stay float32).
     compute_dtype: str = "float32"
     # Error budget of the folded GEMM, float32 compute:
     #   "default": one pass; on the CUDA kernel a float32-FMA GEMM
@@ -277,14 +279,16 @@ class Curves:
     phase: Optional[object] = None              # complex64[n] = exp(+i*phi)
     sinusoidal_curve: Optional[object] = None   # float32[ascans_per_bscan]
     post_background: Optional[object] = None    # float32[n//2]
-    # (re parts, im parts): depth_op_* split once for cfg.matmul_precision,
-    # so the hot path launches without re-splitting.  None: split per call.
+    # (re parts, im parts): depth_op_* split (or at compute_dtype="bfloat16"
+    # rounded to bf16) once for the configuration's rung
+    # (fused_prep.operator_rung), so the hot path launches without
+    # re-splitting.  None: split per call.
     depth_parts: Optional[object] = None
-    # prep_operator split once for cfg.matmul_precision (the FFT path's
-    # counterpart of depth_parts).  None: split per call.
+    # prep_operator in the same form, made once (the FFT path's counterpart
+    # of depth_parts).  None: made per call.
     prep_parts: Optional[object] = None
-    # With fold_concat: the parts of [depth_op_re | depth_op_im] for
-    # cfg.matmul_precision, concatenated once.  None: concatenated per call.
+    # With fold_concat: the parts of [depth_op_re | depth_op_im] for the
+    # configuration's rung, concatenated once.  None: concatenated per call.
     depth_concat_parts: Optional[object] = None
 
 

@@ -25,12 +25,11 @@ FFT path (``fft_via_matmul=False``), the reference's own order:
 
 Both branches end in the post stages (B-scan flip, sinusoidal correction,
 post background removal), which run in float32; a bfloat16 store narrows
-after them.  The FPN-once branch reads the host flag
-``FpnState.determined``: a Python ``if``, no device-to-host sync.
-
-Configurations the port does not run yet raise ``NotImplementedError``
-naming their ROADMAP.md item (:func:`check_supported`); nothing is routed
-to another path quietly.
+after them.  ``compute_dtype="bfloat16"`` rounds the GEMM operands (the
+kernels' x and operators, the torch-ops resampler's x and R) to bf16 and
+keeps every product and epilogue in float32.  The FPN-once branch reads
+the host flag ``FpnState.determined``: a Python ``if``, no device-to-host
+sync.
 """
 
 from __future__ import annotations
@@ -42,14 +41,6 @@ import torch
 
 from .ops import background, convert, dispersion, fft, fpn, postprocess, resample
 from .params import AcqParams, Curves, FpnMode, FpnState, ProcConfig
-
-
-def check_supported(cfg: ProcConfig) -> None:
-    """Raise NotImplementedError for configurations this package does not
-    run yet, naming the ROADMAP.md item that ports them."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            "compute_dtype='bfloat16' is not ported yet (ROADMAP.md Queue 1, A14)")
 
 
 def has_post(cfg: ProcConfig) -> bool:
@@ -88,8 +79,9 @@ def prep_spectra(raw: torch.Tensor, curves: Curves, acq: AcqParams,
         x = background.remove_background(x, cfg.rolling_average_window)
     if cfg.resampling:
         if cfg.resample_via_matmul:
-            x = resample.apply_matmul(x, curves.resample_matrix,
-                                      precision=cfg.matmul_precision)
+            from .kernels.fused_prep import operator_rung
+
+            x = resample.apply_matmul(x, curves.resample_matrix, precision=operator_rung(cfg))
         else:
             x = resample.apply_gather(x, curves.resample_curve, cfg.interpolation)
     return dispersion.prep_spectra(x, curves.window if cfg.windowing else None,
@@ -192,7 +184,6 @@ def process_buffer(
 ) -> Tuple[torch.Tensor, FpnState]:
     """raw uint (bscans, ascans, samples) -> (processed (bscans, ascans,
     samples//2) in cfg.output_dtype, new FPN state)."""
-    check_supported(cfg)
     branch = _fold_branch if cfg.fft_via_matmul else _fft_branch
     mag, fpn_state = branch(raw, curves, fpn_state, acq, cfg)
     return narrow(postprocess_volume(mag, curves, cfg), cfg), fpn_state
@@ -201,8 +192,7 @@ def process_buffer(
 def make_step(acq: AcqParams, cfg: ProcConfig):
     """``step(raw, curves, fpn_state) -> (processed, fpn_state)`` for a
     fixed (acq, cfg) pair.  PyTorch runs eagerly, so there is nothing to
-    compile; the configuration is checked once here."""
-    check_supported(cfg)
+    compile."""
 
     def step(raw, curves: Curves, fpn_state: FpnState):
         return process_buffer(raw, curves, fpn_state, acq, cfg)

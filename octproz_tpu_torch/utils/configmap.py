@@ -28,8 +28,7 @@ settings file selects the same configuration in both packages (the "tpu"
 group keeps its name; ``[tpu] fold_concat`` selects the concat fold
 kernels).  What the port does not run yet raises ``NotImplementedError``
 naming its ROADMAP.md item: the ``[plugins]`` group (plugin loading) in
-:func:`from_settings`, and a configuration that
-``pipeline.check_supported`` refuses in :func:`build_config`.
+:func:`from_settings`.
 """
 
 from __future__ import annotations
@@ -38,7 +37,6 @@ import dataclasses
 from typing import Any, Dict, Optional
 
 from ..params import AcqParams, FpnMode, Interpolation, ProcConfig, WindowType
-from ..pipeline import check_supported
 from .settings import SettingsManager
 
 # group names (sidebar.h:44-46: REC "record", PROC "processing",
@@ -353,6 +351,4 @@ def build_config(bundle: SettingsBundle,
                 "acquisition geometry required: pass --samples/--ascans/"
                 "--bscans or provide them in the settings file "
                 f"(missing: {', '.join(missing)})")
-    cfg = ProcConfig(**cfg_kw)
-    check_supported(cfg)
-    return AcqParams(**acq_kw), cfg
+    return AcqParams(**acq_kw), ProcConfig(**cfg_kw)

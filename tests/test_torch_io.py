@@ -489,11 +489,14 @@ def test_settings_round_trip_is_read_by_jax(tmp_path, seed):
 
 def test_settings_refusals_name_the_roadmap(tmp_path):
     """What the port does not run raises naming its ROADMAP.md item; bad
-    values raise as in the JAX package."""
-    b, _ = _both_bundles(tmp_path, INI.replace("matmul_precision = high",
-                                               "compute_dtype = bfloat16"))
-    with pytest.raises(NotImplementedError, match="A14"):
-        tconfigmap.build_config(b)
+    values raise as in the JAX package.  ``compute_dtype = bfloat16``, once
+    refused, now builds the same configuration as in the JAX package."""
+    b, jb = _both_bundles(tmp_path, INI.replace("matmul_precision = high",
+                                                "compute_dtype = bfloat16"))
+    acq, cfg = tconfigmap.build_config(b)
+    jacq, jcfg = jconfigmap.build_config(jb)
+    assert cfg.compute_dtype == "bfloat16" and _jax_cfg(cfg) == jcfg
+    assert dataclasses.asdict(acq) == dataclasses.asdict(jacq)
     path = tmp_path / "p.ini"
     path.write_text("[plugins]\nload = pkg.mod:factory\n")
     with pytest.raises(NotImplementedError, match="A12"):

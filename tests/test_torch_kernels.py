@@ -297,18 +297,30 @@ def test_fold_k_split_leaves_output_unchanged(np_rng):
         assert torch.equal(tfp.fused_depth_scale(raw, wre, wim, mean2, acq, cfg_k), base)
 
 
-def test_wrappers_refuse_unported_configs():
+def test_wrappers_refuse_unported_configs(np_rng):
+    """compute_dtype="bfloat16" was refused until it was ported: both fold
+    wrappers now run it -- the bf16 plain versions on the operators rounded
+    to one bf16 part, distinct from the float32 rung -- and only a missing
+    operator is refused."""
     acq, cfg, _, _ = _acq_cfg()
-    w = torch.zeros((N, N // 2))
-    raw = torch.zeros(acq.buffer_shape, dtype=torch.uint16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfp.fused_depth_scale(raw, w, w, torch.zeros(2, N // 2), acq,
-                              dataclasses.replace(cfg, compute_dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfp.fused_depth_transform(raw, w, w, acq,
-                                  dataclasses.replace(cfg, compute_dtype="bfloat16"))
+    bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    wre, wim = (torch.from_numpy(w) for w in _operators())
+    raw = torch.from_numpy(np_rng.integers(0, 4096, size=acq.buffer_shape).astype(np.uint16))
+    raw2d = raw.reshape(-1, N)
+    parts = (tfp._operator_parts(wre, tfp.BF16), tfp._operator_parts(wim, tfp.BF16))
+    mean2 = torch.zeros(2, N // 2)
+    a, b = tfp._scale_affine(True, N // 2, cfg.grayscale_min, cfg.grayscale_max, cfg.addend,
+                             cfg.multiplicator)
+    got = tfp.fused_depth_scale(raw, wre, wim, mean2, acq, bf16)
+    want = tfp.depth_scale_plain(raw2d, *parts, mean2, bitshift=True, log_scaling=True,
+                                 a=a, b=b)
+    assert torch.equal(got.reshape(want.shape), want)
+    assert not torch.equal(got, tfp.fused_depth_scale(raw, wre, wim, mean2, acq, cfg))
+    for g, w in zip(tfp.fused_depth_transform(raw, wre, wim, acq, bf16),
+                    tfp.depth_plain(raw2d, *parts, bitshift=True)):
+        assert torch.equal(g.reshape(w.shape), w)
     with pytest.raises(ValueError, match="depth_op"):
-        tfp.fused_depth_transform(raw, None, w, acq, cfg)
+        tfp.fused_depth_transform(raw, None, wim, acq, cfg)
 
 
 def test_no_plain_route_for_other_devices():
@@ -586,7 +598,7 @@ def test_cuda_one_pass_route_follows_the_input_type(cuda_device, np_rng):
         got = tfp.fold_depth(raw, wre, wim, bitshift=False)
         torch.cuda.synchronize()
         assert tfp.LAUNCHES["depth"] == 1 and tfp.LAUNCHES["depth_split"] == 0
-        assert tfp.ONE_PASS_ROUTES["depth"] == {**{"tensor_core": 0, "simt": 0}, route: 1}
+        assert tfp.ONE_PASS_ROUTES["depth"] == {**{"tensor_core": 0, "simt": 0, "tensor_core_bf16": 0}, route: 1}
         err = tfp.planar_error(got, tfp.depth_plain(raw, wre, wim, bitshift=False))
         assert err <= tfp.PLANAR_REL_L2, (route, err)
 
@@ -786,9 +798,14 @@ def test_prep_wrapper_refusals():
     raw = torch.zeros(acq.buffer_shape, dtype=torch.uint16)
     with pytest.raises(ValueError, match="prep_operator"):
         tfp.fused_prep(raw, None, None, acq, cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfp.fused_prep(raw, torch.zeros((N, N)), None, acq,
-                       dataclasses.replace(cfg, compute_dtype="bfloat16"))
+    # compute_dtype="bfloat16", once refused here, runs the real kernel's
+    # bf16 plain version on the rounded operator
+    op = torch.from_numpy(np.random.default_rng(2).normal(size=(N, N)).astype(np.float32))
+    ramp = (torch.arange(raw.numel(), dtype=torch.int32) % 4096).to(torch.uint16)
+    got = tfp.fused_prep(ramp.reshape(raw.shape), op, None, acq,
+                         dataclasses.replace(cfg, compute_dtype="bfloat16"))
+    want = tfp._dot_bf16(tfp._decode_block(ramp.reshape(-1, N), True), op)
+    assert torch.equal(got.reshape(want.shape), want)
     meta = torch.empty((8, N), dtype=torch.uint16, device="meta")
     w = torch.empty((N, N), device="meta")
     with pytest.raises(RuntimeError, match="no prep kernel"):
@@ -887,8 +904,8 @@ def test_cuda_prep_one_pass_route_follows_the_input_type(cuda_device, np_rng):
         real = tfp.prep_real(raw, one, bitshift=False)
         torch.cuda.synchronize()
         assert tfp.LAUNCHES["prep_phase"] == tfp.LAUNCHES["prep_real"] == 1
-        assert tfp.ONE_PASS_ROUTES["prep_phase"] == {**{"tensor_core": 0, "simt": 0}, route: 1}
-        assert tfp.ONE_PASS_ROUTES["prep_real"] == {**{"tensor_core": 0, "simt": 0}, route: 1}
+        assert tfp.ONE_PASS_ROUTES["prep_phase"] == {**{"tensor_core": 0, "simt": 0, "tensor_core_bf16": 0}, route: 1}
+        assert tfp.ONE_PASS_ROUTES["prep_real"] == {**{"tensor_core": 0, "simt": 0, "tensor_core_bf16": 0}, route: 1}
         err = tfp.prep_error(got, tfp.prep_phase_plain(raw, one, *rows, bitshift=False))
         assert err <= tfp.PREP_REL_L2, (route, err)
         assert tfp.prep_error(real, tfp.prep_real_plain(raw, one, bitshift=False)) \
@@ -1042,7 +1059,7 @@ def test_cuda_concat_one_pass_route_follows_the_input_type(cuda_device, np_rng):
         torch.cuda.synchronize()
         assert tfp.LAUNCHES["depth_scale_concat"] == 1
         assert tfp.ONE_PASS_ROUTES["depth_scale_concat"] == \
-            {**{"tensor_core": 0, "simt": 0}, route: 1}
+            {**{"tensor_core": 0, "simt": 0, "tensor_core_bf16": 0}, route: 1}
         _scale_close(got, want.cpu().numpy())
 
 

@@ -21,7 +21,9 @@ MODULES = ["octproz_tpu_torch", "octproz_tpu_torch.models.fdoct",
            "octproz_tpu_torch.io.recorder", "octproz_tpu_torch.io.volume",
            "octproz_tpu_torch.plugins", "octproz_tpu_torch.ops.quantize",
            "octproz_tpu_torch.utils.configmap", "octproz_tpu_torch.ab",
-           "octproz_tpu_torch.kernels.diagnose"]
+           "octproz_tpu_torch.kernels.diagnose", "octproz_tpu_torch.utils",
+           "octproz_tpu_torch.utils.profiling", "octproz_tpu_torch.utils.deviceinfo",
+           "octproz_tpu_torch.utils.console"]
 
 
 @pytest.mark.parametrize("module", MODULES)

@@ -197,6 +197,26 @@ SLICE_CONFIGS = {
     "fft-gather-linear-16bit": dict(fft_via_matmul=False, resample_via_matmul=False,
                                     interpolation=Interpolation.LINEAR, bit_depth=16,
                                     bitshift=False),
+    # compute_dtype="bfloat16": x and every operator rounded to bf16, one
+    # float32-accumulated product (B1 on the FPN buffer, B2 / B5 steady, B7
+    # / B8 on the FFT path; the torch-ops resampler likewise)
+    "bf16-fold": dict(compute_dtype="bfloat16"),
+    "bf16-fold-high-ignored": dict(compute_dtype="bfloat16", matmul_precision="high"),
+    "bf16-fold-xla": dict(compute_dtype="bfloat16", fold_backend="xla"),
+    "bf16-fold-concat": dict(compute_dtype="bfloat16", fold_concat=True),
+    "bf16-fold-concat-bf16-store": dict(compute_dtype="bfloat16", fold_concat=True,
+                                        output_dtype="bfloat16"),
+    "bf16-fold-fast-log": dict(compute_dtype="bfloat16", fast_log=True),
+    "bf16-fold-16bit": dict(compute_dtype="bfloat16", bit_depth=16, bitshift=False),
+    "bf16-fold-24bit": dict(compute_dtype="bfloat16", bit_depth=24, bitshift=False),
+    "bf16-fold-post-stages": dict(compute_dtype="bfloat16", bscan_flip=True,
+                                  sinusoidal_correction=True, post_background_removal=True),
+    "bf16-fft-prep": dict(compute_dtype="bfloat16", fft_via_matmul=False, use_pallas_prep=True),
+    "bf16-fft-prep-real": dict(compute_dtype="bfloat16", fft_via_matmul=False,
+                               use_pallas_prep=True, dispersion=False),
+    "bf16-fft-prep-8bit": dict(compute_dtype="bfloat16", fft_via_matmul=False,
+                               use_pallas_prep=True, bit_depth=8, bitshift=False),
+    "bf16-fft-matmul": dict(compute_dtype="bfloat16", fft_via_matmul=False),
 }
 
 
@@ -222,7 +242,8 @@ def test_model_matches_jax_buffer_by_buffer(name):
 
 
 @pytest.mark.parametrize("name", ["once-default", "once-high", "fpn-continuous",
-                                  "fft-prep-default", "fft-matmul", "fft-fpn-continuous"])
+                                  "fft-prep-default", "fft-matmul", "fft-fpn-continuous",
+                                  "bf16-fold", "bf16-fft-prep"])
 def test_scan_chunk_matches_jax(name):
     """strategy="scan" from a fresh FPN state: the state threads through the
     stack exactly as per-buffer calls."""
@@ -338,18 +359,21 @@ UNPORTED = [dict(compute_dtype="bfloat16"), dict(fold_concat=True, compute_dtype
 
 @pytest.mark.parametrize("changes", UNPORTED)
 def test_unported_configs_raise_naming_the_roadmap(changes):
-    """Outside the slice the port refuses; it never routes elsewhere."""
+    """These configurations (bf16 compute, with and without fold_concat)
+    were refused until they were ported: the constructor, make_step and
+    set_config now take them, and all three give the same output."""
     acq = AcqParams(samples_per_line=N, ascans_per_bscan=ASCANS, bscans_per_buffer=BSCANS)
     cfg = dataclasses.replace(default_full_config(), **changes)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        FdOctModel(acq, cfg, **KW, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tpipeline.make_step(acq, cfg)
-    tm, _ = _models()
-    before = tm.cfg
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tm.set_config(**changes)
-    assert tm.cfg is before
+    raw = _buffers(1, seed=31)[0]
+    tm = FdOctModel(acq, cfg, **KW, device="cpu")
+    assert tm.cfg is cfg
+    want = tm.process_buffer(raw)
+    step = tpipeline.make_step(acq, cfg)
+    got, _ = step(torch.from_numpy(raw), tm.curves, tpipeline.initial_fpn_state(acq, device="cpu"))
+    assert torch.equal(got, want)
+    other = FdOctModel(acq, default_full_config(), **KW, device="cpu")
+    other.set_config(**changes)
+    assert other.cfg == cfg and torch.equal(other.process_buffer(raw), want)
 
 
 def test_unported_entry_points_raise():
@@ -412,9 +436,9 @@ LADDER_KW = dict(resample_coeffs=(0.0, 127.0, 10.0, -4.0),
                  dispersion_coeffs=(0.0, 0.0, 8.0, 0.0), window_type=WindowType.HANNING)
 
 
-def _ladder(fpn_on: bool, **changes):
-    """PSNR (dB, display range) per rung vs the float64 oracle, as
-    tests/test_pallas.py:285-361 measures it."""
+def _ladder(fpn_on: bool, rungs=("default", "high", "highest"), **changes):
+    """PSNR (dB, display range) per rung (``bench.at_rung``) vs the float64
+    oracle, as tests/test_pallas.py:285-361 measures it."""
     import oracle
 
     cfg = ProcConfig(**{"resampling": True, "interpolation": Interpolation.CUBIC,
@@ -433,9 +457,8 @@ def _ladder(fpn_on: bool, **changes):
         addend=cfg.addend, coeff=cfg.multiplicator)
     ref = np.clip(np.asarray(want, np.float64), 0, 1)
     out = {}
-    for rung in ("default", "high", "highest"):
-        m = FdOctModel(LADDER_ACQ, dataclasses.replace(cfg, matmul_precision=rung),
-                       **LADDER_KW, device="cpu")
+    for rung in rungs:
+        m = FdOctModel(LADDER_ACQ, bench.at_rung(cfg, rung), **LADDER_KW, device="cpu")
         g = np.clip(m.fetch(m.process_buffer(raw)).astype(np.float64), 0, 1)
         out[rung] = 10 * np.log10(1.0 / max(float(np.mean((g - ref) ** 2)), 1e-30))
     return out
@@ -457,6 +480,18 @@ def test_precision_ladder_fpn_on():
     p = _ladder(fpn_on=True)
     assert p["high"] > 55.0, p
     assert p["highest"] > 80.0, p
+
+
+@pytest.mark.parametrize("path", [{}, dict(fold_concat=True), FFT_PREP,
+                                  dict(fft_via_matmul=False)],
+                         ids=["fold", "concat", "fft-prep", "fft-matmul"])
+def test_bf16_rung_vs_float64_oracle(path):
+    """compute_dtype="bfloat16" clears the default rung's 20 dB gate and
+    sits at least 20 dB below float32 compute on every path: a bf16 run
+    that took a float32-grade route would read as float32 (FPN off)."""
+    p = _ladder(False, rungs=("default", "bfloat16"), **path)
+    assert p["bfloat16"] >= bench.ORACLE_GATE_DB["bfloat16"], p
+    assert p["bfloat16"] <= p["default"] - 20.0, p
 
 
 @pytest.mark.parametrize("fpn_on", [False, True])

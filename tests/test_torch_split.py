@@ -678,6 +678,40 @@ def test_kernel_bound_of_the_prep_one_pass_routes(itemsize, ms):
     assert real["bytes"] == 131072 * 1024 * (itemsize + 4) + op
 
 
+@pytest.mark.parametrize("name,n_out,ms,by", [
+    ("depth", 512, 0.2779, "operations"), ("depth_scale", 512, 0.2779, "operations"),
+    ("depth_scale_concat", 512, 0.2779, "operations"), ("prep_phase", 1024, 0.4013, "bytes"),
+    ("prep_real", 1024, 0.2779, "operations")])
+def test_kernel_bound_of_the_bf16_route(name, n_out, ms, by):
+    """compute_dtype="bfloat16": one bf16 term of 275 GFLOP (0.278 ms at
+    989 TFLOP/s) against one bf16 part, on every input type; the phase
+    kernel's 1.07 GB of complex64 makes it bound by its bytes (0.401 ms at
+    3.35 TB/s)."""
+    for itemsize in (1, 2, 4):
+        got = bench.kernel_bound(name, n_out=n_out, in_itemsize=itemsize, bf16=True, **MAIN)
+        assert got["flops"] == 2 * 131072 * 1024 * 1024
+        if itemsize == 2:
+            assert got["bound_ms"] == pytest.approx(ms, abs=1e-4) and got["bound_by"] == by
+    gemms = 1 if name.startswith("prep") else 2
+    one_pass = bench.kernel_bound(name, n_out=n_out, **MAIN)
+    bf16 = bench.kernel_bound(name, n_out=n_out, bf16=True, **MAIN)
+    assert one_pass["bytes"] - bf16["bytes"] == gemms * 2 * 1024 * n_out * 2  # 3 parts -> 1
+    assert one_pass["flops"] == 3 * bf16["flops"]
+
+
+def test_library_operands_of_the_bf16_route():
+    """The bf16 route's yardstick: cuBLAS's bf16 product of x rounded to
+    nearest and the rounded parts; the split rungs' x_hi stays the mask
+    truncation."""
+    x = torch.tensor([[257.0, 259.0, 3.0]])
+    w = torch.ones((3, 2))
+    a, b = bench.library_operands(x, [tfp._operator_parts(w, tfp.BF16)] * 2)
+    assert a.dtype == b.dtype == torch.bfloat16 and tuple(b.shape) == (3, 4)
+    assert a.float().tolist() == [[256.0, 260.0, 3.0]]
+    a_hi, _ = bench.library_operands(x, [tfp._operator_parts(w, "high")])
+    assert a_hi.float().tolist() == [[256.0, 258.0, 3.0]]
+
+
 def test_kernel_bound_counts_terms_and_bytes():
     """With x_lo nonzero all three "high" terms count (0.834 ms); B4 moves
     the raw buffer, four bf16 parts, the mean line and the float32 image
