@@ -47,7 +47,26 @@ nonzero and the final line is not printed:
    full size as in phase 4, and the engine's A-scan rate
    with the upload included (buffers over wall time, 3 s after warm-up)
    beside the steady ``process_buffer`` rate;
-7. bf16: ``compute_dtype="bfloat16"`` -- the bf16 route of the five
+7. acquisition: the acquisition back ends and plugin loading, every engine
+   run on the two-operator benchmark chain's kernels, with the launch
+   counts read around each (B1 once for the FPN buffer, B2 once per steady
+   buffer, nothing else, every launch on the tensor cores): a producer
+   thread writes full 1024 x 512 x 256 buffers into a ``HardwareRingSource``
+   of four slots (the native aligned ring) and ``StreamingEngine`` streams
+   them -- three buffers recorded in float32 against ``process_buffer``,
+   then the engine's A-scan rate over about 3 s after warm-up, on the ring
+   and on the same buffers replayed from RAM, beside the steady
+   ``process_buffer`` rate and the ring's host stages alone
+   (``bench.ring_ms``); a plugin module loaded through
+   ``plugins.load_plugin`` registers the PhytoOCT system and three bundled
+   extensions, the system runs at its device's defaults for two volumes
+   through the engine (every buffer against ``process_buffer`` on the
+   device model's buffer, every extension fed every buffer) and each
+   calibration stage is shown to cancel its artifact on the card's output;
+   the dispersion estimator recovers d2 = 35 and d3 = -25 within 5 on the
+   card, and at full width (a PhytoOCT buffer, 512 lines) reaches the host
+   CPU's best sharpness;
+8. bf16: ``compute_dtype="bfloat16"`` -- the bf16 route of the five
    one-pass families (B1/B2/B5/B7/B8: x rounded to nearest, one rounded
    bf16 operator part, one term) against its plain version on uint8,
    shifted and unshifted 12-bit, full 16-bit and float32 lines and the
@@ -59,20 +78,20 @@ nonzero and the final line is not printed:
    that run (every launch of the five families on the bf16 route, none on
    another), each steady output at full size against the float64 product
    of the rounded operands (the prep output against its plain version);
-8. fidelity: the golden pair and the float64-oracle ladder on the fold,
+9. fidelity: the golden pair and the float64-oracle ladder on the fold,
    concat and FFT paths (bf16 at least at the default gate and 20 dB below
    the default rung; its golden pair recorded, not gated), the golden pair
    through the concat kernels (``fold_concat``, the buffer's steady-state
    output) at the default and the "high" rung, and the prep output of the
    phase and the real kernels against float64 per rung (default and
    "highest" at least 20 dB above "high");
-9. trace: one ``utils.profiling.trace`` of ``StreamingEngine.run`` on the
+10. trace: one ``utils.profiling.trace`` of ``StreamingEngine.run`` on the
    concat path at the default rung, uint16 wire, after a warm-up run: the
    device's busy time (the union of its kernels and copies), its idle share
    over the traced window, the top device operations and the longest idle
    gaps with the host operations that overlap them; a trace without CUDA
    events fails;
-10. times: steady-state ms per buffer and MHz on both paths at every timed
+11. times: steady-state ms per buffer and MHz on both paths at every timed
    rung, bf16 included (the FFT path split into prep kernel, FFT and FPN
    plus scaling), and each kernel beside its plain version, the library
    call for its product (``bench.library_operands``) and its bound
@@ -86,6 +105,7 @@ comes from ``tests/oracle.py`` (numpy only).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -181,6 +201,9 @@ def phase_device():
 
 
 def phase_build():
+    """The CUDA kernels and the native host library (the acquisition ring),
+    both before any producer thread starts."""
+    from octproz_tpu_torch import native
     from octproz_tpu_torch.kernels import build
 
     t0 = time.perf_counter()
@@ -192,6 +215,10 @@ def phase_build():
               and "0 bytes spill stores, 0 bytes spill loads" not in l]
     log(f"[build] {build.library_path()} in {took:.1f} s; {len(regs)} kernels, "
         f"max {max(regs) if regs else 'n/a'} registers; spills: {spills or 'none'}")
+    t0 = time.perf_counter()
+    if not native.native_available():
+        raise AssertionError("the native host library (g++) did not build")
+    log(f"[build] {native.library_path()} in {time.perf_counter() - t0:.1f} s")
     return took
 
 
@@ -1209,7 +1236,6 @@ def _record_stream(cfg, source, wire, chunk, directory, dev, tag):
     both recorded buffers come out of one batch kernel; per buffer, the
     run's first buffer determines the FPN and the second is steady."""
     from octproz_tpu_torch import bench
-    from octproz_tpu_torch.io.recorder import RecordingParams
     from octproz_tpu_torch.models.fdoct import FdOctModel
     from octproz_tpu_torch.runtime import StreamingEngine
 
@@ -1220,19 +1246,13 @@ def _record_stream(cfg, source, wire, chunk, directory, dev, tag):
                              else model.put_packed_buffer(source.read_buffer(0)))
     eng = StreamingEngine(model, source, wire_format=wire, stream_to_host=True,
                           dispatch_chunk=chunk, chunk_strategy="batch" if chunk > 1 else "auto")
-    eng.start_recording(RecordingParams(save_dir=directory, name=f"{wire}{chunk}",
-                                        buffers_to_record=2, save_raw=False,
-                                        save_processed=True, save_as_32bit_float=True,
-                                        save_meta=False))
+    eng.start_recording(_recording(directory, f"{wire}{chunk}", 2))
     want = max(chunk, 2)
     n, counts = _engine_launches(lambda: eng.run(max_buffers=want), cfg.matmul_precision,
                                  lambda n: n // chunk if chunk > 1 else n - 1, tag)
-    path = eng.processed_recorder.last_file
-    if n != want or path is None:
-        raise AssertionError(f"{tag}: {n} buffers, recording {path}")
-    out = np.fromfile(path, np.float32).reshape(2, *acq.processed_buffer_shape)
-    os.remove(path)
-    return out, counts
+    if n != want:
+        raise AssertionError(f"{tag}: {n} buffers, want {want}")
+    return _recorded(eng, 2, acq.processed_buffer_shape, tag), counts
 
 
 def phase_stream(worst, info):
@@ -1313,6 +1333,431 @@ def phase_stream(worst, info):
                     f"warm-up, {rate['wire_mb_per_s']:.0f} MB/s wire; 1 s windows "
                     f"{min(spread, default=0):.3f}-{max(spread, default=0):.3f} MHz); steady "
                     f"process_buffer {lines / ms / 1e3:.3f} MHz ({ms:.3f} ms/buffer) ({card})")
+    return launches
+
+
+#: The acquisition phase's plugin module, written to a temporary directory
+#: on ``sys.path`` and loaded through ``plugins.load_plugin`` as a third
+#: party's would be: the PhytoOCT system and three bundled extensions.
+ACQ_PLUGIN = '''
+from octproz_tpu_torch.extensions import (ImageStatisticsExtension, PeakDetectorExtension,
+                                          SignalMonitorExtension)
+from octproz_tpu_torch.io import phytooct
+
+
+def octproz_plugin(ctx):
+    phytooct.register(ctx.systems)
+    for ext in (ImageStatisticsExtension, PeakDetectorExtension, SignalMonitorExtension):
+        ctx.register_extension(ext)
+'''
+#: The engine's own threads, which read the source until they end.
+ENGINE_THREADS = ("octproz-acquisition", "octproz-upload")
+#: tests/test_phytooct.py's small device, for the stage properties.
+PHYTO_SMALL = dict(samples_per_line=256, ascans_per_bscan=64, bscans_per_buffer=2,
+                   buffers_per_volume=1, exposure_us=0.0, shot_noise=0.0005)
+
+
+def _acquisition_launches(run, need, tag):
+    """``run()`` -- one ``StreamingEngine`` run on the two-operator fold path
+    -- between a reset and a read of the launch counts: B1 (``depth``) once,
+    for the FPN buffer, B2 (``depth_scale``) ``need(result)`` times, once
+    per steady buffer, no other family, every launch on the tensor cores."""
+    import torch
+
+    from octproz_tpu_torch.kernels import fused_prep as fp
+
+    torch.cuda.synchronize()
+    fp.reset_launch_counts()
+    result = run()
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in fp.LAUNCHES.items() if v}
+    want = {"depth": 1, "depth_scale": need(result)}
+    if launches != want:
+        raise AssertionError(f"{tag}: the engine run launched {launches}; want {want}")
+    _check_routes(launches, tag)
+    log(f"[acq] {tag}: launches {launches}, every one on the tensor cores")
+    return result, launches
+
+
+@contextlib.contextmanager
+def _fed_ring(acq, frames, count):
+    """A ``HardwareRingSource`` of four full-width slots with a producer
+    thread writing ``frames`` into it in turn -- ``count`` of them, or
+    until the block ends when ``count`` is None -- then finishing the
+    stream (the count contract).  At exit the producer is stopped and
+    joined, then the engine's threads, and only then is the ring closed:
+    closing frees the slots they read."""
+    import threading
+
+    from octproz_tpu_torch.io.hwbridge import HardwareRingSource
+
+    src = HardwareRingSource(acq, n_slots=4)
+    stop = threading.Event()
+
+    def produce():
+        try:
+            i = 0
+            while (count is None or i < count) and not stop.is_set():
+                try:
+                    src.write_blocking(frames[i % len(frames)], timeout_s=1.0)
+                except TimeoutError:
+                    continue  # the ring is full: look at ``stop`` again
+                i += 1
+        finally:
+            src.finish()
+
+    producer = threading.Thread(target=produce, name="acq-producer", daemon=True)
+    producer.start()
+    try:
+        yield src
+    finally:
+        stop.set()
+        _join_threads((producer,), ENGINE_THREADS)
+        src.close()
+
+
+def _join_threads(threads, names=()):
+    """Join ``threads`` and every live thread named in ``names``, or fail."""
+    import threading
+
+    for t in [*threads, *(t for t in threading.enumerate() if t.name in names)]:
+        t.join(timeout=60.0)
+        if t.is_alive():
+            raise AssertionError(f"thread {t.name} did not end")
+
+
+def _recording(directory, name, count):
+    from octproz_tpu_torch.io.recorder import RecordingParams
+
+    return RecordingParams(save_dir=directory, name=name, buffers_to_record=count,
+                           save_raw=False, save_processed=True, save_as_32bit_float=True,
+                           save_meta=False)
+
+
+def _recorded(eng, count, shape, tag):
+    """The ``count`` buffers of the engine run's float32 recording."""
+    path = eng.processed_recorder.last_file
+    if path is None:
+        raise AssertionError(f"{tag}: no float32 recording was written")
+    out = np.fromfile(path, np.float32).reshape(count, *shape)
+    os.remove(path)
+    return out
+
+
+def _hold_to_reference(got, want, tag):
+    """Each recorded buffer against ``process_buffer``'s on the same raw
+    buffer, within ``fused_prep.scale_error``'s bounds."""
+    import torch
+
+    from octproz_tpu_torch.kernels import fused_prep as fp
+
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        rms, err, ok = fp.scale_error(torch.from_numpy(g), torch.from_numpy(w))
+        if not ok:
+            raise AssertionError(f"{tag} buffer {i} differs from process_buffer: "
+                                 f"RMS {rms:.3e}, max {err:.3e}")
+        worst = max(worst, err)
+    log(f"[acq] {tag}: {len(got)} streamed buffers == process_buffer within the scale "
+        f"bounds (max {worst:.3e})")
+
+
+def _acquisition_ring(info, dev):
+    """Part 1: a producer thread fills a ``HardwareRingSource`` of four
+    full-width slots; the engine runs the two-operator benchmark chain."""
+    import tempfile
+
+    from octproz_tpu_torch import bench
+    from octproz_tpu_torch.models.fdoct import FdOctModel
+    from octproz_tpu_torch.runtime import StreamingEngine
+
+    acq, cfg = bench.FULL_ACQ, bench.bench_config()
+    card = f"{info['device_name']}, power limit {info['power_limit']}"
+    frames = [b.numpy() for b in bench.random_buffers(acq, 4, dev, seed=70).cpu()]
+    ref_model = FdOctModel(acq, cfg, **bench.CURVE_KW, device=dev)
+    want = [ref_model.fetch(ref_model.process_buffer(f)) for f in frames[:3]]
+    del ref_model
+    with tempfile.TemporaryDirectory() as tmp, _fed_ring(acq, frames, 3) as src:
+        eng = StreamingEngine(FdOctModel(acq, cfg, **bench.CURVE_KW, device=dev), src,
+                              stream_to_host=True)
+        eng.start_recording(_recording(tmp, "ring", 3))
+        n, totals = _acquisition_launches(eng.run, lambda n: n - 1,
+                                          "hardware ring, recorded run")
+        if n != 3:
+            raise AssertionError(f"hardware ring: the engine processed {n} of 3 buffers")
+        _hold_to_reference(_recorded(eng, 3, acq.processed_buffer_shape, "hardware ring"),
+                           want, f"hardware ring (FPN buffer + 2 steady, "
+                                 f"{'x'.join(map(str, acq.buffer_shape[::-1]))})")
+    with _fed_ring(acq, frames, None) as src:
+        rate, launches = _acquisition_launches(
+            lambda: bench.engine_rate(cfg, dev, src, "uint16", seconds=3.0),
+            lambda r: r["buffers"] - 1, "hardware ring, rate run")
+    for k in totals:
+        totals[k] += launches[k]
+    replay, launches = _acquisition_launches(
+        lambda: bench.engine_rate(cfg, dev, _Replay(acq, frames), "uint16", seconds=3.0),
+        lambda r: r["buffers"] - 1, "the same buffers replayed from RAM, rate run")
+    for k in totals:
+        totals[k] += launches[k]
+    stages = bench.ring_ms(acq, frames[0])
+    ms = bench.steady_ms_per_buffer(cfg, dev)
+    lines = acq.ascans_per_buffer
+    for what, r in (("hardware ring", rate), ("RAM replay (no ring)", replay)):
+        spread = r["window_mhz"]
+        log(f"[acq] {what}, two-operator path (default rung), uint16: engine "
+            f"{r['mhz']:.3f} MHz A-scans with the upload and the quantized fetch "
+            f"({r['timed_buffers']} buffers in {r['timed_s']:.3f} s after warm-up; 1 s "
+            f"windows {min(spread, default=0):.3f}-{max(spread, default=0):.3f} MHz); steady "
+            f"process_buffer {lines / ms / 1e3:.3f} MHz ({ms:.3f} ms/buffer) ({card})")
+    log("[acq] ring stages alone per buffer (host clock): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in stages.items()) + f" ({card})")
+    return totals
+
+
+class _Replay:
+    """The same host buffers without end, handed out as they are (no copy):
+    the engine's source when the ring's copies are left out."""
+
+    def __init__(self, acq, frames):
+        self.acq, self._frames = acq, frames
+
+    def buffers(self):
+        i = 0
+        while True:
+            yield self._frames[i % len(self._frames)]
+            i += 1
+
+
+def _stage_properties(dev):
+    """tests/test_phytooct.py's stage properties on the card's output: the
+    k-lin + dispersion concentration, the sinusoidal residual, the flip
+    alignment, each on its small device."""
+    from octproz_tpu_torch.io.phytooct import PhytoDeviceConfig, PortableOctSystem
+    from octproz_tpu_torch.models.fdoct import FdOctModel
+    from octproz_tpu_torch.params import FpnMode
+
+    def run(sys_, cfg):
+        model = FdOctModel(sys_.acq, cfg, **sys_.curve_kwargs(), device=dev)
+        return model.fetch(model.process_buffer(sys_.model.buffer(0)))
+
+    def system(**kw):
+        return PortableOctSystem(PhytoDeviceConfig(**PHYTO_SMALL, **kw))
+
+    sys_ = system(bidirectional=False, surface_tilt=0.0, fpn_strength=0.0, k_warp=0.25,
+                  surface_depth=0.35, n_layers=0)
+    base = dataclasses.replace(sys_.recommended_config(), log_scaling=False,
+                               fpn_mode=FpnMode.OFF, sinusoidal_correction=False,
+                               bscan_flip=False)
+
+    def concentration(cfg):
+        ascan = run(sys_, cfg)[0].mean(axis=0)
+        peak = int(np.argmax(ascan[4:]) + 4)
+        return float(ascan[max(peak - 3, 0):peak + 4].sum() / ascan[4:].sum())
+
+    sharp = concentration(base)
+    blurred = concentration(dataclasses.replace(base, resampling=False, dispersion=False))
+    sys_.close()
+    sys_ = system(bidirectional=False, surface_tilt=0.16, n_layers=0, fpn_strength=0.0)
+    cfg = dataclasses.replace(sys_.recommended_config(), fpn_mode=FpnMode.OFF,
+                              bscan_flip=False)
+
+    def surface_residual(cfg):
+        depths = np.argmax(run(sys_, cfg)[0][:, 4:], axis=1).astype(np.float64)
+        a = np.arange(depths.size)
+        slope, icept = np.polyfit(a, depths, 1)
+        return float(np.abs(depths - (slope * a + icept)).mean())
+
+    corrected = surface_residual(cfg)
+    distorted = surface_residual(dataclasses.replace(cfg, sinusoidal_correction=False))
+    sys_.close()
+    sys_ = system(surface_tilt=0.16, n_layers=0, fpn_strength=0.0)
+    cfg = dataclasses.replace(sys_.recommended_config(), fpn_mode=FpnMode.OFF,
+                              sinusoidal_correction=False)
+
+    def surfaces(cfg):
+        vol = run(sys_, cfg)
+        return [np.argmax(vol[i][:, 4:], axis=1).astype(np.float64) for i in (0, 1)]
+
+    d0, d1 = surfaces(cfg)
+    d0r, _ = surfaces(dataclasses.replace(cfg, bscan_flip=False))
+    sys_.close()
+    flipped, unflipped = float(np.abs(d0 - d1).mean()), float(np.abs(d0r - d1).mean())
+    log(f"[acq] PhytoOCT stages on the card: concentration {sharp:.4f} calibrated vs "
+        f"{blurred:.4f} without k-lin and dispersion; surface residual {corrected:.3f} "
+        f"vs {distorted:.3f} without the sinusoidal correction; B-scan 0 vs 1 surface "
+        f"{flipped:.3f} flipped vs {unflipped:.3f} unflipped")
+    if not (sharp > 1.3 * blurred and sharp > 0.8):
+        raise AssertionError("k-lin + dispersion do not concentrate the reflector")
+    if not corrected < 0.6 * distorted:
+        raise AssertionError("the sinusoidal correction does not linearize the surface")
+    if not (flipped < 2.0 and unflipped > 4.0):
+        raise AssertionError("the B-scan flip does not align alternate B-scans")
+
+
+def _acquisition_phytooct(dev):
+    """Part 2: the PhytoOCT system registered by a plugin, at the device's
+    defaults (1024 samples, 256 A-scans, 8 B-scans, 4 buffers per volume,
+    two volumes), through the engine with the plugin's extensions."""
+    import tempfile
+
+    from octproz_tpu_torch.io.systems import SystemRegistry
+    from octproz_tpu_torch.models.fdoct import FdOctModel
+    from octproz_tpu_torch.plugins import ExtensionManager, PluginContext, load_plugin
+    from octproz_tpu_torch.runtime import StreamingEngine
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with open(os.path.join(tmp, "smoke_phyto_plugin.py"), "w") as f:
+            f.write(ACQ_PLUGIN)
+        sys.path.insert(0, tmp)
+        try:
+            ctx = PluginContext(extensions=ExtensionManager(), systems=SystemRegistry())
+            load_plugin("smoke_phyto_plugin", ctx)
+        finally:
+            sys.path.remove(tmp)
+            sys.modules.pop("smoke_phyto_plugin", None)
+        exts = ctx.extensions.extensions
+        if ctx.systems.names != ["phytooct"] or len(exts) != 3:
+            raise AssertionError(f"the plugin registered {ctx.systems.names}, {list(exts)}")
+        seen = {}
+        for name, ext in exts.items():
+            ext.activate()
+            method = "raw_data_received" if ext.wants_raw_data else "processed_data_received"
+
+            def counted(*args, _feed=getattr(ext, method), _name=name):
+                seen.setdefault(_name, []).append(args[-1])
+                _feed(*args)
+
+            setattr(ext, method, counted)
+
+        system = ctx.systems.activate("phytooct", overrides={"n_volumes": 2})
+        try:
+            acq = system.acq
+            cfg, curve_kw = system.recommended_config(), system.curve_kwargs()
+            eng = StreamingEngine(FdOctModel(acq, cfg, **curve_kw, device=dev), system,
+                                  extensions=ctx.extensions, stream_to_host=True)
+            eng.start_recording(_recording(tmp, "phyto", system.n_buffers))
+            t0 = time.perf_counter()
+            n, launches = _acquisition_launches(eng.run, lambda n: n - 1,
+                                                "PhytoOCT system (plugin)")
+            took = time.perf_counter() - t0
+            _join_threads((), ENGINE_THREADS)
+        finally:
+            ctx.systems.deactivate()  # joins the producer, frees the ring
+        if n != system.n_buffers or n != 8:
+            raise AssertionError(f"PhytoOCT: the engine processed {n} buffers, want 8")
+        got = _recorded(eng, n, acq.processed_buffer_shape, "PhytoOCT")
+    t0 = time.perf_counter()
+    raws = [system.model.buffer(i) for i in range(n)]
+    model_ms = (time.perf_counter() - t0) / n * 1e3
+    ref = FdOctModel(acq, cfg, **curve_kw, device=dev)
+    want = [ref.fetch(ref.process_buffer(raw)) for raw in raws]
+    _hold_to_reference(got, want, f"PhytoOCT system ({acq.samples_per_line} samples x "
+                                  f"{acq.ascans_per_bscan} A-scans x {acq.bscans_per_buffer} "
+                                  f"B-scans, 2 volumes, paced by its camera)")
+    log(f"[acq] PhytoOCT: {n} buffers in {took:.3f} s (the device's 20 us line period "
+        f"paces {acq.ascans_per_buffer * 20e-6 * n:.3f} s; its numpy model makes a buffer "
+        f"in {model_ms:.1f} ms on the host)")
+    nrs = [i % acq.buffers_per_volume for i in range(n)]
+    if any(seen.get(name) != nrs for name in exts):
+        raise AssertionError(f"the extensions saw buffers {seen}, want {nrs} each")
+    stats, peaks = exts["image-statistics"].last, exts["peak-detector"].last_peaks
+    if stats.histogram.sum() != acq.samples_per_buffer // 2 or not peaks:
+        raise AssertionError("the extensions' outputs are empty")
+    log(f"[acq] extensions saw every buffer ({nrs}): image statistics mean {stats.mean:.2f} "
+        f"of {stats.maximum:.0f}, {len(peaks)} peaks at A-scan (0, 0) (strongest at bin "
+        f"{peaks[0].index}), raw maximum {exts['signal-monitor'].last.maximum}")
+    _stage_properties(dev)
+    return launches
+
+
+def _timed_search(raw, acq, cfg, curves, device):
+    """``estimate_dispersion_coeffs`` with its default search (41 x 41, two
+    15 x 15 zooms; up to 512 lines) on ``device``, after a short warm-up
+    search there (cuFFT plans): (d2, d3, metric), host seconds."""
+    import torch
+
+    from octproz_tpu_torch.extensions import estimate_dispersion_coeffs
+
+    estimate_dispersion_coeffs(raw, acq, cfg, curves, n_grid=5, refine_iters=1, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    found = estimate_dispersion_coeffs(raw, acq, cfg, curves, device=device)
+    return found, time.perf_counter() - t0
+
+
+def _acquisition_dispersion(info, dev):
+    """Part 3: the dispersion estimator on the card -- on
+    tests/test_extensions.py's chirped interferogram (d2 = 35, d3 = -25),
+    which it must recover within 5, and at full width on a PhytoOCT buffer
+    at the device's geometry (512 lines of 1024 samples, 32 candidates --
+    128 MB of complex64 -- per inverse FFT), held to the same search on the
+    host CPU: the sharpness landscape is flat there, so the card and the CPU
+    must reach the same best metric (relative 1e-4) and their d2 and d3 are
+    logged side by side."""
+    import torch
+
+    from octproz_tpu_torch import curves as cv
+    from octproz_tpu_torch.io.phytooct import PhytoDeviceConfig, PortableOctSystem
+    from octproz_tpu_torch.params import AcqParams, ProcConfig, WindowType
+
+    card = f"{info['device_name']}, power limit {info['power_limit']}"
+    candidates = 41 * 41 + 2 * 225
+    acq = AcqParams(samples_per_line=256, ascans_per_bscan=32, bscans_per_buffer=1,
+                    buffers_per_volume=1, bit_depth=12)
+    n, d2_true, d3_true = acq.samples_per_line, 35.0, -25.0
+    phi = np.asarray(cv.polynomial_curve(cv.normalize_poly_coeffs(0.0, 0.0, d2_true, d3_true,
+                                                                  n), n))
+    line = 2000 + 1000 * np.cos(2 * np.pi * 40.0 * np.arange(n) / n + phi)
+    raw = np.clip(np.tile(line, (1, acq.ascans_per_bscan, 1)), 0, 4095).astype(np.uint16)
+    cfg = ProcConfig(windowing=True, dispersion=True)
+    curves = cv.make_curves(acq, cfg, window_type=WindowType.HANNING, device=dev)
+    (d2, d3, metric), took = _timed_search(raw, acq, cfg, curves, dev)
+    log(f"[acq] dispersion estimator on the card: d2 {d2:.3f}, d3 {d3:.3f} (true 35, -25), "
+        f"metric {metric:.6f}, {candidates} candidates of {acq.ascans_per_bscan} x {n} in "
+        f"{took:.3f} s ({card})")
+    if abs(d2 - d2_true) >= 5.0 or abs(d3 - d3_true) >= 5.0:
+        raise AssertionError(f"the estimator found d2 {d2}, d3 {d3}; want 35, -25 within 5")
+
+    system = PortableOctSystem(PhytoDeviceConfig())
+    try:
+        acq, cfg = system.acq, system.recommended_config()
+        raw = system.model.buffer(0)
+        found = {}
+        for where, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            curves = cv.make_curves(acq, cfg, custom_resample_curve=system.model.klin_curve(),
+                                    device=device)
+            found[where] = _timed_search(raw, acq, cfg, curves, device)
+    finally:
+        system.close()
+    (d2, d3, metric), took = found["card"]
+    (cd2, cd3, cmetric), ctook = found["cpu"]
+    log(f"[acq] dispersion estimator at full width (PhytoOCT buffer, 512 lines x "
+        f"{acq.samples_per_line} samples): card d2 {d2:.3f}, d3 {d3:.3f}, metric {metric:.6e} "
+        f"in {took:.3f} s ({card}); host CPU d2 {cd2:.3f}, d3 {cd3:.3f}, metric {cmetric:.6e} "
+        f"in {ctook:.3f} s")
+    if abs(metric - cmetric) > 1e-4 * abs(cmetric):
+        raise AssertionError("the card's full-width search disagrees with the CPU's")
+
+
+def phase_acquisition(info):
+    """The acquisition back ends at full width: see the module docstring,
+    phase 7.  Returns B1's and B2's launch counts, summed over the phase's
+    engine runs."""
+    import torch
+
+    from octproz_tpu_torch import native
+
+    if not native.native_available():
+        raise AssertionError("the native host library is not available")
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    launches = _acquisition_ring(info, dev)
+    for k, v in _acquisition_phytooct(dev).items():
+        launches[k] += v
+    _acquisition_dispersion(info, dev)
+    log(f"[main] acquisition launches {launches}, summed over the engine runs "
+        f"({time.perf_counter() - t0:.1f} s)")
     return launches
 
 
@@ -1658,6 +2103,8 @@ def main() -> None:
     worst = phase_kernels()
     launches = {**phase_main_path(worst), **phase_fft_path(worst)}
     launches.update(phase_stream(worst, info))
+    for k, v in phase_acquisition(info).items():
+        launches[k] += v
     launches.update({BF16_ROWS[k]: v for k, v in phase_bf16_path(worst).items()})
     phase_fidelity()
     phase_trace(info)

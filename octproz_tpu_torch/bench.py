@@ -551,6 +551,35 @@ def transfer_ms(device, source_u16, source_p12, reps: int = 5) -> Dict[str, floa
     return out
 
 
+def ring_ms(acq: AcqParams, frame: np.ndarray, reps: int = 5) -> Dict[str, float]:
+    """The host stages of a buffer through ``io.hwbridge.HardwareRingSource``
+    on their own, host clock, mean over ``reps``: ``write`` (the producer's
+    ``write_blocking`` into a slot), ``read`` (``buffers()`` handing out a
+    copy of the slot) and ``stage`` (the engine's copy of that buffer into
+    pinned memory)."""
+    from .io.hwbridge import HardwareRingSource
+
+    src = HardwareRingSource(acq, n_slots=2)
+    out = dict.fromkeys(("write", "read", "stage"), 0.0)
+    try:
+        stream = src.buffers()
+        pinned = torch.empty(frame.shape, dtype=acq.raw_dtype, pin_memory=True)
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            src.write_blocking(frame)
+            t1 = time.perf_counter()
+            buf = next(stream)
+            t2 = time.perf_counter()
+            pinned.copy_(torch.from_numpy(buf))
+            t3 = time.perf_counter()
+            for key, span in zip(out, (t1 - t0, t2 - t1, t3 - t2)):
+                out[key] += span * 1e3 / reps
+            del buf
+    finally:
+        src.close()
+    return out
+
+
 def stream_path_record(device) -> Dict[str, object]:
     """The ``paths.stream`` record: the concat path's steady state and the
     engine's rate on both wires, per buffer and in batch chunks of four,

@@ -8,8 +8,8 @@ is the reference's de-facto test harness
 (octproz_plugins/octproz-virtual-oct-system/src/virtualoctsystem.cpp:163-353).
 A source is an iterator of numpy buffers shaped (bscans, ascans, samples)
 (or packed-12 wire bytes); the runtime moves them to the device.  File reads
-are plain Python reads and the packed-12 unpack is the numpy one
-(``ops.convert.unpack_uint12_packed``).
+and the packed-12 unpack go through the port's native library
+(``native.read_file_at``, ``native.unpack_uint12``; numpy without ``g++``).
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from typing import Iterator, Optional, Protocol, runtime_checkable
 
 import numpy as np
 
-from ..ops.convert import unpack_uint12_packed
+from ..native import read_file_at, unpack_uint12
 from ..params import AcqParams
 
 
@@ -41,26 +41,6 @@ def _np_dtype(bit_depth: int):
     if bit_depth <= 16:
         return np.uint16
     return np.uint32
-
-
-def read_file_at(path: str, offset: int, nbytes: int,
-                 out: Optional[np.ndarray] = None) -> np.ndarray:
-    """``nbytes`` bytes of ``path`` at ``offset`` as uint8, read into
-    ``out`` when given; EOFError on a short file."""
-    if out is None:
-        out = np.empty(nbytes, np.uint8)
-    view = memoryview(out)[:nbytes]
-    got = 0
-    with open(path, "rb") as f:
-        f.seek(offset)
-        while got < nbytes:
-            n = f.readinto(view[got:])
-            if not n:
-                break
-            got += n
-    if got < nbytes:
-        raise EOFError(f"{path}: wanted {nbytes} bytes at {offset}, got {got}")
-    return out
 
 
 class VirtualOctSource:
@@ -146,7 +126,7 @@ class VirtualOctSource:
         if self.packed_12bit:
             if self.keep_packed:
                 return raw.copy() if scratch else raw  # wire bytes untouched
-            return unpack_uint12_packed(
+            return unpack_uint12(
                 raw, self.acq.samples_per_buffer).reshape(self.acq.buffer_shape)
         out = raw.view(self._dtype).reshape(self.acq.buffer_shape)
         if self.big_endian and self.acq.bit_depth > 8:

@@ -49,12 +49,12 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from . import native
 from .io.recorder import Recorder, RecordingParams, RecordingScheduler, write_meta
 from .io.source import AcquisitionSource
 from .models.fdoct import FdOctModel
 from .ops import postprocess
 from .ops import quantize as quantize_mod
-from .ops.convert import unpack_uint12_packed
 from .plugins import ExtensionManager
 
 _POLL_S = 0.1  # every queue wait gives up after this and checks for a stop
@@ -358,7 +358,7 @@ class StreamingEngine:
         if params.save_screenshots:
             raise NotImplementedError(
                 "recording screenshots need the viewer's renderer, which is not "
-                "ported yet (ROADMAP.md Queue 1, A12)")
+                "ported yet (ROADMAP.md Queue 1, A12.3)")
         ts = time.strftime("%Y%m%d_%H%M%S")
         if params.save_raw:
             self.raw_recorder.start(params, ts)
@@ -596,7 +596,7 @@ class StreamingEngine:
                 if want_raw_fanout():
                     host_raw = np.asarray(raw)
                     if self.wire_format == "packed12":
-                        host_raw = unpack_uint12_packed(
+                        host_raw = native.unpack_uint12(
                             host_raw.reshape(-1),
                             acq.samples_per_buffer).reshape(acq.buffer_shape)
                     self.extensions.feed_raw(host_raw, acq, buffer_nr)

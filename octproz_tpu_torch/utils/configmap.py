@@ -26,9 +26,8 @@ group and key instead of surfacing as a trace-time KeyError.
 A copy of ``octproz_tpu/utils/configmap.py`` with the same tables, so one
 settings file selects the same configuration in both packages (the "tpu"
 group keeps its name; ``[tpu] fold_concat`` selects the concat fold
-kernels).  What the port does not run yet raises ``NotImplementedError``
-naming its ROADMAP.md item: the ``[plugins]`` group (plugin loading) in
-:func:`from_settings`.
+kernels; ``[plugins] load`` names the plugin specs for
+``plugins.load_plugins``).
 """
 
 from __future__ import annotations
@@ -144,6 +143,10 @@ class SettingsBundle:
     source_kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
     streaming: Dict[str, Any] = dataclasses.field(default_factory=dict)
     recording: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    #: plugin specs from the [plugins] group's ``load`` key
+    #: ("pkg.mod:factory, other.mod" -- the settings-file analog of the
+    #: reference's plugins directory scan, octprozapp.cpp:99-174)
+    plugins: list = dataclasses.field(default_factory=list)
 
 
 def _parse_table(sm: SettingsManager, group: str, table, out: Dict[str, Any]):
@@ -178,10 +181,10 @@ def from_settings(sm: SettingsManager) -> SettingsBundle:
     _parse_table(sm, REC, _REC_TABLE, b.recording)
 
     # [plugins] load = pkg.mod:factory, other.mod  (runtime plugin loading)
-    if "load" in sm.get_group("plugins"):
-        raise NotImplementedError(
-            "settings [plugins] load: plugin loading is not ported yet "
-            "(ROADMAP.md Queue 1, A12)")
+    plug = sm.get_group("plugins")
+    if "load" in plug:
+        b.plugins = [s.strip() for s in str(plug["load"]).replace(";", ",")
+                     .split(",") if s.strip()]
 
     proc = sm.get_group(PROC)
     if "resampling_interpolation" in proc:

@@ -489,8 +489,8 @@ def test_settings_round_trip_is_read_by_jax(tmp_path, seed):
 
 def test_settings_refusals_name_the_roadmap(tmp_path):
     """What the port does not run raises naming its ROADMAP.md item; bad
-    values raise as in the JAX package.  ``compute_dtype = bfloat16``, once
-    refused, now builds the same configuration as in the JAX package."""
+    values raise as in the JAX package.  ``compute_dtype = bfloat16`` and
+    ``[plugins] load``, once refused, now parse as in the JAX package."""
     b, jb = _both_bundles(tmp_path, INI.replace("matmul_precision = high",
                                                 "compute_dtype = bfloat16"))
     acq, cfg = tconfigmap.build_config(b)
@@ -498,9 +498,11 @@ def test_settings_refusals_name_the_roadmap(tmp_path):
     assert cfg.compute_dtype == "bfloat16" and _jax_cfg(cfg) == jcfg
     assert dataclasses.asdict(acq) == dataclasses.asdict(jacq)
     path = tmp_path / "p.ini"
-    path.write_text("[plugins]\nload = pkg.mod:factory\n")
-    with pytest.raises(NotImplementedError, match="A12"):
-        tconfigmap.from_settings(tsettings.SettingsManager(str(path)))
+    path.write_text("[plugins]\nload = pkg.mod:factory; other.mod, \n")
+    pb = tconfigmap.from_settings(tsettings.SettingsManager(str(path)))
+    jpb = jconfigmap.from_settings(jsettings.SettingsManager(str(path)))
+    assert pb.plugins == jpb.plugins == ["pkg.mod:factory", "other.mod"]
+    assert dataclasses.asdict(pb) == dataclasses.asdict(jpb)
     for text, match in (("[processing]\nwindow_type = blackman\n", r"\[processing\] window_type"),
                         ("[acquisition]\nbit_depth = twelve\n", r"\[acquisition\] bit_depth")):
         path.write_text(text)

@@ -23,7 +23,13 @@ MODULES = ["octproz_tpu_torch", "octproz_tpu_torch.models.fdoct",
            "octproz_tpu_torch.utils.configmap", "octproz_tpu_torch.ab",
            "octproz_tpu_torch.kernels.diagnose", "octproz_tpu_torch.utils",
            "octproz_tpu_torch.utils.profiling", "octproz_tpu_torch.utils.deviceinfo",
-           "octproz_tpu_torch.utils.console"]
+           "octproz_tpu_torch.utils.console", "octproz_tpu_torch.native",
+           "octproz_tpu_torch.io.hwbridge", "octproz_tpu_torch.io.phytooct",
+           "octproz_tpu_torch.io.systems", "octproz_tpu_torch.io.curvefiles",
+           "octproz_tpu_torch.extensions", "octproz_tpu_torch.extensions.statistics",
+           "octproz_tpu_torch.extensions.peaks", "octproz_tpu_torch.extensions.demo",
+           "octproz_tpu_torch.extensions.socketstream", "octproz_tpu_torch.extensions.camera",
+           "octproz_tpu_torch.extensions.calibration"]
 
 
 @pytest.mark.parametrize("module", MODULES)
