@@ -66,7 +66,27 @@ nonzero and the final line is not printed:
    the dispersion estimator recovers d2 = 35 and d3 = -25 within 5 on the
    card, and at full width (a PhytoOCT buffer, 512 lines) reaches the host
    CPU's best sharpness;
-8. bf16: ``compute_dtype="bfloat16"`` -- the bf16 route of the five
+8. application: the host application on the two-operator benchmark chain
+   at full width, the launch counts read around each run (B1 once, B2 once
+   per steady buffer, every launch on the tensor cores): ``cli.main``'s
+   ``process`` on a raw file of two full buffers (``--preset benchmark``
+   with ``bench.CURVE_KW``'s curves), its float32 output equal to
+   ``process_buffer``'s (max difference 0) and its B-scan and en-face PNGs
+   to the port's projections of that volume on the card; ``python -m
+   octproz_tpu_torch info`` in a subprocess; the seven render modes at
+   512 x 512 on the full processed buffer (256 x 512 x 512), timed with
+   CUDA events, each finite, in [0, 1] and not all background, and each on
+   a cut volume (32 x 64 x 64) on the card against the same function on
+   the CPU; ``StreamingEngine`` with a ``LiveView`` (volume rendering on)
+   and a camera pane on localhost: a ``POST /control`` dispersion change
+   mid-stream, after which every streamed float32 buffer equals a fresh
+   model's on the new coefficients (max difference 0; before it, the old
+   model's), every PNG endpoint parsed and every JSON endpoint read, a
+   ``POST /render`` refresh timed and the host volume's copy to the card
+   timed alone; the engine's rate from RAM without and with a viewer in
+   the same call; a recording with ``save_screenshots=True`` leaving three
+   PNGs that decode;
+9. bf16: ``compute_dtype="bfloat16"`` -- the bf16 route of the five
    one-pass families (B1/B2/B5/B7/B8: x rounded to nearest, one rounded
    bf16 operator part, one term) against its plain version on uint8,
    shifted and unshifted 12-bit, full 16-bit and float32 lines and the
@@ -78,20 +98,20 @@ nonzero and the final line is not printed:
    that run (every launch of the five families on the bf16 route, none on
    another), each steady output at full size against the float64 product
    of the rounded operands (the prep output against its plain version);
-9. fidelity: the golden pair and the float64-oracle ladder on the fold,
+10. fidelity: the golden pair and the float64-oracle ladder on the fold,
    concat and FFT paths (bf16 at least at the default gate and 20 dB below
    the default rung; its golden pair recorded, not gated), the golden pair
    through the concat kernels (``fold_concat``, the buffer's steady-state
    output) at the default and the "high" rung, and the prep output of the
    phase and the real kernels against float64 per rung (default and
    "highest" at least 20 dB above "high");
-10. trace: one ``utils.profiling.trace`` of ``StreamingEngine.run`` on the
+11. trace: one ``utils.profiling.trace`` of ``StreamingEngine.run`` on the
    concat path at the default rung, uint16 wire, after a warm-up run: the
    device's busy time (the union of its kernels and copies), its idle share
    over the traced window, the top device operations and the longest idle
    gaps with the host operations that overlap them; a trace without CUDA
    events fails;
-11. times: steady-state ms per buffer and MHz on both paths at every timed
+12. times: steady-state ms per buffer and MHz on both paths at every timed
    rung, bf16 included (the FFT path split into prep kernel, FFT and FPN
    plus scaling), and each kernel beside its plain version, the library
    call for its product (``bench.library_operands``) and its bound
@@ -1761,6 +1781,417 @@ def phase_acquisition(info):
     return launches
 
 
+#: Raycaster agreement, card against CPU (tests/test_torch_viz.py's bounds
+#: against the JAX package): each pixel's largest channel difference within
+#: RENDER_ATOL; the continuous modes (MIP, DMIP) on every pixel, the modes
+#: that threshold each sample on all but RENDER_FLIP_SHARE of the pixels.
+RENDER_ATOL = 5e-5
+RENDER_FLIP_SHARE = 0.005
+RENDER_CONTINUOUS = ("mip", "depth_mip")
+#: The dispersion coefficients the application phase's retune sets.
+RETUNED_DISPERSION = (0.0, 0.0, 25.0, 0.0)
+
+
+def _cli_args(dev):
+    """The CLI's ``--device`` and the benchmark chain's flags: the preset
+    (``models/presets.benchmark_config()``, the two-operator fold path),
+    ``bench.FULL_ACQ``'s geometry (the preset's own) and ``bench.CURVE_KW``'s
+    curves."""
+    from octproz_tpu_torch import bench
+
+    kw, acq = bench.CURVE_KW, bench.FULL_ACQ
+    geometry = {"--samples": acq.samples_per_line, "--ascans": acq.ascans_per_bscan,
+                "--bscans": acq.bscans_per_buffer,
+                "--buffers-per-volume": acq.buffers_per_volume, "--bit-depth": acq.bit_depth}
+    return (["--device", "cuda" if dev.type == "cuda" else str(dev)],
+            ["--preset", "benchmark", *(str(x) for kv in geometry.items() for x in kv),
+             "--klin-coeffs", *map(str, kw["resample_coeffs"]),
+             "--disp-coeffs", *map(str, kw["dispersion_coeffs"]),
+             "--window-type", kw["window_type"].value])
+
+
+def _application_cli(dev, tmp):
+    """Part 1: ``cli.main([... "process" ...])`` on a raw file of two full
+    buffers, against ``process_buffer`` (max difference 0) and the port's
+    projections of that volume; ``python -m octproz_tpu_torch info`` in a
+    subprocess.  Returns the launches and the processed host volume."""
+    import subprocess
+
+    import torch
+
+    from octproz_tpu_torch import bench, cli
+    from octproz_tpu_torch.models.fdoct import FdOctModel
+    from octproz_tpu_torch.ops.projections import bscan_frame, enface_frame
+    from octproz_tpu_torch.viz.image import decode_png, to_uint8
+
+    acq = bench.FULL_ACQ
+    frames = bench.random_buffers(acq, 2, dev, seed=80).cpu().numpy()
+    raw = os.path.join(tmp, "two_buffers.raw")
+    frames.tofile(raw)
+    ref = FdOctModel(acq, bench.bench_config(), **bench.CURVE_KW, device=dev)
+    want = np.concatenate([ref.fetch(ref.process_buffer(f)) for f in frames])
+    del ref
+    out, bpng, epng = (os.path.join(tmp, name) for name in ("cli.raw", "b.png", "e.png"))
+    frame_nr, depth_nr = acq.bscans_per_buffer + 7, acq.output_ascan_length // 5
+    device, chain = _cli_args(dev)
+    argv = [*device, "process", raw, *chain, "--output", out, "--bscan-png", bpng,
+            "--frame", str(frame_nr), "--enface-png", epng, "--depth", str(depth_nr)]
+    t0 = time.perf_counter()
+    rc, launches = _acquisition_launches(lambda: cli.main(argv), lambda rc: 1,
+                                         "CLI process (FPN buffer + 1 steady)")
+    took = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli process returned {rc}")
+    got = np.fromfile(out, np.float32).reshape(want.shape)
+    os.remove(raw)
+    os.remove(out)
+    if not np.array_equal(got, np.clip(want, 0.0, 1.0), equal_nan=True):
+        raise AssertionError("cli process output differs from process_buffer: max "
+                             f"{np.nanmax(np.abs(got - np.clip(want, 0.0, 1.0)))}")
+    on_card = torch.from_numpy(want).to(dev)
+    for path, frame in ((bpng, bscan_frame(on_card, frame_nr).T),
+                        (epng, enface_frame(on_card, depth_nr))):
+        with open(path, "rb") as f:
+            pixels = decode_png(f.read())
+        expect = to_uint8(np.clip(frame.cpu().numpy(), 0.0, 1.0))
+        if not np.array_equal(pixels, expect):
+            raise AssertionError(f"{path}: PNG differs from the port's projection")
+    del on_card
+    log(f"[app] cli process, {'x'.join(map(str, acq.buffer_shape[::-1]))} x 2 buffers: "
+        f"output == process_buffer (max difference 0), B-scan {frame_nr} and en-face depth "
+        f"{depth_nr} PNGs == the projections on the card; {took:.1f} s with the file I/O")
+    proc = subprocess.run([sys.executable, "-m", "octproz_tpu_torch", *device, "info",
+                           "--no-entry-point-plugins"], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    if proc.returncode != 0 or f"CUDA available: {dev.type == 'cuda'}" not in proc.stdout:
+        raise AssertionError(f"python -m octproz_tpu_torch info: rc {proc.returncode}\n"
+                             f"{proc.stdout}\n{proc.stderr}")
+    log("[app] python -m octproz_tpu_torch info: " + " | ".join(proc.stdout.splitlines()[:3]))
+    return launches, want[:acq.bscans_per_buffer]
+
+
+def _render_ms(params, volume, dev):
+    """One raycast at 512 x 512 on ``dev`` after a warm-up: (image, CUDA-event
+    ms on the render stream, host ms)."""
+    import torch
+
+    from octproz_tpu_torch.viz.render import render_volume
+
+    stream = torch.cuda.Stream(dev)
+    render_volume(volume, params, yaw=0.5, pitch=0.4, device=dev, stream=stream)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record(stream)
+    img = render_volume(volume, params, yaw=0.5, pitch=0.4, device=dev, stream=stream)
+    stop.record(stream)
+    stop.synchronize()
+    return img, start.elapsed_time(stop), (time.perf_counter() - t0) * 1e3
+
+
+def _application_render(info, volume, dev):
+    """Part 2: the seven render modes at 512 x 512 on the full processed
+    buffer, timed; each on a cut volume on the card against the CPU."""
+    import torch
+
+    from octproz_tpu_torch.viz.render import RenderMode, RenderParams, render_volume
+
+    card = f"{info['device_name']}, power limit {info['power_limit']}"
+    on_card = torch.from_numpy(np.ascontiguousarray(volume)).to(dev)
+    cut = np.ascontiguousarray(volume[::8, ::8, ::8])
+    for mode in RenderMode:
+        params = RenderParams(mode=mode)
+        img, ms, host_ms = _render_ms(params, on_card, dev)
+        if (img.shape != (512, 512, 3) or not np.isfinite(img).all() or img.min() < 0
+                or img.max() > 1 or img.max() <= 0.05):
+            raise AssertionError(f"render {mode.value}: shape {img.shape}, range "
+                                 f"[{img.min()}, {img.max()}] (all background?)")
+        got = render_volume(cut, params, yaw=2.2, pitch=-0.8, out_shape=(96, 96), device=dev)
+        want = render_volume(cut, params, yaw=2.2, pitch=-0.8, out_shape=(96, 96),
+                             device="cpu")
+        diff = np.abs(got - want).max(axis=-1)
+        share = float(np.mean(diff > RENDER_ATOL))
+        limit = 0.0 if mode.value in RENDER_CONTINUOUS else RENDER_FLIP_SHARE
+        if share > limit:
+            raise AssertionError(f"render {mode.value} on the card vs the CPU: {share:.4f} of "
+                                 f"the pixels differ by more than {RENDER_ATOL} (max "
+                                 f"{diff.max():.3e})")
+        log(f"[app] render {mode.value:<14} {'x'.join(map(str, volume.shape))} -> 512x512, "
+            f"step 0.01 ({max(int(3 ** 0.5 / 0.01), 2)} steps): {ms:.3f} ms (CUDA events), "
+            f"{host_ms:.3f} ms host; cut {'x'.join(map(str, cut.shape))} card vs CPU: max "
+            f"{diff.max():.3e}, {share:.4f} of pixels above {RENDER_ATOL} ({card})")
+
+
+class _GatedReplay:
+    """``frames`` in turn: ``before`` buffers, then a wait for ``gate`` (a
+    retune lands meanwhile), then ``after`` more."""
+
+    def __init__(self, acq, frames, before, after, gate):
+        self.acq = acq
+        self._frames, self._before, self._after, self._gate = frames, before, after, gate
+
+    def buffers(self):
+        for i in range(self._before + self._after):
+            if i == self._before and not self._gate.wait(60):
+                raise TimeoutError("the retune never came")
+            yield self._frames[i % len(self._frames)]
+
+
+def _http(url, body=None):
+    import urllib.request
+
+    req = urllib.request.Request(url, data=None if body is None else json.dumps(body).encode(),
+                                 method="GET" if body is None else "POST")
+    with urllib.request.urlopen(req, timeout=60) as r:
+        return r.status, r.read()
+
+
+def _application_viewer(info, dev, tmp):
+    """Part 3: ``StreamingEngine`` with a ``LiveView`` (volume rendering on)
+    and a camera on localhost, the two-operator path: a ``POST /control``
+    dispersion change mid-stream, every buffer after it equal to a fresh
+    model on the new coefficients (the FPN state of the run), every
+    endpoint read back."""
+    import threading
+
+    import torch
+
+    from octproz_tpu_torch import bench
+    from octproz_tpu_torch.extensions.camera import CallableCamera, CameraExtension
+    from octproz_tpu_torch.models.fdoct import FdOctModel
+    from octproz_tpu_torch.runtime import StreamingEngine
+    from octproz_tpu_torch.viz.image import png_size
+    from octproz_tpu_torch.viz.live import LiveView
+
+    acq, cfg = bench.FULL_ACQ, bench.bench_config()
+    card = f"{info['device_name']}, power limit {info['power_limit']}"
+    frames = list(bench.random_buffers(acq, 3, dev, seed=90).cpu().numpy())
+    old = FdOctModel(acq, cfg, **bench.CURVE_KW, device=dev)
+    first = old.fetch(old.process_buffer(frames[0]))  # the FPN buffer
+    new = FdOctModel(acq, cfg, **dict(bench.CURVE_KW, dispersion_coeffs=RETUNED_DISPERSION),
+                     device=dev)
+    new.fpn_state = old.fpn_state
+    refs = {"old": [old.fetch(old.process_buffer(f)) for f in frames],
+            "new": [new.fetch(new.process_buffer(f)) for f in frames]}
+    del old, new
+    gate = threading.Event()
+    n_buffers = 8
+    eng = StreamingEngine(FdOctModel(acq, cfg, **bench.CURVE_KW, device=dev),
+                          _GatedReplay(acq, frames, 3, n_buffers - 3, gate), stream_to_host=True)
+    live = LiveView(port=0, volume_render=True, volume_throttle_s=0.0, device=dev)
+    camera_frame = np.random.default_rng(91).integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    cam = CameraExtension(CallableCamera(lambda: camera_frame))
+    eng.extensions.add(cam)
+    cam.activate()
+    live.attach(eng)
+    live.attach_camera(cam)
+    eng.start_recording(_recording(tmp, "viewer", n_buffers))
+    replies = []
+
+    def retune():
+        try:
+            while eng.meter.total_buffers < 2 and not gate.is_set():
+                time.sleep(0.01)
+            replies.append(_http(live.url + "control", {
+                "command": "set_dispersion_coeffs",
+                **{f"d{i}": v for i, v in enumerate(RETUNED_DISPERSION)}}))
+        finally:
+            gate.set()
+
+    client = threading.Thread(target=retune, name="smoke-retune")
+    client.start()
+    try:
+        n, launches = _acquisition_launches(eng.run, lambda n: n - 1,
+                                            "engine + live viewer + camera, retuned")
+        _join_threads((client,), ENGINE_THREADS)
+        if n != n_buffers or replies != [(200, b'{"reply": "ok"}')]:
+            raise AssertionError(f"viewer run: {n} buffers, control replies {replies}")
+        got = _recorded(eng, n, acq.processed_buffer_shape, "viewer run")
+        kinds = ["first" if np.array_equal(got[0], first, equal_nan=True) else "?"]
+        for i in range(1, n):
+            match = [k for k in ("old", "new")
+                     if np.array_equal(got[i], refs[k][i % len(frames)], equal_nan=True)]
+            kinds.append(match[0] if len(match) == 1 else "?")
+        if ("?" in kinds or kinds[1:] != sorted(kinds[1:], key=lambda k: k == "new")
+                or kinds.count("new") < 4):
+            raise AssertionError(f"streamed buffers against the old/new coefficients: {kinds}")
+        log(f"[app] POST /control set_dispersion_coeffs {RETUNED_DISPERSION} mid-stream: "
+            f"buffers {kinds} -- each equal (max difference 0) to a fresh model on the "
+            f"coefficients it names, with the run's FPN state; never a mix")
+        url = live.url
+        sizes = {}
+        for name in ("bscan.png", "enface.png", "volume.png", "camera.png"):
+            status, body = _http(url + name)
+            sizes[name] = png_size(body)
+        want_sizes = {"bscan.png": (acq.ascans_per_bscan, acq.output_ascan_length),
+                      "enface.png": (acq.ascans_per_bscan, acq.bscans_per_buffer),
+                      "volume.png": (live.volume_size, live.volume_size),
+                      "camera.png": (640, 480)}
+        if sizes != want_sizes:
+            raise AssertionError(f"PNG endpoints: {sizes}, want {want_sizes}")
+        doc = {name: json.loads(_http(url + name)[1]) for name in (
+            "ascan.json", "stats.json", "params.json", "render.json",
+            "extension.json?name=camera", "display.json")}
+        if (len(doc["ascan.json"]["values"]) != acq.output_ascan_length
+                or doc["stats.json"].get("volume_renders", 0) < 1
+                or doc["stats.json"]["camera"] is not True
+                or doc["params.json"]["dispersion_coeffs"] != list(RETUNED_DISPERSION)
+                or len(doc["render.json"]["modes"]) != 7
+                or doc["extension.json?name=camera"]["name"] != "camera"):
+            raise AssertionError(f"JSON endpoints: {doc}")
+        before = _http(url + "volume.png")[1]
+        t0 = time.perf_counter()
+        status, reply = _http(url + "render", {"mode": "xray", "yaw": 1.4})
+        refresh_ms = (time.perf_counter() - t0) * 1e3
+        if status != 200 or _http(url + "volume.png")[1] == before:
+            raise AssertionError(f"POST /render: {status} {reply[:200]}")
+        host_volume = eng.assembler.volume
+        t0 = time.perf_counter()
+        for _ in range(3):
+            torch.as_tensor(host_volume, device=dev)
+            torch.cuda.synchronize(dev)
+        upload_ms = (time.perf_counter() - t0) / 3 * 1e3
+        log(f"[app] endpoints: {sizes}; ascan {len(doc['ascan.json']['values'])} values, "
+            f"stats {doc['stats.json']['buffers']} buffers / "
+            f"{doc['stats.json']['volume_renders']} volume renders, params, 7 render modes, "
+            f"camera pane")
+        log(f"[app] viewer /volume.png refresh (POST /render xray, "
+            f"{'x'.join(map(str, host_volume.shape))} assembled host volume -> "
+            f"{live.volume_size}x{live.volume_size}, step 0.02): {refresh_ms:.1f} ms round trip, "
+            f"{live.last_render_ms:.1f} ms in the raycast call; the volume's copy to the card "
+            f"alone {upload_ms:.1f} ms ({host_volume.nbytes / 1e6:.0f} MB, pageable) ({card})")
+    finally:
+        gate.set()
+        live.close()
+    return launches
+
+
+def _application_rates(info, dev):
+    """Part 4: the engine's rate on the two-operator path from RAM, without
+    and with a live viewer (volume rendering on, default throttles)."""
+    from octproz_tpu_torch import bench
+    from octproz_tpu_torch.viz.live import LiveView
+
+    acq, cfg = bench.FULL_ACQ, bench.bench_config()
+    card = f"{info['device_name']}, power limit {info['power_limit']}"
+    frames = list(bench.random_buffers(acq, 3, dev, seed=95).cpu().numpy())
+    totals, rates, views = {"depth": 0, "depth_scale": 0}, {}, []
+
+    def with_viewer(eng):
+        views.append(LiveView(port=0, volume_render=True, device=dev))
+        views[-1].attach(eng)
+
+    for tag, attach in (("without the viewer", None), ("with the viewer", with_viewer)):
+        try:
+            rates[tag], launches = _acquisition_launches(
+                lambda: bench.engine_rate(cfg, dev, _Replay(acq, frames), "uint16",
+                                          seconds=3.0, attach=attach),
+                lambda r: r["buffers"] - 1, f"engine rate {tag}")
+        finally:
+            for view in views:
+                view.close()
+        _join_threads((), ENGINE_THREADS)
+        for k in totals:
+            totals[k] += launches[k]
+    view = views[0]
+    log("[app] engine, two-operator path (default rung), uint16 from RAM: "
+        + "; ".join(f"{tag} {r['mhz']:.3f} MHz ({r['timed_buffers']} buffers in "
+                    f"{r['timed_s']:.3f} s)" for tag, r in rates.items())
+        + f"; viewer {view.frames_rendered} frames, {view.volume_renders} volume renders "
+          f"({card})")
+    log("[app] the viewer's work per buffer on the engine's drain thread, host clock: "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in _viewer_stages(view).items()) + f" ({card})")
+    return totals
+
+
+def _viewer_stages(view):
+    """The host stages an attached viewer adds to a full buffer of 12-bit
+    codes, each timed alone: the assembler's dequantize and its copy into
+    the volume (every buffer), the 2-D frames' update with their PNGs (at
+    most every 80 ms) and the volume pane's raycast with the volume's copy
+    to the device (at most every second)."""
+    from octproz_tpu_torch.ops.quantize import dequantize
+
+    codes = np.random.default_rng(96).integers(0, 4096, view._assembler.volume.shape,
+                                               dtype=np.uint16)
+    out, t0 = {}, time.perf_counter()
+    deq = dequantize(codes, 12)
+    out["dequantize"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    view._assembler.add(deq, 0)
+    out["assembler copy"] = (time.perf_counter() - t0) * 1e3
+    view.throttle_s, view.volume_throttle_s, view._last_render = 0.0, float("inf"), 0.0
+    t0 = time.perf_counter()
+    view.update(codes, 0)
+    out["2-D frames + PNGs"] = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    view._render_assembled_volume()
+    out["volume raycast with its copy to the device"] = (time.perf_counter() - t0) * 1e3
+    return out
+
+
+def _application_screenshots(dev, tmp):
+    """Part 5: a recording with ``save_screenshots=True`` leaves B-scan,
+    en-face and render PNGs that decode to their sizes."""
+    import glob
+
+    from octproz_tpu_torch import bench
+    from octproz_tpu_torch.io.recorder import RecordingParams
+    from octproz_tpu_torch.models.fdoct import FdOctModel
+    from octproz_tpu_torch.runtime import StreamingEngine
+    from octproz_tpu_torch.viz.image import decode_png
+
+    acq = bench.FULL_ACQ
+    frames = list(bench.random_buffers(acq, 2, dev, seed=97).cpu().numpy())
+    messages = []
+    eng = StreamingEngine(FdOctModel(acq, bench.bench_config(), **bench.CURVE_KW, device=dev),
+                          _Replay(acq, frames), stream_to_host=True, on_info=messages.append)
+    directory = os.path.join(tmp, "shots")
+    eng.start_recording(RecordingParams(save_dir=directory, name="shot", buffers_to_record=1,
+                                        save_raw=False, save_processed=True, save_meta=False,
+                                        save_screenshots=True))
+    _, launches = _acquisition_launches(lambda: eng.run(max_buffers=3), lambda n: 2,
+                                        "recording with screenshots")
+    _join_threads((), ENGINE_THREADS)
+    shapes = {}
+    for kind in ("bscan", "enface", "volume"):
+        paths = glob.glob(os.path.join(directory, f"*shot*_{kind}.png"))
+        if len(paths) != 1:
+            raise AssertionError(f"screenshots: {paths} for {kind}; messages {messages}")
+        with open(paths[0], "rb") as f:
+            shapes[kind] = decode_png(f.read()).shape
+    want = {"bscan": (acq.output_ascan_length, acq.ascans_per_bscan),
+            "enface": (acq.bscans_per_buffer, acq.ascans_per_bscan), "volume": (256, 256, 3)}
+    if shapes != want:
+        raise AssertionError(f"screenshots decode to {shapes}, want {want}")
+    log(f"[app] recording screenshots: {shapes} decoded; {messages[-1]!r}")
+    return launches
+
+
+def phase_application(info, dev=None):
+    """The host application at full width: see the module docstring, phase
+    8.  Returns B1's and B2's launch counts, summed over the phase's runs."""
+    import tempfile
+
+    import torch
+
+    dev = torch.device("cuda", 0) if dev is None else dev
+    t0 = time.perf_counter()
+    totals = {"depth": 0, "depth_scale": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, volume = _application_cli(dev, tmp)
+        _application_render(info, volume, dev)
+        del volume
+        for part in (_application_viewer(info, dev, tmp), _application_rates(info, dev),
+                     _application_screenshots(dev, tmp)):
+            for k in totals:
+                totals[k] += part[k]
+    for k in totals:
+        totals[k] += launches[k]
+    log(f"[main] application launches {totals}, summed over the phase's runs "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return totals
+
+
 #: Launches of the bf16 main path (phase_bf16_path): per path buffer 0
 #: (FPN determination; the fold paths' planar kernel), then on the fold
 #: paths three steady buffers, a batch chunk of four (one launch) and one
@@ -2104,6 +2535,8 @@ def main() -> None:
     launches = {**phase_main_path(worst), **phase_fft_path(worst)}
     launches.update(phase_stream(worst, info))
     for k, v in phase_acquisition(info).items():
+        launches[k] += v
+    for k, v in phase_application(info).items():
         launches[k] += v
     launches.update({BF16_ROWS[k]: v for k, v in phase_bf16_path(worst).items()})
     phase_fidelity()

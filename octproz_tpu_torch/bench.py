@@ -480,7 +480,7 @@ def stream_sources(directory: str, count: int = 3, seed: int = 40):
 
 def engine_rate(cfg: ProcConfig, device, source, wire: str, dispatch_chunk: int = 1,
                 seconds: float = 5.0, warmup: int = 8, window_s: float = 1.0,
-                max_buffers: int = 5000) -> Dict[str, object]:
+                max_buffers: int = 5000, attach=None) -> Dict[str, object]:
     """The engine's end-to-end rate on ``source`` (the upload, the step and
     the quantized fetch of every buffer included): the buffers that reached
     the host after the first ``warmup`` (rounded up to whole chunks; they
@@ -488,7 +488,9 @@ def engine_rate(cfg: ProcConfig, device, source, wire: str, dispatch_chunk: int 
     took, in a run stopped once about ``seconds`` have passed after the
     warm-up.  Both ends of the timed span are the arrival of a chunk's last
     buffer.  The ThroughputMeter's ``window_s`` windows after the first are
-    kept as a spread statistic (``window_mhz``)."""
+    kept as a spread statistic (``window_mhz``).  ``attach(engine)``, when
+    given, is called before the run (a live viewer chaining onto the
+    engine's callbacks)."""
     from .models.fdoct import FdOctModel
     from .runtime import StreamingEngine
 
@@ -505,6 +507,8 @@ def engine_rate(cfg: ProcConfig, device, source, wire: str, dispatch_chunk: int 
     eng = StreamingEngine(model, source, wire_format=wire, stream_to_host=True,
                           dispatch_chunk=chunk, metrics_window_s=window_s,
                           on_metrics=windows.append, on_processed=on_processed)
+    if attach is not None:
+        attach(eng)
     t0 = time.perf_counter()
     n = eng.run(max_buffers=max_buffers)
     wall = time.perf_counter() - t0

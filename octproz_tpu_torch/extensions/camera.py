@@ -1,8 +1,9 @@
 """Camera extension: live sample-view video alongside the OCT stream.
 
 A copy of ``octproz_tpu/extensions/camera.py`` (numpy; Pillow is imported
-only where a frame file is read or a snapshot written).  The live-viewer
-pane waits for the port's ``viz/live`` (ROADMAP.md Queue 1, A12.3).
+only where a frame file is read or a snapshot written).  The live viewer
+serves its frames at ``/camera.png`` once ``LiveView.attach_camera`` is
+given the extension (viz/live.py, encoded there without Pillow).
 
 Capability-equivalent of the reference's Camera extension
 (docs/docs/plugins.md:22-24: "displays live video ... of

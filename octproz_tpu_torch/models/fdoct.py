@@ -12,6 +12,8 @@ chunks buffer by buffer ("scan"), as in the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import threading
 from typing import Optional, Sequence
 
 import numpy as np
@@ -20,6 +22,17 @@ import torch
 from .. import curves as curves_mod
 from .. import pipeline
 from ..params import AcqParams, Curves, FpnMode, FpnState, ProcConfig, WindowType
+
+
+def _mutator(method):
+    """Run a re-tuning method under the model's lock: two threads changing
+    parameters at once (a viewer's request, the engine's background
+    capture) each build on the other's result."""
+    @functools.wraps(method)
+    def locked(self, *args, **kwargs):
+        with self._mutating:
+            return method(self, *args, **kwargs)
+    return locked
 
 
 class FdOctModel:
@@ -53,6 +66,7 @@ class FdOctModel:
             from ..utils.memory import preflight_check
 
             preflight_check(acq, cfg, self.device)
+        self._mutating = threading.RLock()
         self._curve_kwargs = dict(
             resample_coeffs=tuple(resample_coeffs),
             dispersion_coeffs=tuple(dispersion_coeffs),
@@ -120,25 +134,30 @@ class FdOctModel:
 
     # -- live re-tuning (reference: sidebar edits -> updateResampleCurve etc.,
     #    octalgorithmparameters.cpp:141-249) ---------------------------------
+    @_mutator
     def set_klin_coeffs(self, c0: float, c1: float, c2: float, c3: float) -> None:
         self._curve_kwargs["resample_coeffs"] = (c0, c1, c2, c3)
         self._curve_kwargs["custom_resample_curve"] = None
         self._rebuild_curves()
 
+    @_mutator
     def set_dispersion_coeffs(self, d0: float, d1: float, d2: float, d3: float) -> None:
         self._curve_kwargs["dispersion_coeffs"] = (d0, d1, d2, d3)
         self._rebuild_curves()
 
+    @_mutator
     def set_window(self, window_type: WindowType, center: float = 0.5,
                    fill_factor: float = 1.0) -> None:
         self._curve_kwargs.update(window_type=window_type, window_center=center,
                                   window_fill_factor=fill_factor)
         self._rebuild_curves()
 
+    @_mutator
     def set_custom_resample_curve(self, curve: np.ndarray) -> None:
         self._curve_kwargs["custom_resample_curve"] = np.asarray(curve, np.float32)
         self._rebuild_curves()
 
+    @_mutator
     def set_post_background(self, background: np.ndarray) -> None:
         self.curves = dataclasses.replace(
             self.curves, post_background=torch.as_tensor(
@@ -149,6 +168,7 @@ class FdOctModel:
         """Reference: redetermineFixedPatternNoise request (cuda_code.cu:1521)."""
         self.fpn_state = pipeline.initial_fpn_state(self.acq, device=self.device)
 
+    @_mutator
     def set_config(self, **changes) -> None:
         """Replace ProcConfig fields mid-stream (grayscale range, FPN mode,
         scaling, precision rung, compute dtype, ...); the curves are built

@@ -355,10 +355,6 @@ class StreamingEngine:
 
     # -- recording (octprozapp.cpp:215-299 / processing.cpp:231-267) --------
     def start_recording(self, params: RecordingParams) -> None:
-        if params.save_screenshots:
-            raise NotImplementedError(
-                "recording screenshots need the viewer's renderer, which is not "
-                "ported yet (ROADMAP.md Queue 1, A12.3)")
         ts = time.strftime("%Y%m%d_%H%M%S")
         if params.save_raw:
             self.raw_recorder.start(params, ts)
@@ -636,12 +632,13 @@ class StreamingEngine:
         buffer_nr, host_float, host_quant, record_quant, done = in_flight.pop(0)
         if done is not None:
             done.synchronize()  # the step and its fetches have completed
+        was_recording = self.processed_recorder.recording
         if host_float is not None:
             # recorder-only stream (the reference's float path feeds the
             # Recorder, not the extensions, processing.cpp:251-264); a
             # bfloat16 volume arrives as float32
-            self.processed_recorder.record_buffer(self.model.fetch(host_float),
-                                                  buffer_nr)
+            host_f = self.model.fetch(host_float)
+            self.processed_recorder.record_buffer(host_f, buffer_nr)
         if host_quant is not None:
             host = self.model.fetch(host_quant)
             if record_quant and self.processed_recorder.recording:
@@ -654,3 +651,36 @@ class StreamingEngine:
                     buffer_nr)
             if self.on_processed:
                 self.on_processed(host, buffer_nr)
+        if (was_recording and not self.processed_recorder.recording
+                and self._params_want_screenshots()):
+            # this drain's buffer completed the recording
+            self._save_screenshots(host_f if host_float is not None else host)
+
+    def _params_want_screenshots(self) -> bool:
+        p = self.processed_recorder._params
+        return bool(p and p.save_screenshots and
+                    self.processed_recorder.last_file)
+
+    def _save_screenshots(self, host_buffer: np.ndarray) -> None:
+        """B-scan + en-face + MIP render PNGs next to the recording
+        (screenshot fan-out analog, octprozapp.cpp:266-292).  The slices
+        are host numpy; the render runs on the model's device, on the
+        renderer's own stream there.  A failure is reported through
+        ``on_info`` and does not stop the stream."""
+        from .viz import (RenderMode, RenderParams, render_volume, save_bscan_png,
+                          save_enface_png, save_png)
+
+        base = self.processed_recorder.last_file[:-4]
+        # normalize by the quantized CODE max (2**bits - 1), not the
+        # container dtype max -- 12-bit codes ride in uint16
+        vol = quantize_mod.dequantize(host_buffer, self.streaming_bit_depth)
+        try:
+            save_bscan_png(base + "_bscan.png", vol, frame_nr=vol.shape[0] // 2)
+            save_enface_png(base + "_enface.png", vol, depth_nr=vol.shape[2] // 2)
+            img = render_volume(vol, RenderParams(mode=RenderMode.MIP, step_length=0.02),
+                                yaw=0.5, pitch=0.4, out_shape=(256, 256),
+                                device=self.model.device)
+            save_png(base + "_volume.png", img)
+            self.on_info(f"screenshots saved: {base}_*.png")
+        except Exception as e:  # screenshots must never kill the stream
+            self.on_info(f"screenshot saving failed: {e}")

@@ -29,7 +29,11 @@ MODULES = ["octproz_tpu_torch", "octproz_tpu_torch.models.fdoct",
            "octproz_tpu_torch.extensions", "octproz_tpu_torch.extensions.statistics",
            "octproz_tpu_torch.extensions.peaks", "octproz_tpu_torch.extensions.demo",
            "octproz_tpu_torch.extensions.socketstream", "octproz_tpu_torch.extensions.camera",
-           "octproz_tpu_torch.extensions.calibration"]
+           "octproz_tpu_torch.extensions.calibration", "octproz_tpu_torch.ops.projections",
+           "octproz_tpu_torch.viz", "octproz_tpu_torch.viz.image",
+           "octproz_tpu_torch.viz.plots", "octproz_tpu_torch.viz.render",
+           "octproz_tpu_torch.viz.live", "octproz_tpu_torch.control",
+           "octproz_tpu_torch.cli"]
 
 
 @pytest.mark.parametrize("module", MODULES)

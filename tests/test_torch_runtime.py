@@ -466,14 +466,56 @@ def test_scheduled_series_honors_stop_after_record_only_at_the_end(tmp_path):
     assert n < 200 and eng.scheduler.done == 3
 
 
-def test_recording_screenshots_are_refused(tmp_path):
-    """Screenshots need the viewer's renderer (ROADMAP A12): refused before
-    anything records."""
-    eng = make_engine(n_buffers=2)
-    with pytest.raises(NotImplementedError, match="A12"):
-        eng.start_recording(RecordingParams(save_dir=str(tmp_path), save_processed=True,
-                                            save_screenshots=True))
-    assert not eng.recording and not os.listdir(tmp_path)
+def test_recording_screenshots_are_refused(tmp_path, monkeypatch):
+    """Screenshots were refused until the renderer was ported; now they are
+    written: B-scan, en-face and MIP-render PNGs next to the finished
+    recording, the render on the model's device (as the JAX package's
+    tests/test_runtime.py pins its CPU device), and a screenshot failure is
+    reported through on_info without stopping the stream."""
+    import octproz_tpu_torch.viz as viz
+    from octproz_tpu_torch.viz.image import decode_png
+
+    seen = []
+    real = viz.render_volume
+
+    def spy(*a, **kw):
+        seen.append(kw.get("device"))
+        # one intra-op thread: a thread per core in every xdist worker
+        # oversubscribes the cores
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            return real(*a, **kw)
+        finally:
+            torch.set_num_threads(threads)
+
+    monkeypatch.setattr(viz, "render_volume", spy)
+    eng = make_engine(n_buffers=4, stream_to_host=True)
+    eng.start_recording(RecordingParams(save_dir=str(tmp_path), name="shot",
+                                        buffers_to_record=1, save_raw=False,
+                                        save_processed=True, save_meta=False,
+                                        save_screenshots=True))
+    assert eng.run() == 4
+    assert seen == [eng.model.device]
+    shapes = {}
+    for kind in ("bscan", "enface", "volume"):
+        (path,) = glob.glob(str(tmp_path / f"*shot*_{kind}.png"))
+        shapes[kind] = decode_png(open(path, "rb").read()).shape
+    assert shapes == {"bscan": (ACQ.output_ascan_length, ACQ.ascans_per_bscan),
+                      "enface": (ACQ.bscans_per_buffer, ACQ.ascans_per_bscan),
+                      "volume": (256, 256, 3)}
+
+    def broken(*a, **kw):
+        raise RuntimeError("no renderer")
+
+    monkeypatch.setattr(viz, "render_volume", broken)
+    messages = []
+    eng = make_engine(n_buffers=3, stream_to_host=True, on_info=messages.append)
+    eng.start_recording(RecordingParams(save_dir=str(tmp_path / "broken"), name="shot",
+                                        buffers_to_record=1, save_processed=True,
+                                        save_meta=False, save_screenshots=True))
+    assert eng.run() == 3  # the stream went on
+    assert any("screenshot saving failed: no renderer" in m for m in messages)
 
 
 def test_quantized_recording_without_streaming(tmp_path):
