@@ -86,7 +86,30 @@ nonzero and the final line is not printed:
    timed alone; the engine's rate from RAM without and with a viewer in
    the same call; a recording with ``save_screenshots=True`` leaving three
    PNGs that decode;
-9. bf16: ``compute_dtype="bfloat16"`` -- the bf16 route of the five
+9. mesh: the sharded step (``parallel``) at full width on the one card,
+   the launch counts read around each run: ``FdOctModel`` on
+   ``make_mesh(4, 1, [cuda:0] * 4)`` with the benchmark chain (FPN once),
+   the FPN buffer and four steady buffers -- B1 once and B2 once per
+   steady buffer on each shard, on the tensor cores -- against the
+   single-device model (2e-4; the mean line 1e-4/1e-5; the transfers
+   exactly the 55 296-byte FPN reduction), again with the noise lines over
+   96 B-scans (two shards), and with FPN off (the max difference printed);
+   the handheld preset with post background removal on
+   ``make_mesh(2, 2, [cuda:0] * 4)`` (whole-row gathers for the flip and
+   the sinusoidal correction, their bytes checked; the split cuts an FPN
+   segment, so a mean-line bin that misses 1e-4/1e-5 is logged and both
+   lines must lie within the float32 summation bound of the float64
+   segment means); ``StreamingEngine``
+   over the (4, 1) model from RAM on both wires (the recorded float32
+   stream equal to ``process_buffer`` on the mesh, packed-12 equal to
+   uint16, the engine's rate beside the single-device engine's); ``python
+   -m octproz_tpu_torch.parallel.multihost --selftest --full`` as two
+   processes of a gloo world on cuda:0 and as the one process of an NCCL
+   world, each rank feeding its B-scan block and holding its fetched block
+   to a single-device model, the FPN statistics in one all_reduce of
+   55 296 bytes; the sharded step's ms per buffer beside the single-device
+   step's;
+10. bf16: ``compute_dtype="bfloat16"`` -- the bf16 route of the five
    one-pass families (B1/B2/B5/B7/B8: x rounded to nearest, one rounded
    bf16 operator part, one term) against its plain version on uint8,
    shifted and unshifted 12-bit, full 16-bit and float32 lines and the
@@ -98,20 +121,20 @@ nonzero and the final line is not printed:
    that run (every launch of the five families on the bf16 route, none on
    another), each steady output at full size against the float64 product
    of the rounded operands (the prep output against its plain version);
-10. fidelity: the golden pair and the float64-oracle ladder on the fold,
+11. fidelity: the golden pair and the float64-oracle ladder on the fold,
    concat and FFT paths (bf16 at least at the default gate and 20 dB below
    the default rung; its golden pair recorded, not gated), the golden pair
    through the concat kernels (``fold_concat``, the buffer's steady-state
    output) at the default and the "high" rung, and the prep output of the
    phase and the real kernels against float64 per rung (default and
    "highest" at least 20 dB above "high");
-11. trace: one ``utils.profiling.trace`` of ``StreamingEngine.run`` on the
+12. trace: one ``utils.profiling.trace`` of ``StreamingEngine.run`` on the
    concat path at the default rung, uint16 wire, after a warm-up run: the
    device's busy time (the union of its kernels and copies), its idle share
    over the traced window, the top device operations and the longest idle
    gaps with the host operations that overlap them; a trace without CUDA
    events fails;
-12. times: steady-state ms per buffer and MHz on both paths at every timed
+13. times: steady-state ms per buffer and MHz on both paths at every timed
    rung, bf16 included (the FFT path split into prep kernel, FFT and FPN
    plus scaling), and each kernel beside its plain version, the library
    call for its product (``bench.library_operands``) and its bound
@@ -1377,11 +1400,10 @@ PHYTO_SMALL = dict(samples_per_line=256, ascans_per_bscan=64, bscans_per_buffer=
                    buffers_per_volume=1, exposure_us=0.0, shot_noise=0.0005)
 
 
-def _acquisition_launches(run, need, tag):
-    """``run()`` -- one ``StreamingEngine`` run on the two-operator fold path
-    -- between a reset and a read of the launch counts: B1 (``depth``) once,
-    for the FPN buffer, B2 (``depth_scale``) ``need(result)`` times, once
-    per steady buffer, no other family, every launch on the tensor cores."""
+def _exact_launches(run, want, tag):
+    """``run()`` between a reset and a read of the launch counts, which
+    must be ``want`` exactly (or ``want(result)``), every one-pass launch
+    on the tensor cores."""
     import torch
 
     from octproz_tpu_torch.kernels import fused_prep as fp
@@ -1391,10 +1413,21 @@ def _acquisition_launches(run, need, tag):
     result = run()
     torch.cuda.synchronize()
     launches = {k: v for k, v in fp.LAUNCHES.items() if v}
-    want = {"depth": 1, "depth_scale": need(result)}
+    if callable(want):
+        want = want(result)
     if launches != want:
-        raise AssertionError(f"{tag}: the engine run launched {launches}; want {want}")
+        raise AssertionError(f"{tag}: launched {launches}; want {want}")
     _check_routes(launches, tag)
+    return result, launches
+
+
+def _acquisition_launches(run, need, tag):
+    """``run()`` -- one ``StreamingEngine`` run on the two-operator fold path
+    -- between a reset and a read of the launch counts: B1 (``depth``) once,
+    for the FPN buffer, B2 (``depth_scale``) ``need(result)`` times, once
+    per steady buffer, no other family, every launch on the tensor cores."""
+    result, launches = _exact_launches(
+        run, lambda r: {"depth": 1, "depth_scale": need(r)}, tag)
     log(f"[acq] {tag}: launches {launches}, every one on the tensor cores")
     return result, launches
 
@@ -2192,6 +2225,365 @@ def phase_application(info, dev=None):
     return totals
 
 
+#: Wall-clock limit of the mesh phase's rank processes (all three together).
+MESH_PROCESS_TIMEOUT_S = 420.0
+
+
+def _max_diff(got, want, tag):
+    """Max |got - want| over the finite voxels; fails on other finite masks
+    or outside rtol = atol = 2e-4 (tests/test_sharding.py's bound)."""
+    import torch
+
+    fin = torch.isfinite(want)
+    if not torch.equal(fin, torch.isfinite(got)):
+        raise AssertionError(f"{tag}: finite masks differ")
+    diff = float((got[fin] - want[fin]).abs().max())
+    if not torch.allclose(got, want, rtol=2e-4, atol=2e-4):
+        raise AssertionError(f"{tag}: sharded output != single-device output "
+                             f"(max difference {diff:.3e})")
+    return diff
+
+
+def _mean_line_witness(sharded, single, raw, tag):
+    """The two mean lines of an FPN buffer against its exact segment means.
+
+    The noise lines' depth profiles (B1 on ``raw``, the buffer both models
+    determined their FPN state on) are summed per segment in float64: the
+    exact means of the float32 summands.  Any order of float32 summation
+    (the single device's whole segment, or a mesh's partial sums added)
+    followed by the scaling by 1/w stays within gamma_(w+2) * sum|x| / w of
+    them (w lines per segment, gamma_n = n u / (1 - n u), u = 2^-24); a line
+    dropped, doubled or put in the wrong segment moves a mean by about
+    |x| / w, far outside.  Per component and bin of the selected segment:
+    the bound and the exact mean, and where each line lies.  Returns
+    (sharded bins out of the bound, single-device bins out of it, per-bin
+    tensors for the log)."""
+    import torch
+
+    from octproz_tpu_torch.ops import fpn
+    from octproz_tpu_torch.params import FPN_SEGMENTS
+    from octproz_tpu_torch.parallel import sharding
+
+    acq, cfg = single.acq, single.cfg
+    half = acq.output_ascan_length
+    w = min(cfg.bscans_for_noise, acq.bscans_per_buffer) * acq.ascans_per_bscan // FPN_SEGMENTS
+    z_re, z_im = sharding._core_local(torch.as_tensor(raw).to(single.device), single.curves,
+                                      acq, cfg)
+    re, im = (z.reshape(-1, half)[:FPN_SEGMENTS * w] for z in (z_re, z_im))
+    del z_re, z_im
+    # the segment each bin selects, from the single-device order's statistics
+    s_re, s_im, s_sq, _ = fpn.segment_sums_planar(re, im)
+    f = torch.tensor(1.0 / w, dtype=torch.float32)
+    m_re, m_im = s_re * f, s_im * f
+    best = fpn._banded_argmin(s_sq * f - (m_re * m_re + m_im * m_im),
+                              torch.mean(s_sq * f, dim=0))[None, :]
+    exact, scale = [], []
+    for x in (re, im):
+        seg = x.reshape(FPN_SEGMENTS, w, half).to(torch.float64)
+        exact.append(torch.gather(seg.sum(dim=1) / w, 0, best)[0])
+        scale.append(torch.gather(seg.abs().sum(dim=1) / w, 0, best)[0])
+    exact, scale = torch.stack(exact), torch.stack(scale)
+    n_u = (w + 2) * 2.0 ** -24
+    bound = n_u / (1.0 - n_u) * scale
+    got = sharded.fpn_state.mean_line.to(torch.float64)
+    want = single.fpn_state.mean_line.to(torch.float64)
+    out_m = int(((got - exact).abs() > bound).sum())
+    out_s = int(((want - exact).abs() > bound).sum())
+    # which segments the mesh cuts: lines of one segment in several blocks
+    bs, as_ = sharding._block_sizes(acq.buffer_shape, sharded.mesh)
+    line = torch.arange(FPN_SEGMENTS * w)
+    block = (line // acq.ascans_per_bscan // bs) * 1_000_000 + (line % acq.ascans_per_bscan) // as_
+    cut = [len(torch.unique(b)) > 1 for b in block.reshape(FPN_SEGMENTS, w)]
+    log(f"[mesh] {tag}: mean-line witness: {w} lines per segment, segments cut by the mesh "
+        f"{[k for k, c in enumerate(cut) if c]}; bins out of the float32 summation bound of "
+        f"the float64 segment mean: mesh {out_m}, single device {out_s}; worst |line - exact| "
+        f"/ bound: mesh {float(((got - exact).abs() / bound).max()):.3f}, single device "
+        f"{float(((want - exact).abs() / bound).max()):.3f}")
+    return out_m, out_s, dict(exact=exact, bound=bound, best=best[0].cpu(), cut=cut)
+
+
+def _mesh_parity(sharded, single, bufs, want, tag, witness=False):
+    """The sharded model over ``bufs`` (launches read around it), then the
+    single-device model on the same buffers: every output within 2e-4, the
+    mean line within 1e-4/1e-5 elementwise.  ``witness`` (for a mesh that
+    cuts FPN segments, whose partial sums add in another order): where the
+    elementwise limit does not hold, the bins are logged and both lines must
+    lie within the float32 summation bound of the exact segment means
+    (:func:`_mean_line_witness`) at every bin.  Returns the launches and the
+    max differences."""
+    import torch
+
+    from octproz_tpu_torch.parallel.sharding import row_blocks
+
+    dev = single.device
+    outs, launches = _exact_launches(lambda: [sharded.process_buffer(b) for b in bufs],
+                                     want, tag)
+    diff = max(_max_diff(torch.cat([t.to(dev) for _, t in row_blocks(o)]),
+                         single.process_buffer(b), tag) for o, b in zip(outs, bufs))
+    del outs
+    a, b = sharded.fpn_state.mean_line, single.fpn_state.mean_line
+    limit = 1e-5 + 1e-4 * b.abs()
+    over = (a - b).abs() > limit
+    if witness:
+        out_m, out_s, w = _mean_line_witness(sharded, single, bufs[0], tag)
+        half = b.shape[1]
+        ranked = sorted(torch.nonzero(over.flatten()).flatten().tolist(),
+                        key=lambda k: -float(((a - b).abs() / limit).flatten()[k]))
+        for k in ranked[:4]:
+            c, n = divmod(k, half)
+            seg = int(w["best"][n])
+            log(f"[mesh] {tag}: mean line misses 1e-4/1e-5 at {('re', 'im')[c]} bin {n} "
+                f"(segment {seg}, {'cut' if w['cut'][seg] else 'not cut'} by the mesh): "
+                f"single {float(b[c, n])!r}, mesh {float(a[c, n])!r}, difference "
+                f"{float((a - b).abs()[c, n]):.3e} > limit {float(limit[c, n]):.3e}; exact "
+                f"{float(w['exact'][c, n])!r}, float32 summation bound "
+                f"{float(w['bound'][c, n]):.3e}")
+        log(f"[mesh] {tag}: mean line max difference {float((a - b).abs().max()):.3e}; "
+            f"elementwise 1e-4/1e-5 misses {int(over.sum())} of {over.numel()} bins")
+        ok = out_m == 0 and out_s == 0
+        why = f"; out of the float32 summation bound: mesh {out_m}, single device {out_s}"
+    else:
+        ok, why = not bool(over.any()), ""
+    if not ok:
+        raise AssertionError(f"{tag}: mean line differs ({float((a - b).abs().max()):.3e}, "
+                             f"{int(over.sum())} bins over 1e-4/1e-5{why})")
+    return launches, diff, float((a - b).abs().max())
+
+
+def _mesh_bscan(dev):
+    """Part 1: the benchmark chain on make_mesh(4, 1, [cuda:0] * 4)."""
+    from octproz_tpu_torch import bench
+    from octproz_tpu_torch.models.fdoct import FdOctModel
+    from octproz_tpu_torch.params import FpnMode
+    from octproz_tpu_torch.parallel import make_mesh, traffic
+
+    acq = bench.FULL_ACQ
+    mesh = make_mesh(4, 1, devices=[dev] * 4)
+    bufs = list(bench.random_buffers(acq, 5, dev, seed=110))
+    totals = {"depth": 0, "depth_scale": 0}
+    for changes, what in (({}, "noise lines on shard 0"),
+                          ({"bscans_for_noise": 96}, "noise lines over 96 B-scans, shards 0-1")):
+        cfg = bench.bench_config(**changes)
+        sharded = FdOctModel(acq, cfg, **bench.CURVE_KW, mesh=mesh)
+        single = FdOctModel(acq, cfg, **bench.CURVE_KW, device=dev)
+        tag = f"mesh (4, 1) benchmark chain, {what}"
+        launches, diff, mean_diff = _mesh_parity(sharded, single, bufs,
+                                                 {"depth": 4, "depth_scale": 16}, tag)
+        tally = sharded._exec[2].tally.summary()
+        if tally["by_op"] != {"all_reduce": traffic.expected_fpn_psum_bytes(acq)}:
+            raise AssertionError(f"{tag}: transfers {tally['by_op']}")
+        log(f"[mesh] {tag}: FPN buffer + 4 steady, launches {launches} (B1 once and B2 once "
+            f"per steady buffer on each of 4 shards, on the tensor cores); max difference to "
+            f"the single-device model {diff:.3e} (bound 2e-4), mean line {mean_diff:.3e} "
+            f"(1e-4/1e-5); transfers {tally['by_op']} bytes")
+        for k in totals:
+            totals[k] += launches.get(k, 0)
+    cfg = bench.bench_config(fpn_mode=FpnMode.OFF)
+    sharded = FdOctModel(acq, cfg, **bench.CURVE_KW, mesh=mesh)
+    single = FdOctModel(acq, cfg, **bench.CURVE_KW, device=dev)
+    tag = "mesh (4, 1) benchmark chain, FPN off"
+    launches, diff, _ = _mesh_parity(sharded, single, bufs[:2], {"depth_scale": 8}, tag)
+    log(f"[mesh] {tag}: 2 buffers, launches {launches}; max difference to the single-device "
+        f"model {diff!r} (each line's work is the single-device work); transfers "
+        f"{sharded._exec[2].tally.summary()['total_bytes']} bytes")
+    totals["depth_scale"] += launches["depth_scale"]
+    return totals
+
+
+def _mesh_handheld(dev):
+    """Part 2: the handheld preset (flip, sinusoidal correction) with post
+    background removal on make_mesh(2, 2, [cuda:0] * 4): whole-row gathers."""
+    from octproz_tpu_torch import bench
+    from octproz_tpu_torch.models.fdoct import FdOctModel
+    from octproz_tpu_torch.models.presets import handheld_sinusoidal_config
+    from octproz_tpu_torch.parallel import make_mesh
+
+    acq = bench.FULL_ACQ
+    cfg = dataclasses.replace(handheld_sinusoidal_config(tpu=True), post_background_removal=True)
+    kw = dict(bench.CURVE_KW, post_background=np.linspace(
+        0.0, 0.05, acq.output_ascan_length, dtype=np.float32))
+    bufs = list(bench.random_buffers(acq, 3, dev, seed=120))
+    sharded = FdOctModel(acq, cfg, **kw, mesh=make_mesh(2, 2, devices=[dev] * 4))
+    single = FdOctModel(acq, cfg, **kw, device=dev)
+    tag = "mesh (2, 2) handheld preset + post background"
+    launches, diff, mean_diff = _mesh_parity(sharded, single, bufs,
+                                             {"depth": 4, "depth_scale": 8}, tag,
+                                             witness=True)
+    by_op = sharded._exec[2].tally.summary()["by_op"]
+    row = (acq.bscans_per_buffer // 2) * (acq.ascans_per_bscan // 2) * acq.output_ascan_length * 4
+    want = {"all_reduce": 55296, "row_gather": 3 * 2 * row, "row_scatter": 3 * 2 * row}
+    if by_op != want:
+        raise AssertionError(f"{tag}: transfers {by_op}, want {want}")
+    log(f"[mesh] {tag}: FPN buffer + 2 steady, launches {launches}; max difference to the "
+        f"single-device model {diff:.3e}, mean line {mean_diff:.3e}; transfers {by_op} bytes "
+        f"(each row's second block to its first and back, per buffer)")
+    return launches
+
+
+def _mesh_engine(info, dev, tmp):
+    """Part 3: StreamingEngine over FdOctModel(mesh=...) from RAM on both
+    wires: the recorded float32 stream == process_buffer on the mesh,
+    packed-12 == uint16 (exact); the engine's rate beside the
+    single-device engine's (information only)."""
+    from octproz_tpu_torch import bench
+    from octproz_tpu_torch.models.fdoct import FdOctModel
+    from octproz_tpu_torch.parallel import make_mesh
+    from octproz_tpu_torch.runtime import StreamingEngine
+
+    acq, cfg = bench.FULL_ACQ, bench.bench_config()
+    card = f"{info['device_name']}, power limit {info['power_limit']}"
+    mesh = make_mesh(4, 1, devices=[dev] * 4)
+    sources = bench.stream_sources(tmp)
+    ref = FdOctModel(acq, cfg, **bench.CURVE_KW, mesh=mesh)
+    want = np.stack([ref.fetch(ref.process_buffer(sources["uint16"].read_buffer(i)))
+                     for i in range(2)])
+    del ref
+    totals, recorded, rates = {"depth": 0, "depth_scale": 0}, {}, {}
+    for wire, src in sources.items():
+        tag = f"mesh (4, 1) engine, {wire} wire"
+        eng = StreamingEngine(FdOctModel(acq, cfg, **bench.CURVE_KW, mesh=mesh), src,
+                              wire_format=wire, stream_to_host=True)
+        eng.start_recording(_recording(tmp, f"mesh{wire}", 2))
+        _, launches = _exact_launches(lambda: eng.run(max_buffers=2),
+                                     {"depth": 4, "depth_scale": 4}, tag)
+        recorded[wire] = _recorded(eng, 2, acq.processed_buffer_shape, tag)
+        if not np.array_equal(recorded[wire], want):
+            raise AssertionError(f"{tag}: recorded float32 stream != process_buffer on the "
+                                 f"mesh (max {np.nanmax(np.abs(recorded[wire] - want)):.3e})")
+        for k in totals:
+            totals[k] += launches[k]
+        for shards, m in ((4, mesh), (1, None)):
+            rate, launches = _exact_launches(
+                lambda: bench.engine_rate(cfg, dev, src, wire, seconds=3.0, mesh=m),
+                lambda r: {"depth": shards, "depth_scale": shards * (r["buffers"] - 1)},
+                f"{tag} rate, {shards} shard(s)")
+            rates[(wire, shards)] = rate
+            for k in totals:
+                totals[k] += launches[k]
+    if not np.array_equal(recorded["packed12"], recorded["uint16"]):
+        raise AssertionError("mesh engine: packed-12 wire output != uint16 wire output")
+    log("[mesh] engine on (4, 1): recorded float32 stream == process_buffer on the mesh "
+        "(exact) on both wires; packed-12 == uint16 (exact)")
+    for (wire, shards), r in rates.items():
+        log(f"[mesh] engine, {wire} wire, {'(4, 1) mesh' if shards == 4 else 'single device'}: "
+            f"{r['mhz']:.3f} MHz A-scans ({r['timed_buffers']} buffers in {r['timed_s']:.3f} s "
+            f"after warm-up) ({card})")
+    return totals
+
+
+def _mesh_processes(tmp):
+    """Parts 4 and 5: ``python -m octproz_tpu_torch.parallel.multihost
+    --selftest --full`` as two ranks of a gloo world on cuda:0 (NCCL
+    refuses two ranks on one GPU) and as the one rank of an NCCL world,
+    all three fresh processes started together (CUDA and fork do not mix;
+    each loads the kernels built above from their cache).  Each rank feeds
+    its B-scan block of three buffers, holds its fetched block to a
+    single-device model and reports its readings as a JSON line; every wait
+    has a deadline, after which every rank is killed and the phase fails."""
+    import subprocess
+
+    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    runs = [("gloo", 2, 0), ("gloo", 2, 1), ("nccl", 1, 0)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "octproz_tpu_torch.parallel.multihost", "--selftest", "--full",
+         "--rank", str(rank), "--world", str(world), "--init", f"file://{tmp}/rendezvous-{name}"],
+        cwd=ROOT, env=dict(env, LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, world, rank in runs]
+    deadline = time.monotonic() + MESH_PROCESS_TIMEOUT_S
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"a rank did not finish within {MESH_PROCESS_TIMEOUT_S:.0f} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    totals = {"depth": 0, "depth_scale": 0}
+    for (name, world, rank), p, out in zip(runs, procs, outs):
+        tag = f"{name} world of {world}, rank {rank}"
+        if p.returncode != 0:
+            raise AssertionError(f"{tag} failed (exit {p.returncode}):\n{out[-4000:]}")
+        result = json.loads([l for l in out.splitlines() if l.startswith("{")][-1])
+        want = {"depth": 1, "depth_scale": 2}
+        if (result["via"] != name or result["all_reduce_bytes"] != 55296
+                or result["launches"] != want
+                or any(set(r) != {"tensor_core"} for r in result["routes"].values())):
+            raise AssertionError(f"{tag}: {result}; want via {name}, all_reduce 55296 B, "
+                                 f"launches {want} on the tensor cores")
+        log(f"[mesh] {tag} ({name}, one process each): B-scans {result['bscans']}, FPN buffer "
+            f"+ 2 steady == single-device model (max difference {result['max_abs_diff']:.3e}); "
+            f"all_reduce {result['all_reduce_bytes']} B via {result['via']}; launches "
+            f"{result['launches']} routes {result['routes']}")
+        for k in totals:
+            totals[k] += result["launches"][k]
+    return totals
+
+
+def _mesh_times(info, dev):
+    """Part 6: CUDA-event ms per steady buffer of the sharded step beside
+    the single-device step, both in this call, and the host's time to
+    enqueue one (ten calls on the host clock, no sync between them)."""
+    import itertools
+
+    import torch
+
+    from octproz_tpu_torch import bench
+    from octproz_tpu_torch.models.fdoct import FdOctModel
+    from octproz_tpu_torch.models.presets import handheld_sinusoidal_config
+    from octproz_tpu_torch.parallel import make_mesh
+
+    acq = bench.FULL_ACQ
+    card = f"{info['device_name']}, power limit {info['power_limit']}"
+    bufs = list(bench.random_buffers(acq, 4, dev, seed=130))
+    for what, cfg, shape in (("benchmark chain", bench.bench_config(), (4, 1)),
+                             ("handheld preset", handheld_sinusoidal_config(tpu=True), (2, 2))):
+        times, host = {}, {}
+        for label, mesh in ((f"{shape} mesh", make_mesh(*shape, devices=[dev] * 4)),
+                            ("single device", None)):
+            model = FdOctModel(acq, cfg, **bench.CURVE_KW, device=dev, mesh=mesh)
+            model.process_buffer(bufs[0])  # FPN determination
+            turn = itertools.count()
+            times[label] = bench.cuda_ms(lambda: model.process_buffer(bufs[next(turn) % 4]))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(10):
+                model.process_buffer(bufs[i % 4])
+            host[label] = (time.perf_counter() - t0) * 100.0
+            torch.cuda.synchronize()
+            del model
+        log(f"[mesh] {what} steady state: "
+            + ", ".join(f"{k} {v:.3f} ms/buffer ({acq.ascans_per_buffer / v / 1e3:.3f} MHz; "
+                        f"host enqueue {host[k]:.3f} ms)" for k, v in times.items())
+            + f" ({card})")
+
+
+def phase_mesh(info, dev=None):
+    """The sharded step at full width on one card: see the module
+    docstring, phase 9.  Returns B1's and B2's launch counts, summed over
+    the phase's runs (the rank processes' sharded models included)."""
+    import tempfile
+
+    import torch
+
+    dev = torch.device("cuda", 0) if dev is None else dev
+    t0 = time.perf_counter()
+    totals = _mesh_bscan(dev)
+    for k, v in _mesh_handheld(dev).items():
+        totals[k] += v
+    with tempfile.TemporaryDirectory() as tmp:
+        for part in (_mesh_engine(info, dev, tmp), _mesh_processes(tmp)):
+            for k in totals:
+                totals[k] += part[k]
+    _mesh_times(info, dev)
+    log(f"[main] mesh launches {totals}, summed over the phase's runs "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return totals
+
+
 #: Launches of the bf16 main path (phase_bf16_path): per path buffer 0
 #: (FPN determination; the fold paths' planar kernel), then on the fold
 #: paths three steady buffers, a batch chunk of four (one launch) and one
@@ -2537,6 +2929,8 @@ def main() -> None:
     for k, v in phase_acquisition(info).items():
         launches[k] += v
     for k, v in phase_application(info).items():
+        launches[k] += v
+    for k, v in phase_mesh(info).items():
         launches[k] += v
     launches.update({BF16_ROWS[k]: v for k, v in phase_bf16_path(worst).items()})
     phase_fidelity()

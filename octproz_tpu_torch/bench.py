@@ -480,7 +480,7 @@ def stream_sources(directory: str, count: int = 3, seed: int = 40):
 
 def engine_rate(cfg: ProcConfig, device, source, wire: str, dispatch_chunk: int = 1,
                 seconds: float = 5.0, warmup: int = 8, window_s: float = 1.0,
-                max_buffers: int = 5000, attach=None) -> Dict[str, object]:
+                max_buffers: int = 5000, attach=None, mesh=None) -> Dict[str, object]:
     """The engine's end-to-end rate on ``source`` (the upload, the step and
     the quantized fetch of every buffer included): the buffers that reached
     the host after the first ``warmup`` (rounded up to whole chunks; they
@@ -490,13 +490,14 @@ def engine_rate(cfg: ProcConfig, device, source, wire: str, dispatch_chunk: int 
     buffer.  The ThroughputMeter's ``window_s`` windows after the first are
     kept as a spread statistic (``window_mhz``).  ``attach(engine)``, when
     given, is called before the run (a live viewer chaining onto the
-    engine's callbacks)."""
+    engine's callbacks).  ``mesh``: the model's step sharded over it
+    (``parallel.make_mesh``), ``device`` its first device."""
     from .models.fdoct import FdOctModel
     from .runtime import StreamingEngine
 
     chunk = max(1, dispatch_chunk)
     warm = -(-warmup // chunk) * chunk - 1  # the last buffer of a chunk
-    model = FdOctModel(FULL_ACQ, cfg, **CURVE_KW, device=device)
+    model = FdOctModel(FULL_ACQ, cfg, **CURVE_KW, device=device, mesh=mesh)
     arrived, windows = [], []
 
     def on_processed(_host, _buffer_nr):

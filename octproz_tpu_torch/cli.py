@@ -8,8 +8,10 @@ with an error instead of running on the CPU, and ``--device cpu`` asks for
 the CPU.  ``--fold-backend pallas`` selects the hand-written CUDA kernels
 and ``xla`` their plain torch versions (the names carry over from the JAX
 package); ``--fold-ksplit`` and ``--pallas-tile`` are accepted and leave
-the output unchanged; ``--mesh`` raises until multi-device meshes are
-ported.  ``python -m octproz_tpu_torch ...`` runs it.
+the output unchanged; ``--mesh B[,A]`` shards the step over a mesh of
+``--device``'s devices (the local CUDA devices, too few being an error; on
+the CPU, B*A copies of the CPU device).  ``python -m octproz_tpu_torch ...``
+runs it.
 
 The headless app-shell of the framework -- the role OCTproZMainWindow +
 Sidebar + OCTproZApp play in the reference (octproz_project/octproz/src/
@@ -208,8 +210,9 @@ def _add_proc_args(p: argparse.ArgumentParser) -> None:
                         "[processing]/[tpu]/[streaming]/[record] key; "
                         "explicit CLI flags override its values")
     g.add_argument("--mesh", default=None, metavar="B[,A]",
-                   help="shard the step over a (bscan, ascan) device mesh "
-                        "(not ported yet: raises, ROADMAP.md Queue 1, A13)")
+                   help="shard the step over a (bscan, ascan) mesh of --device's "
+                        "devices, e.g. --mesh 4 or --mesh 4,2 (parallel/sharding.py; "
+                        "with cpu, B*A copies of the CPU device)")
     g.add_argument("--plugins", action="append", default=None,
                    metavar="PKG.MOD[:FACTORY]",
                    help="load a third-party plugin (repeatable): an "
@@ -396,13 +399,30 @@ def _build_config(args, bundle=None, system=None):
 
         model_kw["custom_resample_curve"] = load_curve_csv(
             custom_csv, expected_size=acq.samples_per_line)
+    return acq, cfg, model_kw
+
+
+def _model(args, acq, cfg, model_kw, device):
+    """FdOctModel on ``device``, its step sharded over ``--mesh B[,A]`` when
+    given: on a CUDA device the local CUDA devices from it on (too few is an
+    error, never a fallback), on the CPU B*A copies of the CPU device."""
+    from .models.fdoct import FdOctModel
+
+    mesh = None
     if getattr(args, "mesh", None):
-        # FdOctModel raises on a mesh until multi-device meshes are ported
+        from .parallel import make_mesh
+
         dims = [int(x) for x in args.mesh.split(",")]
         if len(dims) == 1:
             dims.append(1)
-        model_kw["mesh"] = tuple(dims)
-    return acq, cfg, model_kw
+        if device.type == "cpu":
+            devices = [device] * (dims[0] * dims[1])
+        else:
+            first = 0 if device.index is None else device.index
+            devices = [torch.device("cuda", i)
+                       for i in range(first, torch.cuda.device_count())]
+        mesh = make_mesh(dims[0], dims[1], devices=devices)
+    return FdOctModel(acq, cfg, **model_kw, mesh=mesh, device=device)
 
 
 def _device(args) -> torch.device:
@@ -434,7 +454,6 @@ def _source_kwargs(args, bundle) -> dict:
 
 def cmd_process(args) -> int:
     from .io.source import VirtualOctSource
-    from .models.fdoct import FdOctModel
     from .viz import builtin_lut, save_bscan_png, save_enface_png
 
     device = _device(args)
@@ -442,7 +461,7 @@ def cmd_process(args) -> int:
     ctx = _plugin_context(args, bundle)
     system = _maybe_system_source(args, bundle, ctx)
     acq, cfg, model_kw = _build_config(args, bundle, system=system)
-    model = FdOctModel(acq, cfg, **model_kw, device=device)
+    model = _model(args, acq, cfg, model_kw, device)
     if system is not None:
         src = system
         raw_buffers = []
@@ -474,6 +493,7 @@ def cmd_process(args) -> int:
                     for e in exts.extensions.values())
     if want_proc:
         from .ops import quantize as _quantize
+        from .parallel.sharding import per_shard
 
     t0 = time.perf_counter()
     outs = []
@@ -484,7 +504,8 @@ def cmd_process(args) -> int:
                 acq.buffers_per_volume, 1))
         outs.append(model.process_buffer(raw_i))
         if want_proc:
-            exts.feed_processed(model.fetch(_quantize.quantize(outs[-1], acq.bit_depth)),
+            exts.feed_processed(model.fetch(per_shard(
+                lambda t: _quantize.quantize(t, acq.bit_depth), outs[-1])),
                                 acq, acq.bit_depth,
                                 i % max(acq.buffers_per_volume, 1))
     volume = np.concatenate([model.fetch(o) for o in outs], axis=0)
@@ -534,7 +555,6 @@ def _render_to_png(volume, path, mode_name, lut, device):
 
 def cmd_replay(args) -> int:
     from .io.source import VirtualOctSource
-    from .models.fdoct import FdOctModel
     from .runtime import StreamingEngine
     from .utils.console import MessageConsole
 
@@ -543,7 +563,7 @@ def cmd_replay(args) -> int:
     ctx = _plugin_context(args, bundle)
     system = _maybe_system_source(args, bundle, ctx)
     acq, cfg, model_kw = _build_config(args, bundle, system=system)
-    model = FdOctModel(acq, cfg, **model_kw, device=device)
+    model = _model(args, acq, cfg, model_kw, device)
     # wire-format / source-framing consistency (both directions: packed
     # wire without a packed source feeds garbage shapes into the step, and
     # packed bytes with a uint16 wire would be decoded as samples)

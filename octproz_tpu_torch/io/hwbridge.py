@@ -16,6 +16,7 @@ thread then stages into its pinned ring.
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Iterator, Optional
 
@@ -50,6 +51,11 @@ class HardwareRingSource:
         self.poll_interval_s = poll_interval_s
         self.timeout_s = timeout_s
         self._final_count: Optional[int] = None
+        # the consumer's ring calls and close() exclude each other: a
+        # consumer thread still polling when the owner closes must not
+        # touch the freed ring, it ends its stream instead
+        self._lock = threading.Lock()
+        self._closed = False
 
     # -- producer API -------------------------------------------------------
     def acquire_write(self) -> int:
@@ -94,10 +100,17 @@ class HardwareRingSource:
     def buffers(self) -> Iterator[np.ndarray]:
         idle_since = None
         while True:
-            final = self._final_count
-            if final is not None and self.ring.consumed() >= final:
-                return
-            slot = self.ring.acquire_read()
+            with self._lock:
+                if self._closed:
+                    return
+                final = self._final_count
+                if final is not None and self.ring.consumed() >= final:
+                    return
+                slot = self.ring.acquire_read()
+                if slot >= 0:
+                    # hand out a copy: the slot is recycled as soon as we release it
+                    data = self.ring.view(slot).copy()
+                    self.ring.release_read(slot)
             if slot < 0:
                 # the ring was polled AFTER reading the final count, so
                 # "empty + count reached" can never lose a commit; with a
@@ -111,10 +124,9 @@ class HardwareRingSource:
                 time.sleep(self.poll_interval_s)
                 continue
             idle_since = None
-            # hand out a copy: the slot is recycled as soon as we release it
-            data = self.ring.view(slot).copy()
-            self.ring.release_read(slot)
             yield data
 
     def close(self) -> None:
-        self.ring.close()
+        with self._lock:
+            self._closed = True
+            self.ring.close()

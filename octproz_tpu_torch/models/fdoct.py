@@ -6,7 +6,10 @@ device and the carried FPN state, and exposes buffer- and chunk-level
 processing.  The device is explicit: a CUDA device runs the hand-written
 kernels, the CPU runs their plain versions, and nothing moves from one to
 the other on its own.  The batched chunk is the fold path's; the FFT path
-chunks buffer by buffer ("scan"), as in the JAX package.
+chunks buffer by buffer ("scan"), as in the JAX package.  With a ``mesh``
+(``parallel.make_mesh``) the step is the sharded one: buffers are split
+into shard blocks on the mesh's devices, and the model's device is the
+mesh's first.
 """
 
 from __future__ import annotations
@@ -35,6 +38,13 @@ def _mutator(method):
     return locked
 
 
+def _normalized(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 class FdOctModel:
     def __init__(
         self,
@@ -50,16 +60,23 @@ class FdOctModel:
         mesh=None,
         preflight: bool = True,
         *,
-        device,
+        device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device meshes are not ported yet (ROADMAP.md Queue 1, A13)")
         self.acq = acq
         self.cfg = cfg
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.mesh = mesh
+        if mesh is not None:
+            from ..parallel import Mesh
+
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f"mesh must be a parallel.Mesh, got {type(mesh).__name__}")
+            first = mesh.local_devices[0]
+            if device is not None and _normalized(device) != first:
+                raise ValueError(f"device {device} is not the mesh's first device {first}")
+            device = first
+        elif device is None:
+            raise TypeError("FdOctModel needs device= (or a mesh=)")
+        self.device = _normalized(device)
         if preflight:
             # refuse clearly before the first buffer when the configuration
             # cannot fit (cuda_code.cu:975-1015 analog); skipped on the CPU
@@ -79,35 +96,49 @@ class FdOctModel:
         self.curves: Curves = curves_mod.make_curves(acq, cfg, **self._curve_kwargs,
                                                      device=self.device)
         self.fpn_state: FpnState = pipeline.initial_fpn_state(acq, device=self.device)
-        self._step = pipeline.make_step(self.acq, self.cfg)
+        self._step = self._build_step(cfg)
         # One published snapshot (cfg, curves, step): the hot path reads this
         # single attribute, so a set_config / curve rebuild from another
         # thread never pairs an old step with new curves.
         self._exec = (self.cfg, self.curves, self._step)
 
+    def _build_step(self, cfg: ProcConfig):
+        if self.mesh is not None:
+            from ..parallel import make_sharded_step
+
+            return make_sharded_step(self.acq, cfg, self.mesh)
+        return pipeline.make_step(self.acq, cfg)
+
+    @property
+    def devices(self):
+        """The distinct devices the model's buffers live on: the mesh's
+        local ones, or the model's device."""
+        return self.mesh.local_devices if self.mesh is not None else [self.device]
+
     @property
     def is_multihost(self) -> bool:
-        """False: multi-device meshes are ROADMAP.md Queue 1, A13."""
-        return False
+        """True on a mesh whose host axis spans processes: each process
+        feeds and fetches only its own B-scan block."""
+        from ..parallel import AXIS_HOST
 
-    def put_buffer(self, raw) -> torch.Tensor:
+        return (self.mesh is not None and AXIS_HOST in self.mesh.axis_names
+                and self.mesh.process_index is not None
+                and self.mesh.shape[AXIS_HOST] > 1)
+
+    def put_buffer(self, raw):
         """Commit a host raw buffer to the model's device: a non-blocking
         copy on the current stream from pinned host memory (the host tensor
         itself when it is pinned already, as the streaming engine's upload
-        ring is, else a pinned copy of it)."""
-        if isinstance(raw, torch.Tensor):
-            if raw.device == self.device:
-                return raw
-            if raw.device.type != "cpu":
-                return raw.to(self.device)
-            host = raw
-        else:
-            host = torch.from_numpy(np.ascontiguousarray(raw))
-        if self.device.type != "cuda":
-            return host.to(self.device)
-        if not host.is_pinned():
-            host = host.pin_memory()
-        return host.to(self.device, non_blocking=True)
+        ring is, else a pinned copy of it).  On a mesh: the buffer's shard
+        blocks, each on its device; on a mesh that spans processes ``raw``
+        is this process's B-scan block (``parallel.local_bscan_range``)."""
+        from ..parallel import multihost, sharding
+
+        if self.mesh is None:
+            return sharding.place(raw, self.device)
+        if self.is_multihost and not isinstance(raw, sharding.ShardedBuffer):
+            return multihost.feed_from_local(raw, self.acq, self.mesh)
+        return sharding.shard_buffer(raw, self.mesh)
 
     def put_packed_buffer(self, packed) -> torch.Tensor:
         """Upload a packed-12-bit wire buffer (1.5 bytes per sample, 25 %
@@ -120,17 +151,53 @@ class FdOctModel:
             raise ValueError("packed-12 wire format needs bit_depth=12")
         if not isinstance(packed, torch.Tensor):
             packed = np.asarray(packed, np.uint8)
+        if self.mesh is not None:
+            return self._put_packed_mesh(packed)
         wire = self.put_buffer(packed)
         return unpack_uint12_device(wire, self.acq.samples_per_buffer).reshape(
             self.acq.buffer_shape)
 
-    def fetch(self, arr: torch.Tensor) -> np.ndarray:
+    def _put_packed_mesh(self, packed):
+        """The packed wire split on B-scan boundaries and unpacked block by
+        block on each shard's device (packing is line-local).  Per line
+        when samples_per_line is a multiple of 256 (the wire split like the
+        buffer); else per B-scan when a whole B-scan's samples are (each
+        row's bytes on each of its positions, unpacked whole, then cut to
+        the position's A-scans); else refused, as the JAX package refuses
+        a geometry its lane-aligned unpack cannot take."""
+        from ..ops.convert import unpack_uint12_rows
+        from ..parallel import ShardedBuffer, multihost
+
+        acq = self.acq
+        per_line = acq.samples_per_line % 256 == 0
+        bscan_bytes = acq.ascans_per_bscan * acq.samples_per_line * 3 // 2
+        if not per_line and bscan_bytes % 384:
+            raise ValueError(
+                f"packed-12 on a mesh needs samples_per_line "
+                f"({acq.samples_per_line}) or a whole B-scan's samples "
+                f"({acq.ascans_per_bscan * acq.samples_per_line}) to be a "
+                f"multiple of 256 (lane-aligned 384-byte unpack rows)")
+        wire = multihost.feed_wire_from_local(packed, acq, self.mesh, per_line=per_line)
+        if per_line:
+            return wire.map(unpack_uint12_rows)
+        shards = []
+        a_len = acq.ascans_per_bscan // self.mesh.shape.get("ascan", 1)
+        for ((b,), w), (_, ia, _) in zip(wire.shards, self.mesh.local_positions()):
+            a = slice(ia * a_len, (ia + 1) * a_len)
+            raw = unpack_uint12_rows(w).reshape(
+                w.shape[0], acq.ascans_per_bscan, acq.samples_per_line)[:, a].contiguous()
+            shards.append(((b, a), raw))
+        return ShardedBuffer(tuple(acq.buffer_shape), shards[0][1].dtype, self.mesh,
+                             tuple(shards))
+
+    def fetch(self, arr) -> np.ndarray:
         """Device-to-host fetch of a processed buffer as numpy (bfloat16
-        volumes arrive as float32: numpy has no bfloat16)."""
-        t = arr.detach()
-        if t.dtype == torch.bfloat16:
-            t = t.to(torch.float32)
-        return t.cpu().numpy()
+        volumes arrive as float32: numpy has no bfloat16): on a mesh the
+        whole buffer in one process, this process's B-scan block on a mesh
+        that spans processes."""
+        from ..parallel import multihost
+
+        return multihost.fetch(arr)
 
     # -- live re-tuning (reference: sidebar edits -> updateResampleCurve etc.,
     #    octalgorithmparameters.cpp:141-249) ---------------------------------
@@ -164,6 +231,7 @@ class FdOctModel:
                 np.asarray(background, np.float32), device=self.device))
         self._exec = (self.cfg, self.curves, self._step)
 
+    @_mutator
     def redetermine_fpn(self) -> None:
         """Reference: redetermineFixedPatternNoise request (cuda_code.cu:1521)."""
         self.fpn_state = pipeline.initial_fpn_state(self.acq, device=self.device)
@@ -172,9 +240,10 @@ class FdOctModel:
     def set_config(self, **changes) -> None:
         """Replace ProcConfig fields mid-stream (grayscale range, FPN mode,
         scaling, precision rung, compute dtype, ...); the curves are built
-        anew, so the held operator parts follow the new rung."""
+        anew, so the held operator parts follow the new rung (on a mesh the
+        sharded step and its per-device curve copies are made anew too)."""
         cfg = dataclasses.replace(self.cfg, **changes)  # validates before any change
-        step = pipeline.make_step(self.acq, cfg)
+        step = self._build_step(cfg)
         self.cfg = cfg
         self._rebuild_curves(publish=False)
         self._step = step
@@ -210,6 +279,9 @@ class FdOctModel:
             FPN mean line (mode OFF, or ONCE already determined).
           * "auto"  -- "batch" whenever its conditions hold, else "scan".
         """
+        if self.mesh is not None:
+            raise ValueError("process_chunk is single-device throughput "
+                             "mode; on a mesh use process_buffer per buffer")
         if strategy not in ("auto", "scan", "batch"):
             raise ValueError("strategy must be 'auto', 'scan' or 'batch'")
         raw_stack = self.put_buffer(raw_stack)
@@ -226,13 +298,7 @@ class FdOctModel:
         return out
 
     def _batch_ready(self) -> bool:
-        cfg = self.cfg
-        if not (cfg.fft_via_matmul and cfg.fused_scale
-                and cfg.fold_backend == "pallas"):
-            return False
-        if cfg.fpn_mode == FpnMode.ONCE:
-            return self.fpn_state.determined  # host flag: no device sync
-        return cfg.fpn_mode == FpnMode.OFF
+        return pipeline.fused_ready(self.cfg, self.fpn_state)  # host flag: no device sync
 
     def _batch_chunk(self, raw_stack) -> torch.Tensor:
         """One fused kernel over the whole stack; the FPN state is unchanged
@@ -254,6 +320,11 @@ class FdOctModel:
         """raw uint (buffers, bscans, ascans, samples), or one buffer ->
         (buffers * bscans, ascans, samples//2), buffer by buffer with the
         FPN state carried along."""
+        if self.mesh is not None:
+            if len(raw_volume.shape) == 3:
+                return self.process_buffer(raw_volume)
+            raise ValueError("process_volume on a mesh takes one buffer at a time; "
+                             "call process_buffer per buffer")
         raw_volume = self.put_buffer(raw_volume)
         if raw_volume.dim() == 3:
             return self.process_buffer(raw_volume)

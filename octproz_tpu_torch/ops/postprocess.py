@@ -60,22 +60,29 @@ def scale_lin(z_half: torch.Tensor, half_len: int, gmin: float, gmax: float,
                             addend, coeff)
 
 
-def bscan_flip(volume: torch.Tensor) -> torch.Tensor:
-    """Reverse the A-scan order of the even B-scans: (bscans, ascans, depth)."""
-    even = (torch.arange(volume.shape[0], device=volume.device) % 2 == 0)[:, None, None]
+def bscan_flip(volume: torch.Tensor, first_bscan: int = 0) -> torch.Tensor:
+    """Reverse the A-scan order of the even B-scans: (bscans, ascans, depth).
+    ``first_bscan`` is the buffer index of the volume's first B-scan (a
+    shard's offset), so the parity is the buffer's."""
+    index = torch.arange(volume.shape[0], device=volume.device) + first_bscan
+    even = (index % 2 == 0)[:, None, None]
     return torch.where(even, volume.flip(1), volume)
 
 
-def sinusoidal_correction(volume: torch.Tensor, curve: torch.Tensor) -> torch.Tensor:
+def sinusoidal_correction(volume: torch.Tensor, curve: torch.Tensor,
+                          guard_last: bool = True) -> torch.Tensor:
     """Resample along the A-scan axis at ``curve`` (float32 (ascans,),
-    curve[k] = (L/pi) acos(1 - 2k/L)); volume float32 (bscans, ascans, depth)."""
+    curve[k] = (L/pi) acos(1 - 2k/L)); volume float32 (bscans, ascans, depth).
+    ``guard_last``: the volume ends the buffer, so its last A-scan stays as
+    it was (False for a shard that does not hold the buffer's last B-scan)."""
     n_asc = volume.shape[1]
     x0 = curve.to(torch.int32)
     frac = (curve - x0.to(torch.float32))[None, :, None]
     f0 = volume.index_select(1, torch.clamp(x0, 0, n_asc - 1))
     f1 = volume.index_select(1, torch.clamp(x0 + 1, 0, n_asc - 1))
     out = f0 + (f1 - f0) * frac
-    out[-1, -1] = volume[-1, -1]  # the reference's guard: last A-scan untouched
+    if guard_last:
+        out[-1, -1] = volume[-1, -1]  # the reference's guard: last A-scan untouched
     return out
 
 

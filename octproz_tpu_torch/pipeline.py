@@ -133,6 +133,15 @@ def postprocess_volume(mag: torch.Tensor, curves: Curves, cfg: ProcConfig) -> to
     return mag
 
 
+def fused_ready(cfg: ProcConfig, fpn_state: FpnState) -> bool:
+    """True when the steady-state kernel (GEMM + FPN subtraction + scaling
+    in one launch) computes the buffer: the fused fold path with a constant
+    FPN mean line (mode OFF, or ONCE already determined; a host flag)."""
+    return (cfg.fft_via_matmul and cfg.fused_scale and cfg.fold_backend == "pallas"
+            and (cfg.fpn_mode == FpnMode.OFF
+                 or (cfg.fpn_mode == FpnMode.ONCE and fpn_state.determined)))
+
+
 def depth_operators(curves: Curves):
     """The depth operators as the fold wrappers take them: the parts split
     once by ``make_curves`` where the curves hold them (curves carried in
@@ -146,10 +155,7 @@ def _fold_branch(raw, curves, fpn_state, acq, cfg):
     from .kernels.fused_prep import fused_depth_scale, fused_depth_transform
 
     op_re, op_im = depth_operators(curves)
-    fusable = (cfg.fused_scale and cfg.fold_backend == "pallas"
-               and (cfg.fpn_mode == FpnMode.OFF
-                    or (cfg.fpn_mode == FpnMode.ONCE and fpn_state.determined)))
-    if fusable:
+    if fused_ready(cfg, fpn_state):
         # Steady state: GEMM + FPN subtraction + scaling in one kernel.  OFF
         # subtracts zeros, ignoring any carried state.
         mean = (torch.zeros_like(fpn_state.mean_line)

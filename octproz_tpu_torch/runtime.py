@@ -31,6 +31,12 @@ its GPU->host streaming ring (cuda_code.cu:1357-1386, processing.cpp:
   A-scans/s, MB/s -- the numbers of the reference's info box
   (processing.cpp:193-207).
 
+On a sharded model (``FdOctModel(mesh=...)``) each device of the mesh has
+its own upload and D2H stream, a step carries one event per device, the
+quantization runs shard by shard on each shard's device and the fetch
+assembles the blocks (``model.fetch``: the whole buffer, or this process's
+block on a mesh that spans processes).
+
 On a CPU model the same loop runs without streams or events: every
 operation is synchronous there.  Every queue wait has a timeout, so a
 stop request ends the loop even while a thread is wedged.
@@ -38,6 +44,7 @@ stop request ends the loop even while a thread is wedged.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import queue
@@ -55,6 +62,8 @@ from .io.source import AcquisitionSource
 from .models.fdoct import FdOctModel
 from .ops import postprocess
 from .ops import quantize as quantize_mod
+from .parallel.sharding import (ShardedBuffer, blocks, global_background, per_shard,
+                                row_blocks)
 from .plugins import ExtensionManager
 
 _POLL_S = 0.1  # every queue wait gives up after this and checks for a stop
@@ -241,10 +250,12 @@ class _DeviceFeeder(_Stage):
                          else model.put_buffer)
         self._cuda = model.device.type == "cuda"
         self._ring: List[Optional[torch.Tensor]] = [None] * max(2, ring)
-        self._done: List[Optional[torch.cuda.Event]] = [None] * len(self._ring)
+        self._done: List[Optional[list]] = [None] * len(self._ring)
 
     def _items(self):
-        stream = torch.cuda.Stream(self._model.device) if self._cuda else None
+        # one upload stream per device of the model (a mesh's every device)
+        streams = ({d: torch.cuda.Stream(d) for d in self._model.devices}
+                   if self._cuda else None)
         k = 0
         while not self._stop.is_set():
             raw = self._prefetcher.get(stop=self._stop)
@@ -255,23 +266,28 @@ class _DeviceFeeder(_Stage):
                 continue
             slot = k % len(self._ring)
             k += 1
-            yield raw, *self._upload(raw, slot, stream)
+            yield raw, *self._upload(raw, slot, streams)
 
-    def _upload(self, raw, slot: int, stream):
+    def _upload(self, raw, slot: int, streams):
         host = torch.from_numpy(np.ascontiguousarray(raw))
         pinned = self._ring[slot]
-        if self._done[slot] is not None:
-            self._done[slot].synchronize()  # the slot's last upload is done
+        for done in self._done[slot] or ():
+            done.synchronize()  # the slot's last upload is done
         if pinned is None or pinned.shape != host.shape or pinned.dtype != host.dtype:
             pinned = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
             self._ring[slot] = pinned
         pinned.copy_(host)
-        with torch.cuda.stream(stream):
+        with contextlib.ExitStack() as on_streams:
+            for stream in streams.values():
+                on_streams.enter_context(torch.cuda.stream(stream))
             dev = self._put_dev(pinned)
-            done = torch.cuda.Event()
-            done.record(stream)
+            done = []
+            for stream in streams.values():
+                event = torch.cuda.Event()
+                event.record(stream)
+                done.append(event)
         self._done[slot] = done
-        return dev, done
+        return dev, list(zip(streams, done))
 
 
 class StreamingEngine:
@@ -325,6 +341,9 @@ class StreamingEngine:
         # costs dispatch_chunk buffers of latency.  chunk_strategy "auto"
         # takes the one-kernel batch whenever the configuration allows it.
         self.dispatch_chunk = max(1, dispatch_chunk)
+        if model.mesh is not None and self.dispatch_chunk > 1:
+            raise ValueError("dispatch_chunk > 1 is single-device throughput mode; "
+                             "a sharded model runs buffer by buffer")
         self.chunk_strategy = chunk_strategy
         self.on_metrics = on_metrics
         self.on_processed = on_processed
@@ -351,7 +370,7 @@ class StreamingEngine:
         self._post_bg_remaining = 0
         self._post_bg_total = 0
         self._post_bg_accum = None
-        self._d2h: Optional[torch.cuda.Stream] = None  # made in run()
+        self._d2h: dict = {}  # device -> D2H stream, made in run() on CUDA
 
     # -- recording (octprozapp.cpp:215-299 / processing.cpp:231-267) --------
     def start_recording(self, params: RecordingParams) -> None:
@@ -416,7 +435,9 @@ class StreamingEngine:
         self._post_bg_accum = None
 
     def _capture_post_background(self, processed) -> None:
-        bg = postprocess.get_background(processed)  # on the device
+        # on the device; over every shard (and process) on a mesh
+        bg = (global_background(processed) if isinstance(processed, ShardedBuffer)
+              else postprocess.get_background(processed))
         self._post_bg_accum = (bg if self._post_bg_accum is None
                                else self._post_bg_accum + bg)
         self._post_bg_remaining -= 1
@@ -433,25 +454,44 @@ class StreamingEngine:
         self._stop_requested.set()
 
     # -- device-to-host ------------------------------------------------------
-    def _start_fetch(self, t: torch.Tensor) -> torch.Tensor:
-        """Begin the device-to-host copy of ``t``; the returned host tensor
-        holds the data once the entry's event completed."""
-        if self._d2h is None:  # CPU model: already on the host
-            return t
-        self._d2h.wait_stream(torch.cuda.current_stream(self.model.device))
-        with torch.cuda.stream(self._d2h):
-            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            host.copy_(t, non_blocking=True)
-        t.record_stream(self._d2h)
+    def _start_fetch(self, buf) -> torch.Tensor:
+        """Begin the device-to-host copy of ``buf``; the returned host
+        tensor holds the data once the entry's events completed.  A sharded
+        buffer lands in one host block (this process's B-scans), each of
+        its rows copied into its slice on the row device's D2H stream."""
+        if not isinstance(buf, ShardedBuffer):
+            return self._fetch_block(buf)
+        rows = row_blocks(buf)
+        lo = rows[0][0].start
+        host = torch.empty((rows[-1][0].stop - lo,) + tuple(buf.shape[1:]), dtype=buf.dtype,
+                           pin_memory=bool(self._d2h))
+        for b, t in rows:
+            self._fetch_block(t, host[b.start - lo:b.stop - lo])
         return host
 
-    def _mark_done(self, fetched: bool) -> Optional[torch.cuda.Event]:
-        """The event that completes after this step (and its fetches)."""
-        if self._d2h is None:
+    def _fetch_block(self, t: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``t`` into ``out`` (a contiguous host tensor; made pinned when
+        None) on its device's D2H stream; on a CPU model ``t`` itself."""
+        if t.device not in self._d2h:  # CPU model: already on the host
+            return t if out is None else out.copy_(t)
+        d2h = self._d2h[t.device]
+        d2h.wait_stream(torch.cuda.current_stream(t.device))
+        with torch.cuda.stream(d2h):
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True) if out is None else out
+            host.copy_(t, non_blocking=True)
+        t.record_stream(d2h)
+        return host
+
+    def _mark_done(self, fetched: bool) -> Optional[list]:
+        """The events, one per device, that complete after this step (and
+        its fetches)."""
+        if not self._d2h:
             return None
-        done = torch.cuda.Event()
-        done.record(self._d2h if fetched
-                    else torch.cuda.current_stream(self.model.device))
+        done = []
+        for device, d2h in self._d2h.items():
+            event = torch.cuda.Event()
+            event.record(d2h if fetched else torch.cuda.current_stream(device))
+            done.append(event)
         return done
 
     # -- the hot loop (processing.cpp:176-218) ------------------------------
@@ -463,7 +503,7 @@ class StreamingEngine:
         bufs_per_vol = max(acq.buffers_per_volume, 1)
         cuda = self.model.device.type == "cuda"
         if cuda:
-            self._d2h = torch.cuda.Stream(self.model.device)
+            self._d2h = {d: torch.cuda.Stream(d) for d in self.model.devices}
 
         def want_raw_fanout() -> bool:
             # per buffer: an extension activated mid-stream starts receiving
@@ -512,8 +552,8 @@ class StreamingEngine:
             stream_due = (self.stream_to_host
                           and processed_count % (self.streaming_skip + 1) == 0)
             host_float = self._start_fetch(processed) if record_float else None
-            host_quant = (self._start_fetch(quantize_mod.quantize(
-                processed, self.streaming_bit_depth))
+            host_quant = (self._start_fetch(per_shard(
+                lambda t: quantize_mod.quantize(t, self.streaming_bit_depth), processed))
                 if (record_quant or stream_due) else None)
             fetched = host_float is not None or host_quant is not None
             in_flight.append((buffer_nr, host_float, host_quant, record_quant,
@@ -571,10 +611,11 @@ class StreamingEngine:
                     if item is None:
                         break
                     raw, dev, uploaded = item
+                    for device, event in uploaded or ():
+                        torch.cuda.current_stream(device).wait_event(event)
                     if uploaded is not None:
-                        compute = torch.cuda.current_stream(self.model.device)
-                        compute.wait_event(uploaded)
-                        dev.record_stream(compute)
+                        for t in blocks(dev):
+                            t.record_stream(torch.cuda.current_stream(t.device))
                 else:
                     raw = prefetcher.get(stop=self._stop_requested)
                     if raw is None:
@@ -611,7 +652,8 @@ class StreamingEngine:
             while in_flight:
                 self._drain_one(in_flight)
             if cuda:  # everything dispatched has executed
-                torch.cuda.current_stream(self.model.device).synchronize()
+                for device in self.model.devices:
+                    torch.cuda.current_stream(device).synchronize()
             # end-of-stream flush: a source that ends before
             # buffers_to_record must not silently discard the capture
             for rec in (self.raw_recorder, self.processed_recorder):
@@ -630,8 +672,8 @@ class StreamingEngine:
 
     def _drain_one(self, in_flight: List[tuple]) -> None:
         buffer_nr, host_float, host_quant, record_quant, done = in_flight.pop(0)
-        if done is not None:
-            done.synchronize()  # the step and its fetches have completed
+        for event in done or ():
+            event.synchronize()  # the step and its fetches have completed
         was_recording = self.processed_recorder.recording
         if host_float is not None:
             # recorder-only stream (the reference's float path feeds the

@@ -296,6 +296,30 @@ def test_timeout_when_producer_dies():
         src.close()
 
 
+def test_close_while_a_consumer_polls_ends_its_stream():
+    """The owner closes the source while the engine's acquisition thread
+    still polls it (a run stopped at --max-buffers before the ring ran
+    dry): the consumer ends its stream instead of calling into the freed
+    ring."""
+    src = HardwareRingSource(ACQ, n_slots=2, timeout_s=5.0)
+    src.write_blocking(np.ones(ACQ.buffer_shape, np.uint16))
+    got, polling = [], threading.Event()
+
+    def consume():
+        for b in src.buffers():
+            got.append(int(b[0, 0, 0]))
+            polling.set()
+
+    t = threading.Thread(target=consume)
+    t.start()
+    assert polling.wait(5.0)
+    time.sleep(0.01)  # the consumer polls the empty ring
+    src.close()
+    t.join(5.0)
+    assert not t.is_alive() and got == [1]
+    assert list(src.buffers()) == []
+
+
 def test_slot_address_stable_and_aligned():
     src = HardwareRingSource(ACQ, n_slots=2)
     try:

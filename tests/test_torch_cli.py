@@ -246,10 +246,32 @@ def test_module_entry_point():
     assert "octproz_tpu_torch" in proc.stdout and "device 0:" in proc.stdout
 
 
-def test_mesh_raises_naming_a13(raw_file):
+def test_mesh_raises_naming_a13(raw_file, monkeypatch, capsys):
+    """--mesh on CUDA takes the local CUDA devices: too few of them is an
+    error naming the mesh, never a move to the CPU (the card count faked to
+    one).  (The name is kept from the test of the refusal that came before
+    the port of the meshes.)"""
     path, n, asc, bsc = raw_file
-    with pytest.raises(NotImplementedError, match="A13"):
-        main([*CPU, "process", path, *_geom(n, asc, bsc), "--mesh", "4,2"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert main(["--device", "cuda", "process", path, *_geom(n, asc, bsc),
+                 "--mesh", "4,2"]) == 1
+    assert "mesh 4x2 needs 8 devices, have 1" in capsys.readouterr().err
+
+
+def test_mesh_process_matches_single_device(raw_file, tmp_path):
+    """process --device cpu --mesh 4,2 writes the same volume as without
+    --mesh."""
+    path, n, asc, bsc = raw_file
+    outs = []
+    for extra in ([], ["--mesh", "4,2"]):
+        out = tmp_path / f"out{len(extra)}.raw"
+        assert main([*CPU, "process", path, *_geom(n, asc, bsc), "--output", str(out),
+                     *extra]) == 0
+        outs.append(np.fromfile(out, np.float32))
+    assert outs[0].size == 2 * bsc * asc * n // 2
+    np.testing.assert_allclose(outs[1], outs[0], rtol=2e-4, atol=2e-4)
 
 
 def test_settings_save_and_show_match_jax(tmp_path, capsys):

@@ -33,7 +33,9 @@ MODULES = ["octproz_tpu_torch", "octproz_tpu_torch.models.fdoct",
            "octproz_tpu_torch.viz", "octproz_tpu_torch.viz.image",
            "octproz_tpu_torch.viz.plots", "octproz_tpu_torch.viz.render",
            "octproz_tpu_torch.viz.live", "octproz_tpu_torch.control",
-           "octproz_tpu_torch.cli"]
+           "octproz_tpu_torch.cli", "octproz_tpu_torch.parallel",
+           "octproz_tpu_torch.parallel.sharding", "octproz_tpu_torch.parallel.multihost",
+           "octproz_tpu_torch.parallel.traffic"]
 
 
 @pytest.mark.parametrize("module", MODULES)

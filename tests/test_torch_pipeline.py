@@ -377,11 +377,41 @@ def test_unported_configs_raise_naming_the_roadmap(changes):
 
 
 def test_unported_entry_points_raise():
+    """A mesh that is not a parallel.Mesh, a device that is not the mesh's
+    first, and neither a device nor a mesh are refused; a single-device
+    model is not multi-host.  (The name is kept from the test of the
+    refusal of every mesh that came before the port of the meshes.)"""
+    from octproz_tpu_torch.parallel import make_mesh
+
     acq = AcqParams(samples_per_line=N, ascans_per_bscan=ASCANS, bscans_per_buffer=BSCANS)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         FdOctModel(acq, default_full_config(), mesh=object(), device="cpu")
+    with pytest.raises(TypeError, match="device"):
+        FdOctModel(acq, default_full_config())
+    with pytest.raises(ValueError, match="first device"):
+        FdOctModel(acq, default_full_config(), device="meta",
+                   mesh=make_mesh(2, 1, devices=[torch.device("cpu")] * 2))
     tm, _ = _models()
     assert tm.is_multihost is False
+
+
+def test_mesh_model_matches_single_device():
+    """FdOctModel(mesh=make_mesh(2, 1, devices=[cpu] * 2)) gives the
+    single-device model's volume (2e-4) and mean line (1e-4/1e-5) over the
+    FPN buffer and a steady one."""
+    from octproz_tpu_torch.parallel import make_mesh
+
+    tm, _ = _models()
+    acq, cfg = tm.acq, tm.cfg
+    sharded = FdOctModel(acq, cfg, **KW, mesh=make_mesh(2, 1, devices=[torch.device("cpu")] * 2))
+    assert sharded.device == torch.device("cpu") and not sharded.is_multihost
+    rng = np.random.default_rng(11)
+    for _ in range(2):
+        raw = rng.integers(0, 4095, size=acq.buffer_shape, dtype=np.uint16)
+        np.testing.assert_allclose(sharded.fetch(sharded.process_buffer(raw)),
+                                   tm.fetch(tm.process_buffer(raw)), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(sharded.fpn_state.mean_line.numpy(),
+                               tm.fpn_state.mean_line.numpy(), rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("changes", [
