@@ -115,7 +115,9 @@ nonzero and the final line is not printed:
    shifted and unshifted 12-bit, full 16-bit and float32 lines and the
    ragged shapes, the route read back per case, and two controls that must
    fail (x truncated, not rounded; the one-pass rung's three-part route);
-   then ``default_full_config()`` at bf16 on full 1024 x 512 x 256 buffers
+   and B2/B5 at the edges of the one-term kernel's 128 x 128 tiles (1, 127,
+   129 and 131073 lines; 64, 100, 128 and 550 bins), then
+   ``default_full_config()`` at bf16 on full 1024 x 512 x 256 buffers
    through ``FdOctModel`` on the fold path, the concat path and the FFT
    path with and without dispersion, with the launch counts read around
    that run (every launch of the five families on the bf16 route, none on
@@ -138,7 +140,9 @@ nonzero and the final line is not printed:
    rung, bf16 included (the FFT path split into prep kernel, FFT and FPN
    plus scaling), and each kernel beside its plain version, the library
    call for its product (``bench.library_operands``) and its bound
-   (``bench.kernel_bound``).
+   (``bench.kernel_bound``), and the one-pass families on float32 lines
+   (``bench.F32_LINE_KERNELS``, 24-bit samples: the float32-FMA kernels,
+   off the main path) likewise.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the kernels' JSON record (the bf16 routes as ``*_bf16``), the one before
@@ -176,10 +180,11 @@ KERNELS = {
     "prep_phase_split": ("prep_split.cu", 245),
     "prep_real": ("prep_split.cu", 238),
     "prep_real_split": ("prep_split.cu", 254),
-    # compute_dtype="bfloat16": the one-pass families' bf16 route
+    # compute_dtype="bfloat16": the one-pass families' bf16 route; B2 and B5
+    # on the persistent one-term kernel
     "depth_bf16": ("fold_split.cu", 261),
-    "depth_scale_bf16": ("fold_split.cu", 375),
-    "depth_scale_concat_bf16": ("fold_split.cu", 337),
+    "depth_scale_bf16": ("fold_bf16.cu", 375),
+    "depth_scale_concat_bf16": ("fold_bf16.cu", 337),
     "prep_phase_bf16": ("prep_split.cu", 228),
     "prep_real_bf16": ("prep_split.cu", 238),
 }
@@ -367,7 +372,8 @@ def phase_kernels():
         (1024, 2048, "u8", 3, "log", f32),
     ]
     ops = {}
-    for n_in in sorted({c[0] for c in cases} | {1088}):  # 1088: the concat cases
+    # 1088: the concat cases; 128, 200, 256: the one-term kernel's narrow cases
+    for n_in in sorted({c[0] for c in cases} | {1088, 128, 200, 256}):
         acq = AcqParams(samples_per_line=n_in, ascans_per_bscan=8, bscans_per_buffer=1)
         cv = curves_mod.make_curves(acq, bench.bench_config(), **{
             **bench.CURVE_KW, "resample_coeffs": (0.0, n_in - 1.0, 20.0, -10.0)}, device=dev)
@@ -393,6 +399,7 @@ def phase_kernels():
     _prep_kernel_cases(worst, g, dev)
     _one_pass_kernel_cases(worst, parts, dev)
     _bf16_kernel_cases(worst, parts, ops, dev)
+    _bf16_scale_edge_cases(worst, parts, ops, dev)
     return worst
 
 
@@ -607,6 +614,38 @@ def _bf16_kernel_cases(worst, parts, ops, dev):
             if ok:
                 raise AssertionError(f"control {name!r} passed: the prep bound does not "
                                      f"catch it")
+
+
+def _bf16_scale_edge_cases(worst, parts, ops, dev):
+    """B2 and B5 at bf16 (the persistent one-term kernel of
+    ``fold_bf16.cu``, 128 x 128 tiles) at the edges of its tiling, on a
+    generator of their own: one line, 127 and 129 lines, a main-path buffer
+    and one line more (131073), 64 bins (one box of a tile's two), 100 bins
+    (the element-wise producer: a row pitch that is not a multiple of 8),
+    128 and 550 bins, with every scale mode and store."""
+    import torch
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    _fold_cases([
+        (1024, 1, "u16s", 0, "log", f32),
+        (1024, 127, "u16s", 0, "log", f32),
+        (1024, 129, "u16", 0, "log", f32),
+        (1024, 131073, "u16s", 0, "log", f32),
+        (128, 999, "u16s", 0, "log", f32),
+        (200, 999, "u16s", 0, "log", bf16),
+        (256, 999, "u8", 0, "lin", f32),
+        (1100, 129, "u16", 0, "fast_log", f32),
+        (200, 127, "f32", 0, "log", f32),
+    ], parts, worst, g, dev)
+    _concat_cases([
+        (1024, 131073, "u16s", 0, True, f32),
+        (128, 999, "u16s", 0, True, f32),
+        (200, 999, "u16s", 0, True, f32),
+        (256, 127, "u16", 0, True, bf16),
+        (256, 1, "u8", 0, False, f32),
+    ], ops, worst, g, dev)
 
 
 def _compare_concat(raw, wide, bitshift, log_scaling, odt, g, ref=None, floor_db=0.0):
@@ -2912,11 +2951,18 @@ def phase_times(info):
         log(f"[times] FFT path steady state ({rung}): {ms:.3f} ms/buffer, "
             f"{lines / ms / 1e3:.3f} MHz; stages "
             + ", ".join(f"{k} {v:.4f} ms" for k, v in stages.items()) + f" ({card})")
-    times = bench.kernel_times(dev, tuple(KERNELS))
+    times = bench.kernel_times(dev, tuple(KERNELS) + bench.F32_LINE_KERNELS)
     for name, t in times.items():
-        log(f"[times] {name:<24} kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
+        log(f"[times] {name:<27} kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
             f"library {t['library_ms']:.3f} ms, bound {t['bound_ms']:.3f} ms "
             f"({t['bound_by']}; kernel at {100 * t['bound_ms'] / t['ms']:.1f} % of it) ({card})")
+    from octproz_tpu_torch.kernels import fused_prep as fp
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = fp.fold_bf16_schedule(lines, bench.FULL_ACQ.output_ascan_length, 2, sms)
+    log(f"[times] fold_bf16 at the main path's shape: {plan['tiles']} tiles of 128 x 128 on "
+        f"{plan['grid']} blocks ({plan['tiles'] / plan['grid']:.2f} tiles a block), "
+        f"{plan['stages']} stages, {plan['smem']} bytes of shared memory a block")
     return times
 
 

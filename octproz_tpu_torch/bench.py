@@ -17,8 +17,9 @@ of 12-bit samples:
   against the float64 NumPy oracle (``tests/oracle.py``), each gated;
 * ``golden_psnr_db``: the checked-in golden pair through the port;
 * ``kernels``: each fold kernel's time beside its plain PyTorch version's
-  at the main path's shapes (the concat kernels of ``fold_concat`` too, and
-  the bf16 route of the one-pass families, ``*_bf16``);
+  at the main path's shapes (the concat kernels of ``fold_concat`` too, the
+  bf16 route of the one-pass families, ``*_bf16``, and their one pass on
+  float32 lines, ``*_f32lines``);
 * ``paths.fft``: the FFT path (``presets.benchmark_config(tpu=False)`` with
   the prep kernels, then cuFFT) -- steady ms per buffer and MHz at the
   default and "high" rungs with the step split into prep kernel, FFT and
@@ -87,6 +88,12 @@ FOLD_KERNELS = ("depth", "depth_split", "depth_scale", "depth_scale_split",
                 "depth_scale_bf16", "depth_scale_concat_bf16")
 PREP_KERNELS = ("prep_phase", "prep_phase_split", "prep_real", "prep_real_split",
                 "prep_phase_bf16", "prep_real_bf16")
+#: The one-pass families on float32 lines (``*_f32lines``: samples above 16
+#: bits, decoded before the kernel), which keep the float32-FMA kernels
+#: (``csrc/fold_gemm.cu``, ``fold_concat.cu``, ``prep_gemm.cu``); off the
+#: main path, timed on 24-bit samples.
+F32_LINE_KERNELS = ("depth_f32lines", "depth_scale_f32lines", "depth_scale_concat_f32lines",
+                    "prep_phase_f32lines", "prep_real_f32lines")
 
 
 def at_rung(cfg: ProcConfig, rung: str) -> ProcConfig:
@@ -361,24 +368,43 @@ def library_operands(x: torch.Tensor, axes: Sequence[Sequence[torch.Tensor]]):
     return fp._bf16_trunc(x).to(torch.bfloat16), b
 
 
+def float32_lines(acq: AcqParams, device, seed: int) -> torch.Tensor:
+    """One buffer of 24-bit samples as float32 lines (lines, samples): what
+    a source above 16 bits hands the kernels after its decode, made on the
+    device from a seed."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return torch.randint(0, 1 << 24, (acq.ascans_per_buffer, acq.samples_per_line),
+                         dtype=torch.int32, generator=g, device=device).to(torch.float32)
+
+
 def _kernel_cases(name: str, device):
     """(kernel, plain, library, bound) for one kernel family at the main
     path's shapes: one 131072-line buffer of 1024 uint16 12-bit samples
     (shifted: x_lo is zero); the fold families -> 512 bins, the prep
     families -> 1024 columns; the split families at the "high" rung (3
-    passes), the ``*_bf16`` names the one-pass family's bf16 route.
+    passes), the ``*_bf16`` names the one-pass family's bf16 route, the
+    ``*_f32lines`` names its one pass on 24-bit samples as float32 lines
+    (:func:`float32_lines`, no bitshift: the float32-FMA kernels).
     ``library`` is the matmul of :func:`library_operands`; the bound is
-    :func:`kernel_bound` with x_lo_zero read from the data."""
+    :func:`kernel_bound` with x_lo_zero read from the data and the lines'
+    item size."""
     from . import curves as curves_mod
     from .kernels import fused_prep as fp
 
     precision = ("high" if name.endswith("_split") else fp.BF16 if name.endswith("_bf16")
                  else "default")
-    raw2d = random_buffers(FULL_ACQ, 1, device, seed=5).reshape(-1, FULL_ACQ.samples_per_line)
-    x = fp._decode_block(raw2d, True)
+    if name.endswith("_f32lines"):
+        raw2d, bitshift = float32_lines(FULL_ACQ, device, seed=5), False
+    else:
+        raw2d = random_buffers(FULL_ACQ, 1, device, seed=5).reshape(
+            -1, FULL_ACQ.samples_per_line)
+        bitshift = True
+    x = fp._decode_block(raw2d, bitshift)
     shape = dict(lines=raw2d.shape[0], n_in=raw2d.shape[1],
                  parts=fp._SPLIT_PARTS.get(precision, 1),
-                 x_lo_zero=bool(torch.equal(x, fp._bf16_trunc(x))), bf16=precision == fp.BF16)
+                 x_lo_zero=bool(torch.equal(x, fp._bf16_trunc(x))), bf16=precision == fp.BF16,
+                 in_itemsize=raw2d.element_size())
     if name.startswith("prep"):
         cv = curves_mod.make_curves(FULL_ACQ, fft_config(), **CURVE_KW, device=device)
         parts = fp._operator_parts(cv.prep_operator, precision)
@@ -386,11 +412,11 @@ def _kernel_cases(name: str, device):
         bound = kernel_bound(name, n_out=parts[0].shape[1], **shape)
         if name.startswith("prep_phase"):
             rows = (cv.phase.real.contiguous(), cv.phase.imag.contiguous())
-            return (lambda: fp._launch_prep(raw2d, parts, *rows, bitshift=True),
-                    lambda: fp.prep_phase_plain(raw2d, parts, *rows, bitshift=True),
+            return (lambda: fp._launch_prep(raw2d, parts, *rows, bitshift=bitshift),
+                    lambda: fp.prep_phase_plain(raw2d, parts, *rows, bitshift=bitshift),
                     lambda: torch.matmul(a, b), bound)
-        return (lambda: fp._launch_prep(raw2d, parts, None, None, bitshift=True),
-                lambda: fp.prep_real_plain(raw2d, parts, bitshift=True),
+        return (lambda: fp._launch_prep(raw2d, parts, None, None, bitshift=bitshift),
+                lambda: fp.prep_real_plain(raw2d, parts, bitshift=bitshift),
                 lambda: torch.matmul(a, b), bound)
     cfg = bench_config()
     cv = curves_mod.make_curves(FULL_ACQ, cfg, **CURVE_KW, device=device)
@@ -404,7 +430,7 @@ def _kernel_cases(name: str, device):
                             device=device)
         a_s, b_s = fp._scale_affine(True, FULL_ACQ.output_ascan_length, cfg.grayscale_min,
                                     cfg.grayscale_max, cfg.addend, cfg.multiplicator)
-        kw = dict(bitshift=True, log_scaling=True, a=a_s, b=b_s, out_dtype=torch.float32)
+        kw = dict(bitshift=bitshift, log_scaling=True, a=a_s, b=b_s, out_dtype=torch.float32)
         if name.startswith("depth_scale_concat"):
             wide = fp.concat_operator(cv.depth_op_re, cv.depth_op_im, precision)
             return (lambda: fp._launch_depth_scale_concat(raw2d, wide, mean2, **kw),
@@ -413,8 +439,8 @@ def _kernel_cases(name: str, device):
         return (lambda: fp._launch_depth_scale(raw2d, wre, wim, mean2, fast_log=False,
                                                **kw),
                 lambda: fp.depth_scale_plain(raw2d, wre, wim, mean2, **kw), library, bound)
-    return (lambda: fp._launch_depth(raw2d, wre, wim, bitshift=True),
-            lambda: fp.depth_plain(raw2d, wre, wim, bitshift=True), library, bound)
+    return (lambda: fp._launch_depth(raw2d, wre, wim, bitshift=bitshift),
+            lambda: fp.depth_plain(raw2d, wre, wim, bitshift=bitshift), library, bound)
 
 
 def kernel_times(device, names: Sequence[str] = FOLD_KERNELS,

@@ -5,6 +5,7 @@
 //   fold_split<EPI=SCALE, 3 parts> | fold_gemm<EPI=SCALE, CONCAT>
 //                                 _kernel_depth_scale_concat        (:337-351)
 //   fold_split<EPI=SCALE> (3|5)   _kernel_depth_scale_concat_split  (:354-372)
+//   fold_bf16 (fold_bf16.cu)      _kernel_depth_scale_concat at compute_dtype="bfloat16"
 //
 // Every rung on uint8/uint16 lines runs on the bf16 tensor cores
 // (fold_split.cu): the split rungs against the wide operator's 2/3 bf16
@@ -14,8 +15,8 @@
 // float32-FMA template of fold_gemm.cuh keeps the one pass on float32 lines
 // -- samples above 16 bits, which the x_hi + x_lo split cannot carry --
 // against the float32 wide operator.  The input type alone picks the route
-// at float32 compute; compute_dtype="bfloat16" runs the tensor-core kernel
-// on one rounded wide part for every input type.
+// at float32 compute; compute_dtype="bfloat16" runs the persistent one-term
+// kernel of fold_bf16.cu on one rounded wide part for every input type.
 //
 // The TPU kernels run ONE (tile, n_in) x (n_in, 2*half) MXU pass per tile
 // (per bf16 part for the split rung, whose wide operator is split BEFORE
@@ -43,6 +44,9 @@ int fold_split_scale_concat(const void* raw, int in_kind, int bitshift, int pass
                             const void* const w[3], const float* mean2, void* out,
                             int out_bf16, int mode, float a, float b, long long lines,
                             int n_in, int half, void* stream);
+int fold_bf16_scale_concat(const void* raw, int in_kind, int bitshift, const void* const w[3],
+                           const float* mean2, void* out, int out_bf16, int mode, float a,
+                           float b, long long lines, int n_in, int half, void* stream);
 
 // in_kind: 0 uint8, 1 uint16, 2 float32.  passes: 3 or 5 with 2 or 3 bf16
 // parts of the wide (n_in, 2*half) operator; 1 with the float32 wide
@@ -60,6 +64,9 @@ int fold_gemm_scale_concat(const void* raw, int in_kind, int bitshift,
     return static_cast<int>(cudaErrorInvalidValue);
   if (passes != 1 || in_kind != IN_FLOAT) {
     const void* const w[3] = {w0, w1, w2};
+    if (passes == BF16_PASS)
+      return fold_bf16_scale_concat(raw, in_kind, bitshift, w, mean2, out, out_bf16, mode, a,
+                                    b, lines, n_in, half, stream);
     return fold_split_scale_concat(raw, in_kind, bitshift, passes, w, mean2, out, out_bf16,
                                    mode, a, b, lines, n_in, half, stream);
   }

@@ -42,20 +42,20 @@
 // pass the three parts of both views, six pointers, each checked for TMA's
 // 16-byte alignment (half % 8 != 0 takes the element-wise producer).
 //
-// At compute_dtype="bfloat16" (passes = BF16_PASS) the same three entries
-// launch the PARTS = 1 instantiations on every input type -- uint8, uint16
-// and float32 lines alike, as the JAX package rounds predecoded float32
-// lines too: one bf16 part per axis (the operator rounded to nearest on the
-// host; for the concat entry one rounded wide part, read as its two views),
-// x rounded to nearest in the kernel, one term per 64-sample stage, folded
-// into the float32 sum as at every rung:
+// At compute_dtype="bfloat16" (passes = BF16_PASS) the planar entry
+// launches the PARTS = 1 instantiation on every input type -- uint8,
+// uint16 and float32 lines alike, as the JAX package rounds predecoded
+// float32 lines too: one bf16 part per axis (the operator rounded to
+// nearest on the host), x rounded to nearest in the kernel, one term per
+// 64-sample stage, folded into the float32 sum as at every rung:
 //
-//   fold_split<EPI=PLANAR, PARTS=1>  _kernel_depth               (:261-268, bf16)
-//   fold_split<EPI=SCALE,  PARTS=1>  _kernel_depth_scale         (:375-419, bf16)
-//   fold_split<EPI=SCALE,  PARTS=1>  _kernel_depth_scale_concat  (:337-351, bf16)
+//   fold_split<EPI=PLANAR, PARTS=1>  _kernel_depth  (:261-268, bf16)
 //
 // On one H100 (H100 80GB HBM3, 700 W) the one term is 275 GFLOP: 0.28 ms at
-// 989 TFLOP/s, a third of the one-pass rung's three terms.
+// 989 TFLOP/s, a third of the one-pass rung's three terms.  The scaled
+// entries at BF16_PASS run the persistent one-term kernel of fold_bf16.cu
+// (called from fold_gemm.cu and fold_concat.cu); a one-term launch reaching
+// them here is refused.
 
 #include "fold_split.cuh"
 
@@ -97,7 +97,8 @@ Params params(const void* raw, int bitshift, const void* const wre[3], const voi
   return p;
 }
 
-// The SCALE launch of n_terms pass terms (3 or 5).
+// The SCALE launch of n_terms pass terms (3 or 5; the one term of BF16_PASS
+// runs in fold_bf16.cu).
 int scale(Params p, int in_kind, int n_terms, const float* mean2, void* out, int out_bf16,
           int mode, float a, float b, void* stream) {
   p.mean2 = mean2;
@@ -106,8 +107,8 @@ int scale(Params p, int in_kind, int n_terms, const float* mean2, void* out, int
   p.a = a;
   p.b = b;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return out_bf16 ? dispatch<Fold<SCALE, __nv_bfloat16>::K>(in_kind, n_terms, p, s)
-                  : dispatch<Fold<SCALE, float>::K>(in_kind, n_terms, p, s);
+  return out_bf16 ? dispatch<Fold<SCALE, __nv_bfloat16>::K, false>(in_kind, n_terms, p, s)
+                  : dispatch<Fold<SCALE, float>::K, false>(in_kind, n_terms, p, s);
 }
 
 }  // namespace split
@@ -118,8 +119,8 @@ extern "C" {
 // The tensor-core launches of fold_gemm_planar / fold_gemm_scale
 // (fold_gemm.cu), with the same arguments: 3 or 5 passes against 2 or 3
 // bf16 parts per axis, 1 pass on uint8/uint16 lines against the float32
-// operator's three bf16 parts (5 terms), or BF16_PASS against one rounded
-// bf16 part per axis on any input type (1 term).
+// operator's three bf16 parts (5 terms), or (planar only) BF16_PASS against
+// one rounded bf16 part per axis on any input type (1 term).
 int fold_split_planar(const void* raw, int in_kind, int bitshift, int passes,
                       const void* const wre[3], const void* const wim[3], float* re_out,
                       float* im_out, long long lines, int n_in, int half, void* stream) {
@@ -143,9 +144,8 @@ int fold_split_scale(const void* raw, int in_kind, int bitshift, int passes,
 // The tensor-core launch of fold_gemm_scale_concat (fold_concat.cu): w
 // holds the 2 or 3 bf16 parts of the wide (n_in, 2 * half) operator
 // [W_re | W_im] for 3 or 5 passes, at 1 pass on uint8/uint16 lines the
-// three bf16 parts of the float32 wide operator (5 terms), or at BF16_PASS
-// the one rounded wide part (1 term), each read as the views (W, n0) and
-// (W + half, n0) at row pitch 2 * half.
+// three bf16 parts of the float32 wide operator (5 terms), each read as the
+// views (W, n0) and (W + half, n0) at row pitch 2 * half.
 int fold_split_scale_concat(const void* raw, int in_kind, int bitshift, int passes,
                             const void* const w[3], const float* mean2, void* out,
                             int out_bf16, int mode, float a, float b, long long lines,

@@ -21,11 +21,12 @@
 //   prep_split<EPI=PHASE,  PARTS=3>  _kernel_phase        (:228-235, prep_split.cu)
 //   prep_split<EPI=REAL,   PARTS=3>  _kernel_real         (:238-242, prep_split.cu)
 //
-// and, on every input type, the same five at compute_dtype="bfloat16" with
+// and, on every input type, B1, B7 and B8 at compute_dtype="bfloat16" with
 // PARTS=1: the operator rounded to one bf16 part on the host, x rounded to
 // nearest bf16 in the kernel (the JAX package's astype on both operands,
-// :231 :240 :264 :344 :401/:409 and :471-472 :572-573 :643-644), one
-// product term accumulated in float32.  The float32-FMA template of
+// :231 :240 :264 and :471-472 :572-573 :643-644), one product term
+// accumulated in float32.  B2 and B5 at bf16 (:344, :401/:409) run the
+// persistent one-term kernel of fold_bf16.cuh instead.  The float32-FMA template of
 // fold_gemm.cuh and prep_gemm.cu serves the one pass of float32 compute on
 // float32 lines alone (samples above 16 bits).
 //
@@ -131,7 +132,8 @@ constexpr int EPI_ROW = BINS + 8;         // floats per staged output row
 // the same terms, other rounding; 8 lets the warpgroups start their wgmma
 // without taking turns -- the same output; 2 refills no stage after the
 // ring's first fill and 4 runs no wgmma -- timing only, the output is
-// wrong.
+// wrong.  16 and 32 (no epilogue arithmetic, no decode) are read by the
+// one-term kernel of fold_bf16.cuh alone.
 #ifndef FOLD_SPLIT_VARIANT
 #define FOLD_SPLIT_VARIANT 0
 #endif
@@ -837,11 +839,14 @@ int dispatch_input(int in_kind, const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// ... and n_terms (terms(): 1, 3 or 5 with 1, 2 or 3 parts).
-template <template <typename, int> class K>
+// ... and n_terms (terms(): 1, 3 or 5 with 1, 2 or 3 parts); without
+// ONE_TERM the one-term instantiation is left out and such a launch refused.
+template <template <typename, int> class K, bool ONE_TERM = true>
 int dispatch(int in_kind, int n_terms, const Params& p, cudaStream_t stream) {
   switch (n_terms) {
-    case 1: return dispatch_input<K, 1>(in_kind, p, stream);
+    case 1:
+      if constexpr (ONE_TERM) return dispatch_input<K, 1>(in_kind, p, stream);
+      break;
     case 3: return dispatch_input<K, 2>(in_kind, p, stream);
     case 5: return dispatch_input<K, 3>(in_kind, p, stream);
   }

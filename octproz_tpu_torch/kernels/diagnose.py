@@ -1,12 +1,14 @@
-"""What limits the tensor-core kernels (B1/B2, B5, B7 and B8 at one pass,
-B3/B4, B6, B9/B10) on the card.
+"""What limits the tensor-core kernels (B1/B2, B5, B7 and B8 at one pass
+and at ``compute_dtype="bfloat16"``, B3/B4, B6, B9/B10) on the card.
 
     python -m octproz_tpu_torch.kernels.diagnose     (from the root of a checkout, one GPU)
 
 builds the kernel library again for each diagnostic variant of the split
-pipeline in ``csrc/fold_split.cuh`` (``-DFOLD_SPLIT_VARIANT=...``, which
-``build.py`` never sets) into its own build directory, and prints one JSON
-line with the card's name and power limit and:
+pipeline in ``csrc/fold_split.cuh`` and of the persistent one-term kernel
+in ``csrc/fold_bf16.cuh`` (B2 and B5 at bf16), which reads the same flags
+(``-DFOLD_SPLIT_VARIANT=...``, which ``build.py`` never sets), into its own
+build directory, and prints one JSON line with the card's name and power
+limit and:
 
 * ``rel_l2``: the kernels' relative L2 error against their plain versions
   -- the fold planar kernel (bound ``fused_prep.PLANAR_REL_L2``) at one pass
@@ -17,15 +19,27 @@ line with the card's name and power limit and:
   -- for the shipped kernel, ``one_chain`` (the same terms summed across
   n_in in one wgmma chain instead of folded into a float32 sum every
   64-sample stage) and ``no_turns`` (the two warpgroups start their wgmma
-  without taking turns: the same sums);
+  without taking turns: the same sums; the one-term kernel has no turns);
+* ``scale``: B2 and B5 at bf16 (the one-term kernel) against their plain
+  versions on shifted and unshifted 12-bit, full 16-bit and 24-bit float
+  samples: ``fused_prep.scale_error`` with log scaling over the 60 dB from
+  the samples' display floor (RMS, max, within the bounds), and the
+  relative L2 error of the magnitude sqrt(re^2 + im^2) (linear scaling, no
+  FPN mean) beside ``PLANAR_REL_L2`` -- for the shipped kernel, which sums
+  all of n_in in one wgmma chain (``one_chain`` and ``no_turns`` do not
+  change it);
 * ``ms``: B1, B2, B5, B7 and B8 (one pass), B3, B4, B6, B9 and B10
   ("high") at the main path's shapes (one 131072-line buffer of shifted
-  12-bit samples), B2 on unshifted samples (five terms) and B4 on uint8
-  samples of the same shape,
+  12-bit samples), B2 on unshifted samples (five terms), B4 on uint8
+  samples of the same shape, and B2 at bf16 with linear and fast-log
+  scaling (what the log10 epilogue costs),
   for the shipped kernel, ``one_chain``, ``no_turns``, and the timing-only
   variants that refill no stage after the ring's first fill
   (``no_loads``), issue no wgmma (``no_mma``), or both -- what is left is
-  the consumers' own path: waits, decode, vote, fold and epilogue.
+  the consumers' own path: waits, decode, vote, fold and epilogue -- and,
+  for the one-term kernel alone, ``wgmma_only``: no refills, no decode
+  and no epilogue arithmetic, its wgmma groups and barriers (the other
+  kernels read it as ``no_loads``).
 
 Only ``one_chain`` and ``no_turns`` compute the right terms; the other
 variants' output is wrong by design and only their time is read.
@@ -43,7 +57,7 @@ from . import build
 from . import fused_prep as fp
 
 VARIANTS = {"shipped": 0, "one_chain": 1, "no_turns": 8, "no_loads": 2, "no_mma": 4,
-            "no_loads_no_mma": 6}
+            "no_loads_no_mma": 6, "wgmma_only": 50}
 #: the variants whose output is right: their errors are read too
 EXACT = ("shipped", "one_chain", "no_turns")
 #: (name, n_in, lines, samples, passes) of the fold agreement cases
@@ -54,6 +68,9 @@ ERROR_CASES = (("u16 shifted", 1024, 4096, "u16s", 1), ("u16", 1024, 4096, "u16"
                ("float", 1024, 2048, "f32", 5))
 _RUNG = {1: "default", 3: "high", 5: "highest"}
 #: (name, n_in, lines, samples, passes, background removal) of the prep cases
+#: (name, samples, display floor dB) of the one-term kernel's agreement cases
+SCALE_ERROR_CASES = (("u16 shifted", "u16s", 0.0), ("u16", "u16", 24.0),
+                     ("u16 full", "u16f", 48.0), ("float", "f32", 96.0))
 PREP_ERROR_CASES = (("u16 shifted", 1024, 4096, "u16s", 3, False),
                     ("u16", 1024, 4096, "u16", 3, False),
                     ("u16", 1024, 4096, "u16", 5, False),
@@ -121,6 +138,35 @@ def errors(dev) -> dict:
     return out
 
 
+def scale_errors(dev) -> dict:
+    """B2 and B5 at bf16 (the one-term kernel) against their plain versions
+    on 4096 lines of 1024 samples -> 512 bins per kind of samples."""
+    out = {}
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    cv = _curves(1024, bench.bench_config(compute_dtype="bfloat16"), dev)
+    wre, wim = cv.depth_parts
+    wide = fp.concat_operator(cv.depth_op_re, cv.depth_op_im, fp.BF16)
+    zero = torch.zeros((2, 512), device=dev)
+    for name, kind, floor in SCALE_ERROR_CASES:
+        raw = _raw(kind, 4096, 1024, g, dev)
+        shift = kind == "u16s"
+        mean2 = torch.randn((2, 512), generator=g, device=dev) * 50.0
+        a, b = fp._scale_affine(True, 512, floor, floor + 60.0, 0.0, 1.0)
+        kw = dict(bitshift=shift, log_scaling=True, a=a, b=b)
+        lin = dict(bitshift=shift, log_scaling=False, a=1.0, b=0.0)
+        for family, kernel, plain, ops in (
+                ("depth_scale_bf16", fp.fold_depth_scale, fp.depth_scale_plain, (wre, wim)),
+                ("depth_scale_concat_bf16", fp.fold_depth_scale_concat,
+                 fp.depth_scale_concat_plain, (wide,))):
+            rms, worst, ok = fp.scale_error(kernel(raw, *ops, mean2, **kw),
+                                            plain(raw, *ops, mean2, **kw))
+            mag = fp.planar_error([kernel(raw, *ops, zero, **lin)], [plain(raw, *ops, zero, **lin)])
+            out[f"{family} {name}"] = {"rms": rms, "max": worst, "ok": ok,
+                                       "magnitude_rel_l2": mag}
+    return out
+
+
 def times(dev) -> dict:
     out = {}
     for name in bench.FOLD_KERNELS + bench.PREP_KERNELS:
@@ -138,6 +184,12 @@ def times(dev) -> dict:
                          device=dev)
     out["depth_scale_split uint8"] = bench.cuda_ms(
         lambda: fp.fold_depth_scale(raw8, *parts, mean2, **kw), 10, 2)
+    raw12 = bench.random_buffers(bench.FULL_ACQ, 1, dev, seed=5).reshape(-1, 1024)
+    bf = [fp._operator_parts(w, fp.BF16) for w in (cv.depth_op_re, cv.depth_op_im)]
+    for mode, mode_kw in (("lin", dict(log_scaling=False)), ("fast_log", dict(fast_log=True))):
+        out[f"depth_scale_bf16 {mode}"] = bench.cuda_ms(
+            lambda: fp.fold_depth_scale(raw12, *bf, mean2, **{**kw, "bitshift": True,
+                                                               **mode_kw}), 10, 2)
     return out
 
 
@@ -154,6 +206,8 @@ def main() -> None:
         with variant(number):
             if name in EXACT:
                 record["rel_l2"][name] = errors(dev)
+            if name == "shipped":
+                record["scale"] = scale_errors(dev)
             record["ms"][name] = times(dev)
     print(json.dumps(record))
 
