@@ -116,7 +116,9 @@ nonzero and the final line is not printed:
    ragged shapes, the route read back per case, and two controls that must
    fail (x truncated, not rounded; the one-pass rung's three-part route);
    and B2/B5 at the edges of the one-term kernel's 128 x 128 tiles (1, 127,
-   129 and 131073 lines; 64, 100, 128 and 550 bins), then
+   129 and 131073 lines; 64, 100, 128 and 550 bins), B7/B8 at the edges of
+   its 128 x 256 prep tiles (1, 127, 129, 999 and 131073 lines; 64, 100,
+   256, 1000, 1024, 1100 and 1001 columns), then
    ``default_full_config()`` at bf16 on full 1024 x 512 x 256 buffers
    through ``FdOctModel`` on the fold path, the concat path and the FFT
    path with and without dispersion, with the launch counts read around
@@ -180,13 +182,13 @@ KERNELS = {
     "prep_phase_split": ("prep_split.cu", 245),
     "prep_real": ("prep_split.cu", 238),
     "prep_real_split": ("prep_split.cu", 254),
-    # compute_dtype="bfloat16": the one-pass families' bf16 route; B2 and B5
-    # on the persistent one-term kernel
+    # compute_dtype="bfloat16": the one-pass families' bf16 route; B2, B5,
+    # B7 and B8 on the persistent one-term kernel
     "depth_bf16": ("fold_split.cu", 261),
     "depth_scale_bf16": ("fold_bf16.cu", 375),
     "depth_scale_concat_bf16": ("fold_bf16.cu", 337),
-    "prep_phase_bf16": ("prep_split.cu", 228),
-    "prep_real_bf16": ("prep_split.cu", 238),
+    "prep_phase_bf16": ("prep_bf16.cu", 228),
+    "prep_real_bf16": ("prep_bf16.cu", 238),
 }
 #: The bf16 rows of KERNELS by their LAUNCHES family.
 BF16_ROWS = {k[:-len("_bf16")]: k for k in KERNELS if k.endswith("_bf16")}
@@ -400,6 +402,7 @@ def phase_kernels():
     _one_pass_kernel_cases(worst, parts, dev)
     _bf16_kernel_cases(worst, parts, ops, dev)
     _bf16_scale_edge_cases(worst, parts, ops, dev)
+    _bf16_prep_edge_cases(worst, dev)
     return worst
 
 
@@ -646,6 +649,30 @@ def _bf16_scale_edge_cases(worst, parts, ops, dev):
         (256, 127, "u16", 0, True, bf16),
         (256, 1, "u8", 0, False, f32),
     ], ops, worst, g, dev)
+
+
+def _bf16_prep_edge_cases(worst, dev):
+    """B7 and B8 at bf16 (the one-term kernel of ``prep_bf16.cu``, 128 x 256
+    tiles) at the edges of its tiling, on a generator of their own: one
+    line, 127, 129 and 999 lines, a main-path buffer and one line more
+    (131073 x 1024), 64 columns (one box of a tile's four), 100 and 1100
+    (the element-wise producer: a row pitch that is not a multiple of 8),
+    256 (one whole tile), 1000 (a last tile of four partly filled boxes) and
+    1001 (odd: the column-by-column stores), on every input type, with and
+    without background removal."""
+    import torch
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(13)
+    cases = [(n, lines, kind, 0, epi, bg) for epi in ("phase", "real")
+             for n, lines, kind, bg in ((1024, 1, "u16s", False), (1024, 127, "u16", True),
+                                        (1024, 129, "u8", False), (1024, 131073, "u16s", False),
+                                        (64, 999, "u16s", False), (100, 129, "u16", True),
+                                        (256, 999, "f32", False), (1000, 127, "u16s", True),
+                                        (1000, 999, "u16f", False), (1100, 999, "u16s", False),
+                                        (1001, 129, "u16", False), (1001, 999, "u8", True))]
+    ops = {(n, bg): _prep_operators(n, bg, dev) for n, bg in {(c[0], c[5]) for c in cases}}
+    _prep_cases(cases, ops, worst, g, dev)
 
 
 def _compare_concat(raw, wide, bitshift, log_scaling, odt, g, ref=None, floor_db=0.0):
@@ -2963,6 +2990,11 @@ def phase_times(info):
     log(f"[times] fold_bf16 at the main path's shape: {plan['tiles']} tiles of 128 x 128 on "
         f"{plan['grid']} blocks ({plan['tiles'] / plan['grid']:.2f} tiles a block), "
         f"{plan['stages']} stages, {plan['smem']} bytes of shared memory a block")
+    plan = fp.prep_bf16_schedule(lines, bench.FULL_ACQ.samples_per_line, 2, sms)
+    log(f"[times] prep_bf16 (phase) at the main path's shape: {plan['tiles']} tiles of 128 x 256 "
+        f"on {plan['grid']} blocks ({plan['tiles'] / plan['grid']:.2f} tiles a block), "
+        f"{plan['stages']} stages, {plan['smem']} bytes of shared memory a block (phasor rows "
+        f"{'in shared memory' if plan['phasor_in_smem'] else 'in device memory'})")
     return times
 
 

@@ -10,10 +10,11 @@ the ten float32-grade ones, the bf16 route of the five one-pass families
 its own ``bench.kernel_times``, skipping a name that checkout's ``bench``
 does not know, the steady state with ``bench.steady_ms_per_buffer`` at
 every rung on the fold path and at the default, "high" and bf16 rungs on
-the concat fold path (``fold_concat``), at the default and "high" rungs on
-the FFT path and at the default rung on the FFT path without dispersion,
-and the FFT path's stages with ``bench.fft_stage_ms`` at those three
-settings, and prints one JSON line: the card's name and power limit, and
+the concat fold path (``fold_concat``), at the default, "high" and bf16
+rungs on the FFT path and at the default and bf16 rungs on the FFT path
+without dispersion, and the FFT path's stages with ``bench.fft_stage_ms``
+at those five settings (a setting that checkout's ``bench`` cannot make is
+skipped), and prints one JSON line: the card's name and power limit, and
 per turn the kernel, plain-version and library milliseconds, the steady
 milliseconds per buffer of each path and the FFT path's stage
 milliseconds.  Both checkouts are timed on one card in one call, so power
@@ -51,6 +52,11 @@ c = {{r: bench.steady_ms_per_buffer(bench.at_rung(bench.bench_config(fold_concat
      for r in ("default", "high", "bfloat16")}}
 fft = {{r: bench.fft_config(matmul_precision=r) for r in ("default", "high")}}
 fft["default, no dispersion"] = bench.fft_config(dispersion=False)
+for name, kw in (("bfloat16", {{}}), ("bfloat16, no dispersion", {{"dispersion": False}})):
+    try:
+        fft[name] = bench.fft_config(compute_dtype="bfloat16", **kw)
+    except (TypeError, ValueError):
+        pass
 f = {{r: bench.steady_ms_per_buffer(cfg, dev) for r, cfg in fft.items()}}
 st = {{r: bench.fft_stage_ms(cfg, dev) for r, cfg in fft.items()}}
 print(json.dumps({{"kernels": {{n: {{"ms": v["ms"], "plain_ms": v["plain_ms"],

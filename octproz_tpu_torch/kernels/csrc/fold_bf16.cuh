@@ -1,57 +1,63 @@
-// The one-term SCALE fold of compute_dtype="bfloat16" on Hopper (sm_90a):
-// a persistent kernel written for one product term, beside the shared
-// pipeline of fold_split.cuh that the three-part and split rungs run.
+// The one-term kernel of compute_dtype="bfloat16" on Hopper (sm_90a): a
+// persistent kernel written for one product term, beside the shared
+// pipeline of fold_split.cuh that the three-part and split rungs run.  This
+// header holds its producer, consumer mainloop and host side, templated on
+// the epilogue; fold_bf16.cu instantiates the scaled fold's, prep_bf16.cu
+// the prep families':
 //
-//   fold_bf16<InT, OutT>  _kernel_depth_scale         (octproz_tpu/pallas/fused_prep.py:375-419,
-//                                                      call :736; bf16 operands)
-//   fold_bf16<InT, OutT>  _kernel_depth_scale_concat  (:337-351, call :721; two views of the
-//                                                      one rounded wide part, fold_bf16.cu)
+//   one_term<InT, Scale<OutT>>   _kernel_depth_scale         (octproz_tpu/pallas/fused_prep.py:375-419,
+//                                                             call :736; fold_bf16.cu)
+//   one_term<InT, Scale<OutT>>   _kernel_depth_scale_concat  (:337-351, call :721; two views of
+//                                                             the one rounded wide part)
+//   one_term<InT, Prep<PHASE>>   _kernel_phase               (:228-235, call :535; prep_bf16.cu)
+//   one_term<InT, Prep<REAL>>    _kernel_real                (:238-242, call :551; prep_bf16.cu)
 //
 // It computes what the Pallas kernels compute at compute_dtype="bfloat16":
-// x decoded (>> 4 with bitshift) and rounded to nearest-even bf16 (:344,
-// :401/:409), the operator rounded to bf16 on the host (:470-472), the
-// product accumulated in float32, then FPN mean subtraction, p = re^2 +
-// im^2, and A*log10(p)+B, A*sqrt(p)+B or A*fast_log2(p)+B stored as float32
-// or bf16.  InT in {uint8, uint16, float}.
+// x decoded (>> 4 with bitshift) and rounded to nearest-even bf16 (:231,
+// :240, :344, :401/:409), the operator rounded to bf16 on the host
+// (:470-472), the product accumulated in float32, then the epilogue: FPN
+// mean subtraction, p = re^2 + im^2 and the dynamic-range scale (Scale), or
+// (y cos, y sin) into complex64 (PHASE) or float32 y (REAL).  InT in
+// {uint8, uint16, float}.
 //
 // What bounds it, on one H100 (H100 80GB HBM3, 700 W: 989 TFLOP/s dense
 // bf16, 3.35 TB/s): at the main path's geometry (131072 lines x 1024
-// samples -> 512 bins) the one term is 2 x 2 x 131072 x 1024 x 512 = 275
-// GFLOP against ~0.54 GB of raw lines, operator and image: 0.278 ms of
-// tensor-core work.  The shared pipeline ran it at 1.19 ms: 8192 short-lived
-// blocks of 128 lines x 64 bins (62 waves and a tail), each paying its
-// barrier set-up and ring fill, an epilogue in the ring's shared memory
-// with no load in flight, turns built to stagger 3-5 terms, and the raw
-// buffer read and decoded once per 64-bin column tile (8 times).  This
-// kernel takes 0.60 ms (ab.py, same card: 46 % of the bound); per
-// diagnose.py its consumers' own path (decode, barriers, epilogue: 0.22
-// ms) and its wgmma groups add up rather than overlap, refills costing
-// little (0.57 ms without them).
+// samples -> 512 bins re and im, or 1024 prep columns) the one term is 275
+// GFLOP, 0.278 ms of tensor-core work, against ~0.54 GB of raw lines,
+// operator and image for the scaled fold and the float32 y of REAL, but
+// 1.34 GB for PHASE's complex64: 0.401 ms of bytes.  The shared pipeline
+// ran these at 1.0-1.19 ms: 8192 short-lived blocks (62 waves and a tail),
+// each paying its barrier set-up and ring fill, an epilogue in the ring's
+// shared memory with no load in flight, and the raw buffer read and decoded
+// once per column tile (8 times).
 //
 // Design.
 // * Persistent grid: one block per SM walks the tiles t = blockIdx.x,
-//   blockIdx.x + gridDim.x, ... of 128 lines x 128 bins, column tile
-//   fastest, so the SMs working at one time share a few row tiles and each
-//   raw tile comes from device memory once and from L2 for its other
-//   column tiles.  The ring's stage counter and mbarrier phases run on
-//   across tiles: the producer starts the next tile's stages while the
-//   consumers finish the last one, and the ring never drains.
+//   blockIdx.x + gridDim.x, ... of 128 lines x Epilogue::COLS output
+//   columns (128 bins of the fold, 256 prep columns), column tile fastest,
+//   so the SMs working at one time share a few row tiles and each raw tile
+//   comes from device memory once and from L2 for its other column tiles.
+//   The ring's stage counter and mbarrier phases run on across tiles: the
+//   producer starts the next tile's stages while the consumers finish the
+//   last one, and the ring never drains.
 // * Per 64-sample stage one producer thread (its warpgroup released to 56
-//   registers by setmaxnreg) starts four 64 x 64 operator boxes (re bins
-//   n0..n0+63, n0+64..n0+127, then im likewise, 32 KB; a box wholly past
-//   the operator's width is not loaded, its columns are never stored) and
-//   the raw tile, 128 lines x 64 samples, all by TMA into swizzled rows,
-//   with one arrival carrying their bytes: no address arithmetic and no
-//   per-thread arrivals.  Out-of-range lines, samples and
-//   columns arrive as zeros.  The raw buffer is read and decoded 4 times
-//   per buffer, once per 128-bin column tile, instead of 8.  Where TMA
-//   cannot describe the operator or the raw lines (the concat kernel's im
-//   view at half % 8 != 0, rows not 16-byte aligned), the producer
-//   warpgroup stores the same layout element by element.
+//   registers by setmaxnreg) starts four 64 x 64 operator boxes (32 KB;
+//   Epilogue::map/offset place box q: the fold's re bins n0..n0+63,
+//   n0+64..n0+127, then im likewise; the prep operator's columns n0 + 64 q;
+//   a box wholly past the operator's width is not loaded, its columns are
+//   never stored) and the raw tile, 128 lines x 64 samples, all by TMA into
+//   swizzled rows, with one arrival carrying their bytes: no address
+//   arithmetic and no per-thread arrivals.  Out-of-range lines, samples and
+//   columns arrive as zeros.  At 1024 samples -> 512 bins or 1024 columns
+//   the raw buffer is read and decoded 4 times, once per column tile,
+//   instead of 8.  Where TMA cannot describe the operator or the raw lines
+//   (the concat kernel's im view at half % 8 != 0, a row pitch not a
+//   multiple of 8, rows not 16-byte aligned), the producer warpgroup stores
+//   the same layout element by element.
 // * Two consumer warpgroups (setmaxnreg up to 224) of 64 lines each decode
 //   their rows of the stage's raw tile once into wgmma's A fragments (x
-//   rounded to nearest bf16) and run one group of two m64n128k16 chains,
-//   re and im, against the stage's boxes, wait for it and release the
+//   rounded to nearest bf16) and run one group of two m64n128k16 chains
+//   (boxes 0-1 and 2-3) against the stage, wait for it and release the
 //   stage; one warpgroup's decode runs under the other's group.  Tried on
 //   the card and dropped: a second fragment set decoded under the group
 //   (ptxas reallocated the issued wgmma's A registers: wrong lines), A
@@ -67,19 +73,19 @@
 //   one_chain: scaled RMS <= 1.8e-7, max <= 1.0e-5; the magnitude's
 //   relative L2 <= 1.09e-6 against 3e-6; H100, 700 W), and the fold cost
 //   0.12 ms of 0.90 in the first build.
-// * The epilogue runs in the registers that hold the sums: the thread that
-//   holds bin j's re holds its im, subtracts the FPN mean line, forms p,
-//   scales and stores straight to device memory (two neighbouring bins per
-//   store: every 32-byte sector of a float32 row is written whole by one
-//   warp instruction).  It uses no shared memory, so the producer refills
-//   the ring with the next tile's stages meanwhile.  The scaling mode is a
-//   template argument of the unrolled loop, and the log mode's log10 is
-//   the special-function unit's log2 times log10(2) (scale()).
+// * The epilogue runs in the registers that hold the sums (Epilogue::store:
+//   sums d0 and d1 of chains 0 and 1, wgmma's n128 layout) and stores
+//   straight to device memory, every 32-byte sector written whole by one
+//   warp instruction.  It uses no shared memory of the ring, so the
+//   producer refills the ring with the next tile's stages meanwhile.  What
+//   it reads besides the sums (the phasor rows of PHASE) the consumers put
+//   in shared memory beside the ring once per block (Epilogue::prepare).
 //
 // Diagnostic builds (kernels/diagnose.py, -DFOLD_SPLIT_VARIANT as in
 // fold_split.cuh): 2 refills no stage after the ring's first fill, 4 runs
-// no wgmma, 16 skips the epilogue's arithmetic, 32 the decode -- timing
-// only; 1 and 8 (one chain, no turns) change nothing here.
+// no wgmma, 16 skips the scaled fold's epilogue arithmetic, 32 the decode,
+// 64 the stores (their values still computed) -- timing only; 1 and 8 (one
+// chain, no turns) change nothing here.
 //
 // Launch contract as in fold_split.cuh: the caller's stream, no
 // allocation, no synchronisation; launch() returns cudaGetLastError() or
@@ -96,17 +102,33 @@ namespace bf16 {
 using split::Params;
 
 constexpr int LINES = 128;  // lines per tile: two consumer warpgroups of 64
-constexpr int BINS = 128;   // bins per tile, re and im
 constexpr int DEPTH = split::DEPTH;
 constexpr int BOX = 64;                     // operator columns per TMA box
 constexpr int B_TILE = DEPTH * BOX * 2;     // one box: 64 samples x 64 bf16 columns
-constexpr int B_BYTES = 4 * B_TILE;         // re 0-63, re 64-127, im 0-63, im 64-127
+constexpr int B_BYTES = 4 * B_TILE;         // the stage's four boxes
 constexpr int CONSUMERS = 256;              // warpgroups 0 and 1
 constexpr int PRODUCERS = 128;              // warpgroup 2
 constexpr int THREADS = CONSUMERS + PRODUCERS;
 constexpr int SMEM_MAX = 232448;            // a block's dynamic shared memory on sm_90
-constexpr int MAX_STAGES = 4;
 static_assert(split::B_TILE == B_TILE, "b_desc<1> strides one box per 64 columns");
+
+// Diagnostic schedules (FOLD_SPLIT_VARIANT & 128, 256): the two epilogue
+// designs tried against the shipped one, which stores straight from the
+// registers while the producer loads the next tile.  PINGPONG: the
+// consumer warpgroups take alternate tiles of 64 lines, each with a ring
+// of its own filled by a producer warp of its own, and run their mainloops
+// in turns (named barriers 5 and 6), so one stores while the other
+// multiplies (CUTLASS's ping-pong schedule); STAGED (the prep epilogues
+// only): the cooperative schedule with the epilogue through shared-memory
+// staging buffers and TMA stores, on a ring of at most 3 stages
+// (prep_bf16.cu).
+constexpr bool PINGPONG = FOLD_SPLIT_VARIANT & 128;
+constexpr bool STAGED = FOLD_SPLIT_VARIANT & 256;
+constexpr bool STREAM = FOLD_SPLIT_VARIANT & 512;  // the prep epilogues' stores evict first
+constexpr int TILE_LINES = PINGPONG ? LINES / 2 : LINES;  // lines of a tile and its raw boxes
+constexpr int RINGS = PINGPONG ? 2 : 1;
+constexpr int MAX_STAGES = PINGPONG ? 6 : STAGED ? 3 : 4;
+constexpr int STAGING = STAGED ? 2 * 4 * 8192 : 0;  // two warpgroups x 4 chunks of 8 KB
 
 // The stage's raw tile as TMA writes it: 128 lines of 64 samples in boxes
 // of ROW-byte rows (one box of 64 samples for uint8 and uint16 lines, two
@@ -119,7 +141,7 @@ struct Raw {
   static constexpr int ROW = sizeof(InT) == 1 ? 64 : 128;
   static constexpr int SAMPLES = ROW / static_cast<int>(sizeof(InT));  // per box row
   static constexpr int BOXES = DEPTH / SAMPLES;
-  static constexpr int BOX_BYTES = LINES * ROW;
+  static constexpr int BOX_BYTES = TILE_LINES * ROW;
   static constexpr int BYTES = BOXES * BOX_BYTES;
   static constexpr uint32_t SWIZZLE = ROW / 16 - 1;
   // byte offset of sample k of line r in the raw tile
@@ -129,65 +151,112 @@ struct Raw {
   }
 };
 
+// The ring: STAGES stages (and the STAGED schedule's buffers), then a full
+// and an empty mbarrier per stage, then what the epilogue keeps in shared
+// memory (its extra bytes).
 template <typename InT>
 struct Layout {
   static constexpr int STAGE = B_BYTES + Raw<InT>::BYTES;  // a multiple of 1024
-  static constexpr int FIT = (SMEM_MAX - 1024 - 2 * MAX_STAGES * 8) / STAGE;
-  static constexpr int STAGES = FIT > MAX_STAGES ? MAX_STAGES : FIT;
-  static constexpr int SMEM = 1024 + STAGES * STAGE + 2 * STAGES * 8;
+  static constexpr int FIT =
+      (SMEM_MAX - 1024 - 2 * MAX_STAGES * 8 - STAGING - (STAGED ? 8192 : 0)) / STAGE;
+  static constexpr int STAGES = (FIT > MAX_STAGES ? MAX_STAGES : FIT) / RINGS * RINGS;
+  static constexpr int RING = STAGES / RINGS;  // the stages of one ring
+  static constexpr int BARRIERS = STAGES * STAGE + STAGING;  // from the aligned base
+  static constexpr int EXTRA = BARRIERS + 2 * STAGES * 8;
+  static constexpr int SMEM = 1024 + EXTRA;
   static_assert(STAGE % 1024 == 0, "stages keep the 1024-byte swizzle alignment");
-  static_assert(STAGES >= 2, "at least a double buffer");
+  static_assert(RING >= 2, "at least a double buffer");
 };
 
 struct Maps {
-  CUtensorMap op[2];  // re, im: 64 columns x 64 samples, 128-byte swizzle
-  CUtensorMap raw;    // SAMPLES x 128 lines (Raw<InT>)
+  CUtensorMap op[2];  // Epilogue::map 0 and 1: 64 columns x 64 samples, 128-byte swizzle
+  CUtensorMap raw;    // SAMPLES x TILE_LINES lines (Raw<InT>)
+  CUtensorMap out;    // the STAGED schedule's output (prep_bf16.cu)
 };
 
+template <class Epilogue>
 __host__ __device__ __forceinline__ int col_tiles(const Params& p) {
-  return (p.width + BINS - 1) / BINS;
+  return (p.width + Epilogue::COLS - 1) / Epilogue::COLS;
 }
+template <class Epilogue>
 __host__ __device__ __forceinline__ long long tiles(const Params& p) {
-  return (p.lines + LINES - 1) / LINES * col_tiles(p);
+  return (p.lines + TILE_LINES - 1) / TILE_LINES * col_tiles<Epilogue>(p);
 }
+
+// Diagnostic (FOLD_SPLIT_VARIANT & 64): false for every value, so the
+// store is skipped but the value computed; true otherwise.
+__device__ __forceinline__ bool keep(float v) {
+  return !split::NO_STORES || __float_as_uint(v) == 0x7FBADBADu;
+}
+
+// The STAGED schedule's TMA store of a shared-memory box to (x, y) of map,
+// and its bulk-group bookkeeping.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int x, int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(x), "r"(y), "r"(src)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Until at most N of this thread's bulk groups still read shared memory.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
 // --- the producer warpgroup --------------------------------------------------
 
-// With TMA one thread runs the ring: per stage two or four operator boxes
-// (those inside the operator's width) and the raw tile's boxes, one
-// arrival with their bytes.  Without (p.tma = 0) the whole group stores the
-// same layout element by element and its thread 0 arrives.
-template <typename InT>
+// With TMA one thread runs the ring: per stage the operator boxes inside
+// the operator's width and the raw tile's boxes, one arrival with their
+// bytes.  Without (p.tma = 0) the whole group stores the same layout
+// element by element and its thread 0 arrives.  (PINGPONG: warp r of the
+// group runs ring r the same way, for consumer warpgroup r's tiles.)
+template <typename InT, class Epilogue>
 __device__ __forceinline__ void produce(const Params& p, const Maps& maps, uint8_t* smem,
                                         uint32_t base, uint32_t full, uint32_t empty,
                                         int ptid) {
   using L = Layout<InT>;
   using R = Raw<InT>;
+  using E = Epilogue;
   using namespace split;
-  if (p.tma && ptid != 0) return;
+  const int ring = PINGPONG ? ptid / 32 : 0;
+  const int lane = PINGPONG ? ptid % 32 : ptid;
+  constexpr int LANES = PINGPONG ? 32 : PRODUCERS;
+  if (ring >= RINGS || (p.tma && lane != 0)) return;
   const InT* raw = static_cast<const InT*>(p.raw);
-  const int cols = bf16::col_tiles(p);
-  const long long count = bf16::tiles(p);
+  const int cols = bf16::col_tiles<E>(p);
+  const long long count = bf16::tiles<E>(p);
   const int nkb = (p.n_in + DEPTH - 1) / DEPTH;
   uint32_t it = 0;  // the ring's stage counter, across tiles
-  for (long long t = blockIdx.x; t < count; t += gridDim.x) {
-    const long long m0 = t / cols * LINES;
-    const int n0 = static_cast<int>(t % cols) * BINS;
-    const bool second = n0 + BOX < p.width;  // boxes 1 and 3 lie inside the operator
+  long long i = 0;  // the block's own count of tiles
+  for (long long t = blockIdx.x; t < count; t += gridDim.x, ++i) {
+    if (PINGPONG && (i & 1) != ring) continue;
+    const long long m0 = t / cols * TILE_LINES;
+    const int n0 = static_cast<int>(t % cols) * E::COLS;
+    int boxes = 0;  // the boxes inside the operator (box 0 always is)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) boxes += n0 + E::offset(q) < p.width;
     for (int kb = 0; kb < nkb; ++kb, ++it) {
-      const int s = it % L::STAGES;
-      mbar_wait(empty + 8 * s, ((it / L::STAGES) & 1) ^ 1);
+      const int s = ring * L::RING + it % L::RING;
+      mbar_wait(empty + 8 * s, ((it / L::RING) & 1) ^ 1);
       const uint32_t stage = base + s * L::STAGE;
       const int k0 = kb * DEPTH;
-      if (NO_LOADS && it >= L::STAGES) {
-        if (ptid == 0) mbar_arrive(full + 8 * s);
+      if (NO_LOADS && it >= L::RING) {
+        if (lane == 0) mbar_arrive(full + 8 * s);
         continue;
       }
       if (p.tma) {
-        mbar_expect_tx(full + 8 * s, (second ? B_BYTES : B_BYTES / 2) + R::BYTES);
+        mbar_expect_tx(full + 8 * s, boxes * B_TILE + R::BYTES);
 #pragma unroll
         for (int q = 0; q < 4; ++q)
-          if ((q & 1) == 0 || second)
-            tma_load(stage + q * B_TILE, &maps.op[q >> 1], n0 + (q & 1) * BOX, k0,
+          if (n0 + E::offset(q) < p.width)
+            tma_load(stage + q * B_TILE, &maps.op[E::map(q)], n0 + E::offset(q), k0,
                      full + 8 * s);
 #pragma unroll
         for (int b = 0; b < R::BOXES; ++b)
@@ -198,21 +267,21 @@ __device__ __forceinline__ void produce(const Params& p, const Maps& maps, uint8
       // The boxes as TMA would write them: column n of sample row r at
       // r*128 + ((n/8) ^ (r%8))*16 + (n%8)*2.
       uint8_t* st = smem + (stage - base);
-      for (int e = ptid; e < DEPTH * BOX; e += PRODUCERS) {
+      for (int e = lane; e < DEPTH * BOX; e += LANES) {
         const int r = e / BOX;
         const int n = e % BOX;
         const int k = k0 + r;
         const int off = r * 128 + ((((n >> 3) ^ (r & 7)) << 4) | ((n & 7) * 2));
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          const int c = n0 + (q & 1) * BOX + n;
+          const int c = n0 + E::offset(q) + n;
           const __nv_bfloat16 v = k < p.n_in && c < p.width
-                                      ? p.w[q >> 1][0][static_cast<long long>(k) * p.ld + c]
+                                      ? p.w[E::map(q)][0][static_cast<long long>(k) * p.ld + c]
                                       : __float2bfloat16_rn(0.f);
           *reinterpret_cast<__nv_bfloat16*>(st + q * B_TILE + off) = v;
         }
       }
-      for (int e = ptid; e < LINES * DEPTH; e += PRODUCERS) {
+      for (int e = lane; e < TILE_LINES * DEPTH; e += LANES) {
         const int r = e / DEPTH;
         const int k = e % DEPTH;
         const long long line = m0 + r;
@@ -221,8 +290,11 @@ __device__ __forceinline__ void produce(const Params& p, const Maps& maps, uint8
       }
       // wgmma reads the boxes through the async proxy
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      named_sync(1, PRODUCERS);
-      if (ptid == 0) mbar_arrive(full + 8 * s);
+      if (PINGPONG)
+        __syncwarp();
+      else
+        named_sync(1, PRODUCERS);
+      if (lane == 0) mbar_arrive(full + 8 * s);
     }
   }
 }
@@ -251,9 +323,8 @@ __device__ __forceinline__ void fragments(const uint8_t* tile, int row0, int t, 
     }
 }
 
-// One half's chain (re or im: its two boxes at addr) of a stage: four
-// m64n128k16 over its 64 samples; the first overwrites d unless
-// accumulate is set.
+// One chain (two boxes at addr: 128 columns) of a stage: four m64n128k16
+// over its 64 samples; the first overwrites d unless accumulate is set.
 __device__ __forceinline__ void chain(float (&d)[64], const uint32_t (&x)[4][4], uint32_t addr,
                                       bool accumulate) {
 #pragma unroll
@@ -262,91 +333,19 @@ __device__ __forceinline__ void chain(float (&d)[64], const uint32_t (&x)[4][4],
       split::wgmma_n128(d, x[kk], split::b_desc<1>(addr + kk * 2048), accumulate || kk > 0);
 }
 
-// The stage's wgmma group: both halves' chains from one set of fragments.
-__device__ __forceinline__ void stage_group(float (&re)[64], float (&im)[64],
+// The stage's wgmma group: both chains (boxes 0-1 into d0, 2-3 into d1)
+// from one set of fragments.
+__device__ __forceinline__ void stage_group(float (&d0)[64], float (&d1)[64],
                                             const uint32_t (&x)[4][4], uint32_t stage,
                                             bool accumulate) {
-  split::pin(re);
-  split::pin(im);
+  split::pin(d0);
+  split::pin(d1);
   split::wgmma_fence();
-  chain(re, x, stage, accumulate);
-  chain(im, x, stage + 2 * B_TILE, accumulate);
+  chain(d0, x, stage, accumulate);
+  chain(d1, x, stage + 2 * B_TILE, accumulate);
   split::wgmma_commit();
-  split::pin(re);
-  split::pin(im);
-}
-
-template <typename OutT>
-__device__ __forceinline__ void store2(OutT* out, long long o, float v0, float v1, bool both,
-                                       bool pair) {
-  if (pair) {
-    if constexpr (sizeof(OutT) == 4) {
-      *reinterpret_cast<float2*>(out + o) = make_float2(v0, v1);
-    } else {
-      *reinterpret_cast<__nv_bfloat162*>(out + o) = __floats2bfloat162_rn(v0, v1);
-    }
-  } else {
-    out[o] = store_cast<OutT>(v0);
-    if (both) out[o + 1] = store_cast<OutT>(v1);
-  }
-}
-
-// One voxel: FPN-subtracted re and im -> p -> the scale, at mode MODE.  The
-// log mode takes log2 from the special-function unit (lg2.approx, at most
-// ~2^-22 absolute error) times log10(2): A*log10(p)+B to ~1e-8 display
-// units of the accurate log10f at the benchmark's scale, far inside the
-// bounds against the plain version, at a fraction of log10f's
-// instructions (log10f made the epilogue the largest part of the
-// consumers' own path).  fast_log keeps the JAX package's polynomial (_fast_log2), lin
-// the IEEE square root.
-template <int MODE>
-__device__ __forceinline__ float scale(float re, float im, float a, float b) {
-  if (FOLD_SPLIT_VARIANT & 16) return re + im;  // diagnostic: no epilogue math
-  const float pw = re * re + im * im;
-  if constexpr (MODE == MODE_LOG) return a * __log2f(pw) + b;
-  if constexpr (MODE == MODE_LIN) return a * sqrtf(pw) + b;
-  return a * fast_log2(pw) + b;
-}
-
-// The tile's epilogue from the sums in registers (wgmma's n128 layout: re[4j
-// + i] and im[4j + i] are line line0 + 8 * (i >> 1), bin n0 + 8j + 2t + (i &
-// 1)); a is A*log10(2) for the log modes.
-template <int MODE, typename OutT>
-__device__ __forceinline__ void epilogue(const Params& p, const float (&re)[64],
-                                         const float (&im)[64], long long line0, int n0,
-                                         int t, float a) {
-  const int half = p.width;
-  OutT* const out = static_cast<OutT*>(p.out);
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int bin = n0 + 8 * j + 2 * t;
-    if (bin >= half) continue;
-    const bool both = bin + 1 < half;
-    const bool pair = both && (half & 1) == 0;  // 2-element aligned: a vector store
-    const float mr0 = p.mean2[bin], mi0 = p.mean2[half + bin];
-    const float mr1 = both ? p.mean2[bin + 1] : 0.f;
-    const float mi1 = both ? p.mean2[half + bin + 1] : 0.f;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const long long line = line0 + 8 * h;
-      if (line >= p.lines) continue;
-      const int i = 4 * j + 2 * h;
-      store2(out, line * half + bin, scale<MODE>(re[i] - mr0, im[i] - mi0, a, p.b),
-             scale<MODE>(re[i + 1] - mr1, im[i + 1] - mi1, a, p.b), both, pair);
-    }
-  }
-}
-
-template <typename OutT>
-__device__ __forceinline__ void epilogue(const Params& p, const float (&re)[64],
-                                         const float (&im)[64], long long line0, int n0,
-                                         int t) {
-  if (p.mode == MODE_LOG)
-    epilogue<MODE_LOG, OutT>(p, re, im, line0, n0, t, p.a * 0.30102999566398120f);
-  else if (p.mode == MODE_LIN)
-    epilogue<MODE_LIN, OutT>(p, re, im, line0, n0, t, p.a);
-  else
-    epilogue<MODE_FAST_LOG, OutT>(p, re, im, line0, n0, t, p.a);
+  split::pin(d0);
+  split::pin(d1);
 }
 
 // A consumer warpgroup: 64 lines of every tile of the block, one stage's
@@ -355,57 +354,71 @@ __device__ __forceinline__ void epilogue(const Params& p, const float (&re)[64],
 // k's group: ptxas reallocates the registers of an issued wgmma's A
 // fragments, and a second fragment set decoded while the group ran was
 // found overwriting the first on the card (lines 16-23, 32-39 and 48-55 of
-// every 64 wrong).
-template <typename InT, typename OutT>
-__device__ __forceinline__ void consume(const Params& p, const uint8_t* smem, uint32_t base,
-                                        uint32_t full, uint32_t empty, int ctid) {
+// every 64 wrong).  extra: the epilogue's shared memory beside the ring.
+template <typename InT, class Epilogue>
+__device__ __forceinline__ void consume(const Params& p, const Maps& maps, uint8_t* smem,
+                                        uint32_t base, uint32_t full, uint32_t empty,
+                                        int ctid) {
   using L = Layout<InT>;
+  using E = Epilogue;
   using namespace split;
   const int warp = ctid / 32;
   const int lane = ctid % 32;
   const int g = lane / 4;
   const int t = lane % 4;
-  const int row0 = warp * 16 + g;  // this thread's tile rows: row0, row0 + 8
-  const int cols = bf16::col_tiles(p);
-  const long long count = bf16::tiles(p);
+  // this thread's tile rows: row0, row0 + 8
+  const int row0 = (PINGPONG ? warp % 4 : warp) * 16 + g;
+  const int cols = bf16::col_tiles<E>(p);
+  const long long count = bf16::tiles<E>(p);
   const int nkb = (p.n_in + DEPTH - 1) / DEPTH;
+  auto ctx = E::template prepare<InT>(p, maps, smem, ctid);
+  const int ring = PINGPONG ? warp / 4 : 0;
+  // PINGPONG: warpgroup 0 has the first turn
+  if (PINGPONG && ring == 1) named_arrive(5, CONSUMERS);
   uint32_t it = 0;
-  for (long long tl = blockIdx.x; tl < count; tl += gridDim.x) {
-    const long long m0 = tl / cols * LINES;
-    const int n0 = static_cast<int>(tl % cols) * BINS;
-    float re[64], im[64];  // bins n0 .. n0 + 127 of lines row0 and row0 + 8
+  long long i = 0;  // the block's own count of tiles
+  for (long long tl = blockIdx.x; tl < count; tl += gridDim.x, ++i) {
+    if (PINGPONG && (i & 1) != ring) continue;  // the other warpgroup's tile
+    if (PINGPONG) named_sync(5 + ring, CONSUMERS);
+    const long long m0 = tl / cols * TILE_LINES;
+    const int n0 = static_cast<int>(tl % cols) * E::COLS;
+    float d0[64], d1[64];  // chains 0 and 1 of lines row0 and row0 + 8
     for (int kb = 0; kb < nkb; ++kb, ++it) {
-      const int s = it % L::STAGES;
-      mbar_wait(full + 8 * s, (it / L::STAGES) & 1);
+      const int s = ring * L::RING + it % L::RING;
+      mbar_wait(full + 8 * s, (it / L::RING) & 1);
       uint32_t x[4][4];
       fragments<InT>(smem + s * L::STAGE + B_BYTES, row0, t, p.bitshift, x);
-      stage_group(re, im, x, base + s * L::STAGE, kb > 0);
+      stage_group(d0, d1, x, base + s * L::STAGE, kb > 0);
       wgmma_wait_all();
-      pin(re);
-      pin(im);
+      pin(d0);
+      pin(d1);
       __syncwarp();
       if (lane == 0) mbar_arrive(empty + 8 * s);
     }
-    epilogue<OutT>(p, re, im, m0 + row0, n0, t);
+    // the turn passes to the other warpgroup, where it has a next tile
+    if (PINGPONG && tl + gridDim.x < count) named_arrive(5 + (ring ^ 1), CONSUMERS);
+    E::store(p, ctx, d0, d1, m0 + row0, n0, t);
   }
+  E::finish(ctx);
 }
 
 // --- the kernel ----------------------------------------------------------------
 
-template <typename InT, typename OutT>
+template <typename InT, class Epilogue>
 __global__ void __launch_bounds__(THREADS, 1)
-    fold_bf16(const __grid_constant__ Params p, const __grid_constant__ Maps maps) {
+    one_term(const __grid_constant__ Params p, const __grid_constant__ Maps maps) {
   using L = Layout<InT>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw_addr = split::smem_u32(smem_raw);
   const uint32_t base = (raw_addr + 1023u) & ~1023u;
   uint8_t* const smem = smem_raw + (base - raw_addr);
-  const uint32_t full = base + L::STAGES * L::STAGE;  // one mbarrier per stage
+  const uint32_t full = base + L::BARRIERS;  // one mbarrier per stage
   const uint32_t empty = full + 8 * L::STAGES;
   if (threadIdx.x == 0) {
     for (int s = 0; s < L::STAGES; ++s) {
       split::mbar_init(full + 8 * s, 1);  // the producer's one arrival (with the bytes)
-      split::mbar_init(empty + 8 * s, CONSUMERS / 32);  // one per consumer warp
+      // one per consumer warp that reads the stage
+      split::mbar_init(empty + 8 * s, CONSUMERS / 32 / (PINGPONG ? 2 : 1));
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -414,10 +427,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   // ptxas can honour setmaxnreg.
   if (threadIdx.x >= CONSUMERS) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
-    produce<InT>(p, maps, smem, base, full, empty, threadIdx.x - CONSUMERS);
+    produce<InT, Epilogue>(p, maps, smem, base, full, empty, threadIdx.x - CONSUMERS);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
-    consume<InT, OutT>(p, smem, base, full, empty, threadIdx.x);
+    consume<InT, Epilogue>(p, maps, smem, base, full, empty, threadIdx.x);
   }
 }
 
@@ -439,19 +452,18 @@ inline int sm_count(int* count) {
   return 0;
 }
 
-// The tensor maps: the two operator views as fold_split.cuh encodes them,
+// The tensor maps: the operator's MAPS views as fold_split.cuh encodes them,
 // and the raw lines (n_in samples x lines, Raw<InT>'s box and swizzle).
-template <typename InT>
+template <typename InT, int MAPS>
 int encode(const Params& p, Maps* maps) {
   split::Maps m = {};
-  const int rc = split::encode_maps(p, 2, 1, &m);  // checks the encoder too
+  const int rc = split::encode_maps(p, MAPS, 1, &m);  // checks the encoder too
   if (rc != 0) return rc;
-  maps->op[0] = m.m[0][0];
-  maps->op[1] = m.m[1][0];
+  for (int c = 0; c < MAPS; ++c) maps->op[c] = m.m[c][0];
   using R = Raw<InT>;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(p.n_in), static_cast<cuuint64_t>(p.lines)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(p.n_in) * sizeof(InT)};
-  const cuuint32_t box[2] = {R::SAMPLES, LINES};
+  const cuuint32_t box[2] = {R::SAMPLES, TILE_LINES};
   const cuuint32_t unit[2] = {1, 1};
   const CUtensorMapDataType type = sizeof(InT) == 1   ? CU_TENSOR_MAP_DATA_TYPE_UINT8
                                    : sizeof(InT) == 2 ? CU_TENSOR_MAP_DATA_TYPE_UINT16
@@ -464,32 +476,37 @@ int encode(const Params& p, Maps* maps) {
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The checks, tensor maps and launch of fold_bf16<InT, OutT>: one block per
-// SM, or one per tile where there are fewer tiles.
-template <typename InT, typename OutT>
+// The checks, tensor maps and launch of one_term<InT, Epilogue>: one block
+// per SM, or one per tile where there are fewer tiles; the ring's shared
+// memory and the epilogue's extra bytes.
+template <typename InT, class Epilogue>
 int launch(Params p, cudaStream_t stream) {
   using Kernel = void (*)(Params, Maps);
   if (p.lines <= 0 || p.width <= 0 || p.n_in <= 0) return 0;
-  const Kernel kernel = fold_bf16<InT, OutT>;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Layout<InT>::SMEM);
+  const Kernel kernel = one_term<InT, Epilogue>;
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   bool tma = p.ld % 8 == 0 && (static_cast<long long>(p.n_in) * sizeof(InT)) % 16 == 0 &&
-             split::aligned16(p.raw) && split::aligned16(p.w[0][0]) &&
-             split::aligned16(p.w[1][0]);
+             split::aligned16(p.raw);
+  for (int c = 0; c < Epilogue::MAPS; ++c) tma = tma && split::aligned16(p.w[c][0]);
   Maps maps = {};
   if (tma) {
-    const int rc = encode<InT>(p, &maps);
+    const int rc = encode<InT, Epilogue::MAPS>(p, &maps);
+    if (rc != 0) return rc;
+  }
+  if (STAGED) {
+    const int rc = Epilogue::encode_out(p, &maps.out);
     if (rc != 0) return rc;
   }
   p.tma = tma ? 1 : 0;
   int sms = 0;
   const int rc = sm_count(&sms);
   if (rc != 0) return rc;
-  const long long count = tiles(p);
+  const long long count = tiles<Epilogue>(p);
   const long long grid = count < sms ? count : sms;
-  fold_bf16<InT, OutT><<<static_cast<unsigned>(grid), THREADS, Layout<InT>::SMEM, stream>>>(
-      p, maps);
+  const int smem = Layout<InT>::SMEM + Epilogue::template extra<InT>(p);
+  one_term<InT, Epilogue><<<static_cast<unsigned>(grid), THREADS, smem, stream>>>(p, maps);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,12 +21,12 @@
 //   prep_split<EPI=PHASE,  PARTS=3>  _kernel_phase        (:228-235, prep_split.cu)
 //   prep_split<EPI=REAL,   PARTS=3>  _kernel_real         (:238-242, prep_split.cu)
 //
-// and, on every input type, B1, B7 and B8 at compute_dtype="bfloat16" with
-// PARTS=1: the operator rounded to one bf16 part on the host, x rounded to
-// nearest bf16 in the kernel (the JAX package's astype on both operands,
-// :231 :240 :264 and :471-472 :572-573 :643-644), one product term
-// accumulated in float32.  B2 and B5 at bf16 (:344, :401/:409) run the
-// persistent one-term kernel of fold_bf16.cuh instead.  The float32-FMA template of
+// and, on every input type, B1 at compute_dtype="bfloat16" with PARTS=1:
+// the operator rounded to one bf16 part on the host, x rounded to nearest
+// bf16 in the kernel (the JAX package's astype on both operands, :264 and
+// :643-644), one product term accumulated in float32.  B2, B5, B7 and B8 at
+// bf16 (:344, :401/:409, :231, :240) run the persistent one-term kernel of
+// fold_bf16.cuh instead.  The float32-FMA template of
 // fold_gemm.cuh and prep_gemm.cu serves the one pass of float32 compute on
 // float32 lines alone (samples above 16 bits).
 //
@@ -37,8 +37,7 @@
 // and output: compute bound, 0.56 ms for the two terms "high" needs on
 // shifted 12-bit samples (x_lo being zero), 0.83 ms for the three of the
 // one-pass rung (1.39 ms for its five where x_lo is not zero), 0.28 ms for
-// the one term of compute_dtype="bfloat16" (where the output's bytes may
-// bound it instead: 0.40 ms for the phase kernel's complex64).
+// B1's one term at compute_dtype="bfloat16".
 //
 // Design.  A block owns 128 lines and two halves of 64 operator columns,
 // each a (tensor map, column offset) pair: the fold kernels take
@@ -132,8 +131,8 @@ constexpr int EPI_ROW = BINS + 8;         // floats per staged output row
 // the same terms, other rounding; 8 lets the warpgroups start their wgmma
 // without taking turns -- the same output; 2 refills no stage after the
 // ring's first fill and 4 runs no wgmma -- timing only, the output is
-// wrong.  16 and 32 (no epilogue arithmetic, no decode) are read by the
-// one-term kernel of fold_bf16.cuh alone.
+// wrong.  16, 32 and 64 (no epilogue arithmetic, no decode, no stores) are
+// read by the one-term kernel of fold_bf16.cuh alone.
 #ifndef FOLD_SPLIT_VARIANT
 #define FOLD_SPLIT_VARIANT 0
 #endif
@@ -141,6 +140,7 @@ constexpr bool ONE_CHAIN = FOLD_SPLIT_VARIANT & 1;
 constexpr bool NO_LOADS = FOLD_SPLIT_VARIANT & 2;
 constexpr bool NO_MMA = FOLD_SPLIT_VARIANT & 4;
 constexpr bool TURNS = !(FOLD_SPLIT_VARIANT & 8);
+constexpr bool NO_STORES = FOLD_SPLIT_VARIANT & 64;
 
 // The raw tile's row pitch: 64 samples plus 16 bytes, so the A-fragment
 // reads of a warp (8 rows x 4 column pairs) hit 32 different banks.

@@ -10,12 +10,16 @@
 // the three bf16 parts of its float32 operator.  This file keeps the one
 // pass on float32 lines -- input the wrapper decoded already, samples above
 // 16 bits, which the x_hi + x_lo split cannot carry -- on the CUDA cores, in
-// float32 FMA.  The input type alone picks the route:
+// float32 FMA.  The input type alone picks the route at float32 compute;
+// compute_dtype="bfloat16" (BF16_PASS) runs the persistent one-term kernel
+// of prep_bf16.cu on every input type:
 //
 //   prep_split<EPI=PHASE, 3 parts> | prep_gemm<EPI=PHASE>  _kernel_phase  (octproz_tpu/pallas/fused_prep.py:228-235)
 //   prep_split<EPI=REAL, 3 parts>  | prep_gemm<EPI=REAL>   _kernel_real   (:238-242)
 //   prep_split<EPI=PHASE> (3|5)    _kernel_phase_split  (:245-251)
 //   prep_split<EPI=REAL>  (3|5)    _kernel_real_split   (:254-258)
+//   one_term<InT, Prep<PHASE>>     _kernel_phase at bf16  (prep_bf16.cu)
+//   one_term<InT, Prep<REAL>>      _kernel_real at bf16   (prep_bf16.cu)
 //
 // What bounds it: at the FFT path's geometry (131072 lines x 1024 samples
 // -> 1024) one buffer is 2*131072*1024*1024 = 275 GFLOP against 1.1-1.6 GB
@@ -43,6 +47,11 @@ int prep_split_phase(const void* raw, int in_kind, int bitshift, int passes,
 int prep_split_real(const void* raw, int in_kind, int bitshift, int passes,
                     const void* const w[3], void* out, long long lines, int n_in, int n_out,
                     void* stream);
+int prep_bf16_phase(const void* raw, int in_kind, int bitshift, const void* const w[3],
+                    const float* cos_row, const float* sin_row, void* out, long long lines,
+                    int n_in, int n_out, void* stream);
+int prep_bf16_real(const void* raw, int in_kind, int bitshift, const void* const w[3],
+                   void* out, long long lines, int n_in, int n_out, void* stream);
 }
 
 namespace {
@@ -162,15 +171,18 @@ extern "C" {
 // in_kind: 0 uint8, 1 uint16, 2 float32.  passes: 3 or 5 with 2 or 3 bf16
 // operator parts; 1 with the float32 operator in w0 for float32 lines, and
 // with its three bf16 parts for uint8/uint16 lines; BF16_PASS
-// (compute_dtype="bfloat16") with its one rounded bf16 part for any lines.
-// Unused part pointers may be NULL.  out: complex64 (lines, n_out), written as interleaved float
-// pairs.
+// (compute_dtype="bfloat16") with its one rounded bf16 part for any lines,
+// forwarded to prep_bf16.cu.  Unused part pointers may be NULL.  out:
+// complex64 (lines, n_out), written as interleaved float pairs.
 int prep_gemm_phase(const void* raw, int in_kind, int bitshift, int passes,
                     const void* w0, const void* w1, const void* w2,
                     const float* cos_row, const float* sin_row, void* out,
                     long long lines, int n_in, int n_out, void* stream) {
   if (passes != 1 || in_kind != IN_FLOAT) {
     const void* const w[3] = {w0, w1, w2};
+    if (passes == BF16_PASS)
+      return prep_bf16_phase(raw, in_kind, bitshift, w, cos_row, sin_row, out, lines, n_in,
+                             n_out, stream);
     return prep_split_phase(raw, in_kind, bitshift, passes, w, cos_row, sin_row, out, lines,
                             n_in, n_out, stream);
   }
@@ -183,6 +195,8 @@ int prep_gemm_real(const void* raw, int in_kind, int bitshift, int passes,
                    long long lines, int n_in, int n_out, void* stream) {
   if (passes != 1 || in_kind != IN_FLOAT) {
     const void* const w[3] = {w0, w1, w2};
+    if (passes == BF16_PASS)
+      return prep_bf16_real(raw, in_kind, bitshift, w, out, lines, n_in, n_out, stream);
     return prep_split_real(raw, in_kind, bitshift, passes, w, out, lines, n_in, n_out, stream);
   }
   return launch<REAL>(raw, w0, nullptr, nullptr, out, lines, n_in, n_out, stream);

@@ -1,14 +1,16 @@
 """What limits the tensor-core kernels (B1/B2, B5, B7 and B8 at one pass
 and at ``compute_dtype="bfloat16"``, B3/B4, B6, B9/B10) on the card.
 
-    python -m octproz_tpu_torch.kernels.diagnose     (from the root of a checkout, one GPU)
+    python -m octproz_tpu_torch.kernels.diagnose [VARIANT ...]
+                                          (from the root of a checkout, one GPU)
 
-builds the kernel library again for each diagnostic variant of the split
-pipeline in ``csrc/fold_split.cuh`` and of the persistent one-term kernel
-in ``csrc/fold_bf16.cuh`` (B2 and B5 at bf16), which reads the same flags
-(``-DFOLD_SPLIT_VARIANT=...``, which ``build.py`` never sets), into its own
-build directory, and prints one JSON line with the card's name and power
-limit and:
+builds the kernel library again for each diagnostic variant (all of
+``VARIANTS``, or those named) of the split pipeline in
+``csrc/fold_split.cuh`` and of the persistent one-term kernel in
+``csrc/fold_bf16.cuh`` (B2, B5, B7 and B8 at bf16), which reads the same
+flags (``-DFOLD_SPLIT_VARIANT=...``, which ``build.py`` never sets), into
+its own build directory, and prints one JSON line with the card's name and
+power limit and:
 
 * ``rel_l2``: the kernels' relative L2 error against their plain versions
   -- the fold planar kernel (bound ``fused_prep.PLANAR_REL_L2``) at one pass
@@ -39,16 +41,33 @@ limit and:
   the consumers' own path: waits, decode, vote, fold and epilogue -- and,
   for the one-term kernel alone, ``wgmma_only``: no refills, no decode
   and no epilogue arithmetic, its wgmma groups and barriers (the other
-  kernels read it as ``no_loads``).
+  kernels read it as ``no_loads``), and ``no_stores``: every value of the
+  epilogue computed, none stored (what the stores cost B7 at bf16, whose
+  complex64 spectra set its bound; the other kernels ignore it); and the
+  one-term kernel's two other schedules, tried for B7/B8 at bf16 against
+  the shipped one: ``pingpong`` (the consumer warpgroups take alternate
+  tiles of 64 lines, each with its own stages, so one stores while the
+  other multiplies; ``pingpong_no_stores`` without its stores) and
+  ``staged`` (the cooperative schedule with the prep epilogue through
+  shared-memory staging buffers and TMA stores, a ring of 3 stages);
+* ``prep_bf16``: B7 and B8 at bf16 (the one-term kernel) on shifted and
+  unshifted 12-bit, full 16-bit, uint8 and 24-bit float samples, with and
+  without background removal in the operator: the relative L2 error of the
+  kernel and of its plain version (a float32 cuBLAS product) against the
+  float64 product of the same rounded operands, beside
+  ``PREP_REL_L2`` -- for the shipped schedule, ``pingpong`` and
+  ``staged``.
 
-Only ``one_chain`` and ``no_turns`` compute the right terms; the other
-variants' output is wrong by design and only their time is read.
+Only ``one_chain``, ``no_turns``, ``pingpong`` and ``staged`` compute the
+right terms; the other variants' output is wrong by design and only their
+time is read.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import sys
 
 import torch
 
@@ -57,9 +76,13 @@ from . import build
 from . import fused_prep as fp
 
 VARIANTS = {"shipped": 0, "one_chain": 1, "no_turns": 8, "no_loads": 2, "no_mma": 4,
-            "no_loads_no_mma": 6, "wgmma_only": 50}
+            "no_loads_no_mma": 6, "wgmma_only": 50, "no_stores": 64, "pingpong": 128,
+            "pingpong_no_stores": 192, "staged": 256, "streaming": 512}
 #: the variants whose output is right: their errors are read too
 EXACT = ("shipped", "one_chain", "no_turns")
+#: the one-term kernel's schedules, whose B7/B8 at bf16 are right: their
+#: prep_bf16 errors are read
+DESIGNS = ("shipped", "pingpong", "staged")
 #: (name, n_in, lines, samples, passes) of the fold agreement cases
 ERROR_CASES = (("u16 shifted", 1024, 4096, "u16s", 1), ("u16", 1024, 4096, "u16", 1),
                ("u16 full", 1024, 4133, "u16f", 1), ("u16 n_in=1664", 1664, 1000, "u16", 1),
@@ -167,6 +190,42 @@ def scale_errors(dev) -> dict:
     return out
 
 
+#: (name, samples, background removal) of the bf16 prep cases
+PREP_BF16_CASES = (("u16 shifted", "u16s", False), ("u16", "u16", False),
+                   ("u16 full", "u16f", True), ("u8", "u8", False), ("float", "f32", False),
+                   ("u16 shifted, background", "u16s", True))
+
+
+def prep_bf16_errors(dev) -> dict:
+    """B7 and B8 at bf16 (the one-term kernel, one wgmma chain over n_in)
+    and their plain versions against the float64 product of the rounded
+    operands, on 4096 lines of 1024 samples -> 1024 columns."""
+    out = {}
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    for name, kind, bg in PREP_BF16_CASES:
+        cv = _curves(1024, bench.fft_config(background_removal=bg, compute_dtype="bfloat16"),
+                     dev)
+        parts = fp._operator_parts(cv.prep_operator, fp.BF16)
+        rows = (cv.phase.real.contiguous(), cv.phase.imag.contiguous())
+        raw = (torch.randint(0, 256, (4096, 1024), dtype=torch.uint8, generator=g, device=dev)
+               if kind == "u8" else _raw(kind, 4096, 1024, g, dev))
+        shift = kind == "u16s"
+        x = fp._decode_block(raw, shift).to(torch.bfloat16).double()
+        y = x @ parts[0].double()
+        exact = {"prep_phase_bf16": torch.complex(y * rows[0].double(), y * rows[1].double()),
+                 "prep_real_bf16": y}
+        for family, kernel, plain in (
+                ("prep_phase_bf16", lambda: fp.prep_phase(raw, parts, *rows, bitshift=shift),
+                 lambda: fp.prep_phase_plain(raw, parts, *rows, bitshift=shift)),
+                ("prep_real_bf16", lambda: fp.prep_real(raw, parts, bitshift=shift),
+                 lambda: fp.prep_real_plain(raw, parts, bitshift=shift))):
+            out[f"{family} {name}"] = {"kernel": fp.prep_error(kernel(), exact[family]),
+                                       "plain": fp.prep_error(plain(), exact[family]),
+                                       "bound": fp.PREP_REL_L2}
+    return out
+
+
 def times(dev) -> dict:
     out = {}
     for name in bench.FOLD_KERNELS + bench.PREP_KERNELS:
@@ -202,12 +261,18 @@ def main() -> None:
     info = bench.device_info()
     record = {"device_name": info["device_name"], "power_limit": info["power_limit"],
               "rel_l2": {}, "ms": {}}
-    for name, number in VARIANTS.items():
-        with variant(number):
+    names = sys.argv[1:] or list(VARIANTS)
+    unknown = [n for n in names if n not in VARIANTS]
+    if unknown:
+        raise SystemExit(f"unknown variants {unknown}; known: {list(VARIANTS)}")
+    for name in names:
+        with variant(VARIANTS[name]):
             if name in EXACT:
                 record["rel_l2"][name] = errors(dev)
             if name == "shipped":
                 record["scale"] = scale_errors(dev)
+            if name in DESIGNS:
+                record.setdefault("prep_bf16", {})[name] = prep_bf16_errors(dev)
             record["ms"][name] = times(dev)
     print(json.dumps(record))
 

@@ -30,10 +30,11 @@ This module holds, for each of the ten kernel families:
   one-pass rung on float32 lines the float32-FMA template on the CUDA
   cores; ``compute_dtype="bfloat16"`` runs the tensor-core kernels with x
   rounded to nearest and one bf16 operator part, on every input type --
-  the scaled fold families (``depth_scale``, ``depth_scale_concat``) on
-  the persistent one-term kernel of ``csrc/fold_bf16.cu``
-  (:func:`fold_bf16_schedule`), the others on the shared pipeline of
-  ``csrc/fold_split.cuh``; the route is counted in
+  the scaled fold families (``depth_scale``, ``depth_scale_concat``) and
+  the prep families on the persistent one-term kernel of
+  ``csrc/fold_bf16.cuh`` (``csrc/fold_bf16.cu``, ``csrc/prep_bf16.cu``;
+  :func:`fold_bf16_schedule`, :func:`prep_bf16_schedule`), ``depth`` on
+  the shared pipeline of ``csrc/fold_split.cuh``; the route is counted in
   :data:`ONE_PASS_ROUTES`; built by :mod:`.build`), which a wrapper
   launches for CUDA tensors;
 * its plain PyTorch version (``*_plain``), which the wrapper uses for CPU
@@ -99,40 +100,73 @@ LAUNCHES = {"depth": 0, "depth_split": 0, "depth_scale": 0,
 #: (``compute_dtype="bfloat16"``, any input type: x rounded to bf16, one
 #: wgmma term against the one rounded bf16 operator part; for
 #: ``depth_scale`` and ``depth_scale_concat`` the persistent one-term kernel
-#: of ``csrc/fold_bf16.cu``).
+#: of ``csrc/fold_bf16.cu``, for ``prep_phase`` and ``prep_real`` its
+#: instantiations in ``csrc/prep_bf16.cu``).
 ONE_PASS_ROUTES = {key: {"tensor_core": 0, "simt": 0, "tensor_core_bf16": 0}
                    for key in LAUNCHES if not key.endswith("_split")}
 
 
-#: The persistent one-term kernel of the scaled fold families at
-#: ``compute_dtype="bfloat16"`` (``csrc/fold_bf16.cuh``): tiles of 128
-#: lines x 128 bins, 64 samples per stage, four 64 x 64 bf16 operator boxes
-#: (32 KB) and the raw tile (128 lines x 64 samples, as TMA writes it) per
-#: stage, at most 4 stages in the 232 448 bytes of a block's shared memory
-#: (1024 for alignment, two 8-byte barriers per stage).
+#: The persistent one-term kernel of ``compute_dtype="bfloat16"``
+#: (``csrc/fold_bf16.cuh``): tiles of 128 lines x 128 bins for the scaled
+#: fold families (``csrc/fold_bf16.cu``) or 128 lines x 256 operator
+#: columns for the prep families (``csrc/prep_bf16.cu``), 64 samples per
+#: stage, four 64 x 64 bf16 operator boxes (32 KB) and the raw tile (128
+#: lines x 64 samples, as TMA writes it) per stage, at most 4 stages in the
+#: 232 448 bytes of a block's shared memory (1024 for alignment, two 8-byte
+#: barriers per stage); the phase kernel's phasor rows, 8 bytes a column,
+#: beside the ring where they fit.
 BF16_FOLD_LINES, BF16_FOLD_BINS, BF16_FOLD_DEPTH = 128, 128, 64
+BF16_PREP_COLS = 256
 _BF16_FOLD_SMEM_MAX = 232448
+
+
+def _one_term_schedule(lines: int, width: int, cols: int, in_itemsize: int, sms: int) -> dict:
+    """``tiles``, ``Layout`` and ``launch`` of ``csrc/fold_bf16.cuh`` for
+    tiles ``cols`` columns wide."""
+    col_tiles = -(-width // cols)
+    tiles = -(-lines // BF16_FOLD_LINES) * col_tiles
+    stage = 4 * BF16_FOLD_DEPTH * 64 * 2 + BF16_FOLD_LINES * BF16_FOLD_DEPTH * in_itemsize
+    stages = min(4, (_BF16_FOLD_SMEM_MAX - 1024 - 2 * 4 * 8) // stage)
+    return {"tiles": tiles, "col_tiles": col_tiles, "grid": min(tiles, sms), "stages": stages,
+            "smem": 1024 + stages * stage + 2 * stages * 8}
 
 
 def fold_bf16_schedule(lines: int, half: int, in_itemsize: int, sms: int) -> dict:
     """The host arithmetic of ``csrc/fold_bf16.cuh`` (``tiles``,
-    ``Layout``, ``launch``), mirrored: the tile count, the grid (one block
-    per SM, fewer where there are fewer tiles), the ring's stages and the
-    dynamic shared memory per block for ``in_itemsize``-byte lines (1
-    uint8, 2 uint16, 4 float32).  Block ``b`` walks tiles ``b, b + grid,
-    ...``; :func:`fold_bf16_tile` gives a tile's first line and bin."""
-    cols = -(-half // BF16_FOLD_BINS)
-    tiles = -(-lines // BF16_FOLD_LINES) * cols
-    stage = 4 * BF16_FOLD_DEPTH * 64 * 2 + BF16_FOLD_LINES * BF16_FOLD_DEPTH * in_itemsize
-    stages = min(4, (_BF16_FOLD_SMEM_MAX - 1024 - 2 * 4 * 8) // stage)
-    return {"tiles": tiles, "col_tiles": cols, "grid": min(tiles, sms), "stages": stages,
-            "smem": 1024 + stages * stage + 2 * stages * 8}
+    ``Layout``, ``launch``) for the scaled fold families, mirrored: the tile
+    count, the grid (one block per SM, fewer where there are fewer tiles),
+    the ring's stages and the dynamic shared memory per block for
+    ``in_itemsize``-byte lines (1 uint8, 2 uint16, 4 float32).  Block ``b``
+    walks tiles ``b, b + grid, ...``; :func:`fold_bf16_tile` gives a tile's
+    first line and bin."""
+    return _one_term_schedule(lines, half, BF16_FOLD_BINS, in_itemsize, sms)
 
 
 def fold_bf16_tile(t: int, col_tiles: int) -> Tuple[int, int]:
     """Tile ``t``'s first line and first bin: column tiles fastest, so the
     blocks working at one time share a few row tiles (their raw lines)."""
     return t // col_tiles * BF16_FOLD_LINES, t % col_tiles * BF16_FOLD_BINS
+
+
+def prep_bf16_schedule(lines: int, n_out: int, in_itemsize: int, sms: int,
+                       phase: bool = True) -> dict:
+    """:func:`fold_bf16_schedule` for the prep kernels of
+    ``csrc/prep_bf16.cu`` (``Prep::extra``), whose tiles are 256 operator
+    columns wide: the phase kernel (``phase``) keeps its phasor rows,
+    (cos, sin) per column, in shared memory beside the ring where
+    ``8 * n_out`` bytes fit (``phasor_in_smem``; else it reads them from
+    device memory).  :func:`prep_bf16_tile` gives a tile's first line and
+    column."""
+    s = _one_term_schedule(lines, n_out, BF16_PREP_COLS, in_itemsize, sms)
+    s["phasor_in_smem"] = phase and s["smem"] + 8 * n_out <= _BF16_FOLD_SMEM_MAX
+    s["smem"] += 8 * n_out if s["phasor_in_smem"] else 0
+    return s
+
+
+def prep_bf16_tile(t: int, col_tiles: int) -> Tuple[int, int]:
+    """Tile ``t``'s first line and first operator column, column tiles
+    fastest as in :func:`fold_bf16_tile`."""
+    return t // col_tiles * BF16_FOLD_LINES, t % col_tiles * BF16_PREP_COLS
 
 
 def reset_launch_counts() -> None:
