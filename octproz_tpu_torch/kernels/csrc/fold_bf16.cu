@@ -63,10 +63,8 @@ struct Scale {
   __host__ __device__ static constexpr int offset(int q) { return (q & 1) * BOX; }
   template <typename InT>
   static int extra(const Params&) { return 0; }
-  static int encode_out(const Params&, CUtensorMap*) { return 0; }
   template <typename InT>
-  __device__ static int prepare(const Params&, const Maps&, uint8_t*, int) { return 0; }
-  __device__ static void finish(int) {}
+  __device__ static int prepare(const Params&, uint8_t*, int) { return 0; }
 
   // The tile's voxels from the sums (wgmma's n128 layout: re[4j + i] and
   // im[4j + i] are line line0 + 8 * (i >> 1), bin n0 + 8j + 2t + (i & 1));

@@ -111,24 +111,20 @@ constexpr int PRODUCERS = 128;              // warpgroup 2
 constexpr int THREADS = CONSUMERS + PRODUCERS;
 constexpr int SMEM_MAX = 232448;            // a block's dynamic shared memory on sm_90
 static_assert(split::B_TILE == B_TILE, "b_desc<1> strides one box per 64 columns");
+constexpr int MAX_STAGES = 4;
+constexpr bool KEEP_OPERATOR = FOLD_SPLIT_VARIANT & 1024;  // trial: operator boxes evict last
 
-// Diagnostic schedules (FOLD_SPLIT_VARIANT & 128, 256): the two epilogue
-// designs tried against the shipped one, which stores straight from the
-// registers while the producer loads the next tile.  PINGPONG: the
-// consumer warpgroups take alternate tiles of 64 lines, each with a ring
-// of its own filled by a producer warp of its own, and run their mainloops
-// in turns (named barriers 5 and 6), so one stores while the other
-// multiplies (CUTLASS's ping-pong schedule); STAGED (the prep epilogues
-// only): the cooperative schedule with the epilogue through shared-memory
-// staging buffers and TMA stores, on a ring of at most 3 stages
-// (prep_bf16.cu).
-constexpr bool PINGPONG = FOLD_SPLIT_VARIANT & 128;
-constexpr bool STAGED = FOLD_SPLIT_VARIANT & 256;
-constexpr bool STREAM = FOLD_SPLIT_VARIANT & 512;  // the prep epilogues' stores evict first
-constexpr int TILE_LINES = PINGPONG ? LINES / 2 : LINES;  // lines of a tile and its raw boxes
-constexpr int RINGS = PINGPONG ? 2 : 1;
-constexpr int MAX_STAGES = PINGPONG ? 6 : STAGED ? 3 : 4;
-constexpr int STAGING = STAGED ? 2 * 4 * 8192 : 0;  // two warpgroups x 4 chunks of 8 KB
+// A TMA load whose lines L2 evicts last.
+__device__ __forceinline__ void tma_load_kept(uint32_t dst, const CUtensorMap* map, int x, int y,
+                                              uint32_t bar) {
+  asm volatile(
+      "{\n.reg .b64 pol;\n"
+      "createpolicy.fractional.L2::evict_last.b64 pol, 1.0;\n"
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
+      " [%0], [%1, {%2, %3}], [%4], pol;\n}\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
+      : "memory");
+}
 
 // The stage's raw tile as TMA writes it: 128 lines of 64 samples in boxes
 // of ROW-byte rows (one box of 64 samples for uint8 and uint16 lines, two
@@ -141,7 +137,7 @@ struct Raw {
   static constexpr int ROW = sizeof(InT) == 1 ? 64 : 128;
   static constexpr int SAMPLES = ROW / static_cast<int>(sizeof(InT));  // per box row
   static constexpr int BOXES = DEPTH / SAMPLES;
-  static constexpr int BOX_BYTES = TILE_LINES * ROW;
+  static constexpr int BOX_BYTES = LINES * ROW;
   static constexpr int BYTES = BOXES * BOX_BYTES;
   static constexpr uint32_t SWIZZLE = ROW / 16 - 1;
   // byte offset of sample k of line r in the raw tile
@@ -151,27 +147,22 @@ struct Raw {
   }
 };
 
-// The ring: STAGES stages (and the STAGED schedule's buffers), then a full
-// and an empty mbarrier per stage, then what the epilogue keeps in shared
-// memory (its extra bytes).
+// The ring: STAGES stages, then a full and an empty mbarrier per stage,
+// then what the epilogue keeps in shared memory (its extra bytes).
 template <typename InT>
 struct Layout {
   static constexpr int STAGE = B_BYTES + Raw<InT>::BYTES;  // a multiple of 1024
-  static constexpr int FIT =
-      (SMEM_MAX - 1024 - 2 * MAX_STAGES * 8 - STAGING - (STAGED ? 8192 : 0)) / STAGE;
-  static constexpr int STAGES = (FIT > MAX_STAGES ? MAX_STAGES : FIT) / RINGS * RINGS;
-  static constexpr int RING = STAGES / RINGS;  // the stages of one ring
-  static constexpr int BARRIERS = STAGES * STAGE + STAGING;  // from the aligned base
-  static constexpr int EXTRA = BARRIERS + 2 * STAGES * 8;
+  static constexpr int FIT = (SMEM_MAX - 1024 - 2 * MAX_STAGES * 8) / STAGE;
+  static constexpr int STAGES = FIT > MAX_STAGES ? MAX_STAGES : FIT;
+  static constexpr int EXTRA = STAGES * STAGE + 2 * STAGES * 8;  // from the aligned base
   static constexpr int SMEM = 1024 + EXTRA;
   static_assert(STAGE % 1024 == 0, "stages keep the 1024-byte swizzle alignment");
-  static_assert(RING >= 2, "at least a double buffer");
+  static_assert(STAGES >= 2, "at least a double buffer");
 };
 
 struct Maps {
   CUtensorMap op[2];  // Epilogue::map 0 and 1: 64 columns x 64 samples, 128-byte swizzle
-  CUtensorMap raw;    // SAMPLES x TILE_LINES lines (Raw<InT>)
-  CUtensorMap out;    // the STAGED schedule's output (prep_bf16.cu)
+  CUtensorMap raw;    // SAMPLES x 128 lines (Raw<InT>)
 };
 
 template <class Epilogue>
@@ -180,7 +171,7 @@ __host__ __device__ __forceinline__ int col_tiles(const Params& p) {
 }
 template <class Epilogue>
 __host__ __device__ __forceinline__ long long tiles(const Params& p) {
-  return (p.lines + TILE_LINES - 1) / TILE_LINES * col_tiles<Epilogue>(p);
+  return (p.lines + LINES - 1) / LINES * col_tiles<Epilogue>(p);
 }
 
 // Diagnostic (FOLD_SPLIT_VARIANT & 64): false for every value, so the
@@ -189,34 +180,12 @@ __device__ __forceinline__ bool keep(float v) {
   return !split::NO_STORES || __float_as_uint(v) == 0x7FBADBADu;
 }
 
-// The STAGED schedule's TMA store of a shared-memory box to (x, y) of map,
-// and its bulk-group bookkeeping.
-__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src, int x, int y) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], [%3];\n" ::"l"(
-          reinterpret_cast<uint64_t>(map)),
-      "r"(x), "r"(y), "r"(src)
-      : "memory");
-}
-__device__ __forceinline__ void bulk_commit() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-// Until at most N of this thread's bulk groups still read shared memory.
-template <int N>
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void bulk_wait_all() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
 // --- the producer warpgroup --------------------------------------------------
 
 // With TMA one thread runs the ring: per stage the operator boxes inside
 // the operator's width and the raw tile's boxes, one arrival with their
 // bytes.  Without (p.tma = 0) the whole group stores the same layout
-// element by element and its thread 0 arrives.  (PINGPONG: warp r of the
-// group runs ring r the same way, for consumer warpgroup r's tiles.)
+// element by element and its thread 0 arrives.
 template <typename InT, class Epilogue>
 __device__ __forceinline__ void produce(const Params& p, const Maps& maps, uint8_t* smem,
                                         uint32_t base, uint32_t full, uint32_t empty,
@@ -225,39 +194,39 @@ __device__ __forceinline__ void produce(const Params& p, const Maps& maps, uint8
   using R = Raw<InT>;
   using E = Epilogue;
   using namespace split;
-  const int ring = PINGPONG ? ptid / 32 : 0;
-  const int lane = PINGPONG ? ptid % 32 : ptid;
-  constexpr int LANES = PINGPONG ? 32 : PRODUCERS;
-  if (ring >= RINGS || (p.tma && lane != 0)) return;
+  if (p.tma && ptid != 0) return;
   const InT* raw = static_cast<const InT*>(p.raw);
   const int cols = bf16::col_tiles<E>(p);
   const long long count = bf16::tiles<E>(p);
   const int nkb = (p.n_in + DEPTH - 1) / DEPTH;
   uint32_t it = 0;  // the ring's stage counter, across tiles
-  long long i = 0;  // the block's own count of tiles
-  for (long long t = blockIdx.x; t < count; t += gridDim.x, ++i) {
-    if (PINGPONG && (i & 1) != ring) continue;
-    const long long m0 = t / cols * TILE_LINES;
+  for (long long t = blockIdx.x; t < count; t += gridDim.x) {
+    const long long m0 = t / cols * LINES;
     const int n0 = static_cast<int>(t % cols) * E::COLS;
     int boxes = 0;  // the boxes inside the operator (box 0 always is)
 #pragma unroll
     for (int q = 0; q < 4; ++q) boxes += n0 + E::offset(q) < p.width;
     for (int kb = 0; kb < nkb; ++kb, ++it) {
-      const int s = ring * L::RING + it % L::RING;
-      mbar_wait(empty + 8 * s, ((it / L::RING) & 1) ^ 1);
+      const int s = it % L::STAGES;
+      mbar_wait(empty + 8 * s, ((it / L::STAGES) & 1) ^ 1);
       const uint32_t stage = base + s * L::STAGE;
       const int k0 = kb * DEPTH;
-      if (NO_LOADS && it >= L::RING) {
-        if (lane == 0) mbar_arrive(full + 8 * s);
+      if (NO_LOADS && it >= L::STAGES) {
+        if (ptid == 0) mbar_arrive(full + 8 * s);
         continue;
       }
       if (p.tma) {
         mbar_expect_tx(full + 8 * s, boxes * B_TILE + R::BYTES);
 #pragma unroll
         for (int q = 0; q < 4; ++q)
-          if (n0 + E::offset(q) < p.width)
-            tma_load(stage + q * B_TILE, &maps.op[E::map(q)], n0 + E::offset(q), k0,
-                     full + 8 * s);
+          if (n0 + E::offset(q) < p.width) {
+            if (KEEP_OPERATOR)
+              tma_load_kept(stage + q * B_TILE, &maps.op[E::map(q)], n0 + E::offset(q), k0,
+                            full + 8 * s);
+            else
+              tma_load(stage + q * B_TILE, &maps.op[E::map(q)], n0 + E::offset(q), k0,
+                       full + 8 * s);
+          }
 #pragma unroll
         for (int b = 0; b < R::BOXES; ++b)
           tma_load(stage + B_BYTES + b * R::BOX_BYTES, &maps.raw, k0 + b * R::SAMPLES,
@@ -267,7 +236,7 @@ __device__ __forceinline__ void produce(const Params& p, const Maps& maps, uint8
       // The boxes as TMA would write them: column n of sample row r at
       // r*128 + ((n/8) ^ (r%8))*16 + (n%8)*2.
       uint8_t* st = smem + (stage - base);
-      for (int e = lane; e < DEPTH * BOX; e += LANES) {
+      for (int e = ptid; e < DEPTH * BOX; e += PRODUCERS) {
         const int r = e / BOX;
         const int n = e % BOX;
         const int k = k0 + r;
@@ -281,7 +250,7 @@ __device__ __forceinline__ void produce(const Params& p, const Maps& maps, uint8
           *reinterpret_cast<__nv_bfloat16*>(st + q * B_TILE + off) = v;
         }
       }
-      for (int e = lane; e < TILE_LINES * DEPTH; e += LANES) {
+      for (int e = ptid; e < LINES * DEPTH; e += PRODUCERS) {
         const int r = e / DEPTH;
         const int k = e % DEPTH;
         const long long line = m0 + r;
@@ -290,11 +259,8 @@ __device__ __forceinline__ void produce(const Params& p, const Maps& maps, uint8
       }
       // wgmma reads the boxes through the async proxy
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      if (PINGPONG)
-        __syncwarp();
-      else
-        named_sync(1, PRODUCERS);
-      if (lane == 0) mbar_arrive(full + 8 * s);
+      named_sync(1, PRODUCERS);
+      if (ptid == 0) mbar_arrive(full + 8 * s);
     }
   }
 }
@@ -354,11 +320,10 @@ __device__ __forceinline__ void stage_group(float (&d0)[64], float (&d1)[64],
 // k's group: ptxas reallocates the registers of an issued wgmma's A
 // fragments, and a second fragment set decoded while the group ran was
 // found overwriting the first on the card (lines 16-23, 32-39 and 48-55 of
-// every 64 wrong).  extra: the epilogue's shared memory beside the ring.
+// every 64 wrong).
 template <typename InT, class Epilogue>
-__device__ __forceinline__ void consume(const Params& p, const Maps& maps, uint8_t* smem,
-                                        uint32_t base, uint32_t full, uint32_t empty,
-                                        int ctid) {
+__device__ __forceinline__ void consume(const Params& p, uint8_t* smem, uint32_t base,
+                                        uint32_t full, uint32_t empty, int ctid) {
   using L = Layout<InT>;
   using E = Epilogue;
   using namespace split;
@@ -366,26 +331,19 @@ __device__ __forceinline__ void consume(const Params& p, const Maps& maps, uint8
   const int lane = ctid % 32;
   const int g = lane / 4;
   const int t = lane % 4;
-  // this thread's tile rows: row0, row0 + 8
-  const int row0 = (PINGPONG ? warp % 4 : warp) * 16 + g;
+  const int row0 = warp * 16 + g;  // this thread's tile rows: row0, row0 + 8
   const int cols = bf16::col_tiles<E>(p);
   const long long count = bf16::tiles<E>(p);
   const int nkb = (p.n_in + DEPTH - 1) / DEPTH;
-  auto ctx = E::template prepare<InT>(p, maps, smem, ctid);
-  const int ring = PINGPONG ? warp / 4 : 0;
-  // PINGPONG: warpgroup 0 has the first turn
-  if (PINGPONG && ring == 1) named_arrive(5, CONSUMERS);
+  const auto ctx = E::template prepare<InT>(p, smem + L::EXTRA, ctid);
   uint32_t it = 0;
-  long long i = 0;  // the block's own count of tiles
-  for (long long tl = blockIdx.x; tl < count; tl += gridDim.x, ++i) {
-    if (PINGPONG && (i & 1) != ring) continue;  // the other warpgroup's tile
-    if (PINGPONG) named_sync(5 + ring, CONSUMERS);
-    const long long m0 = tl / cols * TILE_LINES;
+  for (long long tl = blockIdx.x; tl < count; tl += gridDim.x) {
+    const long long m0 = tl / cols * LINES;
     const int n0 = static_cast<int>(tl % cols) * E::COLS;
     float d0[64], d1[64];  // chains 0 and 1 of lines row0 and row0 + 8
     for (int kb = 0; kb < nkb; ++kb, ++it) {
-      const int s = ring * L::RING + it % L::RING;
-      mbar_wait(full + 8 * s, (it / L::RING) & 1);
+      const int s = it % L::STAGES;
+      mbar_wait(full + 8 * s, (it / L::STAGES) & 1);
       uint32_t x[4][4];
       fragments<InT>(smem + s * L::STAGE + B_BYTES, row0, t, p.bitshift, x);
       stage_group(d0, d1, x, base + s * L::STAGE, kb > 0);
@@ -395,11 +353,8 @@ __device__ __forceinline__ void consume(const Params& p, const Maps& maps, uint8
       __syncwarp();
       if (lane == 0) mbar_arrive(empty + 8 * s);
     }
-    // the turn passes to the other warpgroup, where it has a next tile
-    if (PINGPONG && tl + gridDim.x < count) named_arrive(5 + (ring ^ 1), CONSUMERS);
     E::store(p, ctx, d0, d1, m0 + row0, n0, t);
   }
-  E::finish(ctx);
 }
 
 // --- the kernel ----------------------------------------------------------------
@@ -412,13 +367,12 @@ __global__ void __launch_bounds__(THREADS, 1)
   const uint32_t raw_addr = split::smem_u32(smem_raw);
   const uint32_t base = (raw_addr + 1023u) & ~1023u;
   uint8_t* const smem = smem_raw + (base - raw_addr);
-  const uint32_t full = base + L::BARRIERS;  // one mbarrier per stage
+  const uint32_t full = base + L::STAGES * L::STAGE;  // one mbarrier per stage
   const uint32_t empty = full + 8 * L::STAGES;
   if (threadIdx.x == 0) {
     for (int s = 0; s < L::STAGES; ++s) {
       split::mbar_init(full + 8 * s, 1);  // the producer's one arrival (with the bytes)
-      // one per consumer warp that reads the stage
-      split::mbar_init(empty + 8 * s, CONSUMERS / 32 / (PINGPONG ? 2 : 1));
+      split::mbar_init(empty + 8 * s, CONSUMERS / 32);  // one per consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -430,7 +384,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     produce<InT, Epilogue>(p, maps, smem, base, full, empty, threadIdx.x - CONSUMERS);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
-    consume<InT, Epilogue>(p, maps, smem, base, full, empty, threadIdx.x);
+    consume<InT, Epilogue>(p, smem, base, full, empty, threadIdx.x);
   }
 }
 
@@ -463,7 +417,7 @@ int encode(const Params& p, Maps* maps) {
   using R = Raw<InT>;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(p.n_in), static_cast<cuuint64_t>(p.lines)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(p.n_in) * sizeof(InT)};
-  const cuuint32_t box[2] = {R::SAMPLES, TILE_LINES};
+  const cuuint32_t box[2] = {R::SAMPLES, LINES};
   const cuuint32_t unit[2] = {1, 1};
   const CUtensorMapDataType type = sizeof(InT) == 1   ? CU_TENSOR_MAP_DATA_TYPE_UINT8
                                    : sizeof(InT) == 2 ? CU_TENSOR_MAP_DATA_TYPE_UINT16
@@ -493,10 +447,6 @@ int launch(Params p, cudaStream_t stream) {
   Maps maps = {};
   if (tma) {
     const int rc = encode<InT, Epilogue::MAPS>(p, &maps);
-    if (rc != 0) return rc;
-  }
-  if (STAGED) {
-    const int rc = Epilogue::encode_out(p, &maps.out);
     if (rc != 0) return rc;
   }
   p.tma = tma ? 1 : 0;

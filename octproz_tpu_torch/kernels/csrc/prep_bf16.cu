@@ -61,52 +61,15 @@ struct Prep {
     return in_smem<InT>(p.width) ? 8 * p.width : 0;
   }
 
-  // What a consumer thread's epilogue keeps across tiles: the phasor rows
-  // (nullptr where they stay in device memory); for the STAGED schedule
-  // also its warpgroup's staging buffers, the output's tensor map, its
-  // row in the warpgroup's 64 lines and its count of chunks.
-  struct Ctx {
-    const float2* ph;
-    uint8_t* staging;
-    const CUtensorMap* out;
-    int row;
-    int chunks;
-  };
-
-  // The STAGED schedule's output map: the spectra as float32 rows (2 n_out
-  // floats for PHASE), boxes of 32 floats x 64 lines, 128-byte swizzle.
-  static int encode_out(const Params& p, CUtensorMap* map) {
-    const int floats = EPI == PHASE ? 2 * p.width : p.width;
-    if (floats % 4 != 0 || !split::aligned16(p.out)) return static_cast<int>(cudaErrorInvalidValue);
-    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(floats), static_cast<cuuint64_t>(p.lines)};
-    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(floats) * 4};
-    const cuuint32_t box[2] = {32, 64};
-    const cuuint32_t unit[2] = {1, 1};
-    const CUresult r = split::encoder()(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, p.out, dims,
-                                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_NONE,
-                                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-    return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-  }
-
-  // The consumers put (cos, sin) of every column into the extra bytes
-  // beside the ring, where they fit.
+  // The consumers put (cos, sin) of every column into the extra bytes;
+  // returns them, or nullptr where they stay in device memory.
   template <typename InT>
-  __device__ static Ctx prepare(const Params& p, const Maps& maps, uint8_t* smem, int ctid) {
-    using L = Layout<InT>;
-    Ctx c = {nullptr, smem + L::STAGES * L::STAGE + (ctid / 128) * (STAGING / 2), &maps.out,
-             (ctid / 32 % 4) * 16 + ctid % 32 / 4, 0};
-    if (!in_smem<InT>(p.width)) return c;
-    float2* const ph = reinterpret_cast<float2*>(smem + L::EXTRA);
-    for (int col = ctid; col < p.width; col += CONSUMERS)
-      ph[col] = make_float2(p.cos_row[col], p.sin_row[col]);
+  __device__ static const float2* prepare(const Params& p, uint8_t* extra, int ctid) {
+    if (!in_smem<InT>(p.width)) return nullptr;
+    float2* const ph = reinterpret_cast<float2*>(extra);
+    for (int c = ctid; c < p.width; c += CONSUMERS) ph[c] = make_float2(p.cos_row[c], p.sin_row[c]);
     split::named_sync(2, CONSUMERS);
-    c.ph = ph;
-    return c;
-  }
-
-  __device__ static void finish(const Ctx&) {
-    if (STAGED && threadIdx.x % 128 == 0) bulk_wait_all();
+    return ph;
   }
 
   // cos and sin of columns col and col + 1 (zeros past the width).
@@ -146,10 +109,7 @@ struct Prep {
           const float4 v = make_float4(y0 * cs.x, y0 * cs.y, y1 * cs.z, y1 * cs.w);
           if (!keep(v.x + v.y + v.z + v.w)) continue;
           if (pair) {
-            if (STREAM)
-              __stcs(reinterpret_cast<float4*>(out + 2 * o), v);
-            else
-              *reinterpret_cast<float4*>(out + 2 * o) = v;
+            __stcs(reinterpret_cast<float4*>(out + 2 * o), v);  // evict first
           } else {
             *reinterpret_cast<float2*>(out + 2 * o) = make_float2(v.x, v.y);
             if (both) *reinterpret_cast<float2*>(out + 2 * o + 2) = make_float2(v.z, v.w);
@@ -157,10 +117,7 @@ struct Prep {
         } else {
           if (!keep(y0 + y1)) continue;
           if (pair) {
-            if (STREAM)
-              __stcs(reinterpret_cast<float2*>(out + o), make_float2(y0, y1));
-            else
-              *reinterpret_cast<float2*>(out + o) = make_float2(y0, y1);
+            *reinterpret_cast<float2*>(out + o) = make_float2(y0, y1);
           } else {
             out[o] = y0;
             if (both) out[o + 1] = y1;
@@ -170,61 +127,10 @@ struct Prep {
     }
   }
 
-  // The STAGED schedule's chain: chunks of 64 lines x 128 bytes (16 PHASE
-  // columns, 32 REAL ones) through this warpgroup's 4 staging buffers (the
-  // 16-byte unit u of row r at u ^ (r % 8), as the 128-byte swizzle wants),
-  // each stored by one TMA store of the warpgroup's first thread once the
-  // buffer's last store has read it.
-  __device__ static void staged(const Params& p, Ctx& c, const float (&d)[64], long long line0,
-                                int c0, int t) {
-    constexpr int GROUPS = EPI == PHASE ? 2 : 4;  // 8-column groups per chunk
-    const int wg = threadIdx.x / 128;
-    const bool issuer = threadIdx.x % 128 == 0;
-    const int top = static_cast<int>(line0 - c.row);  // the warpgroup's first line
-#pragma unroll
-    for (int m = 0; m < 16 / GROUPS; ++m, ++c.chunks) {
-      uint8_t* const buf = c.staging + (c.chunks % 4) * 8192;
-      if (issuer) bulk_wait_read<3>();
-      split::named_sync(3 + wg, 128);
-#pragma unroll
-      for (int jj = 0; jj < GROUPS; ++jj) {
-        const int j = m * GROUPS + jj;
-        const float4 cs = phasor(p, c.ph, c0 + 8 * j + 2 * t);
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int r = c.row + 8 * h;
-          const float y0 = d[4 * j + 2 * h];
-          const float y1 = d[4 * j + 2 * h + 1];
-          if constexpr (EPI == PHASE) {
-            const int u = (4 * jj + t) ^ (r & 7);
-            *reinterpret_cast<float4*>(buf + r * 128 + u * 16) =
-                make_float4(y0 * cs.x, y0 * cs.y, y1 * cs.z, y1 * cs.w);
-          } else {
-            const int u = (2 * jj + t / 2) ^ (r & 7);
-            *reinterpret_cast<float2*>(buf + r * 128 + u * 16 + (t & 1) * 8) =
-                make_float2(y0, y1);
-          }
-        }
-      }
-      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      split::named_sync(3 + wg, 128);
-      if (issuer) {
-        const int col = c0 + 8 * GROUPS * m;
-        tma_store(c.out, split::smem_u32(buf), EPI == PHASE ? 2 * col : col, top);
-        bulk_commit();
-      }
-    }
-  }
-
-  __device__ static void store(const Params& p, Ctx& c, const float (&d0)[64],
+  __device__ static void store(const Params& p, const float2* ph, const float (&d0)[64],
                                const float (&d1)[64], long long line0, int n0, int t) {
-    if (STAGED) {
-      staged(p, c, d0, line0, n0, t);
-      staged(p, c, d1, line0, n0 + 2 * BOX, t);
-      return;
-    }
-    columns(p, c.ph, d0, line0, n0, t);
-    columns(p, c.ph, d1, line0, n0 + 2 * BOX, t);
+    columns(p, ph, d0, line0, n0, t);
+    columns(p, ph, d1, line0, n0 + 2 * BOX, t);
   }
 };
 

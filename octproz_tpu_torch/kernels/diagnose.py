@@ -77,7 +77,7 @@ from . import fused_prep as fp
 
 VARIANTS = {"shipped": 0, "one_chain": 1, "no_turns": 8, "no_loads": 2, "no_mma": 4,
             "no_loads_no_mma": 6, "wgmma_only": 50, "no_stores": 64, "pingpong": 128,
-            "pingpong_no_stores": 192, "staged": 256, "streaming": 512}
+            "pingpong_no_stores": 192, "staged": 256, "streaming": 512, "keep_operator": 1024}
 #: the variants whose output is right: their errors are read too
 EXACT = ("shipped", "one_chain", "no_turns")
 #: the one-term kernel's schedules, whose B7/B8 at bf16 are right: their
