@@ -110,21 +110,8 @@ constexpr int CONSUMERS = 256;              // warpgroups 0 and 1
 constexpr int PRODUCERS = 128;              // warpgroup 2
 constexpr int THREADS = CONSUMERS + PRODUCERS;
 constexpr int SMEM_MAX = 232448;            // a block's dynamic shared memory on sm_90
-static_assert(split::B_TILE == B_TILE, "b_desc<1> strides one box per 64 columns");
 constexpr int MAX_STAGES = 4;
-constexpr bool KEEP_OPERATOR = FOLD_SPLIT_VARIANT & 1024;  // trial: operator boxes evict last
-
-// A TMA load whose lines L2 evicts last.
-__device__ __forceinline__ void tma_load_kept(uint32_t dst, const CUtensorMap* map, int x, int y,
-                                              uint32_t bar) {
-  asm volatile(
-      "{\n.reg .b64 pol;\n"
-      "createpolicy.fractional.L2::evict_last.b64 pol, 1.0;\n"
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
-      " [%0], [%1, {%2, %3}], [%4], pol;\n}\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
-      : "memory");
-}
+static_assert(split::B_TILE == B_TILE, "b_desc<1> strides one box per 64 columns");
 
 // The stage's raw tile as TMA writes it: 128 lines of 64 samples in boxes
 // of ROW-byte rows (one box of 64 samples for uint8 and uint16 lines, two
@@ -219,14 +206,9 @@ __device__ __forceinline__ void produce(const Params& p, const Maps& maps, uint8
         mbar_expect_tx(full + 8 * s, boxes * B_TILE + R::BYTES);
 #pragma unroll
         for (int q = 0; q < 4; ++q)
-          if (n0 + E::offset(q) < p.width) {
-            if (KEEP_OPERATOR)
-              tma_load_kept(stage + q * B_TILE, &maps.op[E::map(q)], n0 + E::offset(q), k0,
-                            full + 8 * s);
-            else
-              tma_load(stage + q * B_TILE, &maps.op[E::map(q)], n0 + E::offset(q), k0,
-                       full + 8 * s);
-          }
+          if (n0 + E::offset(q) < p.width)
+            tma_load(stage + q * B_TILE, &maps.op[E::map(q)], n0 + E::offset(q), k0,
+                     full + 8 * s);
 #pragma unroll
         for (int b = 0; b < R::BOXES; ++b)
           tma_load(stage + B_BYTES + b * R::BOX_BYTES, &maps.raw, k0 + b * R::SAMPLES,

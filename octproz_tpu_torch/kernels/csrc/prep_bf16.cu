@@ -24,7 +24,17 @@
 // (256 KB) take as long as its products at one SM's share of the memory
 // rate, so the epilogue issues them straight from the registers and goes
 // on to the next tile's stages, which the producer has been loading: the
-// stores drain under that tile's wgmma.
+// stores drain under that tile's wgmma.  Tried on the card against this
+// cooperative schedule and dropped, both slower for B7: a ping-pong
+// schedule (each consumer warpgroup its own 64-line tiles, ring and
+// producer warp, the mainloops in turns: 1.7x the L2 -> shared
+// memory traffic), and the epilogue through shared-memory staging buffers
+// and TMA stores (a ring of 3 stages; at most its buffers in flight under
+// the next tile).  The complex64 stores carry the evict-first hint
+// (st.global.cs): 1.07 GB of spectra streaming through L2 would otherwise
+// push out the operator and raw lines that the next tiles read (3 % on
+// B7; on B8's float32 y the hint did not help).  Operator boxes loaded
+// with an evict-last policy gained nothing.
 //
 // The epilogue, from the sums in registers (wgmma's n128 layout: d[4j + i]
 // is line line0 + 8 * (i >> 1), column c0 + 8j + 2t + (i & 1)): a thread
@@ -67,7 +77,8 @@ struct Prep {
   __device__ static const float2* prepare(const Params& p, uint8_t* extra, int ctid) {
     if (!in_smem<InT>(p.width)) return nullptr;
     float2* const ph = reinterpret_cast<float2*>(extra);
-    for (int c = ctid; c < p.width; c += CONSUMERS) ph[c] = make_float2(p.cos_row[c], p.sin_row[c]);
+    for (int c = ctid; c < p.width; c += CONSUMERS)
+      ph[c] = make_float2(p.cos_row[c], p.sin_row[c]);
     split::named_sync(2, CONSUMERS);
     return ph;
   }

@@ -21,10 +21,11 @@ square; 100 and 1100 give row pitches that are not a multiple of 8, the
 element-wise producer) and n_out = 1001 (odd: the column-by-column
 stores), with and without the phasor, on uint8, 12-bit shifted and
 unshifted, and 24-bit float32 lines, background removal folded into every
-other operator; every launch counted on ``tensor_core_bf16``; the controls
-that must fail (x truncated instead of rounded, and the three-part route
-in place of bf16, on unshifted 12-bit samples); a launch with other than
-one part refused.  Bound: ``fused_prep.PREP_REL_L2`` (relative L2 <= 1e-6
+other operator; n_out = 4352, whose phasor rows stay in device memory;
+every launch counted on ``tensor_core_bf16``; the controls that must fail
+(x truncated instead of rounded, and the three-part route in place of
+bf16, on unshifted 12-bit samples); a launch with other than one part
+refused.  Bound: ``fused_prep.PREP_REL_L2`` (relative L2 <= 1e-6
 over re and im, or y).
 """
 
@@ -55,7 +56,8 @@ def test_schedule_walks_every_tile_once(lines, n_out):
     its first line and column, the grid at most one block per SM."""
     s = tfp.prep_bf16_schedule(lines, n_out, 2, H100_SMS)
     assert s["grid"] == min(s["tiles"], H100_SMS)
-    assert s["col_tiles"] == -(-n_out // 256) and s["tiles"] == -(-lines // 128) * s["col_tiles"]
+    assert s["col_tiles"] == -(-n_out // 256)
+    assert s["tiles"] == -(-lines // 128) * s["col_tiles"]
     seen = np.zeros((-(-lines // 128) * 128, s["col_tiles"] * 256), np.int32)
     for block in range(s["grid"]):
         for t in range(block, s["tiles"], s["grid"]):
@@ -243,6 +245,37 @@ def test_prep_bf16_matches_plain_on_card(cuda_device, kind):
                 err = tfp.prep_error(got, want)
                 assert err <= tfp.PREP_REL_L2, (family, n, lines, case % 2, err)
             case += 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["u12", "f32"])
+def test_prep_bf16_phasor_in_device_memory_on_card(cuda_device, kind):
+    """At n_out = 4352 the phasor rows (8 bytes a column) no longer fit
+    beside the ring of uint16 or float32 lines: the phase kernel reads them
+    from device memory and still matches its plain version.  A band of five
+    random taps per column and a random phasor stand in for the FFT path's
+    operator (a few resampling taps times the window; no curves at this
+    width).  A dense random operator would not: its 4352 terms of random
+    sign in one wgmma chain read 4.3e-6 against the float64 product
+    (``kernels/diagnose.py``'s ``prep_bf16`` dense case)."""
+    n = 4352
+    itemsize = 2 if kind == "u12" else 4
+    assert not tfp.prep_bf16_schedule(999, n, itemsize, H100_SMS)["phasor_in_smem"]
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(43)
+    cols = torch.arange(n, device=cuda_device)
+    op = torch.zeros((n, n), device=cuda_device)
+    for tap in range(-2, 3):
+        op[(cols + tap).clamp(0, n - 1), cols] += torch.rand(n, generator=g, device=cuda_device)
+    angle = torch.rand(n, generator=g, device=cuda_device) * 6.283185307179586
+    rows = (torch.cos(angle), torch.sin(angle))
+    parts = tfp._operator_parts(op, tfp.BF16)
+    raw = _card_raw(kind, 999, n, g, cuda_device)
+    tfp.reset_launch_counts()
+    got, want = _run(raw, parts, rows, False)
+    torch.cuda.synchronize()
+    assert tfp.ONE_PASS_ROUTES["prep_phase"]["tensor_core_bf16"] == 1
+    assert tfp.prep_error(got, want) <= tfp.PREP_REL_L2
 
 
 @pytest.mark.cuda
