@@ -115,6 +115,10 @@ nonzero and the final line is not printed:
    shifted and unshifted 12-bit, full 16-bit and float32 lines and the
    ragged shapes, the route read back per case, and two controls that must
    fail (x truncated, not rounded; the one-pass rung's three-part route);
+   the five at 2048, 4096 and 4352 samples (the bulk of the wgmma chain's
+   sums moved into bf16 hi parts in shared memory every 256 samples) on
+   unshifted 12-bit and 24-bit float32 lines, with the ``make_curves``
+   operators and a dense random operator;
    and B2/B5 at the edges of the one-term kernel's 128 x 128 tiles (1, 127,
    129 and 131073 lines; 64, 100, 128 and 550 bins), B7/B8 at the edges of
    its 128 x 256 prep tiles (1, 127, 129, 999 and 131073 lines; 64, 100,
@@ -182,9 +186,9 @@ KERNELS = {
     "prep_phase_split": ("prep_split.cu", 245),
     "prep_real": ("prep_split.cu", 238),
     "prep_real_split": ("prep_split.cu", 254),
-    # compute_dtype="bfloat16": the one-pass families' bf16 route; B2, B5,
-    # B7 and B8 on the persistent one-term kernel
-    "depth_bf16": ("fold_split.cu", 261),
+    # compute_dtype="bfloat16": the one-pass families' bf16 route, all five
+    # on the persistent one-term kernel
+    "depth_bf16": ("fold_bf16.cu", 261),
     "depth_scale_bf16": ("fold_bf16.cu", 375),
     "depth_scale_concat_bf16": ("fold_bf16.cu", 337),
     "prep_phase_bf16": ("prep_bf16.cu", 228),
@@ -617,6 +621,115 @@ def _bf16_kernel_cases(worst, parts, ops, dev):
             if ok:
                 raise AssertionError(f"control {name!r} passed: the prep bound does not "
                                      f"catch it")
+    _bf16_long_chain_cases(dev)
+
+
+#: n_in of the bf16 long-line cases: past every family's fold period
+BF16_LONG_WIDTHS = (2048, 4096, 4352)
+
+
+def _bf16_long_chain_cases(dev):
+    """The five families at bf16 on lines longer than the one-term kernel's
+    fold period (ROADMAP F1: one wgmma chain over n_in read up to 4.5e-6
+    against the prep bound of 1e-6 and 5.6e-6 against the planar 3e-6):
+    ``BF16_LONG_WIDTHS`` samples on 999 lines of unshifted 12-bit and 24-bit
+    float32 samples, with the ``make_curves`` operators (the prep ones with
+    and without background removal) and a dense random operator (n_in
+    terms of random sign in every sum, a random phasor), B1 planar, B2 log
+    and fast log, B5 log, B7 and B8, each against its plain version at the
+    unchanged bounds (the scaled images' max against the float64 image,
+    ``_compare_scale_exact``) with the route read back; on a generator of
+    their own."""
+    import torch
+
+    from octproz_tpu_torch import bench
+    from octproz_tpu_torch import curves as curves_mod
+    from octproz_tpu_torch.kernels import fused_prep as fp
+    from octproz_tpu_torch.params import AcqParams
+
+    f32 = torch.float32
+    g = torch.Generator(device=dev)
+    g.manual_seed(16)
+    for n in BF16_LONG_WIDTHS:
+        acq = AcqParams(samples_per_line=n, ascans_per_bscan=8, bscans_per_buffer=1)
+        cv = curves_mod.make_curves(acq, bench.bench_config(), **{
+            **bench.CURVE_KW, "resample_coeffs": (0.0, n - 1.0, 20.0, -10.0)}, device=dev)
+        angle = torch.rand(n, generator=g, device=dev) * 6.283185307179586
+        dense = lambda cols: torch.randn((n, cols), generator=g, device=dev).div(64.0)  # noqa
+        fold_ops = {"curves": (cv.depth_op_re, cv.depth_op_im),
+                    "dense random": (dense(n // 2), dense(n // 2))}
+        prep_ops = {"curves": _prep_operators(n, False, dev),
+                    "curves, background": _prep_operators(n, True, dev),
+                    "dense random": (dense(n), (torch.cos(angle), torch.sin(angle)))}
+        for kind in ("u16", "f32"):
+            floor = ONE_PASS_FLOOR_DB[kind]
+            raw = _raw(kind, 999, n, g, dev)
+            for ops, (w_re, w_im) in fold_ops.items():
+                bf = tuple(fp._operator_parts(w, fp.BF16) for w in (w_re, w_im))
+                wide = fp.concat_operator(w_re, w_im, fp.BF16)
+                runs = [("depth", "planar",
+                         lambda: _compare(raw, *bf, False, None, None, g))]
+                runs += [("depth_scale", mode,
+                          lambda mode=mode: _compare_scale_exact(raw, bf, mode, g, floor))
+                         for mode in ("log", "fast_log")]
+                runs.append(("depth_scale_concat", "log",
+                             lambda: _compare_scale_exact(raw, bf, "log", g, floor, wide)))
+                _long_chain_runs(runs, n, kind, ops)
+            for ops, (op, rows) in prep_ops.items():
+                parts = fp._operator_parts(op, fp.BF16)
+                _long_chain_runs([(f"prep_{epi}", epi,
+                                   lambda r=r: _compare_prep(raw, parts, r, False))
+                                  for epi, r in (("phase", rows), ("real", None))], n, kind, ops)
+
+
+def _compare_scale_exact(raw, bf, mode, g, floor_db, wide=None):
+    """B2 (or with ``wide`` B5) at bf16 on long lines, log scaling over the
+    60 dB from ``floor_db`` (fast log with ``mode`` "fast_log"): the image
+    against the image of the float64 products of the same rounded operands
+    (``fused_prep.depth_scale_f64``) within the scale bounds, and against
+    the plain version within the RMS bound -- the plain version's own
+    float32 products reach the max bound in the deepest shown voxels from
+    4096 samples on.  Returns (max |err|, detail, within the bounds)."""
+    import torch
+
+    from octproz_tpu_torch.kernels import fused_prep as fp
+
+    half = bf[0][0].shape[1]
+    mean2 = torch.randn((2, half), generator=g, device=raw.device) * 50.0
+    a, b = fp._scale_affine(True, half, floor_db, floor_db + 60.0, 0.0, 1.0)
+    kw = dict(bitshift=False, log_scaling=True, a=a, b=b)
+    fast = mode == "fast_log"
+    exact = fp.depth_scale_f64(raw, *bf, mean2, fast_log=fast, **kw)
+    if wide is None:
+        got = fp.fold_depth_scale(raw, *bf, mean2, fast_log=fast, **kw)
+        want = fp.depth_scale_plain(raw, *bf, mean2, fast_log=fast, **kw)
+    else:
+        got = fp.fold_depth_scale_concat(raw, wide, mean2, **kw)
+        want = fp.depth_scale_concat_plain(raw, wide, mean2, **kw)
+    rms, worst, ok = fp.scale_error(got, exact)
+    rms_p, worst_p, _ = fp.scale_error(got, want)
+    return worst, (f"against the float64 image RMS {rms:.3e}, max {worst:.3e} (bound RMS "
+                   f"{fp.SCALE_RMS:g}, max {fp.SCALE_MAX:g}); against the plain version RMS "
+                   f"{rms_p:.3e}, max {worst_p:.3e}"), ok and rms_p <= fp.SCALE_RMS
+
+
+def _long_chain_runs(runs, n, kind, ops):
+    """Each (family, what, run) of ``_bf16_long_chain_cases``: the launch
+    counts reset before the run, its route read back after it."""
+    import torch
+
+    from octproz_tpu_torch.kernels import fused_prep as fp
+
+    for family, what, run in runs:
+        fp.reset_launch_counts()
+        _, detail, ok = run()
+        torch.cuda.synchronize()
+        route = _route_read_back(family, kind, bf16=True)
+        log(f"[kernels] {_row(family, 0):<24} n_in={n} lines=999 {kind} {ops} {what}{route}: "
+            f"{detail} -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{_row(family, 0)} kernel disagrees with its plain version "
+                                 f"at n_in={n} ({kind}, {ops}, {what})")
 
 
 def _bf16_scale_edge_cases(worst, parts, ops, dev):
@@ -2989,12 +3102,14 @@ def phase_times(info):
     plan = fp.fold_bf16_schedule(lines, bench.FULL_ACQ.output_ascan_length, 2, sms)
     log(f"[times] fold_bf16 at the main path's shape: {plan['tiles']} tiles of 128 x 128 on "
         f"{plan['grid']} blocks ({plan['tiles'] / plan['grid']:.2f} tiles a block), "
-        f"{plan['stages']} stages, {plan['smem']} bytes of shared memory a block")
+        f"{plan['stages']} stages, {plan['smem']} bytes of shared memory a block, tile "
+        f"{plan['tile']!r}")
     plan = fp.prep_bf16_schedule(lines, bench.FULL_ACQ.samples_per_line, 2, sms)
     log(f"[times] prep_bf16 (phase) at the main path's shape: {plan['tiles']} tiles of 128 x 256 "
         f"on {plan['grid']} blocks ({plan['tiles'] / plan['grid']:.2f} tiles a block), "
         f"{plan['stages']} stages, {plan['smem']} bytes of shared memory a block (phasor rows "
-        f"{'in shared memory' if plan['phasor_in_smem'] else 'in device memory'})")
+        f"{'in shared memory' if plan['phasor_in_smem'] else 'in device memory'}), tile "
+        f"{plan['tile']!r}")
     return times
 
 

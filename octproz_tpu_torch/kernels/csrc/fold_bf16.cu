@@ -1,9 +1,10 @@
-// The one-term SCALE fold of compute_dtype="bfloat16" (the kernel and its
-// design notes in fold_bf16.cuh), behind fold_gemm_scale (fold_gemm.cu) and
-// fold_gemm_scale_concat (fold_concat.cu) at passes = BF16_PASS, on every
-// input type:
+// The one-term fold kernels of compute_dtype="bfloat16" (the kernel and its
+// design notes in fold_bf16.cuh), behind fold_gemm_planar, fold_gemm_scale
+// (fold_gemm.cu) and fold_gemm_scale_concat (fold_concat.cu) at passes =
+// BF16_PASS, on every input type:
 //
-//   one_term<InT, Scale<OutT>>  _kernel_depth_scale         (octproz_tpu/pallas/fused_prep.py:375-419)
+//   one_term<InT, Planar>       _kernel_depth               (octproz_tpu/pallas/fused_prep.py:261-268)
+//   one_term<InT, Scale<OutT>>  _kernel_depth_scale         (:375-419)
 //   one_term<InT, Scale<OutT>>  _kernel_depth_scale_concat  (:337-351)
 //
 // with InT in {uint8, uint16, float} and OutT in {float, bf16}.  A tile is
@@ -12,8 +13,11 @@
 // The concat kernel reads its one rounded wide (n_in, 2 * half) part
 // [W_re | W_im] as two views, W and W + half, at row pitch 2 * half; at
 // half % 8 != 0 the im view is not 16-byte aligned and the producers store
-// it element by element.  A launch with other than one bf16 part per axis
-// is refused.
+// it element by element.  Planar stores the two planes straight from the
+// registers as Scale stores its image: B1's 0.81 GB of planes leave it
+// bound by its operations (0.278 ms), where the shared pipeline's
+// PARTS = 1 instantiation, which ran it until now, took 0.999 ms.  A launch
+// with other than one bf16 part per axis is refused.
 
 #include "fold_bf16.cuh"
 
@@ -53,18 +57,24 @@ __device__ __forceinline__ float scale(float re, float im, float a, float b) {
   return a * fast_log2(pw) + b;
 }
 
-// The scaled fold's epilogue: two views (re, im) of 128 bins per tile.
-template <typename OutT>
-struct Scale {
+// The fold families' tile: two views (re, im) of 128 bins, chain 0 the re
+// boxes, chain 1 the im boxes, so the thread that holds bin j's re holds
+// its im; nothing kept in shared memory beside the ring.
+struct TwoViews {
   static constexpr int COLS = 128;  // bins per tile
   static constexpr int MAPS = 2;    // W_re, W_im
   // box q: re (q < 2) or im, bins n0 + 64 (q % 2)
   __host__ __device__ static constexpr int map(int q) { return q >> 1; }
   __host__ __device__ static constexpr int offset(int q) { return (q & 1) * BOX; }
-  template <typename InT>
+  template <class L>
   static int extra(const Params&) { return 0; }
-  template <typename InT>
+  template <class L>
   __device__ static int prepare(const Params&, uint8_t*, int) { return 0; }
+};
+
+// The scaled fold's epilogue (B2, B5).
+template <typename OutT>
+struct Scale : TwoViews {
 
   // The tile's voxels from the sums (wgmma's n128 layout: re[4j + i] and
   // im[4j + i] are line line0 + 8 * (i >> 1), bin n0 + 8j + 2t + (i & 1));
@@ -107,6 +117,32 @@ struct Scale {
   }
 };
 
+// The planar fold's epilogue (B1): chain 0's sums to re_out and chain 1's
+// to im_out, straight from the registers in Scale's layout, one float2
+// store per bin pair (bin by bin where half is odd or the pair runs past
+// it).
+struct Planar : TwoViews {
+  __device__ static void store(const Params& p, int, const float (&re)[64],
+                               const float (&im)[64], long long line0, int n0, int t) {
+    const int half = p.width;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int bin = n0 + 8 * j + 2 * t;
+      if (bin >= half) continue;
+      const bool both = bin + 1 < half;
+      const bool pair = both && (half & 1) == 0;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long line = line0 + 8 * h;
+        if (line >= p.lines) continue;
+        const int i = 4 * j + 2 * h;
+        store2(p.re_out, line * half + bin, re[i], re[i + 1], both, pair);
+        store2(p.im_out, line * half + bin, im[i], im[i + 1], both, pair);
+      }
+    }
+  }
+};
+
 template <typename OutT>
 int dispatch_input(int in_kind, const Params& p, cudaStream_t stream) {
   switch (in_kind) {
@@ -117,20 +153,27 @@ int dispatch_input(int in_kind, const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-int scale(const void* raw, int in_kind, int bitshift, const void* wre, const void* wim, int ld,
-          const float* mean2, void* out, int out_bf16, int mode, float a, float b,
-          long long lines, int n_in, int half, void* stream) {
+// Params of the two views (wre, wim) at row pitch ld.
+Params views(const void* raw, int bitshift, const void* wre, const void* wim, int ld,
+             long long lines, int n_in, int half) {
   Params p = {};
   p.raw = raw;
   p.w[0][0] = static_cast<const __nv_bfloat16*>(wre);
   p.w[1][0] = static_cast<const __nv_bfloat16*>(wim);
-  p.mean2 = mean2;
-  p.out = out;
   p.lines = lines;
   p.n_in = n_in;
   p.width = half;
   p.ld = ld;
   p.bitshift = bitshift;
+  return p;
+}
+
+int scale(const void* raw, int in_kind, int bitshift, const void* wre, const void* wim, int ld,
+          const float* mean2, void* out, int out_bf16, int mode, float a, float b,
+          long long lines, int n_in, int half, void* stream) {
+  Params p = views(raw, bitshift, wre, wim, ld, lines, n_in, half);
+  p.mean2 = mean2;
+  p.out = out;
   p.mode = mode;
   p.a = a;
   p.b = b;
@@ -139,10 +182,35 @@ int scale(const void* raw, int in_kind, int bitshift, const void* wre, const voi
                   : dispatch_input<float>(in_kind, p, s);
 }
 
+int planar(const void* raw, int in_kind, int bitshift, const void* wre, const void* wim,
+           float* re_out, float* im_out, long long lines, int n_in, int half, void* stream) {
+  Params p = views(raw, bitshift, wre, wim, half, lines, n_in, half);
+  p.re_out = re_out;
+  p.im_out = im_out;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (in_kind) {
+    case IN_U8: return launch<uint8_t, Planar>(p, s);
+    case IN_U16: return launch<uint16_t, Planar>(p, s);
+    case IN_FLOAT: return launch<float, Planar>(p, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace bf16
 }  // namespace
 
 extern "C" {
+
+// fold_gemm_planar at BF16_PASS: one rounded bf16 part per axis, wre[0] and
+// wim[0] (the others NULL); re_out and im_out: float32 (lines, half).
+int fold_bf16_planar(const void* raw, int in_kind, int bitshift, const void* const wre[3],
+                     const void* const wim[3], float* re_out, float* im_out, long long lines,
+                     int n_in, int half, void* stream) {
+  if (split::parts_of(wre) != 1 || split::parts_of(wim) != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return bf16::planar(raw, in_kind, bitshift, wre[0], wim[0], re_out, im_out, lines, n_in, half,
+                      stream);
+}
 
 // fold_gemm_scale at BF16_PASS: one rounded bf16 part per axis, wre[0] and
 // wim[0] (the others NULL).

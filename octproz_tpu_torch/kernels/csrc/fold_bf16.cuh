@@ -2,11 +2,12 @@
 // persistent kernel written for one product term, beside the shared
 // pipeline of fold_split.cuh that the three-part and split rungs run.  This
 // header holds its producer, consumer mainloop and host side, templated on
-// the epilogue; fold_bf16.cu instantiates the scaled fold's, prep_bf16.cu
-// the prep families':
+// the epilogue and the tile (Tile); fold_bf16.cu instantiates the fold
+// families', prep_bf16.cu the prep families':
 //
-//   one_term<InT, Scale<OutT>>   _kernel_depth_scale         (octproz_tpu/pallas/fused_prep.py:375-419,
-//                                                             call :736; fold_bf16.cu)
+//   one_term<InT, Planar>        _kernel_depth               (octproz_tpu/pallas/fused_prep.py:261-268,
+//                                                             call :607; fold_bf16.cu)
+//   one_term<InT, Scale<OutT>>   _kernel_depth_scale         (:375-419, call :736)
 //   one_term<InT, Scale<OutT>>   _kernel_depth_scale_concat  (:337-351, call :721; two views of
 //                                                             the one rounded wide part)
 //   one_term<InT, Prep<PHASE>>   _kernel_phase               (:228-235, call :535; prep_bf16.cu)
@@ -15,17 +16,18 @@
 // It computes what the Pallas kernels compute at compute_dtype="bfloat16":
 // x decoded (>> 4 with bitshift) and rounded to nearest-even bf16 (:231,
 // :240, :344, :401/:409), the operator rounded to bf16 on the host
-// (:470-472), the product accumulated in float32, then the epilogue: FPN
-// mean subtraction, p = re^2 + im^2 and the dynamic-range scale (Scale), or
-// (y cos, y sin) into complex64 (PHASE) or float32 y (REAL).  InT in
-// {uint8, uint16, float}.
+// (:470-472), the product accumulated in float32, then the epilogue: the
+// planar (re, im) float32 (Planar), FPN mean subtraction, p = re^2 + im^2
+// and the dynamic-range scale (Scale), or (y cos, y sin) into complex64
+// (PHASE) or float32 y (REAL).  InT in {uint8, uint16, float}.
 //
 // What bounds it, on one H100 (H100 80GB HBM3, 700 W: 989 TFLOP/s dense
 // bf16, 3.35 TB/s): at the main path's geometry (131072 lines x 1024
 // samples -> 512 bins re and im, or 1024 prep columns) the one term is 275
 // GFLOP, 0.278 ms of tensor-core work, against ~0.54 GB of raw lines,
-// operator and image for the scaled fold and the float32 y of REAL, but
-// 1.34 GB for PHASE's complex64: 0.401 ms of bytes.  The shared pipeline
+// operator and image for the scaled fold and the float32 y of REAL, 0.81
+// GB for Planar's two float32 planes (0.241 ms), but 1.34 GB for PHASE's
+// complex64: 0.401 ms of bytes.  The shared pipeline
 // ran these at 1.0-1.19 ms: 8192 short-lived blocks (62 waves and a tail),
 // each paying its barrier set-up and ring fill, an epilogue in the ring's
 // shared memory with no load in flight, and the raw buffer read and decoded
@@ -66,13 +68,32 @@
 //   warpgroups of 64 lines (160 registers each: spills, slower), one
 //   m64n256k16 in place of the two n128 (no gain), and a 2-CTA cluster
 //   sharing the operator boxes by TMA multicast (slower).
-// * All of n_in runs in one wgmma chain into the float32 sums, 128 per
-//   thread.  The shared pipeline folds every stage into a float32 sum
-//   because its three- and five-term sums missed the planar bound in one
-//   chain; for one term one chain meets the bounds (diagnose.py's
-//   one_chain: scaled RMS <= 1.8e-7, max <= 1.0e-5; the magnitude's
-//   relative L2 <= 1.09e-6 against 3e-6; H100, 700 W), and the fold cost
-//   0.12 ms of 0.90 in the first build.
+// * Up to CHAIN_MAX = 1024 samples, the main path's lines, all of n_in runs
+//   in one wgmma chain into the float32 sums, 128 per thread (Tile CHAIN).
+//   The tensor cores round each 16-sample step's addition into the sums
+//   by their magnitude, so a chain's error grows with its length: from the
+//   float64 product of the rounded operands 0.9-1.1e-6 at 1024 samples
+//   (the fold families' planar bound is 3e-6; the prep families read
+//   1.3e-7 with the FFT path's few-tap operators, 9.2e-7 with a dense
+//   random one against their 1e-6) and 4.3-5.7e-6 at 4352
+//   (kernels/diagnose.py's one_term; H100 80GB HBM3, 700 W).  Past
+//   CHAIN_MAX (Tile CARRY) the chain runs on, and every FOLD = 256 samples
+//   carry() moves the bulk of each sum out of it into a bf16 hi part in
+//   shared memory -- t = hi + sum, hi = bf16_rn(t), sum = t - hi (exact,
+//   at most 2^-9 |t|) -- so the chain adds into sums as small as after a
+//   fresh start: at most 2.9e-7 from float64 at 2048-4352 samples, below
+//   the float32 plain version's own (up to 9.5e-7 at 4096).  The 64 KB of
+//   hi parts leave three stages for uint16 lines (four for uint8, two for
+//   float32); at 4096 samples the carried tiles take 14-28 % more time a
+//   multiply-add than one chain (PERF.md).  Tried on the card and dropped:
+//   narrow tiles of two boxes whose partial and running sums share the 128
+//   registers (+46-69 %: x decoded twice as often), fresh partial sums
+//   added into 128 KB of float32 sums in shared memory beside two stages
+//   (+37-45 %), and a fold every 1024 samples (the log scale's max at
+//   1.1e-4 at 2048 samples: the partials' errors do not shrink with a
+//   total near zero).  Carrying the prep families from 256 samples on (a
+//   dense random operator at 1024 then 3.1e-7) cost B8 23 % and B7 14 %
+//   at the main geometry, and is not shipped.
 // * The epilogue runs in the registers that hold the sums (Epilogue::store:
 //   sums d0 and d1 of chains 0 and 1, wgmma's n128 layout) and stores
 //   straight to device memory, every 32-byte sector written whole by one
@@ -82,10 +103,11 @@
 //   in shared memory beside the ring once per block (Epilogue::prepare).
 //
 // Diagnostic builds (kernels/diagnose.py, -DFOLD_SPLIT_VARIANT as in
-// fold_split.cuh): 2 refills no stage after the ring's first fill, 4 runs
-// no wgmma, 16 skips the scaled fold's epilogue arithmetic, 32 the decode,
-// 64 the stores (their values still computed) -- timing only; 1 and 8 (one
-// chain, no turns) change nothing here.
+// fold_split.cuh): 1 runs one chain at every n_in (no CARRY tile); 2
+// refills no stage after the ring's first fill, 4 runs no wgmma, 16 skips
+// the scaled fold's epilogue arithmetic, 32 the decode, 64 the stores
+// (their values still computed) -- timing only; 8 (no turns) changes
+// nothing here.
 //
 // Launch contract as in fold_split.cuh: the caller's stream, no
 // allocation, no synchronisation; launch() returns cudaGetLastError() or
@@ -113,6 +135,21 @@ constexpr int SMEM_MAX = 232448;            // a block's dynamic shared memory o
 constexpr int MAX_STAGES = 4;
 static_assert(split::B_TILE == B_TILE, "b_desc<1> strides one box per 64 columns");
 
+// How a tile sums n_in.  Up to CHAIN_MAX samples (CHAIN) one wgmma chain
+// over all of n_in into the 128 float32 sums a thread.  Beyond (CARRY) the
+// chain runs on, but every FOLD samples the bulk of each sum moves out of
+// it: t = hi + sum rounded to float32, hi = bf16_rn(t) kept in shared
+// memory (256 bytes a thread, 64 KB a block), the sum left with t - hi
+// (exact), at most 2^-9 |t|.  The tensor cores' rounding of a chain grows
+// with the magnitude of the sums it adds into; so the chain rounds as if
+// it started afresh every FOLD samples, without a second set of 128
+// registers and without narrower tiles.
+enum Tile { CHAIN, CARRY };
+constexpr int CHAIN_MAX = 1024;
+constexpr int FOLD = 256;
+constexpr int HI_BYTES = CONSUMERS * 64 * 4;  // 128 bf16 a thread
+static_assert(FOLD % DEPTH == 0, "the fold period is whole stages");
+
 // The stage's raw tile as TMA writes it: 128 lines of 64 samples in boxes
 // of ROW-byte rows (one box of 64 samples for uint8 and uint16 lines, two
 // of 32 for float32 lines), each swizzled over ROW bytes (128-byte swizzle;
@@ -134,14 +171,17 @@ struct Raw {
   }
 };
 
-// The ring: STAGES stages, then a full and an empty mbarrier per stage,
-// then what the epilogue keeps in shared memory (its extra bytes).
-template <typename InT>
+// The ring: STAGES stages, then the hi parts of a CARRY tile, then a full
+// and an empty mbarrier per stage, then what the epilogue keeps in shared
+// memory (its extra bytes).
+template <typename InT, int TILE>
 struct Layout {
   static constexpr int STAGE = B_BYTES + Raw<InT>::BYTES;  // a multiple of 1024
-  static constexpr int FIT = (SMEM_MAX - 1024 - 2 * MAX_STAGES * 8) / STAGE;
+  static constexpr int HI = TILE == CARRY ? HI_BYTES : 0;
+  static constexpr int FIT = (SMEM_MAX - 1024 - 2 * MAX_STAGES * 8 - HI) / STAGE;
   static constexpr int STAGES = FIT > MAX_STAGES ? MAX_STAGES : FIT;
-  static constexpr int EXTRA = STAGES * STAGE + 2 * STAGES * 8;  // from the aligned base
+  static constexpr int BARRIERS = STAGES * STAGE + HI;  // from the aligned base
+  static constexpr int EXTRA = BARRIERS + 2 * STAGES * 8;
   static constexpr int SMEM = 1024 + EXTRA;
   static_assert(STAGE % 1024 == 0, "stages keep the 1024-byte swizzle alignment");
   static_assert(STAGES >= 2, "at least a double buffer");
@@ -173,11 +213,11 @@ __device__ __forceinline__ bool keep(float v) {
 // the operator's width and the raw tile's boxes, one arrival with their
 // bytes.  Without (p.tma = 0) the whole group stores the same layout
 // element by element and its thread 0 arrives.
-template <typename InT, class Epilogue>
+template <typename InT, class Epilogue, int TILE>
 __device__ __forceinline__ void produce(const Params& p, const Maps& maps, uint8_t* smem,
                                         uint32_t base, uint32_t full, uint32_t empty,
                                         int ptid) {
-  using L = Layout<InT>;
+  using L = Layout<InT, TILE>;
   using R = Raw<InT>;
   using E = Epilogue;
   using namespace split;
@@ -296,17 +336,48 @@ __device__ __forceinline__ void stage_group(float (&d0)[64], float (&d1)[64],
   split::pin(d1);
 }
 
+// A CARRY tile's fold, every FOLD samples and at the tile's end (last):
+// t = hi + d for the 128 sums of chains 0 and 1, then hi = bf16_rn(t) back
+// to shared memory and d = t - hi (exact), or at the end d = t for the
+// epilogue.  hi (zero before the first fold: first) is this thread's
+// alone: its 8 bf16 j at hi[j * CONSUMERS], so a warp's 16-byte accesses
+// are 512 contiguous bytes.
+__device__ __forceinline__ void carry(uint4* hi, float (&d0)[64], float (&d1)[64], bool first,
+                                      bool last) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    float* const d = j < 8 ? d0 + 8 * j : d1 + 8 * (j - 8);
+    const uint4 h = first ? make_uint4(0u, 0u, 0u, 0u) : hi[j * CONSUMERS];
+    uint32_t w[4] = {h.x, h.y, h.z, h.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float t0 = __uint_as_float(w[k] << 16) + d[2 * k];
+      const float t1 = __uint_as_float(w[k] & 0xFFFF0000u) + d[2 * k + 1];
+      if (last) {
+        d[2 * k] = t0;
+        d[2 * k + 1] = t1;
+        continue;
+      }
+      w[k] = split::pack_rn(t0, t1);
+      d[2 * k] = t0 - __uint_as_float(w[k] << 16);
+      d[2 * k + 1] = t1 - __uint_as_float(w[k] & 0xFFFF0000u);
+    }
+    if (!last) hi[j * CONSUMERS] = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
 // A consumer warpgroup: 64 lines of every tile of the block, one stage's
 // group on the tensor cores at a time (the other warpgroup's runs while
 // this one decodes).  Stage k + 1's fragments are not decoded under stage
 // k's group: ptxas reallocates the registers of an issued wgmma's A
 // fragments, and a second fragment set decoded while the group ran was
 // found overwriting the first on the card (lines 16-23, 32-39 and 48-55 of
-// every 64 wrong).
-template <typename InT, class Epilogue>
+// every 64 wrong).  A CARRY tile folds its sums every FOLD samples
+// (carry()).
+template <typename InT, class Epilogue, int TILE>
 __device__ __forceinline__ void consume(const Params& p, uint8_t* smem, uint32_t base,
                                         uint32_t full, uint32_t empty, int ctid) {
-  using L = Layout<InT>;
+  using L = Layout<InT, TILE>;
   using E = Epilogue;
   using namespace split;
   const int warp = ctid / 32;
@@ -317,7 +388,9 @@ __device__ __forceinline__ void consume(const Params& p, uint8_t* smem, uint32_t
   const int cols = bf16::col_tiles<E>(p);
   const long long count = bf16::tiles<E>(p);
   const int nkb = (p.n_in + DEPTH - 1) / DEPTH;
-  const auto ctx = E::template prepare<InT>(p, smem + L::EXTRA, ctid);
+  const auto ctx = E::template prepare<L>(p, smem + L::EXTRA, ctid);
+  uint4* const hi = reinterpret_cast<uint4*>(smem + L::STAGES * L::STAGE) + ctid;  // CARRY
+  constexpr int PERIOD = FOLD / DEPTH;  // stages per fold
   uint32_t it = 0;
   for (long long tl = blockIdx.x; tl < count; tl += gridDim.x) {
     const long long m0 = tl / cols * LINES;
@@ -334,6 +407,10 @@ __device__ __forceinline__ void consume(const Params& p, uint8_t* smem, uint32_t
       pin(d1);
       __syncwarp();
       if (lane == 0) mbar_arrive(empty + 8 * s);
+      if constexpr (TILE == CARRY) {
+        if (kb % PERIOD == PERIOD - 1 || kb == nkb - 1)
+          carry(hi, d0, d1, kb < PERIOD, kb == nkb - 1);
+      }
     }
     E::store(p, ctx, d0, d1, m0 + row0, n0, t);
   }
@@ -341,15 +418,15 @@ __device__ __forceinline__ void consume(const Params& p, uint8_t* smem, uint32_t
 
 // --- the kernel ----------------------------------------------------------------
 
-template <typename InT, class Epilogue>
+template <typename InT, class Epilogue, int TILE>
 __global__ void __launch_bounds__(THREADS, 1)
     one_term(const __grid_constant__ Params p, const __grid_constant__ Maps maps) {
-  using L = Layout<InT>;
+  using L = Layout<InT, TILE>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw_addr = split::smem_u32(smem_raw);
   const uint32_t base = (raw_addr + 1023u) & ~1023u;
   uint8_t* const smem = smem_raw + (base - raw_addr);
-  const uint32_t full = base + L::STAGES * L::STAGE;  // one mbarrier per stage
+  const uint32_t full = base + L::BARRIERS;  // one mbarrier per stage
   const uint32_t empty = full + 8 * L::STAGES;
   if (threadIdx.x == 0) {
     for (int s = 0; s < L::STAGES; ++s) {
@@ -363,10 +440,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   // ptxas can honour setmaxnreg.
   if (threadIdx.x >= CONSUMERS) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
-    produce<InT, Epilogue>(p, maps, smem, base, full, empty, threadIdx.x - CONSUMERS);
+    produce<InT, Epilogue, TILE>(p, maps, smem, base, full, empty, threadIdx.x - CONSUMERS);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
-    consume<InT, Epilogue>(p, smem, base, full, empty, threadIdx.x);
+    consume<InT, Epilogue, TILE>(p, smem, base, full, empty, threadIdx.x);
   }
 }
 
@@ -412,14 +489,14 @@ int encode(const Params& p, Maps* maps) {
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The checks, tensor maps and launch of one_term<InT, Epilogue>: one block
-// per SM, or one per tile where there are fewer tiles; the ring's shared
-// memory and the epilogue's extra bytes.
-template <typename InT, class Epilogue>
-int launch(Params p, cudaStream_t stream) {
+// The checks, tensor maps and launch of one_term<InT, Epilogue, TILE>: one
+// block per SM, or one per tile where there are fewer tiles; the ring's
+// shared memory and the epilogue's extra bytes.
+template <typename InT, class Epilogue, int TILE>
+int launch_tile(Params p, cudaStream_t stream) {
   using Kernel = void (*)(Params, Maps);
-  if (p.lines <= 0 || p.width <= 0 || p.n_in <= 0) return 0;
-  const Kernel kernel = one_term<InT, Epilogue>;
+  using L = Layout<InT, TILE>;
+  const Kernel kernel = one_term<InT, Epilogue, TILE>;
   static const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
   if (attr != cudaSuccess) return static_cast<int>(attr);
@@ -437,9 +514,19 @@ int launch(Params p, cudaStream_t stream) {
   if (rc != 0) return rc;
   const long long count = tiles<Epilogue>(p);
   const long long grid = count < sms ? count : sms;
-  const int smem = Layout<InT>::SMEM + Epilogue::template extra<InT>(p);
-  one_term<InT, Epilogue><<<static_cast<unsigned>(grid), THREADS, smem, stream>>>(p, maps);
+  const int smem = L::SMEM + Epilogue::template extra<L>(p);
+  kernel<<<static_cast<unsigned>(grid), THREADS, smem, stream>>>(p, maps);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The tile by n_in: CHAIN up to CHAIN_MAX samples (at every n_in in the
+// one_chain diagnostic build), CARRY beyond.
+template <typename InT, class Epilogue>
+int launch(const Params& p, cudaStream_t stream) {
+  if (p.lines <= 0 || p.width <= 0 || p.n_in <= 0) return 0;
+  if (p.n_in <= CHAIN_MAX || split::ONE_CHAIN)
+    return launch_tile<InT, Epilogue, CHAIN>(p, stream);
+  return launch_tile<InT, Epilogue, CARRY>(p, stream);
 }
 
 }  // namespace bf16

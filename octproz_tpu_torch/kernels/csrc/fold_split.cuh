@@ -21,14 +21,11 @@
 //   prep_split<EPI=PHASE,  PARTS=3>  _kernel_phase        (:228-235, prep_split.cu)
 //   prep_split<EPI=REAL,   PARTS=3>  _kernel_real         (:238-242, prep_split.cu)
 //
-// and, on every input type, B1 at compute_dtype="bfloat16" with PARTS=1:
-// the operator rounded to one bf16 part on the host, x rounded to nearest
-// bf16 in the kernel (the JAX package's astype on both operands, :264 and
-// :643-644), one product term accumulated in float32.  B2, B5, B7 and B8 at
-// bf16 (:344, :401/:409, :231, :240) run the persistent one-term kernel of
-// fold_bf16.cuh instead.  The float32-FMA template of
-// fold_gemm.cuh and prep_gemm.cu serves the one pass of float32 compute on
-// float32 lines alone (samples above 16 bits).
+// compute_dtype="bfloat16" (one product term; B1, B2, B5, B7 and B8 at
+// :264, :344, :401/:409, :231, :240) runs the persistent one-term kernel of
+// fold_bf16.cuh instead.  The float32-FMA template of fold_gemm.cuh and
+// prep_gemm.cu serves the one pass of float32 compute on float32 lines
+// alone (samples above 16 bits).
 //
 // What bounds them, on one H100 (H100 80GB HBM3, 700 W: 989 TFLOP/s of
 // dense bf16, 3.35 TB/s): at the main path's geometry (131072 lines x 1024
@@ -36,8 +33,7 @@
 // bf16 GEMM of 275 GFLOP against ~0.54-1.3 GB of raw input, operator parts
 // and output: compute bound, 0.56 ms for the two terms "high" needs on
 // shifted 12-bit samples (x_lo being zero), 0.83 ms for the three of the
-// one-pass rung (1.39 ms for its five where x_lo is not zero), 0.28 ms for
-// B1's one term at compute_dtype="bfloat16".
+// one-pass rung (1.39 ms for its five where x_lo is not zero).
 //
 // Design.  A block owns 128 lines and two halves of 64 operator columns,
 // each a (tensor map, column offset) pair: the fold kernels take
@@ -66,9 +62,7 @@
 // * two consumer warpgroups of 64 lines each decode their rows of the raw
 //   tile straight into the register fragment of wgmma's A operand (>> 4
 //   when bitshift is set), split it there into x_hi (mask) and
-//   x_lo = bf16_rn(x - x_hi) -- or, with one part (PARTS = 1, the bf16
-//   compute route), round it to nearest bf16 and stop there: no x_lo, no
-//   vote --, and run bf16 wgmma against the
+//   x_lo = bf16_rn(x - x_hi), and run bf16 wgmma against the
 //   stage's operator tiles -- one m64n128k16 per part and 16 samples, its
 //   128 columns the part's two half tiles -- so the decoded x never leaves
 //   registers;
@@ -127,8 +121,9 @@ constexpr int SMEM_BUDGET = 220 * 1024;   // the pipeline's stages
 constexpr int EPI_ROW = BINS + 8;         // floats per staged output row
 
 // Diagnostic builds only (kernels/diagnose.py; build.py never sets it):
-// 1 sums all of n_in in one wgmma chain instead of folding every stage --
-// the same terms, other rounding; 8 lets the warpgroups start their wgmma
+// 1 sums all of n_in in one wgmma chain instead of folding every stage
+// (in the one-term kernel of fold_bf16.cuh: every FOLD samples, its tiles
+// then wide at every n_in) -- the same terms, other rounding; 8 lets the warpgroups start their wgmma
 // without taking turns -- the same output; 2 refills no stage after the
 // ring's first fill and 4 runs no wgmma -- timing only, the output is
 // wrong.  16, 32 and 64 (no epilogue arithmetic, no decode, no stores) are
@@ -380,7 +375,8 @@ __device__ __forceinline__ void load_pair<float>(const uint8_t* p, int, float& v
 __device__ __forceinline__ uint32_t pack_hi(float v0, float v1) {
   return __byte_perm(__float_as_uint(v0), __float_as_uint(v1), 0x7632);
 }
-// Two samples rounded to nearest (even) bf16: the bf16 compute route.
+// Two samples rounded to nearest (even) bf16 (x_lo's rounding, and x in the
+// one-term kernel of fold_bf16.cuh).
 __device__ __forceinline__ uint32_t pack_rn(float v0, float v1) {
   const __nv_bfloat162 r = __floats2bfloat162_rn(v0, v1);
   return *reinterpret_cast<const uint32_t*>(&r);
@@ -389,8 +385,8 @@ __device__ __forceinline__ uint32_t pack_lo(float v0, float v1) {
   return pack_rn(v0 - x_hi(v0), v1 - x_hi(v1));
 }
 
-// What a fragment register holds: x_hi, x_lo, or x rounded to nearest.
-enum Pack { X_HI, X_LO, X_RN };
+// What a fragment register holds: x_hi or x_lo.
+enum Pack { X_HI, X_LO };
 
 // --- the producer warp -----------------------------------------------------
 
@@ -495,9 +491,8 @@ __device__ __forceinline__ void produce(const Params& p, const Maps& maps, uint8
 
 // The A fragments (m64nNk16) of this thread for the stage: register i of
 // chunk kk holds line row0 + 8*(i&1), samples 16*kk + 2t + 8*(i>>1) and the
-// next one -- x_hi (X_HI), x_lo = bf16_rn(x - x_hi) (X_LO) or bf16_rn(x)
-// (X_RN);
-// wide as in load_pair.
+// next one -- x_hi (X_HI) or x_lo = bf16_rn(x - x_hi) (X_LO); wide as in
+// load_pair.
 template <typename InT, Pack PACK>
 __device__ __forceinline__ void fragments(const uint8_t* tile, int row0, int t, int bitshift,
                                           uint32_t (&x)[4][4], uint32_t& wide) {
@@ -510,15 +505,12 @@ __device__ __forceinline__ void fragments(const uint8_t* tile, int row0, int t, 
       float v0, v1;
       load_pair<InT>(tile + r * RawTile<InT>::ROW + col * sizeof(InT), bitshift, v0, v1,
                      wide);
-      x[kk][i] = PACK == X_HI   ? pack_hi(v0, v1)
-                 : PACK == X_LO ? pack_lo(v0, v1)
-                                : pack_rn(v0, v1);
+      x[kk][i] = PACK == X_HI ? pack_hi(v0, v1) : pack_lo(v0, v1);
     }
 }
 
 // One group of a stage's pass terms into d: x_hi w_j for j = P-1 .. 0
-// (HI; with P = 1 the one term of the rounded x), or x_lo w_j for
-// j = P-2 .. 0 -- low-order first.  The group's
+// (HI), or x_lo w_j for j = P-2 .. 0 -- low-order first.  The group's
 // first instruction overwrites d unless accumulate is set.  Once the group
 // is committed, named barrier committed (if not negative) is told so.
 template <int PARTS, bool HI>
@@ -547,8 +539,7 @@ __device__ __forceinline__ void stage_terms(float (&d)[64], const uint32_t (&x)[
 // producer warp, which returns false, and gives each consumer thread its
 // share of the block's 128 x (2 x 64) sums in acc (wgmma's n128 layout:
 // the first half's columns in acc[0..31], the second's in acc[32..63]) and
-// returns true.  PARTS = 1 is the bf16 compute route: x rounded to nearest,
-// one term per stage, no x_lo group and no vote.
+// returns true.
 template <typename InT, int PARTS, int COLS>
 __device__ __forceinline__ bool mainloop(const Params& p, const Maps& maps, uint8_t* smem,
                                          long long m0, int n0, float (&acc)[64]) {
@@ -603,11 +594,9 @@ __device__ __forceinline__ bool mainloop(const Params& p, const Maps& maps, uint
 #else
     float(&sum)[64] = part;  // the stage's terms, folded into acc below
 #endif
-    constexpr bool RN_ONLY = PARTS == 1;
-    fragments<InT, RN_ONLY ? X_RN : X_HI>(tile, row0, t, p.bitshift, x, wide);
-    // uint8 samples are exact in bf16: x_lo is zero by construction; the
-    // bf16 route has no x_lo at all
-    const bool lo = !RN_ONLY && sizeof(InT) != 1 && warpgroup_any(wide != 0, 1 + wg);
+    fragments<InT, X_HI>(tile, row0, t, p.bitshift, x, wide);
+    // uint8 samples are exact in bf16: x_lo is zero by construction
+    const bool lo = sizeof(InT) != 1 && warpgroup_any(wide != 0, 1 + wg);
     // the turn passes with this stage's last group, but for warpgroup 1's
     // last stage: nobody waits for that one
     const int next = TURNS && !(wg == 1 && kb == nkb - 1) ? 4 + (wg ^ 1) : -1;
@@ -813,16 +802,16 @@ int launch(Params p, Kernel kernel, cudaError_t attr, cudaStream_t stream) {
 inline int parts_of(const void* const w[3]) { return !w[0] ? 0 : !w[1] ? 1 : !w[2] ? 2 : 3; }
 
 // The pass terms a launch runs: those of its passes; at one pass (three
-// parts, integer lines only) the five of "highest"; at BF16_PASS (one
-// part, any input type) the one term of x rounded to nearest; 0 for a
-// launch the split kernels do not take.  An integer sample of at most 16
+// parts, integer lines only) the five of "highest"; 0 for a launch the
+// split kernels do not take -- BF16_PASS (one term: fold_bf16.cuh) among
+// them.  An integer sample of at most 16
 // bits is exactly x_hi + x_lo and the float32 operator's three parts carry
 // ~24 mantissa bits, so x_hi w_2, x_hi w_1, x_hi w_0 and (where a stage
 // holds a sample of 256 or more) x_lo w_1, x_lo w_0 give the one-pass
 // float32 product at float32 grade; float32 lines (above 16 bits) are
 // refused at one pass.
 inline int terms(int in_kind, int passes, int parts) {
-  if (passes == BF16_PASS) return parts == 1 ? 1 : 0;
+  if (passes == BF16_PASS) return 0;
   if (passes != 1) return passes;
   return parts == 3 && (in_kind == IN_U8 || in_kind == IN_U16) ? 5 : 0;
 }
@@ -839,14 +828,11 @@ int dispatch_input(int in_kind, const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// ... and n_terms (terms(): 1, 3 or 5 with 1, 2 or 3 parts); without
-// ONE_TERM the one-term instantiation is left out and such a launch refused.
-template <template <typename, int> class K, bool ONE_TERM = true>
+// ... and n_terms (terms(): 3 or 5 with 2 or 3 parts; any other is
+// refused).
+template <template <typename, int> class K>
 int dispatch(int in_kind, int n_terms, const Params& p, cudaStream_t stream) {
   switch (n_terms) {
-    case 1:
-      if constexpr (ONE_TERM) return dispatch_input<K, 1>(in_kind, p, stream);
-      break;
     case 3: return dispatch_input<K, 2>(in_kind, p, stream);
     case 5: return dispatch_input<K, 3>(in_kind, p, stream);
   }

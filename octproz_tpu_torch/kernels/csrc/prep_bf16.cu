@@ -14,7 +14,9 @@
 // n0 + 128 and n0 + 192, chain 0 holds n0 .. n0 + 127 and chain 1
 // n0 + 128 .. n0 + 255 -- the fold kernel's 128 float32 sums a thread, 32
 // KB of operator a stage and raw tile; at n_out = 1024 the raw buffer is
-// read and decoded 4 times instead of 8.
+// read and decoded 4 times instead of 8.  Past 1024 samples the sums are
+// carried every 256 samples (Tile CARRY in fold_bf16.cuh): the hi parts'
+// 64 KB leave room for the phasor rows up to 2298 columns (uint16 lines).
 //
 // What bounds it, on one H100 (H100 80GB HBM3, 700 W): at 131072 lines x
 // 1024 samples -> 1024 columns the one term is 275 GFLOP (0.278 ms at 989
@@ -61,21 +63,21 @@ struct Prep {
   __host__ __device__ static constexpr int map(int) { return 0; }
   __host__ __device__ static constexpr int offset(int q) { return q * BOX; }
 
-  // The phasor rows fit beside the ring: 8 bytes a column.
-  template <typename InT>
+  // The phasor rows fit beside the ring L (a Layout): 8 bytes a column.
+  template <class L>
   __host__ __device__ static bool in_smem(int width) {
-    return EPI == PHASE && Layout<InT>::SMEM + 8LL * width <= SMEM_MAX;
+    return EPI == PHASE && L::SMEM + 8LL * width <= SMEM_MAX;
   }
-  template <typename InT>
+  template <class L>
   static int extra(const Params& p) {
-    return in_smem<InT>(p.width) ? 8 * p.width : 0;
+    return in_smem<L>(p.width) ? 8 * p.width : 0;
   }
 
   // The consumers put (cos, sin) of every column into the extra bytes;
   // returns them, or nullptr where they stay in device memory.
-  template <typename InT>
+  template <class L>
   __device__ static const float2* prepare(const Params& p, uint8_t* extra, int ctid) {
-    if (!in_smem<InT>(p.width)) return nullptr;
+    if (!in_smem<L>(p.width)) return nullptr;
     float2* const ph = reinterpret_cast<float2*>(extra);
     for (int c = ctid; c < p.width; c += CONSUMERS)
       ph[c] = make_float2(p.cos_row[c], p.sin_row[c]);

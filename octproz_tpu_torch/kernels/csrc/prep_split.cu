@@ -18,8 +18,7 @@
 // kernel of prep_gemm.cu at one pass; the input type alone picks the route,
 // and a float32 launch at one pass is refused here.  compute_dtype=
 // "bfloat16" (passes = BF16_PASS, one term) runs the persistent kernel of
-// prep_bf16.cu: no one-term instantiation is compiled here, and such a
-// launch is refused.
+// prep_bf16.cu, and such a launch is refused here.
 //
 // What bounds it, on one H100 (H100 80GB HBM3, 700 W: 989 TFLOP/s of dense
 // bf16, 3.35 TB/s): at the FFT path's geometry (131072 lines x 1024 samples
@@ -129,7 +128,7 @@ int prep_split_phase(const void* raw, int in_kind, int bitshift, int passes,
   split::Params p = split::params(raw, bitshift, w, out, lines, n_in, n_out);
   p.cos_row = cos_row;
   p.sin_row = sin_row;
-  return split::dispatch<split::Prep<PHASE>::K, false>(
+  return split::dispatch<split::Prep<PHASE>::K>(
       in_kind, split::terms(in_kind, passes, split::parts_of(w)), p,
       static_cast<cudaStream_t>(stream));
 }
@@ -138,7 +137,7 @@ int prep_split_real(const void* raw, int in_kind, int bitshift, int passes,
                     const void* const w[3], void* out, long long lines, int n_in, int n_out,
                     void* stream) {
   split::Params p = split::params(raw, bitshift, w, out, lines, n_in, n_out);
-  return split::dispatch<split::Prep<REAL>::K, false>(
+  return split::dispatch<split::Prep<REAL>::K>(
       in_kind, split::terms(in_kind, passes, split::parts_of(w)), p,
       static_cast<cudaStream_t>(stream));
 }

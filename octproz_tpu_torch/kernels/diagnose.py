@@ -7,7 +7,7 @@ and at ``compute_dtype="bfloat16"``, B3/B4, B6, B9/B10) on the card.
 builds the kernel library again for each diagnostic variant (all of
 ``VARIANTS``, or those named) of the split pipeline in
 ``csrc/fold_split.cuh`` and of the persistent one-term kernel in
-``csrc/fold_bf16.cuh`` (B2, B5, B7 and B8 at bf16), which reads the same
+``csrc/fold_bf16.cuh`` (B1, B2, B5, B7 and B8 at bf16), which reads the same
 flags (``-DFOLD_SPLIT_VARIANT=...``, which ``build.py`` never sets), into
 its own build directory, and prints one JSON line with the card's name and
 power limit and:
@@ -20,16 +20,28 @@ power limit and:
   on the same inputs with and without background removal in the operator
   -- for the shipped kernel, ``one_chain`` (the same terms summed across
   n_in in one wgmma chain instead of folded into a float32 sum every
-  64-sample stage) and ``no_turns`` (the two warpgroups start their wgmma
-  without taking turns: the same sums; the one-term kernel has no turns);
+  64-sample stage; in the one-term kernel instead of every F samples, its
+  tiles then wide at every n_in) and ``no_turns`` (the two warpgroups start
+  their wgmma without taking turns: the same sums; the one-term kernel has
+  no turns);
+* ``one_term``: every one-term family at bf16 (``one_term_errors``: B1,
+  B2 in three scaling modes, B5 in two, B7 with and without background
+  removal, B8) against its plain version on 12-bit and 24-bit float32
+  lines at n_in = 1024, 2048, 4096 and 4352, with the ``make_curves``
+  operators and a dense random operator, and the planar, prep and scaled
+  outputs of kernel and plain version against the float64 products of the
+  same rounded operands -- for the shipped kernel and ``one_chain``;
+* ``long_ms``: the one-term families at the main path's n_in = 1024 and
+  at 4096 with the same raw bytes (``long_times``) -- for the shipped
+  kernel (the "carry" tiles past the family's longest chain) and
+  ``one_chain`` (one chain at every n_in);
 * ``scale``: B2 and B5 at bf16 (the one-term kernel) against their plain
   versions on shifted and unshifted 12-bit, full 16-bit and 24-bit float
-  samples: ``fused_prep.scale_error`` with log scaling over the 60 dB from
-  the samples' display floor (RMS, max, within the bounds), and the
-  relative L2 error of the magnitude sqrt(re^2 + im^2) (linear scaling, no
-  FPN mean) beside ``PLANAR_REL_L2`` -- for the shipped kernel, which sums
-  all of n_in in one wgmma chain (``one_chain`` and ``no_turns`` do not
-  change it);
+  samples at n_in = 1024: ``fused_prep.scale_error`` with log scaling over
+  the 60 dB from the samples' display floor (RMS, max, within the bounds),
+  and the relative L2 error of the magnitude sqrt(re^2 + im^2) (linear
+  scaling, no FPN mean) beside ``PLANAR_REL_L2`` -- for the shipped
+  kernel;
 * ``ms``: B1, B2, B5, B7 and B8 (one pass), B3, B4, B6, B9 and B10
   ("high") at the main path's shapes (one 131072-line buffer of shifted
   12-bit samples), B2 on unshifted samples (five terms), B4 on uint8
@@ -50,7 +62,7 @@ power limit and:
   kernel and of its plain version (a float32 cuBLAS product) against the
   float64 product of the same rounded operands, beside
   ``PREP_REL_L2`` -- for the shipped kernel; and B8 on a dense random
-  operator at n_in = 4352, where one wgmma chain's sums cancel most.
+  operator at n_in = 4352, where a wgmma chain's sums cancel most.
 
 Only ``one_chain`` and ``no_turns`` compute the right terms; the other
 variants' output is wrong by design and only their time is read.
@@ -226,6 +238,154 @@ def prep_bf16_errors(dev) -> dict:
     return out
 
 
+#: n_in of the long-chain readings of the one-term families (ROADMAP F1)
+ONE_TERM_WIDTHS = (1024, 2048, 4096, 4352)
+ONE_TERM_LINES = 2048
+#: input kind -> display floor dB (20 log10 of the samples' range over 8 bits)
+ONE_TERM_KINDS = {"u16": 24.0, "f32": 96.0}
+
+
+def _one_term_operators(n: int, dense: bool, g, dev):
+    """(w_re, w_im, P, phasor rows, background-removal P) in float32 at n
+    samples: the real operators of ``make_curves`` (the fold's dense by
+    construction, the prep's a few resampling taps times the window), or
+    dense random ones -- n terms of random sign in every sum, where one
+    wgmma chain's sums cancel most -- with a random phasor and no
+    background-removal variant."""
+    if dense:
+        w = [torch.randn((n, m), generator=g, device=dev).div(64.0) for m in (n // 2, n // 2, n)]
+        angle = torch.rand(n, generator=g, device=dev) * 6.283185307179586
+        return w[0], w[1], w[2], (torch.cos(angle), torch.sin(angle)), None
+    fold = _curves(n, bench.bench_config(compute_dtype="bfloat16"), dev)
+    prep = _curves(n, bench.fft_config(compute_dtype="bfloat16"), dev)
+    prep_bg = _curves(n, bench.fft_config(background_removal=True, compute_dtype="bfloat16"),
+                      dev)
+    return (fold.depth_op_re, fold.depth_op_im, prep.prep_operator,
+            (prep.phase.real.contiguous(), prep.phase.imag.contiguous()),
+            prep_bg.prep_operator)
+
+
+def one_term_errors(dev) -> dict:
+    """Every family at bf16 -- B1 planar, B2 (log, lin, fast_log), B5 (log,
+    lin), B7 (with and without background removal in the operator) and B8
+    -- against its plain version on ``ONE_TERM_LINES`` lines of unshifted
+    12-bit uint16 and 24-bit float32 samples at every n_in of
+    ``ONE_TERM_WIDTHS``, with the operators of ``make_curves`` and with a
+    dense random operator: the planar and prep relative L2 errors (with the
+    kernel's and the plain version's against the float64 product of the
+    rounded operands beside them), ``scale_error`` over the 60 dB from the
+    samples' display floor (linear scaling over a range as many times wider
+    as the samples' range is, so its values sit where 8-bit ones would), and
+    the magnitude's relative L2 error (linear scaling, no FPN mean)."""
+    out = {}
+    g = torch.Generator(device=dev)
+    g.manual_seed(16)
+    for n in ONE_TERM_WIDTHS:
+        half = n // 2
+        for dense in (False, True):
+            w_re, w_im, p_op, rows, p_bg = _one_term_operators(n, dense, g, dev)
+            wre, wim = (fp._operator_parts(w, fp.BF16) for w in (w_re, w_im))
+            wide = fp.concat_operator(w_re, w_im, fp.BF16)
+            preps = {"": fp._operator_parts(p_op, fp.BF16)}
+            if p_bg is not None:
+                preps[", background"] = fp._operator_parts(p_bg, fp.BF16)
+            for kind, floor in ONE_TERM_KINDS.items():
+                tag = f"n_in={n} {'dense random' if dense else 'curves'} {kind}"
+                raw = _raw(kind, ONE_TERM_LINES, n, g, dev)
+                x = fp._decode_block(raw, False).to(torch.bfloat16).double()
+
+                def exact(w):
+                    return x @ w[0].double()
+
+                re_im = fp.fold_depth(raw, wre, wim, bitshift=False)
+                plain = fp.depth_plain(raw, wre, wim, bitshift=False)
+                ref = (exact(wre), exact(wim))
+                out[f"depth_bf16 {tag}"] = {
+                    "rel_l2": fp.planar_error(re_im, plain), "bound": fp.PLANAR_REL_L2,
+                    "kernel_vs_f64": fp.planar_error(re_im, ref),
+                    "plain_vs_f64": fp.planar_error(plain, ref)}
+                mean2 = torch.randn((2, half), generator=g, device=dev) * 50.0
+                zero = torch.zeros((2, half), device=dev)
+                for family, kernel, plain_fn, ops, modes in (
+                        ("depth_scale_bf16", fp.fold_depth_scale, fp.depth_scale_plain,
+                         (wre, wim), ("log", "lin", "fast_log")),
+                        ("depth_scale_concat_bf16", fp.fold_depth_scale_concat,
+                         fp.depth_scale_concat_plain, (wide,), ("log", "lin"))):
+                    for mode in modes:
+                        hi = 60.0 * 10 ** (floor / 20.0) if mode == "lin" else floor + 60.0
+                        lo = 0.0 if mode == "lin" else floor
+                        a, b = fp._scale_affine(mode != "lin", half, lo, hi, 0.0, 1.0)
+                        kw = dict(bitshift=False, log_scaling=mode != "lin", a=a, b=b)
+                        if mode == "fast_log":
+                            kw["fast_log"] = True
+                        got, plain = kernel(raw, *ops, mean2, **kw), plain_fn(raw, *ops, mean2, **kw)
+                        image64 = fp.depth_scale_f64(raw, wre, wim, mean2, **kw)
+                        try:
+                            rms, worst, ok = fp.scale_error(got, plain)
+                            out[f"{family} {tag} {mode}"] = {
+                                "rms": rms, "max": worst, "ok": ok,
+                                "kernel_vs_f64": fp.scale_error(got, image64)[:2],
+                                "plain_vs_f64": fp.scale_error(plain, image64)[:2]}
+                        except AssertionError as e:
+                            out[f"{family} {tag} {mode}"] = {"ok": False, "error": str(e)}
+                    lin = dict(bitshift=False, log_scaling=False, a=1.0, b=0.0)
+                    out[f"{family} {tag} magnitude"] = {
+                        "rel_l2": fp.planar_error([kernel(raw, *ops, zero, **lin)],
+                                                  [plain_fn(raw, *ops, zero, **lin)]),
+                        "bound": fp.PLANAR_REL_L2}
+                for bg, parts in preps.items():
+                    y = exact(parts)
+                    for family, kernel, plain_fn, want in (
+                            ("prep_phase_bf16",
+                             lambda: fp.prep_phase(raw, parts, *rows, bitshift=False),
+                             lambda: fp.prep_phase_plain(raw, parts, *rows, bitshift=False),
+                             torch.complex(y * rows[0].double(), y * rows[1].double())),
+                            ("prep_real_bf16", lambda: fp.prep_real(raw, parts, bitshift=False),
+                             lambda: fp.prep_real_plain(raw, parts, bitshift=False), y)):
+                        got, plain = kernel(), plain_fn()
+                        out[f"{family} {tag}{bg}"] = {
+                            "rel_l2": fp.prep_error(got, plain), "bound": fp.PREP_REL_L2,
+                            "kernel_vs_f64": fp.prep_error(got, want),
+                            "plain_vs_f64": fp.prep_error(plain, want)}
+            torch.cuda.synchronize()
+    return out
+
+
+#: the one-term families timed at 4096-sample lines (the folded chain)
+LONG_KERNELS = ("depth_bf16", "depth_scale_bf16", "depth_scale_concat_bf16",
+                "prep_phase_bf16", "prep_real_bf16")
+
+
+def long_times(dev, n: int = 4096) -> dict:
+    """The one-term families at ``n``-sample lines, the main path's bytes of
+    raw uint16 (131072 * 1024 / n lines of shifted 12-bit samples), with
+    the ``make_curves`` operators: ms and ns per million multiply-adds
+    (lines x n_in x columns), to set beside the main geometry's."""
+    out = {}
+    acq = bench.FULL_ACQ
+    lines = acq.ascans_per_buffer * acq.samples_per_line // n
+    raw = bench.random_buffers(acq, 1, dev, seed=5).reshape(lines, n)
+    fold = _curves(n, bench.bench_config(compute_dtype="bfloat16"), dev)
+    prep = _curves(n, bench.fft_config(compute_dtype="bfloat16"), dev)
+    wre, wim = (fp._operator_parts(w, fp.BF16) for w in (fold.depth_op_re, fold.depth_op_im))
+    wide = fp.concat_operator(fold.depth_op_re, fold.depth_op_im, fp.BF16)
+    parts = fp._operator_parts(prep.prep_operator, fp.BF16)
+    rows = (prep.phase.real.contiguous(), prep.phase.imag.contiguous())
+    mean2 = torch.zeros((2, n // 2), device=dev)
+    kw = dict(bitshift=True, log_scaling=True, a=1.0, b=0.0)
+    runs = {"depth_bf16": lambda: fp.fold_depth(raw, wre, wim, bitshift=True),
+            "depth_scale_bf16": lambda: fp.fold_depth_scale(raw, wre, wim, mean2, **kw),
+            "depth_scale_concat_bf16": lambda: fp.fold_depth_scale_concat(raw, wide, mean2,
+                                                                          **kw),
+            "prep_phase_bf16": lambda: fp.prep_phase(raw, parts, *rows, bitshift=True),
+            "prep_real_bf16": lambda: fp.prep_real(raw, parts, bitshift=True)}
+    for name in LONG_KERNELS:
+        ms = bench.cuda_ms(runs[name], 10, 2)
+        macs = lines * n * n  # n columns: re and im of n / 2 bins, or n of P
+        out[f"{name} n_in={n}"] = {"ms": ms, "ns_per_mmac": ms * 1e6 / (macs / 1e6)}
+    return out
+
+
 def times(dev) -> dict:
     out = {}
     for name in bench.FOLD_KERNELS + bench.PREP_KERNELS:
@@ -260,7 +420,7 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     info = bench.device_info()
     record = {"device_name": info["device_name"], "power_limit": info["power_limit"],
-              "rel_l2": {}, "ms": {}}
+              "rel_l2": {}, "one_term": {}, "ms": {}, "long_ms": {}}
     names = sys.argv[1:] or list(VARIANTS)
     unknown = [n for n in names if n not in VARIANTS]
     if unknown:
@@ -269,6 +429,9 @@ def main() -> None:
         with variant(VARIANTS[name]):
             if name in EXACT:
                 record["rel_l2"][name] = errors(dev)
+            if name in ("shipped", "one_chain"):
+                record["one_term"][name] = one_term_errors(dev)
+                record["long_ms"][name] = {**long_times(dev, 1024), **long_times(dev, 4096)}
             if name == "shipped":
                 record["scale"] = scale_errors(dev)
                 record["prep_bf16"] = prep_bf16_errors(dev)

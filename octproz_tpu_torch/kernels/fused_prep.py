@@ -28,13 +28,15 @@ This module holds, for each of the ten kernel families:
   ``csrc/fold_split.cu`` and ``csrc/prep_split.cu`` -- the one-pass rung as
   three bf16 parts of the float32 operator (:class:`OnePass`) -- and the
   one-pass rung on float32 lines the float32-FMA template on the CUDA
-  cores; ``compute_dtype="bfloat16"`` runs the tensor-core kernels with x
-  rounded to nearest and one bf16 operator part, on every input type --
-  the scaled fold families (``depth_scale``, ``depth_scale_concat``) and
-  the prep families on the persistent one-term kernel of
-  ``csrc/fold_bf16.cuh`` (``csrc/fold_bf16.cu``, ``csrc/prep_bf16.cu``;
-  :func:`fold_bf16_schedule`, :func:`prep_bf16_schedule`), ``depth`` on
-  the shared pipeline of ``csrc/fold_split.cuh``; the route is counted in
+  cores; ``compute_dtype="bfloat16"`` runs the persistent one-term kernel
+  of ``csrc/fold_bf16.cuh`` with x rounded to nearest and one bf16
+  operator part, on every input type -- the fold families (``depth``,
+  ``depth_scale``, ``depth_scale_concat``) in ``csrc/fold_bf16.cu``, the
+  prep families in ``csrc/prep_bf16.cu``; one wgmma chain up to
+  :data:`BF16_CHAIN_MAX` samples, beyond it the bulk of the sums moved out
+  of the chain every :data:`BF16_FOLD` samples
+  (:func:`fold_bf16_schedule`, :func:`prep_bf16_schedule`); the route is
+  counted in
   :data:`ONE_PASS_ROUTES`; built by :mod:`.build`), which a wrapper
   launches for CUDA tensors;
 * its plain PyTorch version (``*_plain``), which the wrapper uses for CPU
@@ -98,48 +100,74 @@ LAUNCHES = {"depth": 0, "depth_split": 0, "depth_scale": 0,
 #: ``simt`` (float32 lines: the float32-FMA kernel) -- at float32 compute
 #: the input type alone picks between those two -- or ``tensor_core_bf16``
 #: (``compute_dtype="bfloat16"``, any input type: x rounded to bf16, one
-#: wgmma term against the one rounded bf16 operator part; for
-#: ``depth_scale`` and ``depth_scale_concat`` the persistent one-term kernel
-#: of ``csrc/fold_bf16.cu``, for ``prep_phase`` and ``prep_real`` its
-#: instantiations in ``csrc/prep_bf16.cu``).
+#: wgmma term against the one rounded bf16 operator part: for ``depth``,
+#: ``depth_scale`` and ``depth_scale_concat`` the persistent one-term
+#: kernel of ``csrc/fold_bf16.cu``, for ``prep_phase`` and ``prep_real``
+#: its instantiations in ``csrc/prep_bf16.cu``).
 ONE_PASS_ROUTES = {key: {"tensor_core": 0, "simt": 0, "tensor_core_bf16": 0}
                    for key in LAUNCHES if not key.endswith("_split")}
 
 
 #: The persistent one-term kernel of ``compute_dtype="bfloat16"``
-#: (``csrc/fold_bf16.cuh``): tiles of 128 lines x 128 bins for the scaled
-#: fold families (``csrc/fold_bf16.cu``) or 128 lines x 256 operator
-#: columns for the prep families (``csrc/prep_bf16.cu``), 64 samples per
-#: stage, four 64 x 64 bf16 operator boxes (32 KB) and the raw tile (128
-#: lines x 64 samples, as TMA writes it) per stage, at most 4 stages in the
-#: 232 448 bytes of a block's shared memory (1024 for alignment, two 8-byte
-#: barriers per stage); the phase kernel's phasor rows, 8 bytes a column,
-#: beside the ring where they fit.
+#: (``csrc/fold_bf16.cuh``): tiles of 128 lines x 128 bins for the fold
+#: families (``csrc/fold_bf16.cu``: ``depth``, ``depth_scale``,
+#: ``depth_scale_concat``) or 128 lines x 256 operator columns for the prep
+#: families (``csrc/prep_bf16.cu``), 64 samples per stage, four 64 x 64
+#: bf16 operator boxes (32 KB) and the raw tile (128 lines x 64 samples, as
+#: TMA writes it) per stage, one wgmma chain over n_in.  Up to
+#: :data:`BF16_CHAIN_MAX` samples that is all (tile "chain"); beyond, every
+#: :data:`BF16_FOLD` samples the bulk of each float32 sum moves out of the
+#: chain into a bf16 hi part in shared memory, 64 KB a block (tile
+#: "carry").  At most 4 stages in the 232 448 bytes of a block's shared
+#: memory (1024 for alignment, two 8-byte barriers per stage); the phase
+#: kernel's phasor rows, 8 bytes a column, beside the ring where they fit.
 BF16_FOLD_LINES, BF16_FOLD_BINS, BF16_FOLD_DEPTH = 128, 128, 64
 BF16_PREP_COLS = 256
+#: The longest n_in summed in one wgmma chain: the main path's lines.  One
+#: chain of 1024 samples reads up to 1.1e-6 of the fold families' 3e-6
+#: planar bound, 1.7e-7 of the prep families' 1e-6 with the FFT path's
+#: operators (9.5e-7 on a dense random one); a chain of 4352 read 5.7e-6
+#: and 4.5e-6 (``kernels/diagnose.py``'s ``one_term`` readings, PERF.md).
+BF16_CHAIN_MAX = 1024
+#: The fold period F of longer lines, samples: every F samples the bulk of
+#: the sums leaves the chain, which then reads about 2.5e-7 from float64
+#: (F = 1024 read the log scale's max at 1.1e-4 at 2048 samples).
+BF16_FOLD = 256
+_BF16_HI_BYTES = 256 * 128 * 2  # a "carry" tile's hi parts: 128 bf16 a consumer thread
 _BF16_FOLD_SMEM_MAX = 232448
 
 
-def _one_term_schedule(lines: int, width: int, cols: int, in_itemsize: int, sms: int) -> dict:
-    """``tiles``, ``Layout`` and ``launch`` of ``csrc/fold_bf16.cuh`` for
-    tiles ``cols`` columns wide."""
+def _one_term_schedule(lines: int, n_in: int, width: int, cols: int, in_itemsize: int,
+                       sms: int) -> dict:
+    """``Tile``, ``Layout``, ``tiles``, ``launch_tile`` and ``launch`` of
+    ``csrc/fold_bf16.cuh`` for an epilogue of ``cols`` columns a tile: the
+    ``tile`` ("chain" or "carry"), ``fold`` (F, or None for one chain), the
+    tile count, the grid, the ring's stages and the dynamic shared
+    memory."""
+    tile = "chain" if n_in <= BF16_CHAIN_MAX else "carry"
+    hi = _BF16_HI_BYTES if tile == "carry" else 0
     col_tiles = -(-width // cols)
     tiles = -(-lines // BF16_FOLD_LINES) * col_tiles
     stage = 4 * BF16_FOLD_DEPTH * 64 * 2 + BF16_FOLD_LINES * BF16_FOLD_DEPTH * in_itemsize
-    stages = min(4, (_BF16_FOLD_SMEM_MAX - 1024 - 2 * 4 * 8) // stage)
-    return {"tiles": tiles, "col_tiles": col_tiles, "grid": min(tiles, sms), "stages": stages,
-            "smem": 1024 + stages * stage + 2 * stages * 8}
+    stages = min(4, (_BF16_FOLD_SMEM_MAX - 1024 - 2 * 4 * 8 - hi) // stage)
+    return {"tile": tile, "fold": None if tile == "chain" else BF16_FOLD, "tiles": tiles,
+            "col_tiles": col_tiles, "grid": min(tiles, sms), "stages": stages,
+            "smem": 1024 + stages * stage + hi + 2 * stages * 8}
 
 
-def fold_bf16_schedule(lines: int, half: int, in_itemsize: int, sms: int) -> dict:
-    """The host arithmetic of ``csrc/fold_bf16.cuh`` (``tiles``,
-    ``Layout``, ``launch``) for the scaled fold families, mirrored: the tile
-    count, the grid (one block per SM, fewer where there are fewer tiles),
-    the ring's stages and the dynamic shared memory per block for
-    ``in_itemsize``-byte lines (1 uint8, 2 uint16, 4 float32).  Block ``b``
-    walks tiles ``b, b + grid, ...``; :func:`fold_bf16_tile` gives a tile's
-    first line and bin."""
-    return _one_term_schedule(lines, half, BF16_FOLD_BINS, in_itemsize, sms)
+def fold_bf16_schedule(lines: int, half: int, in_itemsize: int, sms: int,
+                       n_in: Optional[int] = None) -> dict:
+    """The host arithmetic of ``csrc/fold_bf16.cuh`` for the fold families
+    (``depth``, ``depth_scale``, ``depth_scale_concat``), mirrored: the
+    tile by ``n_in`` (``tile``, ``fold``; ``n_in`` defaults to ``2 *
+    half``, the pipeline's), the tile count, the grid
+    (one block per SM, fewer where there are fewer tiles), the ring's
+    stages and the dynamic shared memory per block for ``in_itemsize``-byte
+    lines (1 uint8, 2 uint16, 4 float32).  Block ``b`` walks tiles ``b,
+    b + grid, ...``; :func:`fold_bf16_tile` gives a tile's first line and
+    bin."""
+    return _one_term_schedule(lines, 2 * half if n_in is None else n_in, half, BF16_FOLD_BINS,
+                              in_itemsize, sms)
 
 
 def fold_bf16_tile(t: int, col_tiles: int) -> Tuple[int, int]:
@@ -149,15 +177,17 @@ def fold_bf16_tile(t: int, col_tiles: int) -> Tuple[int, int]:
 
 
 def prep_bf16_schedule(lines: int, n_out: int, in_itemsize: int, sms: int,
-                       phase: bool = True) -> dict:
+                       phase: bool = True, n_in: Optional[int] = None) -> dict:
     """:func:`fold_bf16_schedule` for the prep kernels of
     ``csrc/prep_bf16.cu`` (``Prep::extra``), whose tiles are 256 operator
-    columns wide: the phase kernel (``phase``) keeps its phasor rows,
-    (cos, sin) per column, in shared memory beside the ring where
-    ``8 * n_out`` bytes fit (``phasor_in_smem``; else it reads them from
-    device memory).  :func:`prep_bf16_tile` gives a tile's first line and
-    column."""
-    s = _one_term_schedule(lines, n_out, BF16_PREP_COLS, in_itemsize, sms)
+    columns wide (``n_in`` defaults to ``n_out``: P is square on the FFT
+    path): the phase kernel (``phase``)
+    keeps its phasor rows, (cos, sin) per column, in shared memory beside
+    the ring where ``8 * n_out`` bytes fit (``phasor_in_smem``; else it
+    reads them from device memory).  :func:`prep_bf16_tile` gives a tile's
+    first line and column."""
+    s = _one_term_schedule(lines, n_out if n_in is None else n_in, n_out, BF16_PREP_COLS,
+                           in_itemsize, sms)
     s["phasor_in_smem"] = phase and s["smem"] + 8 * n_out <= _BF16_FOLD_SMEM_MAX
     s["smem"] += 8 * n_out if s["phasor_in_smem"] else 0
     return s
@@ -448,6 +478,22 @@ def depth_scale_concat_plain(raw2d, w_parts, mean2, *, bitshift: bool,
     return _scale_epilogue(p, log_scaling=log_scaling, a=a, b=b).to(out_dtype)
 
 
+def depth_scale_f64(raw2d, w_re_parts, w_im_parts, mean2, *, bitshift: bool,
+                    log_scaling: bool, a: float, b: float, fast_log: bool = False):
+    """The scaled image of one bf16 part per axis (``compute_dtype=
+    "bfloat16"``) from the float64 products of the rounded operands: p =
+    (x W_re - m_re)^2 + (x W_im - m_im)^2 in float64, rounded once to
+    float32, then the scale epilogue.  No yardstick of speed: a reference
+    more exact than the plain version, whose float32 product drifts from it
+    on long lines (kernels/diagnose.py's ``one_term`` readings)."""
+    x = _decode_block(raw2d, bitshift).to(torch.bfloat16).to(torch.float64)
+    m = mean2.to(torch.float64)
+    re = x @ w_re_parts[0].to(torch.float64) - m[0:1, :]
+    im = x @ w_im_parts[0].to(torch.float64) - m[1:2, :]
+    p = (re * re + im * im).to(torch.float32)
+    return _scale_epilogue(p, log_scaling=log_scaling, a=a, b=b, fast_log=fast_log)
+
+
 def prep_phase_plain(raw2d, op_parts, cos_row, sin_row, *, bitshift: bool):
     """``_kernel_phase`` (one float32 operator) and ``_kernel_phase_split``
     (2 or 3 bf16 parts): decode, y = x @ P, then (y cos, y sin).  Returns
@@ -653,6 +699,11 @@ def _count_launch(key: str, route) -> None:
 
 
 def _launch_depth(raw2d, w_re_parts, w_im_parts, *, bitshift: bool):
+    """The planar fold kernel: ``fold_gemm_planar`` routes the split rungs
+    and the one pass on integer lines to ``csrc/fold_split.cu``, the one
+    pass on float32 lines to the float32-FMA kernel, and
+    ``compute_dtype="bfloat16"`` to the one-term kernel's ``Planar``
+    epilogue (``csrc/fold_bf16.cu``: re and im stored from the registers)."""
     from . import build
 
     lines, n_in, half = _check_launch(raw2d, w_re_parts, w_im_parts)

@@ -1,32 +1,43 @@
-"""The persistent one-term kernel of the scaled fold families at
-``compute_dtype="bfloat16"`` (``csrc/fold_bf16.cuh``: B2
-``_kernel_depth_scale`` and B5 ``_kernel_depth_scale_concat`` with x and
+"""The persistent one-term kernel of the fold families at
+``compute_dtype="bfloat16"`` (``csrc/fold_bf16.cuh``: B1 ``_kernel_depth``,
+B2 ``_kernel_depth_scale`` and B5 ``_kernel_depth_scale_concat`` with x and
 the operator rounded to bf16), and the float32-line kernels' rows of the
 bench.
 
 On the CPU: the mirror of the kernel's host arithmetic
-(``fused_prep.fold_bf16_schedule`` / ``fold_bf16_tile``: tiles, grid,
-stages, shared memory, the walk of the tiles) on odd shapes, and the
-bench's ``*_f32lines`` names (B1/B2/B5/B7/B8 at one pass on 24-bit samples
+(``fused_prep.fold_bf16_schedule`` / ``fold_bf16_tile``: the tile by n_in
+-- one wgmma chain up to 1024 samples, beyond it the bulk of the sums moved
+out of the chain every F = 256 samples into bf16 hi parts in shared memory
+-- grid, stages,
+shared memory, the walk of the tiles) on odd shapes; a torch emulation of
+the kernel's sum order (the bulk of the float32 sums moved into bf16 hi
+parts every F = 256 samples) against the JAX package's bf16
+``fused_depth_transform`` in
+interpret mode at 2048- and 4096-sample lines; the bench's ``depth_bf16``
+row and ``*_f32lines`` names (B1/B2/B5/B7/B8 at one pass on 24-bit samples
 as float32 lines: the float32-FMA kernels) through ``bench._kernel_cases``
 with the launches replaced by stand-ins that take the wrapper's route and
 run the plain version, beside ``bench.kernel_bound`` for those rows.  The
-agreement of B2/B5 at bf16 with the JAX package's Pallas kernels is held
-in ``tests/test_torch_bf16.py``.
+agreement of B1/B2/B5 at bf16 with the JAX package's Pallas kernels is
+held in ``tests/test_torch_bf16.py``.
 
-On a CUDA GPU only (marked ``cuda``; this file imports no JAX): the kernel
-against its plain version over lines {1, 127, 129, 999, 131073}, half {64,
-100, 128, 512, 550}, uint8 / 12-bit / float32 lines, float32 and bf16
-stores and the three scaling modes, the concat views among them; every
-launch counted on ``tensor_core_bf16``; the controls that must fail (x
-truncated instead of rounded, the three-part route, on unshifted 12-bit
-samples); a launch with other than one part per axis refused.  Bounds:
-``fused_prep.scale_error`` (RMS <= 1e-6, max <= 1e-4 display units above
-the display floor, one bf16 step more for a bf16 store), with the floor at
-20 log10 of the samples' range over that of 8-bit values (0, 24 and 96 dB
-for 8-bit, 12-bit and 24-bit samples): below it log10 amplifies the two
-float32 sums' rounding without bound.  Linear scaling on 8-bit ranges
-only, its bound being absolute display units.
+On a CUDA GPU only (marked ``cuda``; this file imports JAX only inside its
+CPU comparison): the scaled kernels against their plain versions over
+lines {1, 127, 129, 999, 131073}, half {64, 100, 128, 512, 550}, uint8 /
+12-bit / float32 lines, float32 and bf16 stores and the three scaling
+modes, the concat views among them, and the planar kernel over the same
+grid; B1/B2/B5 at 2048-, 4096- and 4352-sample lines (folded chains)
+with the ``make_curves`` operators and a dense random operator; every launch counted on ``tensor_core_bf16``; the controls that
+must fail (x truncated instead of rounded, the three-part route, on
+unshifted 12-bit samples); a launch with other than one part per axis
+refused.  Bounds: ``fused_prep.planar_error`` for B1 (relative L2 <=
+3e-6), ``fused_prep.scale_error`` for B2/B5 (RMS <= 1e-6, max <= 1e-4
+display units above the display floor, one bf16 step more for a bf16
+store), with the floor at 20 log10 of the samples' range over that of
+8-bit values (0, 24 and 96 dB for 8-bit, 12-bit and 24-bit samples): below
+it log10 amplifies the two float32 sums' rounding without bound.  Linear
+scaling on 8-bit ranges, or over a display range as many times wider as the
+samples' range is, its bound being absolute display units.
 """
 
 import dataclasses
@@ -67,6 +78,30 @@ def test_schedule_walks_every_tile_once(lines, half):
     assert (seen == 1).all()
 
 
+@pytest.mark.parametrize("itemsize,stages", [(1, 4), (2, 3), (4, 2)])
+@pytest.mark.parametrize("n_in", [64, 1024, 1088, 2048, 4096, 4352])
+def test_schedule_tile_switches_at_the_longest_chain(n_in, itemsize, stages):
+    """Up to 1024 samples one wgmma chain over n_in (tile "chain"); beyond,
+    the bulk of every sum moved out of the chain every F = 256 samples into
+    bf16 hi parts in shared memory (tile "carry", 64 KB a block), beside
+    four, three and two stages of uint8, uint16 and float32 lines: the
+    planar and the scaled fold families alike, within a block's 232 448
+    bytes, the tiles as wide at every n_in."""
+    half = n_in // 2
+    s = tfp.fold_bf16_schedule(999, half, itemsize, H100_SMS, n_in=n_in)
+    tile = "chain" if n_in <= 1024 else "carry"
+    assert tfp.BF16_CHAIN_MAX == 1024 and tfp.BF16_FOLD == 256
+    assert s["tile"] == tile and s["fold"] == (None if tile == "chain" else 256)
+    assert s["col_tiles"] == -(-half // 128)
+    stage = 4 * 8192 + 128 * 64 * itemsize
+    hi = 65_536 if tile == "carry" else 0
+    if tile == "carry":
+        assert s["stages"] == stages
+        assert 1024 + (stages + 1) * (stage + 16) + hi > 232_448 or stages == 4
+    assert s["smem"] == 1024 + s["stages"] * (stage + 16) + hi <= 232_448
+    assert tfp.fold_bf16_schedule(999, half, itemsize, H100_SMS) == s  # n_in = 2 half
+
+
 def test_schedule_keeps_a_row_tile_together():
     """Column tiles run fastest: the 132 tiles one wave holds at the main
     path's shape (131072 lines, 512 bins) span 33 row tiles, 4.2 MB of raw
@@ -85,8 +120,8 @@ def test_schedule_stages_fit_shared_memory(itemsize, stages, smem):
     lines, within the 232 448 bytes of dynamic shared memory a block may
     have on sm_90, 1024 of them for alignment; each stage a multiple of the
     1024-byte swizzle atom."""
-    s = tfp.fold_bf16_schedule(999, 550, itemsize, H100_SMS)
-    assert (s["stages"], s["smem"]) == (stages, smem)
+    s = tfp.fold_bf16_schedule(999, 512, itemsize, H100_SMS)
+    assert (s["stages"], s["smem"]) == (stages, smem) and s["tile"] == "chain"
     assert s["smem"] <= 232_448
     stage = 4 * 8192 + 128 * 64 * itemsize
     assert stage % 1024 == 0
@@ -192,6 +227,127 @@ def test_kernel_bound_of_the_f32line_rows(name):
     assert got["bytes"] == 131072 * 1024 * 4 + gemms * 1024 * n_out * 4 + out
 
 
+def test_bf16_depth_case_takes_the_bf16_route(small_bench):
+    """The bench's ``depth_bf16`` case feeds shifted 12-bit samples and one
+    rounded bf16 part per axis: its launch takes the ``tensor_core_bf16``
+    route and equals its plain version (planar float32 re and im), and its
+    library call is cuBLAS's bf16 product of the same rounded operands
+    against [W_re | W_im], which stores bf16."""
+    kernel, plain, library, bound = bench._kernel_cases("depth_bf16", "cpu")
+    got, want = kernel(), plain()
+    assert small_bench == ["tensor_core_bf16"]
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.float32 and torch.equal(g, w)
+        assert tuple(g.shape) == (SMALL.ascans_per_buffer, 128)
+    y = library()
+    assert y.dtype == torch.bfloat16 and tuple(y.shape) == (SMALL.ascans_per_buffer, 256)
+    assert bound == bench.kernel_bound("depth_bf16", lines=SMALL.ascans_per_buffer, n_in=256,
+                                       n_out=128, bf16=True)
+
+
+def test_kernel_bound_of_the_depth_bf16_row():
+    """At the main path's shape: two bf16 products (re, im) of 137 GFLOP
+    each, 0.278 ms at 989 TFLOP/s, against the uint16 lines, the two rounded
+    bf16 operators and two float32 planes of 131072 x 512 -- 0.81 GB, 0.241
+    ms at 3.35 TB/s: bound by its operations."""
+    got = bench.kernel_bound("depth_bf16", lines=131072, n_in=1024, n_out=512, bf16=True)
+    assert got["bound_ms"] == pytest.approx(0.2779, abs=1e-4)
+    assert got["bound_by"] == "operations"
+    assert got["flops"] == 2 * 2 * 131072 * 1024 * 512
+    assert got["bytes"] == 131072 * 1024 * 2 + 2 * 1024 * 512 * 2 + 2 * 131072 * 512 * 4
+    assert got["bytes"] / 3.35e12 * 1e3 == pytest.approx(0.2410, abs=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["log", "fast_log", "lin"])
+def test_depth_scale_f64_matches_the_plain_version(mode):
+    """The image of the float64 products (``fused_prep.depth_scale_f64``,
+    the long-line card cases' reference for the scaled images) agrees with
+    the plain version within the scale bounds on 12-bit samples (8-bit for
+    lin), and equals the float32 epilogue of the float64 p."""
+    n, half = 512, 256
+    g = torch.Generator().manual_seed(35)
+    _, _, (wre, wim) = _bf16_operators(n, "cpu")
+    raw = torch.randint(0, 256 if mode == "lin" else 4096, (64, n), generator=g,
+                        dtype=torch.int16).view(torch.uint16)
+    mean2 = torch.randn((2, half), generator=g) * 50.0
+    floor = 0.0 if mode == "lin" else 24.0
+    a, b = tfp._scale_affine(mode != "lin", half, floor, floor + 60.0, 0.0, 1.0)
+    kw = dict(bitshift=False, log_scaling=mode != "lin", a=a, b=b, fast_log=mode == "fast_log")
+    exact = tfp.depth_scale_f64(raw, wre, wim, mean2, **kw)
+    assert exact.dtype == torch.float32 and exact.shape == (64, half)
+    rms, worst, ok = tfp.scale_error(tfp.depth_scale_plain(raw, wre, wim, mean2, **kw), exact)
+    assert ok, (rms, worst)
+    x = raw.to(torch.float32).to(torch.bfloat16).to(torch.float64)
+    re = x @ wre[0].double() - mean2[0].double()
+    im = x @ wim[0].double() - mean2[1].double()
+    p = (re * re + im * im).float()
+    assert torch.equal(exact, tfp._scale_epilogue(p, log_scaling=mode != "lin", a=a, b=b,
+                                                  fast_log=mode == "fast_log"))
+
+
+# ---------------------------------------------------------------------------
+# The kernel's sum order against the JAX package (CPU)
+# ---------------------------------------------------------------------------
+
+def _carried_product(x: torch.Tensor, w: torch.Tensor, fold: int) -> torch.Tensor:
+    """x @ w in the one-term kernel's order on "carry" tiles: the chain's
+    float32 sums (here a float32 product of each ``fold`` samples, added to
+    them) and, every ``fold`` samples, t = hi + sums, hi = bf16_rn(t), sums
+    = t - hi; hi + sums at the end."""
+    hi = sums = torch.zeros((x.shape[0], w.shape[1]))
+    for k0 in range(0, x.shape[1], fold):
+        t = hi + (sums + x[:, k0:k0 + fold] @ w[k0:k0 + fold])
+        hi = t.to(torch.bfloat16).to(torch.float32)
+        sums = t - hi
+    return hi + sums
+
+
+@pytest.fixture(scope="module")
+def jfp():
+    """The JAX package's fused_prep module (the pallas package's __init__
+    re-exports a function of the same name, hence import_module)."""
+    import importlib
+
+    return importlib.import_module("octproz_tpu.pallas.fused_prep")
+
+
+@pytest.mark.parametrize("n_in", [2048, 4096])
+def test_folded_sum_order_matches_pallas(jfp, n_in):
+    """B1 at bf16 on 2048- and 4096-sample lines of unshifted 12-bit
+    samples: x and the ``make_curves`` operators rounded to bf16, the
+    product summed as the kernel's "carry" tiles sum it (the bulk of the
+    float32 sums moved into bf16 hi parts every F = 256 samples) against
+    the JAX package's bf16
+    ``fused_depth_transform`` in interpret mode, within the planar bound."""
+    import jax.numpy as jnp
+    import octproz_tpu.params as jparams
+
+    geometry = dict(samples_per_line=n_in, ascans_per_bscan=8, bscans_per_buffer=2,
+                    bit_depth=12)
+    fields = dict(bitshift=False, compute_dtype="bfloat16")
+    cfg = dataclasses.replace(default_full_config(), **fields)
+    jcfg = dataclasses.replace(jparams.default_full_config(), **fields)
+    acq = AcqParams(**geometry)
+    cv = tcurves.make_curves(acq, cfg, resample_coeffs=(0.0, n_in - 1.0, 10.0, -4.0),
+                             **CURVE_KW, device="cpu")
+    raw = np.random.default_rng(16).integers(0, 4096, size=acq.buffer_shape).astype(np.uint16)
+    want = jfp.fused_depth_transform(jnp.asarray(raw), jnp.asarray(cv.depth_op_re.numpy()),
+                                     jnp.asarray(cv.depth_op_im.numpy()),
+                                     jparams.AcqParams(**geometry), jcfg, interpret=True)
+    x = torch.from_numpy(raw.reshape(-1, n_in).astype(np.float32))
+    x = x.to(torch.bfloat16).to(torch.float32)
+    fold = tfp.fold_bf16_schedule(16, n_in // 2, 2, H100_SMS)["fold"]
+    assert fold == 256
+    got = [_carried_product(x, w[0].to(torch.float32), fold) for w in cv.depth_parts]
+    want = [torch.from_numpy(np.array(w)).reshape(-1, n_in // 2) for w in want]
+    err = tfp.planar_error(got, want)
+    assert err <= tfp.PLANAR_REL_L2, err
+    # the plain version (one float32 product) agrees as well
+    assert tfp.planar_error(tfp.depth_plain(torch.from_numpy(raw.reshape(-1, n_in)),
+                                            *cv.depth_parts, bitshift=False), got) \
+        <= tfp.PLANAR_REL_L2
+
+
 # ---------------------------------------------------------------------------
 # On the card
 # ---------------------------------------------------------------------------
@@ -276,6 +432,89 @@ def test_fold_bf16_matches_plain_on_card(cuda_device, kind):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", list(KINDS))
+def test_fold_bf16_planar_matches_plain_on_card(cuda_device, kind):
+    """B1 at bf16 (``one_term<InT, Planar>``: chain 0 to re, chain 1 to im,
+    float2 stores, bin by bin at odd half) on every (lines, half) of the
+    grid against its plain version; each launch on ``tensor_core_bf16``."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(33)
+    bitshift = KINDS[kind][1]
+    for half in HALVES + (257,):
+        _, _, (wre, wim) = _bf16_operators(2 * half, cuda_device)
+        for lines in LINES:
+            raw = _card_raw(kind, lines, 2 * half, g, cuda_device)
+            tfp.reset_launch_counts()
+            got = tfp.fold_depth(raw, wre, wim, bitshift=bitshift)
+            want = tfp.depth_plain(raw, wre, wim, bitshift=bitshift)
+            torch.cuda.synchronize()
+            _routes_are_bf16("depth")
+            assert all(t.dtype == torch.float32 and t.shape == (lines, half) for t in got)
+            err = tfp.planar_error(got, want)
+            assert err <= tfp.PLANAR_REL_L2, (half, lines, err)
+
+
+def _dense_operators(n, g, dev):
+    """A dense random (W_re, W_im): n terms of random sign in every sum."""
+    return tuple(torch.randn((n, n // 2), generator=g, device=dev).div(64.0) for _ in range(2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("operators", ["curves", "dense"])
+@pytest.mark.parametrize("n_in", [2048, 4096, 4352])
+def test_fold_bf16_long_lines_match_plain_on_card(cuda_device, n_in, operators):
+    """B1, B2 and B5 at bf16 on 2048-, 4096- and 4352-sample lines (tile
+    "carry": the bulk of the sums moved out of the chain every 256
+    samples), 12-bit and 24-bit float32 samples, with the ``make_curves``
+    operators and a dense random one (where one chain over n_in missed the
+    planar bound, 4.0e-6 at 4096): the planar output within its bound
+    against the plain version; the log, fast-log and linear images within
+    the scale bounds against the image of the float64 products
+    (``fused_prep.depth_scale_f64``) and within the RMS bound against the
+    plain version, whose own float32 products reach the max bound in the
+    deepest shown voxels from 4096 samples on (1.0e-4 from the float64
+    image at 4352, the kernel 3.4e-5)."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(34 + n_in)
+    if operators == "curves":
+        w_re, w_im, _ = _bf16_operators(n_in, cuda_device)
+    else:
+        w_re, w_im = _dense_operators(n_in, g, cuda_device)
+    wre, wim = (tfp._operator_parts(w, tfp.BF16) for w in (w_re, w_im))
+    wide = tfp.concat_operator(w_re, w_im, tfp.BF16)
+    half = n_in // 2
+    assert tfp.fold_bf16_schedule(999, half, 2, H100_SMS)["tile"] == "carry"
+    for kind in ("u12", "f32"):
+        floor = KINDS[kind][0]
+        raw = _card_raw(kind, 999, n_in, g, cuda_device)
+        tfp.reset_launch_counts()
+        got = tfp.fold_depth(raw, wre, wim, bitshift=False)
+        want = tfp.depth_plain(raw, wre, wim, bitshift=False)
+        torch.cuda.synchronize()
+        _routes_are_bf16("depth")
+        err = tfp.planar_error(got, want)
+        assert err <= tfp.PLANAR_REL_L2, (kind, "planar", err)
+        mean2 = torch.randn((2, half), generator=g, device=cuda_device) * 50.0
+        for mode in ("log", "fast_log", "lin"):
+            lo, hi = (0.0, 60.0 * 10 ** (floor / 20)) if mode == "lin" else (floor, floor + 60)
+            a, b = tfp._scale_affine(mode != "lin", half, lo, hi, 0.0, 1.0)
+            kw = dict(bitshift=False, log_scaling=mode != "lin", a=a, b=b)
+            fast = dict(fast_log=mode == "fast_log")
+            exact = tfp.depth_scale_f64(raw, wre, wim, mean2, **kw, **fast)
+            runs = [("depth_scale", tfp.fold_depth_scale(raw, wre, wim, mean2, **kw, **fast),
+                     tfp.depth_scale_plain(raw, wre, wim, mean2, **kw, **fast))]
+            if mode != "fast_log":
+                runs.append(("depth_scale_concat",
+                             tfp.fold_depth_scale_concat(raw, wide, mean2, **kw),
+                             tfp.depth_scale_concat_plain(raw, wide, mean2, **kw)))
+            for family, got, want in runs:
+                rms, worst, ok = tfp.scale_error(got, exact)
+                assert ok, (kind, family, mode, "against float64", rms, worst)
+                rms, worst, _ = tfp.scale_error(got, want)
+                assert rms <= tfp.SCALE_RMS, (kind, family, mode, rms, worst)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("family", ["depth_scale", "depth_scale_concat"])
 def test_fold_bf16_controls_fail_on_card(cuda_device, family):
     """On unshifted 12-bit samples a kernel fed x truncated to bf16, and the
@@ -325,4 +564,33 @@ def test_fold_bf16_refuses_other_than_one_part(cuda_device):
     assert rc != 0
     with pytest.raises(RuntimeError, match="kernel launch failed"):
         tfp._raise_on(rc, lib, "fold_gemm_scale")
+    rc = lib.fold_gemm_planar(raw.data_ptr(), 1, 0, tfp._BF16_PASS, p, p, None, p, p, None,
+                              out.data_ptr(), out.data_ptr(), 128, 256, 128, stream)
+    assert rc != 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_split_planar_refuses_the_bf16_pass(cuda_device):
+    """The shared pipeline of ``fold_split.cuh`` has no one-term mode: a
+    BF16_PASS launch with one bf16 part per axis that reaches
+    ``fold_split_planar`` directly is refused, as the scaled one is."""
+    import ctypes
+
+    from octproz_tpu_torch.kernels import build
+
+    lib = build.load()
+    raw = torch.zeros((128, 256), dtype=torch.uint16, device=cuda_device)
+    w = torch.zeros((256, 128), dtype=torch.bfloat16, device=cuda_device)
+    out = torch.empty((128, 128), device=cuda_device)
+    parts = (ctypes.c_void_p * 3)(w.data_ptr(), None, None)
+    vp = ctypes.c_void_p
+    lib.fold_split_planar.argtypes = [vp, ctypes.c_int, ctypes.c_int, ctypes.c_int, vp, vp, vp,
+                                      vp, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, vp]
+    lib.fold_split_planar.restype = ctypes.c_int
+    rc = lib.fold_split_planar(raw.data_ptr(), 1, 0, tfp._BF16_PASS, ctypes.addressof(parts),
+                               ctypes.addressof(parts),
+                               out.data_ptr(), out.data_ptr(), 128, 256, 128,
+                               torch.cuda.current_stream().cuda_stream)
+    assert rc != 0
     torch.cuda.synchronize()
