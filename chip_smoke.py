@@ -14,11 +14,13 @@ nonzero and the final line is not printed:
    64-bin tile, and for the concat kernel's split rung an im view that is
    not 16-byte aligned, read element by element; 1088 for the concat and
    the prep kernels: 544 bins, a half-empty last tile), every family's
-   one pass on both of its routes (uint8/uint16 lines on the tensor cores,
-   float32 lines on the float32-FMA kernel, the route read back and
-   logged), then controls (a kernel computing a neighbouring rung, or for
-   the concat kernels reading the im half one column early) that must
-   fail;
+   one pass on both of its routes (uint8/uint16 lines on the tensor cores;
+   float32 lines -- 24- and 32-bit samples, n_in 1024 to 4096, 999 and
+   131073 lines -- on the tensor cores with three x parts for B2 and B7
+   and on the float32-FMA kernel for B1, B5 and B8; the route read back
+   and logged), then controls (a kernel computing a neighbouring rung, the
+   three-x-part kernels without x_lo, or for the concat kernels reading
+   the im half one column early) that must fail;
 4. fold path: ``FdOctModel`` on full 1024 x 512 x 256 buffers of the
    reference benchmark chain on the folded GEMM -- FPN determination,
    steady buffers and a batched chunk -- at the default and the "high"
@@ -33,7 +35,11 @@ nonzero and the final line is not printed:
    prep kernels' launch counts read around that run (every default-rung
    phase and real launch on the tensor cores) and the split kernels' around each
    split rung's runs; each rung's full-size prep output against the plain
-   versions;
+   versions; then 24-bit samples in uint32 containers through the fold,
+   concat fold and FFT paths (with and without dispersion) at the default
+   rung, each run between a reset and a read of the launch counts (B2 and
+   B7 on the tensor cores with three x parts, B1, B5 and B8 on the
+   float32-FMA kernels), with the full-size checks of phases 4 and 5;
 6. stream: ``StreamingEngine`` over full 12-bit buffers replayed from RAM
    by ``VirtualOctSource``, the benchmark chain with ``fold_concat`` at the
    default and the "high" rung, per buffer and in batch chunks of four, on
@@ -147,11 +153,12 @@ nonzero and the final line is not printed:
    plus scaling), and each kernel beside its plain version, the library
    call for its product (``bench.library_operands``) and its bound
    (``bench.kernel_bound``), and the one-pass families on float32 lines
-   (``bench.F32_LINE_KERNELS``, 24-bit samples: the float32-FMA kernels,
-   off the main path) likewise.
+   (``bench.F32_LINE_KERNELS``, 24-bit samples, off the main path)
+   likewise, and both paths' steady state on 24-bit samples.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
-the kernels' JSON record (the bf16 routes as ``*_bf16``), the one before
+the kernels' JSON record (the bf16 routes as ``*_bf16``, the one pass on
+float32 lines as ``*_f32lines`` with the 24-bit paths' launches), the one before
 that nvidia-smi's name and power limit.  JAX is never imported: the oracle
 comes from ``tests/oracle.py`` (numpy only).
 """
@@ -194,6 +201,17 @@ KERNELS = {
     "prep_phase_bf16": ("prep_bf16.cu", 228),
     "prep_real_bf16": ("prep_bf16.cu", 238),
 }
+#: The one pass of the five one-pass families on float32 lines (samples
+#: above 16 bits, ``bench.F32_LINE_KERNELS``): B2 and B7 on the tensor cores
+#: with three x parts, B1, B5 and B8 on the float32-FMA kernels; their
+#: launches are those of the 24-bit paths (``phase_wide_samples``).
+F32_ROWS = {
+    "depth_f32lines": ("fold_gemm.cu", 261),
+    "depth_scale_f32lines": ("fold_split.cu", 375),
+    "depth_scale_concat_f32lines": ("fold_concat.cu", 337),
+    "prep_phase_f32lines": ("prep_split.cu", 228),
+    "prep_real_f32lines": ("prep_gemm.cu", 238),
+}
 #: The bf16 rows of KERNELS by their LAUNCHES family.
 BF16_ROWS = {k[:-len("_bf16")]: k for k in KERNELS if k.endswith("_bf16")}
 CONCAT = ("depth_scale_concat", "depth_scale_concat_split")
@@ -222,8 +240,10 @@ PREP = tuple(k for k in KERNELS if k.startswith("prep") and k not in BF16_ROWS.v
 # (``_prep_snr_db``).
 RUNG_GAP_DB = 20.0
 #: Display floor (dB) of the one-pass kernel cases by sample kind: 20 log10 of
-#: the samples' range over that of 8-bit values (12, 16 and 24 bits).
-ONE_PASS_FLOOR_DB = {"u16": 24.0, "u16f": 48.0, "f32": 96.0}
+#: the samples' range over that of 8-bit values (12, 16, 24 and 32 bits).
+ONE_PASS_FLOOR_DB = {"u16": 24.0, "u16f": 48.0, "f32": 96.0, "f32w": 144.0}
+#: The sample kinds that arrive as float32 lines: 24 and 32 bits.
+FLOAT_KINDS = ("f32", "f32w")
 #: The precision rungs the FFT path phase drives.
 RUNGS = ("default", "high", "highest")
 #: The bf16 rung (compute_dtype="bfloat16") must sit this far below the
@@ -279,7 +299,8 @@ def phase_build():
 def _raw(kind, lines, n_in, g, dev):
     """Random raw lines: "u16s" 12-bit samples shifted to 8 bits (as on the
     main path: x_lo = 0), "u16" 12 bits unshifted (x_lo != 0), "u16f" all 16
-    bits, "u8", or "f32" (a 24-bit source decoded before the kernel)."""
+    bits, "u8", or "f32" / "f32w" (a 24-bit / 32-bit source decoded before
+    the kernel)."""
     import torch
 
     if kind == "u16f":
@@ -291,6 +312,9 @@ def _raw(kind, lines, n_in, g, dev):
     if kind == "u8":
         return torch.randint(0, 256, (lines, n_in), dtype=torch.uint8,
                              generator=g, device=dev)
+    if kind == "f32w":
+        return torch.randint(0, 1 << 32, (lines, n_in), dtype=torch.int64,
+                             generator=g, device=dev).to(torch.float32)
     return torch.randint(0, 1 << 24, (lines, n_in), dtype=torch.int32,
                          generator=g, device=dev).to(torch.float32)
 
@@ -331,9 +355,8 @@ def phase_kernels():
     samples, as on the main path) and nonzero (unshifted 12-bit, full 16-bit
     and float inputs) --, fast_log, lin, float32 and bf16 stores,
     uint8/uint16/float inputs, an odd line count and n_in = 1664; the
-    one-pass rung's route is read back after each of its cases (tensor cores
-    for integer lines, the float32-FMA kernel for float32 lines); then the
-    controls, which must fail."""
+    one-pass rung's route is read back after each of its cases
+    (``_one_pass_route``); then the controls, which must fail."""
     import torch
 
     from octproz_tpu_torch import bench
@@ -343,7 +366,9 @@ def phase_kernels():
 
     dev = torch.device("cuda", 0)
     f32, bf16 = torch.float32, torch.bfloat16
-    worst = {k: 0.0 for k in KERNELS}  # max |err| at the main path's inputs
+    # max |err| at the main path's inputs (the float32-line rows: at n_in =
+    # 1024 on 24-bit samples)
+    worst = {k: 0.0 for k in (*KERNELS, *F32_ROWS)}
     cases = [
         # (n_in, lines, input, passes, scale mode or None, out dtype)
         (1024, 4096, "u16s", 1, None, None),
@@ -378,8 +403,9 @@ def phase_kernels():
         (1024, 2048, "u8", 3, "log", f32),
     ]
     ops = {}
-    # 1088: the concat cases; 128, 200, 256: the one-term kernel's narrow cases
-    for n_in in sorted({c[0] for c in cases} | {1088, 128, 200, 256}):
+    # 1088: the concat cases; 128, 200, 256: the one-term kernel's narrow cases;
+    # 1001, 2048, 4096: the float32-line cases
+    for n_in in sorted({c[0] for c in cases} | {1088, 128, 200, 256, 1001, 2048, 4096}):
         acq = AcqParams(samples_per_line=n_in, ascans_per_bscan=8, bscans_per_buffer=1)
         cv = curves_mod.make_curves(acq, bench.bench_config(), **{
             **bench.CURVE_KW, "resample_coeffs": (0.0, n_in - 1.0, 20.0, -10.0)}, device=dev)
@@ -446,6 +472,8 @@ def _fold_cases(cases, parts, worst, g, dev):
         row = _row(family, passes)
         if n_in == 1024 and kind == "u16s" and odt in (None, f32):
             worst[row] = max(worst[row], err)  # the main path's inputs
+        if n_in == 1024 and kind == "f32" and passes == 1 and odt in (None, f32):
+            worst[family + "_f32lines"] = max(worst[family + "_f32lines"], err)
         route = _route_read_back(family, kind, bf16=passes == 0) if passes <= 1 else ""
         log(f"[kernels] {row:<17} n_in={n_in} lines={lines} {kind} passes={passes} "
             f"{mode or 'planar'} {str(odt).replace('torch.', '') if odt else ''}{route}: "
@@ -454,15 +482,29 @@ def _fold_cases(cases, parts, worst, g, dev):
             raise AssertionError(f"{row} kernel disagrees with its plain version")
 
 
-def _route_read_back(family, kind, bf16=False):
-    """The one-pass route of the last launch, which at float32 compute the
-    input type alone picks: float32 lines on the float32-FMA kernel,
-    uint8/uint16 lines on the tensor cores; at bf16 compute (``bf16``) the
-    bf16 route on every input type.  The launch counts were reset before
-    that one launch."""
+def _one_pass_route(family, kind, bf16=False):
+    """The one-pass route a launch of ``family`` on ``kind`` lines must
+    take: at float32 compute the input type and the family pick it --
+    uint8/uint16 lines on the tensor cores, float32 lines on the tensor
+    cores with three x parts for ``fp.FLOAT_LINE_TENSOR_CORE`` (B2, B7) and
+    on the float32-FMA kernel for the others (B1, B5, B8); at bf16 compute
+    (``bf16``) the bf16 route on every input type."""
     from octproz_tpu_torch.kernels import fused_prep as fp
 
-    want = "tensor_core_bf16" if bf16 else "simt" if kind == "f32" else "tensor_core"
+    if bf16:
+        return "tensor_core_bf16"
+    if kind in FLOAT_KINDS and family not in fp.FLOAT_LINE_TENSOR_CORE:
+        return "simt"
+    return "tensor_core"
+
+
+def _route_read_back(family, kind, bf16=False):
+    """The one-pass route of the last launch against the route its family
+    and input type pick (``_one_pass_route``).  The launch counts were reset
+    before that one launch."""
+    from octproz_tpu_torch.kernels import fused_prep as fp
+
+    want = _one_pass_route(family, kind, bf16)
     if fp.ONE_PASS_ROUTES[family] != {**dict.fromkeys(fp.ONE_PASS_ROUTES[family], 0), want: 1}:
         raise AssertionError(f"{family} on {kind} lines took the routes "
                              f"{fp.ONE_PASS_ROUTES[family]}, want {want}")
@@ -492,10 +534,13 @@ def _one_pass_kernel_cases(worst, parts, dev):
     path's inputs, on data of its own generator: on the tensor cores with
     x_lo nonzero (unshifted 12-bit and full 16-bit samples: five terms),
     uint8, every scale mode and store, n_in = 1664 and the ragged shapes;
-    float32 lines on the float32-FMA kernel; then its controls, which must
+    float32 lines (24- and 32-bit samples, n_in up to 4096, 999 and 131073
+    lines): the scaled kernel on the tensor cores with three x parts, the
+    planar one on the float32-FMA kernel; then its controls, which must
     fail against the float32 product: the "high" parts (two of its three,
-    the third zeroed) through its entry, and its three-part math without
-    x_lo (x_hi as uint16 samples)."""
+    the third zeroed) through its entry, its three-part math without x_lo
+    (x_hi as uint16 samples), and on float32 lines the three-x-part kernel
+    without x_lo (x_hi + x_mid as its input)."""
     import torch
 
     from octproz_tpu_torch.kernels import fused_prep as fp
@@ -516,9 +561,23 @@ def _one_pass_kernel_cases(worst, parts, dev):
         (1100, 999, "u16", 1, None, None),
         (1100, 999, "u16s", 1, "log", f32),
         (1100, 999, "u8", 1, "lin", f32),
-        # float32 lines at one pass keep the float32-FMA kernel
+        # float32 lines at one pass: the planar kernel on the float32-FMA
+        # kernel, the scaled one on the tensor cores with three x parts --
+        # 24- and 32-bit samples, the main path's n_in and longer lines, a
+        # partial 128-line tile (999) and one more line than a full buffer
         (1024, 2048, "f32", 1, None, None),
         (1024, 2048, "f32", 1, "log", f32),
+        (1024, 4096, "f32w", 1, "log", f32),
+        (1024, 999, "f32", 1, "fast_log", f32),
+        (1024, 999, "f32w", 1, "log", bf16),
+        (1664, 999, "f32", 1, "log", f32),
+        (2048, 999, "f32w", 1, "log", f32),
+        (4096, 999, "f32", 1, "log", f32),
+        (4096, 2048, "f32w", 1, None, None),
+        (1024, 131073, "f32", 1, "log", f32),
+        # rows of 1001 float32 samples are not 16-byte aligned: the
+        # element-wise producer writes the raw tile as TMA would
+        (1001, 999, "f32", 1, "log", f32),
     ]
     g = torch.Generator(device=dev)
     g.manual_seed(6)
@@ -532,6 +591,21 @@ def _one_pass_kernel_cases(worst, parts, dev):
         ("one-pass kernel on two of its three parts", (raw, *two), (raw, *p1)),
         ("one-pass kernel without x_lo (x_hi input)", (x_hi16, *p1), (raw, *p1)),
     ], g, floor_db=ONE_PASS_FLOOR_DB["u16"])
+    # float32 lines: the three-x-part kernel without x_lo w_0 (five terms:
+    # x cut to its 16 leading bits, x_hi + x_mid) must fail
+    wide = _raw("f32", 4096, 1024, g, dev)
+    _fold_controls([("three-x-part kernel without x_lo (x_hi + x_mid input)",
+                     (_without_x_lo(wide), *p1), (wide, *p1))],
+                   g, floor_db=ONE_PASS_FLOOR_DB["f32"])
+
+
+def _without_x_lo(x):
+    """Float32 lines cut to x_hi + x_mid, their 16 leading significant bits:
+    what the three-x-part kernel sums without its x_lo w_0 term."""
+    from octproz_tpu_torch.kernels import fused_prep as fp
+
+    hi = fp._bf16_trunc(x)
+    return hi + fp._bf16_trunc(x - hi)
 
 
 def _bf16_kernel_cases(worst, parts, ops, dev):
@@ -995,10 +1069,13 @@ def _prep_kernel_cases(worst, g, dev):
     half-empty last tile of the tensor-core kernels) and the operator with
     background removal folded in (denser, so more reordering); both
     kernels' one pass on both of its routes (uint8/uint16 lines on the
-    tensor cores, float32 lines on the float32-FMA kernel, the route read
-    back after each one-pass case); then the controls, which must fail --
-    at the split rungs a neighbouring rung, at one pass each kernel on two
-    of its three parts and without x_lo, against the float32 product."""
+    tensor cores; float32 lines on the tensor cores with three x parts for
+    the phase kernel -- 24- and 32-bit samples, n_in up to 4096, 999 and
+    131073 lines -- and on the float32-FMA kernel for the real kernel; the
+    route read back after each one-pass case); then the controls, which
+    must fail -- at the split rungs a neighbouring rung, at one pass each
+    kernel on two of its three parts, without x_lo and on float32 lines
+    without x_lo (x_hi + x_mid), against the float32 product."""
     import torch
 
     from octproz_tpu_torch.kernels import fused_prep as fp
@@ -1057,6 +1134,17 @@ def _prep_kernel_cases(worst, g, dev):
         (1100, 999, "u16", 1, "real", True),
         (1024, 2048, "f32", 1, "real", False),
         (1100, 999, "f32", 1, "real", False),
+        # the phase kernel on float32 lines: the tensor cores with three x
+        # parts, 24- and 32-bit samples, background removal, longer lines,
+        # ragged line counts; the real kernel at 4096 on the float32-FMA one
+        (1024, 4096, "f32", 1, "phase", False),
+        (1024, 4096, "f32w", 1, "phase", True),
+        (1664, 999, "f32", 1, "phase", True),
+        (2048, 999, "f32w", 1, "phase", False),
+        (4096, 999, "f32", 1, "phase", True),
+        (1024, 131073, "f32", 1, "phase", False),
+        (1001, 999, "f32", 1, "phase", True),
+        (4096, 999, "f32w", 1, "real", False),
     ]
     ops = {(n, bg): _prep_operators(n, bg, dev)
            for n, bg in {(c[0], c[5]) for c in cases + one_pass}}
@@ -1085,11 +1173,14 @@ def _prep_kernel_cases(worst, g, dev):
     p1 = fp._operator_parts(op, "default")
     two = fp.OnePass(p1[0], split=(*p1.split[:2], torch.zeros_like(p1.split[2])))
     x_hi16 = x_hi.to(torch.int16).view(torch.uint16)
+    wide = _raw("f32", 4096, 1024, g, dev)
     for epi, epi_rows in (("phase", rows), ("real", None)):
-        for name, kernel_in in ((f"one-pass {epi} kernel on two of its three parts", (raw, two)),
-                                (f"one-pass {epi} kernel without x_lo (x_hi input)",
-                                 (x_hi16, p1))):
-            _, detail, ok = _compare_prep(*kernel_in, epi_rows, False, ref=(raw, p1))
+        for name, kernel_in, ref in (
+                (f"one-pass {epi} kernel on two of its three parts", (raw, two), (raw, p1)),
+                (f"one-pass {epi} kernel without x_lo (x_hi input)", (x_hi16, p1), (raw, p1)),
+                (f"one-pass {epi} kernel on float32 lines without x_lo (x_hi + x_mid input)",
+                 (_without_x_lo(wide), p1), (wide, p1))):
+            _, detail, ok = _compare_prep(*kernel_in, epi_rows, False, ref=ref)
             torch.cuda.synchronize()
             log(f"[kernels] control: {name}: {detail} -> "
                 f"{'passes (BAD)' if ok else 'fails, as it must'}")
@@ -1117,6 +1208,8 @@ def _prep_cases(cases, ops, worst, g, dev):
         row = _row(family, passes)
         if n_in == 1024 and kind == "u16s" and not bg:
             worst[row] = max(worst[row], err)  # the main path's inputs
+        if n_in == 1024 and kind == "f32" and passes == 1 and not bg:
+            worst[family + "_f32lines"] = max(worst[family + "_f32lines"], err)
         route = _route_read_back(family, kind, bf16=passes == 0) if passes <= 1 else ""
         log(f"[kernels] {row:<17} n_in={n_in} lines={lines} {kind} passes={passes}"
             f"{' bg' if bg else ''}{route}: {detail} -> {'ok' if ok else 'FAIL'}")
@@ -1422,6 +1515,80 @@ def phase_fft_path(worst):
             if not ok:
                 raise AssertionError(f"full-size {family} output disagrees with the plain "
                                      f"version")
+    return launches
+
+
+def phase_wide_samples(worst):
+    """24-bit samples in uint32 containers (``bench.WIDE_ACQ``; the wrappers
+    decode them to float32 lines) through ``FdOctModel`` at full width: the
+    benchmark chain on the fold path, its concat variant, and the FFT path
+    with and without dispersion (``bench.wide_config``: no bitshift, the
+    display range moved up by the wider samples' 96.3 dB), each run -- buffer
+    0 (FPN) from the host, steady buffers and a chunk -- between a reset and
+    a read of the launch counts: every family the path runs launched, every
+    launch on the route its family takes on float32 lines (B2 and B7 on the
+    tensor cores with three x parts, B1, B5 and B8 on the float32-FMA
+    kernels).  Then the fold paths' steady output at full size against the
+    float64 product of their float32 operator, and the FFT paths' prep
+    output against its plain version.  Returns the launches by
+    ``F32_ROWS`` row."""
+    import torch
+
+    from octproz_tpu_torch import bench
+    from octproz_tpu_torch.kernels import fused_prep as fp
+    from octproz_tpu_torch.models.fdoct import FdOctModel
+
+    dev = torch.device("cuda", 0)
+    acq = bench.WIDE_ACQ
+    host_raw = np.random.default_rng(40).integers(0, 1 << 24, size=acq.buffer_shape,
+                                                  dtype=np.int64).astype(np.uint32)
+    bufs = bench.random_buffers(acq, 4, dev, seed=41)
+    paths = (("fold path", bench.bench_config(), ("depth", "depth_scale")),
+             ("concat fold path", bench.bench_config(fold_concat=True),
+              ("depth", "depth_scale_concat")),
+             ("FFT path", bench.fft_config(), ("prep_phase",)),
+             ("FFT path without dispersion", bench.fft_config(dispersion=False),
+              ("prep_real",)))
+    launches = dict.fromkeys(F32_ROWS, 0)
+    for tag, cfg, families in paths:
+        tag = f"24-bit {tag}"
+        model = FdOctModel(acq, bench.wide_config(cfg), **bench.CURVE_KW, device=dev)
+        torch.cuda.synchronize()
+        fp.reset_launch_counts()
+        t0 = time.perf_counter()
+        if cfg.fft_via_matmul:
+            out, raw = _run_main_path(model, host_raw, bufs, tag)
+        else:
+            _run_fft_path(model, host_raw, bufs, tag)
+        ran = _read_launches(families, t0, tag)
+        routes = {k: dict(fp.ONE_PASS_ROUTES[k]) for k in families}
+        want = {k: {**dict.fromkeys(routes[k], 0), _one_pass_route(k, "f32"): n}
+                for k, n in ran.items()}
+        log(f"[wide] {tag} one-pass routes {routes}")
+        if routes != want:
+            raise AssertionError(f"{tag}: one-pass launches by route {routes}, want {want}")
+        for k, n in ran.items():
+            launches[k + "_f32lines"] += n
+        # the full-size checks, after the counts were read, on the float32
+        # lines the wrappers decode
+        if cfg.fft_via_matmul:
+            family, err = _check_steady_full_size(model, out, fp._predecode(raw, 24, False))
+            worst[family + "_f32lines"] = max(worst[family + "_f32lines"], err)
+            del out
+        else:
+            cv = model.curves
+            rows = (cv.phase.real.contiguous(), cv.phase.imag.contiguous()) \
+                if cfg.dispersion else None
+            lines = fp._predecode(bufs[0].reshape(-1, acq.samples_per_line), 24, False)
+            err, detail, ok = _compare_prep(lines, cv.prep_parts, rows, False)
+            family = families[0]
+            worst[family + "_f32lines"] = max(worst[family + "_f32lines"], err)
+            log(f"[wide] {family} full buffer vs plain version: {detail} "
+                f"-> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"24-bit full-size {family} output disagrees with the "
+                                     f"plain version")
+        del model
     return launches
 
 
@@ -3091,6 +3258,10 @@ def phase_times(info):
         log(f"[times] FFT path steady state ({rung}): {ms:.3f} ms/buffer, "
             f"{lines / ms / 1e3:.3f} MHz; stages "
             + ", ".join(f"{k} {v:.4f} ms" for k, v in stages.items()) + f" ({card})")
+    for path, cfg in (("fold", bench.bench_config()), ("FFT", bench.fft_config())):
+        ms = bench.steady_ms_per_buffer(bench.wide_config(cfg), dev, acq=bench.WIDE_ACQ)
+        log(f"[times] {path} path steady state (default) on 24-bit samples: {ms:.3f} "
+            f"ms/buffer, {lines / ms / 1e3:.3f} MHz ({card})")
     times = bench.kernel_times(dev, tuple(KERNELS) + bench.F32_LINE_KERNELS)
     for name, t in times.items():
         log(f"[times] {name:<27} kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.3f} ms, "
@@ -3118,6 +3289,7 @@ def main() -> None:
     phase_build()
     worst = phase_kernels()
     launches = {**phase_main_path(worst), **phase_fft_path(worst)}
+    launches.update(phase_wide_samples(worst))
     launches.update(phase_stream(worst, info))
     for k, v in phase_acquisition(info).items():
         launches[k] += v
@@ -3134,7 +3306,7 @@ def main() -> None:
                 "max_abs_err": worst[name],
                 **{k: times[name][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                                                "library_ms")}}
-               for name, (source, line) in KERNELS.items()]
+               for name, (source, line) in {**KERNELS, **F32_ROWS}.items()]
     print(info["nvidia_smi"])
     print(json.dumps({"kernels": kernels}))
     import torch

@@ -14,10 +14,14 @@ the concat fold path (``fold_concat``), at the default, "high" and bf16
 rungs on the FFT path and at the default and bf16 rungs on the FFT path
 without dispersion, and the FFT path's stages with ``bench.fft_stage_ms``
 at those five settings (a setting that checkout's ``bench`` cannot make is
-skipped), and prints one JSON line: the card's name and power limit, and
+skipped), and the fold and the FFT path's steady state at the default rung
+on 24-bit samples in uint32 containers (``bench.WIDE_ACQ`` and
+``bench.wide_config``; for a checkout whose ``bench`` has no 24-bit
+buffers, the same buffers from the same seed, made and timed in the turn
+itself), and prints one JSON line: the card's name and power limit, and
 per turn the kernel, plain-version and library milliseconds, the steady
-milliseconds per buffer of each path and the FFT path's stage
-milliseconds.  Both checkouts are timed on one card in one call, so power
+milliseconds per buffer of each path (``wide_steady_ms`` at 24 bits) and
+the FFT path's stage milliseconds.  Both checkouts are timed on one card in one call, so power
 limit and neighbours are the same; the spread between a checkout's two
 turns is the noise.
 """
@@ -38,7 +42,7 @@ KERNELS = ("depth", "depth_split", "depth_scale", "depth_scale_split", "depth_sc
            "depth_scale_concat_f32lines", "prep_phase_f32lines", "prep_real_f32lines")
 
 _TURN = """
-import json, sys
+import dataclasses, itertools, json, math, sys
 sys.path.insert(0, {root!r})
 import torch
 from octproz_tpu_torch import bench
@@ -59,10 +63,27 @@ for name, kw in (("bfloat16", {{}}), ("bfloat16, no dispersion", {{"dispersion":
         pass
 f = {{r: bench.steady_ms_per_buffer(cfg, dev) for r, cfg in fft.items()}}
 st = {{r: bench.fft_stage_ms(cfg, dev) for r, cfg in fft.items()}}
+acq24 = dataclasses.replace(bench.FULL_ACQ, bit_depth=24)
+def wide_ms(cfg):
+    if hasattr(bench, "WIDE_ACQ"):
+        return bench.steady_ms_per_buffer(bench.wide_config(cfg), dev, acq=bench.WIDE_ACQ)
+    from octproz_tpu_torch.models.fdoct import FdOctModel
+    gain = 20.0 * math.log10(2.0 ** 16)
+    cfg = dataclasses.replace(cfg, bitshift=False, grayscale_min=cfg.grayscale_min + gain,
+                              grayscale_max=cfg.grayscale_max + gain)
+    model = FdOctModel(acq24, cfg, **bench.CURVE_KW, device=dev)
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    bufs = torch.randint(0, 1 << 24, (4, *acq24.buffer_shape), dtype=torch.int32,
+                         generator=g, device=dev).view(torch.uint32)
+    model.process_buffer(bufs[0])
+    n = itertools.count()
+    return bench.cuda_ms(lambda: model.process_buffer(bufs[next(n) % 4]), iters=12)
+w = {{"fold": wide_ms(bench.bench_config()), "fft": wide_ms(bench.fft_config())}}
 print(json.dumps({{"kernels": {{n: {{"ms": v["ms"], "plain_ms": v["plain_ms"],
                                   "library_ms": v["library_ms"]}} for n, v in k.items()}},
                   "steady_ms": s, "concat_steady_ms": c,
-                  "fft_steady_ms": f, "fft_stage_ms": st}}))
+                  "fft_steady_ms": f, "fft_stage_ms": st, "wide_steady_ms": w}}))
 """
 
 

@@ -70,6 +70,9 @@ ORACLE_GATE_DB = {"default": 20.0, "high": 50.0, "highest": 80.0, "bfloat16": 20
 #: The benchmark geometry: one 1024 x 512 x 256 buffer of 12-bit samples.
 FULL_ACQ = AcqParams(samples_per_line=1024, ascans_per_bscan=512,
                      bscans_per_buffer=256, buffers_per_volume=1, bit_depth=12)
+#: The benchmark geometry at 24 bits, in uint32 containers: samples above
+#: 16 bits, which the wrappers decode to float32 lines before the kernels.
+WIDE_ACQ = dataclasses.replace(FULL_ACQ, bit_depth=24)
 #: Curve coefficients of the benchmark chain.
 CURVE_KW = dict(resample_coeffs=(0.0, 1023.0, 20.0, -10.0),
                 dispersion_coeffs=(0.0, 0.0, 10.0, 0.0),
@@ -89,7 +92,9 @@ FOLD_KERNELS = ("depth", "depth_split", "depth_scale", "depth_scale_split",
 PREP_KERNELS = ("prep_phase", "prep_phase_split", "prep_real", "prep_real_split",
                 "prep_phase_bf16", "prep_real_bf16")
 #: The one-pass families on float32 lines (``*_f32lines``: samples above 16
-#: bits, decoded before the kernel), which keep the float32-FMA kernels
+#: bits, decoded before the kernel): ``depth_scale`` and ``prep_phase`` on
+#: the tensor cores as three x parts (``fused_prep.FLOAT_LINE_TENSOR_CORE``,
+#: six bf16 terms), the others on the float32-FMA kernels
 #: (``csrc/fold_gemm.cu``, ``fold_concat.cu``, ``prep_gemm.cu``); off the
 #: main path, timed on 24-bit samples.
 F32_LINE_KERNELS = ("depth_f32lines", "depth_scale_f32lines", "depth_scale_concat_f32lines",
@@ -148,13 +153,29 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
 
 
 def random_buffers(acq: AcqParams, count: int, device, seed: int) -> torch.Tensor:
-    """``count`` distinct 12-bit raw buffers (count, bscans, ascans, samples),
-    made on the device from a seed."""
+    """``count`` distinct raw buffers (count, bscans, ascans, samples) of
+    12-bit samples in uint16, or for ``acq.bit_depth`` above 16 of 24-bit
+    samples in uint32, made on the device from a seed."""
     g = torch.Generator(device=device)
     g.manual_seed(seed)
+    if acq.bit_depth > 16:
+        vals = torch.randint(0, 1 << 24, (count, *acq.buffer_shape), dtype=torch.int32,
+                             generator=g, device=device)
+        return vals.view(torch.uint32)
     vals = torch.randint(0, 4096, (count, *acq.buffer_shape), dtype=torch.int16,
                          generator=g, device=device)
     return vals.view(torch.uint16)
+
+
+def wide_config(cfg: ProcConfig) -> ProcConfig:
+    """``cfg`` (a chain of 12-bit samples) for :data:`WIDE_ACQ`'s 24-bit
+    samples: no bitshift (on a 32-bit container it scales to [0, 1)), and
+    the display range moved up by the samples' gain -- 20 log10 of 2^16
+    over the shifted 12-bit samples, 2^12 over unshifted ones -- so the
+    image sits in it as the 12-bit chain's does."""
+    gain_db = 20.0 * np.log10(2.0 ** (24 - (8 if cfg.bitshift else 12)))
+    return dataclasses.replace(cfg, bitshift=False, grayscale_min=cfg.grayscale_min + gain_db,
+                               grayscale_max=cfg.grayscale_max + gain_db)
 
 
 def _oracle():
@@ -233,14 +254,15 @@ def golden_pair(device, steady: bool = False, **changes):
 
 
 def steady_ms_per_buffer(cfg: ProcConfig, device, ring: int = 4,
-                         iters: int = 12) -> float:
+                         iters: int = 12, acq: AcqParams = FULL_ACQ) -> float:
     """CUDA-event ms per buffer of ``FdOctModel.process_buffer`` in the
     steady state (FPN determined), cycling over ``ring`` distinct buffers
-    already on the device."""
+    already on the device (:func:`random_buffers` of ``acq``: 12-bit
+    samples, or 24-bit ones for :data:`WIDE_ACQ` with :func:`wide_config`)."""
     from .models.fdoct import FdOctModel
 
-    model = FdOctModel(FULL_ACQ, cfg, **CURVE_KW, device=device)
-    bufs = random_buffers(FULL_ACQ, ring, device, seed=11)
+    model = FdOctModel(acq, cfg, **CURVE_KW, device=device)
+    bufs = random_buffers(acq, ring, device, seed=11)
     model.process_buffer(bufs[0])  # FPN determination
     turn = itertools.count()
     return cuda_ms(lambda: model.process_buffer(bufs[next(turn) % ring]), iters=iters)
@@ -301,7 +323,7 @@ PEAK_BYTES_PER_S = 3.35e12
 
 def kernel_bound(name: str, lines: int, n_in: int, n_out: int, *, parts: int = 1,
                  in_itemsize: int = 2, out_itemsize: int = 4,
-                 x_lo_zero: bool = True, bf16: bool = False) -> Dict[str, object]:
+                 x_parts: int = 1, bf16: bool = False) -> Dict[str, object]:
     """The least time one H100 could take for a kernel family's work: the
     larger of its FLOPs over the peak of their type and its bytes over the
     memory rate.  ``n_out`` is ``half`` for the fold families and the
@@ -311,25 +333,33 @@ def kernel_bound(name: str, lines: int, n_in: int, n_out: int, *, parts: int = 1
     FLOPs follow the Pallas cost estimates (octproz_tpu/pallas/fused_prep.py:
     482, 494, 597, 617, 655, 680, 704): 2*lines*n_in*n_out per GEMM (two
     GEMMs, re and im, for the fold families; one for prep) and pass term,
-    counting only the terms the input needs -- with ``x_lo_zero`` (x exact
-    in bf16, as shifted 12-bit samples are) the x_lo terms vanish and
-    ``parts`` terms remain of 2*parts - 1.  The split rungs' products are
+    counting only the terms the input needs: ``x_parts`` is the number of
+    bf16 parts of x the data needs (``fused_prep.x_parts``: 1 where x is
+    exact in bf16, as shifted 12-bit samples are; 2 for samples of at most
+    16 bits; 3 above), of which the kernel splits x into at most two, or
+    three on the three-part route, and x part i meets operator parts 0 ..
+    parts - 1 - i: sum_i (parts - i) terms.  The split rungs' products are
     bf16 x bf16 (989 TFLOP/s), the one-pass rung's float32 (67 TFLOP/s) on
-    float32 lines -- but every family runs its one pass on uint8/uint16
-    lines (``in_itemsize`` <= 2) as the bf16 terms of the float32 operator's
-    three parts (``fused_prep.ONE_PASS_ROUTES``): the bound is the work of
-    the route the input takes.  With ``bf16`` (``compute_dtype="bfloat16"``)
+    the float32 lines of the families outside
+    ``fused_prep.FLOAT_LINE_TENSOR_CORE`` -- but every family runs its one
+    pass on uint8/uint16 lines (``in_itemsize`` <= 2), and those families
+    on float32 lines too, as the bf16 terms of the float32 operator's three
+    parts (``fused_prep.ONE_PASS_ROUTES``): the bound is the work of the
+    route the input takes.  With ``bf16`` (``compute_dtype="bfloat16"``)
     one bf16 term against one bf16 part, on any input type.
     Bytes: the raw input, every operator part the kernel reads (float32
     unsplit, bf16 split or rounded), the FPN mean line or phasor rows, and
     the output, each once."""
-    from .kernels.fused_prep import _ONE_PASS_PARTS
+    from .kernels.fused_prep import _ONE_PASS_PARTS, FLOAT_LINE_TENSOR_CORE
 
-    if parts == 1 and in_itemsize <= 2 and not bf16:
+    three_x_parts = (parts == 1 and in_itemsize == 4 and not bf16
+                     and name.removesuffix("_f32lines") in FLOAT_LINE_TENSOR_CORE)
+    if parts == 1 and (in_itemsize <= 2 or three_x_parts) and not bf16:
         parts = _ONE_PASS_PARTS
     split = parts > 1
     on_tensor_cores = split or bf16
-    terms = (parts if x_lo_zero else 2 * parts - 1) if split else 1
+    xp = min(x_parts, 3 if three_x_parts else 2)
+    terms = sum(parts - i for i in range(xp)) if split else 1
     gemms = 1 if name.startswith("prep") else 2
     flops = terms * gemms * 2 * lines * n_in * n_out
     op_bytes = gemms * parts * n_in * n_out * (2 if on_tensor_cores else 4)
@@ -385,9 +415,10 @@ def _kernel_cases(name: str, device):
     families -> 1024 columns; the split families at the "high" rung (3
     passes), the ``*_bf16`` names the one-pass family's bf16 route, the
     ``*_f32lines`` names its one pass on 24-bit samples as float32 lines
-    (:func:`float32_lines`, no bitshift: the float32-FMA kernels).
+    (:func:`float32_lines`, no bitshift: the three-x-part tensor-core route
+    or the float32-FMA kernel, by family).
     ``library`` is the matmul of :func:`library_operands`; the bound is
-    :func:`kernel_bound` with x_lo_zero read from the data and the lines'
+    :func:`kernel_bound` with x_parts read from the data and the lines'
     item size."""
     from . import curves as curves_mod
     from .kernels import fused_prep as fp
@@ -403,7 +434,7 @@ def _kernel_cases(name: str, device):
     x = fp._decode_block(raw2d, bitshift)
     shape = dict(lines=raw2d.shape[0], n_in=raw2d.shape[1],
                  parts=fp._SPLIT_PARTS.get(precision, 1),
-                 x_lo_zero=bool(torch.equal(x, fp._bf16_trunc(x))), bf16=precision == fp.BF16,
+                 x_parts=fp.x_parts(x), bf16=precision == fp.BF16,
                  in_itemsize=raw2d.element_size())
     if name.startswith("prep"):
         cv = curves_mod.make_curves(FULL_ACQ, fft_config(), **CURVE_KW, device=device)

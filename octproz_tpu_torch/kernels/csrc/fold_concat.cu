@@ -13,8 +13,9 @@
 // wide operator (the five "highest" terms, terms() in fold_split.cuh: the
 // float32 product at float32 grade for samples of at most 16 bits).  The
 // float32-FMA template of fold_gemm.cuh keeps the one pass on float32 lines
-// -- samples above 16 bits, which the x_hi + x_lo split cannot carry --
-// against the float32 wide operator.  The input type alone picks the route
+// -- samples above 16 bits, which the x_hi + x_lo split cannot carry; the
+// three x parts that B2 takes on them are not routed here -- against the
+// float32 wide operator.  The input type alone picks the route
 // at float32 compute; compute_dtype="bfloat16" runs the persistent one-term
 // kernel of fold_bf16.cu on one rounded wide part for every input type.
 //

@@ -1,12 +1,13 @@
 // The folded-GEMM SIMT kernel template for Hopper (sm_90a): x @ W_re,
 // x @ W_im as one float32-FMA product each, with a planar store or a fused
 // FPN-subtract + dynamic-range-scale epilogue, on the CUDA cores.  It
-// serves the one-pass rung on float32 lines alone -- input the wrapper
-// decoded already, samples above 16 bits, which the x_hi + x_lo split of
-// the tensor-core kernels cannot carry: instantiated by fold_gemm.cu for
-// one operator per axis (B1, B2) and by fold_concat.cu for the concatenated
-// [W_re | W_im] operator (B5).  Every rung of every fold family on
-// uint8/uint16 lines runs on the bf16 tensor cores (fold_split.cuh).
+// serves the one-pass rung on float32 lines (input the wrapper decoded
+// already, samples above 16 bits) of two families alone: the planar kernel
+// with one operator per axis (B1, through fold_gemm.cu) and the scaled
+// kernel of the concatenated [W_re | W_im] operator (B5, through
+// fold_concat.cu).  Every rung of every fold family on uint8/uint16 lines,
+// and the scaled two-operator kernel (B2) on float32 lines too, runs on the
+// bf16 tensor cores (fold_split.cuh; float32 lines as three x parts).
 //
 // What bounds it: at the main path's geometry (131072 lines x 1024 samples
 // -> 512 depth bins) one buffer is 4*131072*1024*512 = 275 GFLOP against

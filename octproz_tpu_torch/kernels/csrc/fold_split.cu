@@ -7,7 +7,8 @@
 //   fold_split<EPI=SCALE>   _kernel_depth_scale_split  (:422-438)
 //
 // with InT in {uint8, uint16, float} and OutT in {float, bf16} for SCALE,
-// and at one pass on uint8/uint16 lines,
+// and at one pass on uint8/uint16 lines (the scaled kernel on float32 lines
+// too, with three x parts: XP=3),
 //
 //   fold_split<EPI=PLANAR, PARTS=3>  _kernel_depth        (:261-268)
 //   fold_split<EPI=SCALE,  PARTS=3>  _kernel_depth_scale  (:375-419)
@@ -27,11 +28,15 @@
 // tensor cores.  What bounds it, on one H100 (H100 80GB HBM3, 700 W): at the
 // main path's geometry each term is 275 GFLOP of bf16 products, so shifted
 // 12-bit samples (three terms) are bound to 0.83 ms at 989 TFLOP/s, where
-// the float32-FMA template is bound to 4.1 ms at 67 TFLOP/s.  float32 lines
-// (samples above 16 bits, of which x_hi + x_lo keeps 16) stay on that
-// template (fold_gemm.cuh, through fold_gemm.cu and fold_concat.cu): the
-// caller routes by input type, and a float32 launch at one pass is refused
-// here (terms()).
+// the float32-FMA template is bound to 4.1 ms at 67 TFLOP/s.  A float32
+// sample (above 16 bits, of which x_hi + x_lo keeps 16) is exactly x_hi +
+// x_mid + x_lo: the scaled kernel's one pass on float32 lines runs the six
+// terms of those three x parts against the three operator parts
+// (fold_split<EPI=SCALE, PARTS=3, XP=3>, terms()), 1.67 ms at 989 TFLOP/s on
+// 24-bit samples.  The planar and the concat kernel keep the float32-FMA
+// template for float32 lines (fold_gemm.cuh, through fold_gemm.cu and
+// fold_concat.cu): their callers route by input type, and the planar entry
+// here refuses a float32 launch at one pass.
 //
 // A block's two operator halves are (W_re, n0) and (W_im, n0): 64 bins of
 // re and im (COLS = BINS).  The concat kernels read one wide (n_in, 2*half)
@@ -54,12 +59,12 @@ namespace split {
 
 template <int EPI, typename OutT>
 struct Fold {
-  template <typename InT, int PARTS>
+  template <typename InT, int PARTS, int XP>
   struct K {
     static int run(const Params& p, cudaStream_t stream) {
-      const Kernel kernel = fold_split<InT, PARTS, EPI, OutT>;
-      static const cudaError_t attr = opt_in<InT, PARTS>(kernel);
-      return launch<InT, PARTS, BINS>(p, kernel, attr, stream);
+      const Kernel kernel = fold_split<InT, PARTS, XP, EPI, OutT>;
+      static const cudaError_t attr = opt_in<InT, PARTS, XP>(kernel);
+      return launch<InT, PARTS, BINS, XP>(p, kernel, attr, stream);
     }
   };
 };
@@ -96,8 +101,8 @@ int scale(Params p, int in_kind, int n_terms, const float* mean2, void* out, int
   p.a = a;
   p.b = b;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return out_bf16 ? dispatch<Fold<SCALE, __nv_bfloat16>::K>(in_kind, n_terms, p, s)
-                  : dispatch<Fold<SCALE, float>::K>(in_kind, n_terms, p, s);
+  return out_bf16 ? dispatch<Fold<SCALE, __nv_bfloat16>::K, true>(in_kind, n_terms, p, s)
+                  : dispatch<Fold<SCALE, float>::K, true>(in_kind, n_terms, p, s);
 }
 
 }  // namespace split
@@ -107,8 +112,9 @@ extern "C" {
 
 // The tensor-core launches of fold_gemm_planar / fold_gemm_scale
 // (fold_gemm.cu), with the same arguments: 3 or 5 passes against 2 or 3
-// bf16 parts per axis, or 1 pass on uint8/uint16 lines against the float32
-// operator's three bf16 parts (5 terms).
+// bf16 parts per axis, or 1 pass against the float32 operator's three bf16
+// parts (5 terms on uint8/uint16 lines; 6 on float32 lines, the scaled
+// kernel alone).
 int fold_split_planar(const void* raw, int in_kind, int bitshift, int passes,
                       const void* const wre[3], const void* const wim[3], float* re_out,
                       float* im_out, long long lines, int n_in, int half, void* stream) {
@@ -133,7 +139,8 @@ int fold_split_scale(const void* raw, int in_kind, int bitshift, int passes,
 // holds the 2 or 3 bf16 parts of the wide (n_in, 2 * half) operator
 // [W_re | W_im] for 3 or 5 passes, at 1 pass on uint8/uint16 lines the
 // three bf16 parts of the float32 wide operator (5 terms), each read as the
-// views (W, n0) and (W + half, n0) at row pitch 2 * half.
+// views (W, n0) and (W + half, n0) at row pitch 2 * half.  (fold_concat.cu
+// keeps float32 lines at one pass on the float32-FMA template.)
 int fold_split_scale_concat(const void* raw, int in_kind, int bitshift, int passes,
                             const void* const w[3], const float* mean2, void* out,
                             int out_bf16, int mode, float a, float b, long long lines,

@@ -21,19 +21,27 @@
 //   prep_split<EPI=PHASE,  PARTS=3>  _kernel_phase        (:228-235, prep_split.cu)
 //   prep_split<EPI=REAL,   PARTS=3>  _kernel_real         (:238-242, prep_split.cu)
 //
+// and on float32 lines (samples above 16 bits) the one-pass rung of the
+// scaled two-operator kernel and the phase kernel, x split into three parts
+// (XP = 3, pack3) against the same three operator parts, six terms:
+//
+//   fold_split<EPI=SCALE,  PARTS=3, XP=3>  _kernel_depth_scale  (:375-419)
+//   prep_split<EPI=PHASE,  PARTS=3, XP=3>  _kernel_phase        (:228-235, prep_split.cu)
+//
 // compute_dtype="bfloat16" (one product term; B1, B2, B5, B7 and B8 at
 // :264, :344, :401/:409, :231, :240) runs the persistent one-term kernel of
 // fold_bf16.cuh instead.  The float32-FMA template of fold_gemm.cuh and
-// prep_gemm.cu serves the one pass of float32 compute on float32 lines
-// alone (samples above 16 bits).
+// prep_gemm.cu serves the one pass of float32 compute on float32 lines of
+// the planar, the concat and the real kernel alone (B1, B5, B8).
 //
 // What bounds them, on one H100 (H100 80GB HBM3, 700 W: 989 TFLOP/s of
 // dense bf16, 3.35 TB/s): at the main path's geometry (131072 lines x 1024
 // samples -> 512 bins re and im, or 1024 prep columns) each pass term is a
-// bf16 GEMM of 275 GFLOP against ~0.54-1.3 GB of raw input, operator parts
+// bf16 GEMM of 275 GFLOP against ~0.54-1.6 GB of raw input, operator parts
 // and output: compute bound, 0.56 ms for the two terms "high" needs on
 // shifted 12-bit samples (x_lo being zero), 0.83 ms for the three of the
-// one-pass rung (1.39 ms for its five where x_lo is not zero).
+// one-pass rung (1.39 ms for its five where x_lo is not zero, 1.67 ms for
+// the six of 24-bit float32 lines).
 //
 // Design.  A block owns 128 lines and two halves of 64 operator columns,
 // each a (tensor map, column offset) pair: the fold kernels take
@@ -46,10 +54,12 @@
 //   operator parts (2 halves x 2-3 parts, (n_in, width) bf16 at row pitch
 //   ld, i.e. MN-major for wgmma) by TMA into 128-byte-swizzled 64 x 64 tiles,
 //   and the raw integer tile (uint8/uint16/float32, 128 lines x 64
-//   samples) by 16-byte cp.async into padded rows, both signalling one
-//   mbarrier per stage; out-of-range lines, samples and columns arrive as
-//   zeros, and a half that lies wholly past the operator's width is not
-//   loaded at all (its columns are never stored).  The warp starts a
+//   samples) by 16-byte cp.async into padded rows (with three x parts by
+//   TMA instead, two swizzled boxes of 32 float32 samples: RawTile), both
+//   signalling one mbarrier per stage; out-of-range lines, samples and
+//   columns arrive as zeros, and a half that lies wholly past the
+//   operator's width is not loaded at all (its columns are never stored).
+//   The warp starts a
 //   stage's 512-2048 raw copies itself, so their loop is kept to the copy
 //   and two adds: a lane keeps its chunk and walks down the rows (with
 //   the row, chunk and bounds worked out per copy, the producer warp and
@@ -77,7 +87,12 @@
 //   its tile is below 256, or every float sample exact in bf16 (a vote over
 //   its 128 threads): x_lo is then zero, and adding exact zeros changes no
 //   sum.  Shifted 12-bit samples fit, so the main path runs 2 of the 3
-//   "high" terms.  A stage with x_lo runs its x_lo group first and then
+//   "high" terms.  With three x parts the stage's groups are x_lo w_0,
+//   x_mid w_1 and w_0, x_hi w_2, w_1 and w_0, and two votes skip the x_lo
+//   group where every sample is exact in 16 significant bits and the x_mid
+//   group too where every sample is exact in bf16 (six, five or three
+//   terms); x_lo is decoded first, with the votes' bits, then x_mid and
+//   x_hi each again.  A stage with x_lo runs its x_lo group first and then
 //   decodes x_hi again, so only one set of A fragments is ever live (with
 //   the two 64-float sums, the block's 288 threads -- sized by ptxas as
 //   384, 168 registers each -- leave no room for two);
@@ -85,7 +100,8 @@
 //   4 and 5; the turn passes once the group is committed, not when it is
 //   done), which staggers them: one decodes, votes and folds while the
 //   other's terms run, instead of both reaching the tensor cores at once
-//   and both leaving them idle afterwards;
+//   and both leaving them idle afterwards (with three x parts they do not:
+//   a stage's six terms stagger them, and the turns cost 4 %);
 // * the epilogue stages each warp's 16 x 128 sums in shared memory
 //   (stage_sums) and walks them with one lane per column: FPN subtraction,
 //   p = re^2 + im^2, log / lin / fast log and the float32 or bf16 store (or
@@ -137,18 +153,31 @@ constexpr bool NO_MMA = FOLD_SPLIT_VARIANT & 4;
 constexpr bool TURNS = !(FOLD_SPLIT_VARIANT & 8);
 constexpr bool NO_STORES = FOLD_SPLIT_VARIANT & 64;
 
-// The raw tile's row pitch: 64 samples plus 16 bytes, so the A-fragment
-// reads of a warp (8 rows x 4 column pairs) hit 32 different banks.
-template <typename InT>
+// The raw tile of 128 lines x 64 samples.  With two x parts its rows are
+// padded to 64 samples plus 16 bytes, so the A-fragment reads of a warp (8
+// rows x 4 column pairs) hit 32 different banks, and the producer warp
+// fills them by cp.async.  With three (XP = 3: float32 lines at one pass;
+// 4.5 % faster than cp.async on the card) TMA writes it as two boxes of 32
+// samples, each row 128 bytes swizzled: the 16-byte chunk c of row r lands
+// at chunk c ^ (r % 8), which keeps those reads apart too.
+template <typename InT, int XP = 2>
 struct RawTile {
-  static constexpr int ROW = sizeof(InT) == 1 ? 80 : sizeof(InT) == 2 ? 144 : 288;
-  static constexpr int BYTES = LINES * ROW;
+  static constexpr bool TMA = XP == 3;
+  static constexpr int ROW = TMA ? 128 : sizeof(InT) == 1 ? 80 : sizeof(InT) == 2 ? 144 : 288;
+  static constexpr int SAMPLES = TMA ? ROW / static_cast<int>(sizeof(InT)) : DEPTH;  // per box row
+  static constexpr int BOX_BYTES = LINES * ROW;
+  static constexpr int BYTES = DEPTH / SAMPLES * BOX_BYTES;
+  // byte offset of sample k of line r in the TMA-written tile
+  __device__ static __forceinline__ uint32_t offset(int r, int k) {
+    const uint32_t a = (k / SAMPLES) * BOX_BYTES + r * ROW + (k % SAMPLES) * sizeof(InT);
+    return a ^ (((a >> 7) & 7) << 4);
+  }
 };
 
-template <typename InT, int PARTS>
+template <typename InT, int PARTS, int XP = 2>
 struct Layout {
   static constexpr int B_BYTES = 2 * PARTS * B_TILE;
-  static constexpr int STAGE = B_BYTES + RawTile<InT>::BYTES;  // a multiple of 1024
+  static constexpr int STAGE = B_BYTES + RawTile<InT, XP>::BYTES;  // a multiple of 1024
   static constexpr int FIT = SMEM_BUDGET / STAGE;
   static constexpr int STAGES = FIT > 4 ? 4 : FIT;
   static constexpr int SMEM = 1024 + STAGES * STAGE + 2 * STAGES * 8;
@@ -174,11 +203,12 @@ struct Params {
   int mode;
   float a;
   float b;
-  int tma;  // 1: TMA operator tiles and cp.async raw tiles
+  int tma;  // 1: TMA operator tiles, and raw tiles by cp.async (by TMA with three x parts)
 };
 
 struct Maps {
   CUtensorMap m[2][3];  // [map][part]: 64 columns x 64 samples, 128-byte swizzle
+  CUtensorMap raw;      // three x parts: the raw lines in RawTile<float, 3> boxes
 };
 
 // The block's tile: lines m0 .. m0 + LINES - 1, operator columns n0 ..
@@ -385,19 +415,35 @@ __device__ __forceinline__ uint32_t pack_lo(float v0, float v1) {
   return pack_rn(v0 - x_hi(v0), v1 - x_hi(v1));
 }
 
-// What a fragment register holds: x_hi or x_lo.
-enum Pack { X_HI, X_LO };
+// What a fragment register holds: x_hi or x_lo; with three x parts (XP = 3,
+// float32 lines at one pass) x_hi, x_mid or x_lo.
+enum Pack { X_HI, X_LO, X_MID };
+
+// A float sample as three parts, each a mask truncation of what the parts
+// above it leave: x_hi = trunc(x), x_mid = trunc(x - x_hi), x_lo = x - x_hi -
+// x_mid.  x - x_hi keeps at most 16 significant bits and x_lo at most 8, so
+// every part is exact in bf16 and x_hi + x_mid + x_lo == x for any finite
+// float32 sample.
+template <Pack PACK>
+__device__ __forceinline__ uint32_t pack3(float v0, float v1) {
+  if (PACK == X_HI) return pack_hi(v0, v1);
+  const float r0 = v0 - x_hi(v0);
+  const float r1 = v1 - x_hi(v1);
+  if (PACK == X_MID) return pack_hi(r0, r1);
+  return pack_hi(r0 - x_hi(r0), r1 - x_hi(r1));
+}
 
 // --- the producer warp -----------------------------------------------------
 
-template <typename InT, int PARTS, int COLS>
+template <typename InT, int PARTS, int COLS, int XP>
 __device__ __forceinline__ void produce(const Params& p, const Maps& maps, uint8_t* smem,
                                         uint32_t base, uint32_t full, uint32_t empty,
                                         long long m0, int n0, int nkb, int lane) {
-  using L = Layout<InT, PARTS>;
+  using L = Layout<InT, PARTS, XP>;
+  using R = RawTile<InT, XP>;
   constexpr int ELEMS = 16 / static_cast<int>(sizeof(InT));  // samples per 16-byte chunk
   constexpr int CHUNKS = DEPTH / ELEMS;                      // per raw row
-  constexpr int ROW = RawTile<InT>::ROW;
+  constexpr int ROW = R::ROW;
   const InT* raw = static_cast<const InT*>(p.raw);
   static_assert(COLS == BINS || COLS == 2 * BINS, "COLS: 64 or 128");
   constexpr int OFF = COLS - BINS;  // the second half's column offset
@@ -411,13 +457,14 @@ __device__ __forceinline__ void produce(const Params& p, const Maps& maps, uint8
     const uint32_t tile = stage + L::B_BYTES;
     const int k0 = kb * DEPTH;
     if (NO_LOADS && kb >= L::STAGES) {
-      mbar_arrive(full + 8 * s);
+      if (!(R::TMA && p.tma)) mbar_arrive(full + 8 * s);
       if (lane == 0) mbar_arrive(full + 8 * s);
       continue;
     }
     if (p.tma) {
       if (lane == 0) {
-        mbar_expect_tx(full + 8 * s, second ? L::B_BYTES : L::B_BYTES / 2);
+        mbar_expect_tx(full + 8 * s,
+                       (second ? L::B_BYTES : L::B_BYTES / 2) + (R::TMA ? R::BYTES : 0));
 #pragma unroll
         for (int c = 0; c < 2; ++c)
 #pragma unroll
@@ -425,7 +472,13 @@ __device__ __forceinline__ void produce(const Params& p, const Maps& maps, uint8
             if (c == 0 || second)
               tma_load(stage + (c * PARTS + q) * B_TILE, &maps.m[c % MAPS][q], n0 + c * OFF,
                        k0, full + 8 * s);
+        if constexpr (R::TMA)
+#pragma unroll
+          for (int b = 0; b < DEPTH / R::SAMPLES; ++b)
+            tma_load(tile + b * R::BOX_BYTES, &maps.raw, k0 + b * R::SAMPLES,
+                     static_cast<int>(m0), full + 8 * s);
       }
+      if constexpr (R::TMA) continue;
       // A pass of the warp covers PASS rows: lane -> (row lane / CHUNKS,
       // chunk lane % CHUNKS), so only the row moves inside the loop; ok
       // counts this lane's copies that lie inside the input.
@@ -476,7 +529,8 @@ __device__ __forceinline__ void produce(const Params& p, const Maps& maps, uint8
         const int k = k0 + e % DEPTH;
         const long long line = m0 + r;
         const InT v = (line < p.lines && k < p.n_in) ? raw[line * p.n_in + k] : InT(0);
-        *reinterpret_cast<InT*>(rt + r * ROW + (e % DEPTH) * sizeof(InT)) = v;
+        *reinterpret_cast<InT*>(
+            rt + (R::TMA ? R::offset(r, e % DEPTH) : r * ROW + (e % DEPTH) * sizeof(InT))) = v;
       }
       // wgmma reads the operator tiles through the async proxy
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -509,23 +563,54 @@ __device__ __forceinline__ void fragments(const uint8_t* tile, int row0, int t, 
     }
 }
 
-// One group of a stage's pass terms into d: x_hi w_j for j = P-1 .. 0
-// (HI), or x_lo w_j for j = P-2 .. 0 -- low-order first.  The group's
-// first instruction overwrites d unless accumulate is set.  Once the group
-// is committed, named barrier committed (if not negative) is told so.
-template <int PARTS, bool HI>
+// The same fragments of a float32 tile as three x parts (pack3): x_hi,
+// x_mid or x_lo.  Decoding x_lo, mid and lo collect a nonzero bit where a
+// sample has a nonzero x_mid (it is not exact in bf16) or x_lo (not exact
+// in 16 significant bits).
+template <Pack PACK>
+__device__ __forceinline__ void fragments3(const uint8_t* tile, int row0, int t,
+                                           uint32_t (&x)[4][4], uint32_t& mid, uint32_t& lo) {
+  using R = RawTile<float, 3>;
+  // Samples 16 kk + 2t + 8 (i / 2) of rows row0 and row0 + 8 lie in box
+  // kk / 2, 16-byte chunk 4 (kk % 2) + 2 (i / 2) + t / 2 of the row before
+  // the swizzle, which XORs it with row0 % 8 for both rows.
+  const uint8_t* const row = tile + row0 * R::ROW + (t & 1) * 8;
+  const int sw = (t >> 1) ^ (row0 & 7);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int chunk = (((kk & 1) << 2) | ((i >> 1) << 1)) ^ sw;
+      const float2 f = *reinterpret_cast<const float2*>(
+          row + (kk >> 1) * R::BOX_BYTES + (i & 1) * 8 * R::ROW + chunk * 16);
+      x[kk][i] = pack3<PACK>(f.x, f.y);
+      if (PACK == X_LO) {
+        const float r0 = f.x - x_hi(f.x);
+        const float r1 = f.y - x_hi(f.y);
+        mid |= __float_as_uint(r0) | __float_as_uint(r1);
+        lo |= __float_as_uint(r0 - x_hi(r0)) | __float_as_uint(r1 - x_hi(r1));
+      }
+    }
+}
+
+// One group of a stage's pass terms into d: x w_j for j = TOP .. 0,
+// low-order first -- x_hi takes TOP = P-1 and x_lo P-2 (with three x parts
+// x_mid 1 and x_lo 0).  The group's first instruction overwrites d unless
+// accumulate is set.  Once the group is committed, named barrier committed
+// (if not negative) is told so.
+template <int PARTS, int TOP>
 __device__ __forceinline__ void stage_terms(float (&d)[64], const uint32_t (&x)[4][4],
                                             uint32_t stage, bool accumulate,
                                             int committed = -1) {
   pin(d);
   wgmma_fence();
 #pragma unroll
-  for (int j = HI ? PARTS - 1 : PARTS - 2; j >= 0; --j)
+  for (int j = TOP; j >= 0; --j)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
       if (!NO_MMA)
         wgmma_n128(d, x[kk], b_desc<PARTS>(stage + j * B_TILE + kk * 2048),
-                   accumulate || j != (HI ? PARTS - 1 : PARTS - 2) || kk > 0);
+                   accumulate || j != TOP || kk > 0);
   wgmma_commit();
   if (committed >= 0) named_arrive(committed, CONSUMERS);
   wgmma_wait_all();
@@ -539,11 +624,12 @@ __device__ __forceinline__ void stage_terms(float (&d)[64], const uint32_t (&x)[
 // producer warp, which returns false, and gives each consumer thread its
 // share of the block's 128 x (2 x 64) sums in acc (wgmma's n128 layout:
 // the first half's columns in acc[0..31], the second's in acc[32..63]) and
-// returns true.
-template <typename InT, int PARTS, int COLS>
+// returns true.  XP: the x parts, 2 (x_hi, x_lo) or 3 (float32 lines at one
+// pass: x_hi, x_mid, x_lo against PARTS = 3).
+template <typename InT, int PARTS, int COLS, int XP>
 __device__ __forceinline__ bool mainloop(const Params& p, const Maps& maps, uint8_t* smem,
                                          long long m0, int n0, float (&acc)[64]) {
-  using L = Layout<InT, PARTS>;
+  using L = Layout<InT, PARTS, XP>;
   const uint32_t base = smem_u32(smem);
   const uint32_t full = base + L::STAGES * L::STAGE;  // one mbarrier per stage
   const uint32_t empty = full + 8 * L::STAGES;
@@ -555,7 +641,9 @@ __device__ __forceinline__ bool mainloop(const Params& p, const Maps& maps, uint
 
   if (tid == 0) {
     for (int s = 0; s < L::STAGES; ++s) {
-      mbar_init(full + 8 * s, 33);  // 32 raw-tile arrivals + the operator tiles'
+      // 32 raw-tile arrivals + the operator tiles'; the TMA-fed raw tile's
+      // bytes ride with the operator tiles'
+      mbar_init(full + 8 * s, RawTile<InT, XP>::TMA && p.tma ? 1 : 33);
       mbar_init(empty + 8 * s, CONSUMERS / 32);  // one per consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -563,7 +651,7 @@ __device__ __forceinline__ bool mainloop(const Params& p, const Maps& maps, uint
   __syncthreads();
 
   if (warp == CONSUMERS / 32) {
-    produce<InT, PARTS, COLS>(p, maps, smem, base, full, empty, m0, n0, nkb, lane);
+    produce<InT, PARTS, COLS, XP>(p, maps, smem, base, full, empty, m0, n0, nkb, lane);
     return false;
   }
 
@@ -579,8 +667,11 @@ __device__ __forceinline__ bool mainloop(const Params& p, const Maps& maps, uint
 
   // Named barrier 4 + wg is warpgroup wg's turn to start a stage's wgmma
   // (128 threads wait there, the other 128 arrive); warpgroup 0 has the
-  // first.
-  if (TURNS && wg == 1) named_arrive(4, CONSUMERS);
+  // first.  With three x parts a stage's six terms are long enough to
+  // stagger the warpgroups by themselves, and taking turns cost 4 % on the
+  // card: they start as their stages arrive.
+  constexpr bool turns = TURNS && XP == 2;
+  if (turns && wg == 1) named_arrive(4, CONSUMERS);
 
   for (int kb = 0; kb < nkb; ++kb) {
     const int s = kb % L::STAGES;
@@ -594,22 +685,40 @@ __device__ __forceinline__ bool mainloop(const Params& p, const Maps& maps, uint
 #else
     float(&sum)[64] = part;  // the stage's terms, folded into acc below
 #endif
-    fragments<InT, X_HI>(tile, row0, t, p.bitshift, x, wide);
-    // uint8 samples are exact in bf16: x_lo is zero by construction
-    const bool lo = sizeof(InT) != 1 && warpgroup_any(wide != 0, 1 + wg);
-    // the turn passes with this stage's last group, but for warpgroup 1's
-    // last stage: nobody waits for that one
-    const int next = TURNS && !(wg == 1 && kb == nkb - 1) ? 4 + (wg ^ 1) : -1;
-    if (TURNS) named_sync(4 + wg, CONSUMERS);
-    if (!lo) {
-      stage_terms<PARTS, true>(sum, x, stage, ONE_CHAIN, next);
+    if constexpr (XP == 3) {
+      static_assert(sizeof(InT) == 4 && PARTS == 3, "three x parts: float32 lines, three parts");
+      // x_lo first, with the votes' bits: a tile exact in bf16 has no
+      // x_mid, one exact in 16 bits no x_lo; each later group decodes its
+      // part again, so one fragment set is live
+      uint32_t lo_bits = 0;
+      fragments3<X_LO>(tile, row0, t, x, wide, lo_bits);
+      const bool mid = warpgroup_any(wide != 0, 1 + wg);
+      const bool lo = mid && warpgroup_any(lo_bits != 0, 1 + wg);
+      if (lo) stage_terms<PARTS, 0>(sum, x, stage, ONE_CHAIN);
+      if (mid) {
+        fragments3<X_MID>(tile, row0, t, x, wide, lo_bits);
+        stage_terms<PARTS, 1>(sum, x, stage, ONE_CHAIN || lo);
+      }
+      fragments3<X_HI>(tile, row0, t, x, wide, lo_bits);
+      stage_terms<PARTS, 2>(sum, x, stage, ONE_CHAIN || mid);
     } else {
-      // x_lo's group first, then x_hi decoded again: the two fragment sets
-      // are never live together
-      fragments<InT, X_LO>(tile, row0, t, p.bitshift, x, wide);
-      stage_terms<PARTS, false>(sum, x, stage, ONE_CHAIN);
       fragments<InT, X_HI>(tile, row0, t, p.bitshift, x, wide);
-      stage_terms<PARTS, true>(sum, x, stage, true, next);
+      // uint8 samples are exact in bf16: x_lo is zero by construction
+      const bool lo = sizeof(InT) != 1 && warpgroup_any(wide != 0, 1 + wg);
+      // the turn passes with this stage's last group, but for warpgroup 1's
+      // last stage: nobody waits for that one
+      const int next = turns && !(wg == 1 && kb == nkb - 1) ? 4 + (wg ^ 1) : -1;
+      if (turns) named_sync(4 + wg, CONSUMERS);
+      if (!lo) {
+        stage_terms<PARTS, PARTS - 1>(sum, x, stage, ONE_CHAIN, next);
+      } else {
+        // x_lo's group first, then x_hi decoded again: the two fragment sets
+        // are never live together
+        fragments<InT, X_LO>(tile, row0, t, p.bitshift, x, wide);
+        stage_terms<PARTS, PARTS - 2>(sum, x, stage, ONE_CHAIN);
+        fragments<InT, X_HI>(tile, row0, t, p.bitshift, x, wide);
+        stage_terms<PARTS, PARTS - 1>(sum, x, stage, true, next);
+      }
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(empty + 8 * s);
@@ -667,13 +776,13 @@ __device__ __forceinline__ Block block_of(const Params& p, uint8_t* smem_raw) {
 
 // --- the fold kernel ---------------------------------------------------------
 
-template <typename InT, int PARTS, int EPI, typename OutT>
+template <typename InT, int PARTS, int XP, int EPI, typename OutT>
 __global__ void __launch_bounds__(THREADS, 1)
     fold_split(const __grid_constant__ Params p, const __grid_constant__ Maps maps) {
   extern __shared__ uint8_t smem_raw[];
   const Block blk = block_of<BINS>(p, smem_raw);
   float acc[64];  // re in 0-31, im in 32-63
-  if (!mainloop<InT, PARTS, BINS>(p, maps, blk.smem, blk.m0, blk.n0, acc)) return;
+  if (!mainloop<InT, PARTS, BINS, XP>(p, maps, blk.smem, blk.m0, blk.n0, acc)) return;
 
   const float* const tile_re = stage_sums(blk.smem, acc);
   const float* const tile_im = tile_re + 16 * EPI_ROW;
@@ -770,15 +879,33 @@ using Kernel = void (*)(Params, Maps);
 
 // Above 48 KB the dynamic shared memory is opt-in: once per kernel (the
 // caller keeps the result in a function-local static).
-template <typename InT, int PARTS>
+template <typename InT, int PARTS, int XP>
 cudaError_t opt_in(Kernel kernel) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              Layout<InT, PARTS>::SMEM);
+                              Layout<InT, PARTS, XP>::SMEM);
+}
+
+// The raw lines as RawTile<InT, 3>'s boxes: SAMPLES x 128 lines, 128-byte
+// swizzle, lines and samples past the input read as zeros.
+template <typename InT>
+int encode_raw(const Params& p, Maps* maps) {
+  using R = RawTile<InT, 3>;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(p.n_in), static_cast<cuuint64_t>(p.lines)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(p.n_in) * sizeof(InT)};
+  const cuuint32_t box[2] = {R::SAMPLES, LINES};
+  const cuuint32_t unit[2] = {1, 1};
+  static_assert(sizeof(InT) == 4, "three x parts: float32 lines");
+  const CUresult r = encoder()(&maps->raw, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                               const_cast<void*>(p.raw), dims, strides, box, unit,
+                               CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The checks, tensor maps and launch of one split kernel of COLS columns
 // per block; attr is its opt_in result.
-template <typename InT, int PARTS, int COLS>
+template <typename InT, int PARTS, int COLS, int XP = 2>
 int launch(Params p, Kernel kernel, cudaError_t attr, cudaStream_t stream) {
   if (p.lines <= 0 || p.width <= 0 || p.n_in <= 0) return 0;
   const long long blocks = ((p.lines + LINES - 1) / LINES) * col_tiles<COLS>(p);
@@ -789,12 +916,15 @@ int launch(Params p, Kernel kernel, cudaError_t attr, cudaStream_t stream) {
     for (int q = 0; q < PARTS; ++q) tma = tma && aligned16(p.w[c][q]);
   Maps maps = {};
   if (tma) {
-    const int rc = encode_maps(p, n_maps<COLS>(), PARTS, &maps);
+    int rc = encode_maps(p, n_maps<COLS>(), PARTS, &maps);
+    if constexpr (RawTile<InT, XP>::TMA)
+      if (rc == 0) rc = encode_raw<InT>(p, &maps);
     if (rc != 0) return rc;
   }
   p.tma = tma ? 1 : 0;
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  kernel<<<static_cast<unsigned>(blocks), THREADS, Layout<InT, PARTS>::SMEM, stream>>>(p, maps);
+  kernel<<<static_cast<unsigned>(blocks), THREADS, Layout<InT, PARTS, XP>::SMEM, stream>>>(p,
+                                                                                        maps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -802,39 +932,49 @@ int launch(Params p, Kernel kernel, cudaError_t attr, cudaStream_t stream) {
 inline int parts_of(const void* const w[3]) { return !w[0] ? 0 : !w[1] ? 1 : !w[2] ? 2 : 3; }
 
 // The pass terms a launch runs: those of its passes; at one pass (three
-// parts, integer lines only) the five of "highest"; 0 for a launch the
-// split kernels do not take -- BF16_PASS (one term: fold_bf16.cuh) among
-// them.  An integer sample of at most 16
-// bits is exactly x_hi + x_lo and the float32 operator's three parts carry
-// ~24 mantissa bits, so x_hi w_2, x_hi w_1, x_hi w_0 and (where a stage
-// holds a sample of 256 or more) x_lo w_1, x_lo w_0 give the one-pass
-// float32 product at float32 grade; float32 lines (above 16 bits) are
-// refused at one pass.
+// parts) the five of "highest" on integer lines and six on float32 lines;
+// 0 for a launch the split kernels do not take -- BF16_PASS (one term:
+// fold_bf16.cuh) among them.  The float32 operator's three parts carry ~24
+// mantissa bits.  An integer sample of at most 16 bits is exactly x_hi +
+// x_lo, so x_hi w_2, x_hi w_1, x_hi w_0 and (where a stage holds a sample of
+// 256 or more) x_lo w_1, x_lo w_0 give the one-pass float32 product at
+// float32 grade.  A float32 sample is exactly x_hi + x_mid + x_lo (pack3),
+// and the six terms x_i w_j with i + j <= 2 -- x_lo w_0, x_mid w_1, x_mid
+// w_0, x_hi w_2, x_hi w_1, x_hi w_0 -- give it at float32 grade (a stage
+// skips the x_lo group where its samples are exact in 16 bits, the x_mid
+// group too where they are exact in bf16).
 inline int terms(int in_kind, int passes, int parts) {
   if (passes == BF16_PASS) return 0;
   if (passes != 1) return passes;
-  return parts == 3 && (in_kind == IN_U8 || in_kind == IN_U16) ? 5 : 0;
+  if (parts != 3) return 0;
+  return in_kind == IN_FLOAT ? 6 : 5;
 }
 
-// The launch of K<InT, PARTS>::run (a struct template of the including
-// file) for in_kind (0 uint8, 1 uint16, 2 float32).
-template <template <typename, int> class K, int PARTS>
+// The launch of K<InT, PARTS, 2>::run (a struct template of the including
+// file: the kernel with two x parts) for in_kind (0 uint8, 1 uint16, 2
+// float32).
+template <template <typename, int, int> class K, int PARTS>
 int dispatch_input(int in_kind, const Params& p, cudaStream_t stream) {
   switch (in_kind) {
-    case IN_U8: return K<uint8_t, PARTS>::run(p, stream);
-    case IN_U16: return K<uint16_t, PARTS>::run(p, stream);
-    case IN_FLOAT: return K<float, PARTS>::run(p, stream);
+    case IN_U8: return K<uint8_t, PARTS, 2>::run(p, stream);
+    case IN_U16: return K<uint16_t, PARTS, 2>::run(p, stream);
+    case IN_FLOAT: return K<float, PARTS, 2>::run(p, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// ... and n_terms (terms(): 3 or 5 with 2 or 3 parts; any other is
+// ... and n_terms (terms(): 3 or 5 with 2 or 3 parts; with XP3 also 6,
+// K<float, 3, 3>, the three x parts of float32 lines; any other is
 // refused).
-template <template <typename, int> class K>
+template <template <typename, int, int> class K, bool XP3 = false>
 int dispatch(int in_kind, int n_terms, const Params& p, cudaStream_t stream) {
   switch (n_terms) {
     case 3: return dispatch_input<K, 2>(in_kind, p, stream);
     case 5: return dispatch_input<K, 3>(in_kind, p, stream);
+    case 6:
+      if constexpr (XP3)
+        if (in_kind == IN_FLOAT) return K<float, 3, 3>::run(p, stream);
+      break;
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,12 +1,13 @@
 // The prep kernels on Hopper's bf16 tensor cores (sm_90a): stages 1-3 of
 // the FFT path -- decode, the pass terms of _dot_split for y = x @ P
 // against bf16 operator parts, then the phasor epilogue (y cos, y sin) into
-// complex64 or a float32 y -- at every rung on uint8/uint16 lines.  The
+// complex64 or a float32 y -- at every rung on uint8/uint16 lines, and the
+// phase kernel's one pass on float32 lines too.  The
 // counterparts of
 //
 //   prep_split<EPI=PHASE>            _kernel_phase_split  (octproz_tpu/pallas/fused_prep.py:245-251)
 //   prep_split<EPI=REAL>             _kernel_real_split   (:254-258)
-//   prep_split<EPI=PHASE, PARTS=3>   _kernel_phase        (:228-235, integer lines)
+//   prep_split<EPI=PHASE, PARTS=3>   _kernel_phase        (:228-235; XP=3 on float32 lines)
 //   prep_split<EPI=REAL,  PARTS=3>   _kernel_real         (:238-242, integer lines)
 //
 // with InT in {uint8, uint16, float}, launched by prep_gemm_phase and
@@ -14,9 +15,12 @@
 // for uint8/uint16 lines.  At one pass the float32 operator arrives as its
 // three bf16 parts and the launch runs the five terms of "highest" (terms()
 // in fold_split.cuh): the float32 product at float32 grade for samples of at
-// most 16 bits.  float32 lines (samples above 16 bits) keep the float32-FMA
-// kernel of prep_gemm.cu at one pass; the input type alone picks the route,
-// and a float32 launch at one pass is refused here.  compute_dtype=
+// most 16 bits.  On float32 lines (samples above 16 bits) the phase
+// kernel's one pass splits x into three parts (x_hi + x_mid + x_lo, exact)
+// and runs their six terms (prep_split<EPI=PHASE, PARTS=3, XP=3>); the real
+// kernel keeps the float32-FMA kernel of prep_gemm.cu there, and its entry
+// here refuses a float32 launch at one pass.  The input type and the family
+// alone pick the route.  compute_dtype=
 // "bfloat16" (passes = BF16_PASS, one term) runs the persistent kernel of
 // prep_bf16.cu, and such a launch is refused here.
 //
@@ -48,13 +52,13 @@ namespace split {
 
 constexpr int COLS = 2 * BINS;  // operator columns per block: the halves (P, n0), (P, n0 + 64)
 
-template <typename InT, int PARTS, int EPI>
+template <typename InT, int PARTS, int XP, int EPI>
 __global__ void __launch_bounds__(THREADS, 1)
     prep_split(const __grid_constant__ Params p, const __grid_constant__ Maps maps) {
   extern __shared__ uint8_t smem_raw[];
   const Block blk = block_of<COLS>(p, smem_raw);
   float acc[64];  // columns n0 .. n0 + 63 in 0-31, n0 + 64 .. n0 + 127 in 32-63
-  if (!mainloop<InT, PARTS, COLS>(p, maps, blk.smem, blk.m0, blk.n0, acc)) return;
+  if (!mainloop<InT, PARTS, COLS, XP>(p, maps, blk.smem, blk.m0, blk.n0, acc)) return;
 
   const float* const tile = stage_sums(blk.smem, acc);
   const int warp = threadIdx.x / 32;
@@ -89,12 +93,12 @@ __global__ void __launch_bounds__(THREADS, 1)
 
 template <int EPI>
 struct Prep {
-  template <typename InT, int PARTS>
+  template <typename InT, int PARTS, int XP>
   struct K {
     static int run(const Params& p, cudaStream_t stream) {
-      const Kernel kernel = prep_split<InT, PARTS, EPI>;
-      static const cudaError_t attr = opt_in<InT, PARTS>(kernel);
-      return launch<InT, PARTS, COLS>(p, kernel, attr, stream);
+      const Kernel kernel = prep_split<InT, PARTS, XP, EPI>;
+      static const cudaError_t attr = opt_in<InT, PARTS, XP>(kernel);
+      return launch<InT, PARTS, COLS, XP>(p, kernel, attr, stream);
     }
   };
 };
@@ -120,15 +124,16 @@ extern "C" {
 
 // The tensor-core launches of prep_gemm_phase / prep_gemm_real
 // (prep_gemm.cu): w holds the operator's 2 or 3 bf16 parts, (n_in, n_out)
-// row-major, for 3 or 5 passes; at 1 pass on uint8/uint16 lines the float32
-// operator's three bf16 parts (5 terms).
+// row-major, for 3 or 5 passes; at 1 pass the float32 operator's three bf16
+// parts (5 terms on uint8/uint16 lines; 6 on float32 lines, the phase
+// kernel alone).
 int prep_split_phase(const void* raw, int in_kind, int bitshift, int passes,
                      const void* const w[3], const float* cos_row, const float* sin_row,
                      void* out, long long lines, int n_in, int n_out, void* stream) {
   split::Params p = split::params(raw, bitshift, w, out, lines, n_in, n_out);
   p.cos_row = cos_row;
   p.sin_row = sin_row;
-  return split::dispatch<split::Prep<PHASE>::K>(
+  return split::dispatch<split::Prep<PHASE>::K, true>(
       in_kind, split::terms(in_kind, passes, split::parts_of(w)), p,
       static_cast<cudaStream_t>(stream));
 }

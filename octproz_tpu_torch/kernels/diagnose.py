@@ -17,8 +17,10 @@ power limit and:
   (against the float32 product) and at the split rungs, on shifted and
   unshifted 12-bit samples, full 16-bit samples, float input and
   n_in = 1664, and the prep real kernel (bound ``fused_prep.PREP_REL_L2``)
-  on the same inputs with and without background removal in the operator
-  -- for the shipped kernel, ``one_chain`` (the same terms summed across
+  on the same inputs with and without background removal in the operator,
+  and B2 and B7 at one pass on float32 lines (``three_x_part_errors``:
+  24- and 32-bit samples and 16-bit values, the tensor cores with three x
+  parts) -- for the shipped kernel, ``one_chain`` (the same terms summed across
   n_in in one wgmma chain instead of folded into a float32 sum every
   64-sample stage; in the one-term kernel instead of every F samples, its
   tiles then wide at every n_in) and ``no_turns`` (the two warpgroups start
@@ -44,7 +46,8 @@ power limit and:
   kernel;
 * ``ms``: B1, B2, B5, B7 and B8 (one pass), B3, B4, B6, B9 and B10
   ("high") at the main path's shapes (one 131072-line buffer of shifted
-  12-bit samples), B2 on unshifted samples (five terms), B4 on uint8
+  12-bit samples), B2 and B7 on 24-bit float32 lines (six terms; B2 also
+  on 16-bit values as float32 lines: five), B2 on unshifted samples (five terms), B4 on uint8
   samples of the same shape, and B2 at bf16 with linear and fast-log
   scaling (what the log10 epilogue costs),
   for the shipped kernel, ``one_chain``, ``no_turns``, and the timing-only
@@ -80,6 +83,8 @@ from .. import bench
 from . import build
 from . import fused_prep as fp
 
+#: The float32-line rows on the tensor cores (three x parts, six terms).
+THREE_X_PART_KERNELS = ("depth_scale_f32lines", "prep_phase_f32lines")
 VARIANTS = {"shipped": 0, "one_chain": 1, "no_turns": 8, "no_loads": 2, "no_mma": 4,
             "no_loads_no_mma": 6, "wgmma_only": 50, "no_stores": 64}
 #: the variants whose output is right: their errors are read too
@@ -122,6 +127,8 @@ def variant(number: int):
 def _raw(kind: str, lines: int, n_in: int, g, dev):
     if kind == "f32":
         return torch.randint(0, 1 << 24, (lines, n_in), generator=g, device=dev).float()
+    if kind == "f32w":
+        return torch.randint(0, 1 << 32, (lines, n_in), generator=g, device=dev).float()
     if kind == "u16f":
         return torch.randint(-32768, 32768, (lines, n_in), dtype=torch.int16, generator=g,
                              device=dev).view(torch.uint16)
@@ -159,6 +166,48 @@ def errors(dev) -> dict:
         out[f"prep_real_split {name}, {passes} passes"] = fp.prep_error(
             fp.prep_real(raw, parts, bitshift=shift),
             fp.prep_real_plain(raw, parts, bitshift=shift))
+    out.update(three_x_part_errors(dev))
+    return out
+
+
+#: (name, samples, display floor dB) of the three-x-part cases: float32
+#: lines of 24 and 32 bits, and 16-bit values as float32 (no x_lo)
+THREE_X_PART_CASES = (("24-bit", "f32", 96.0), ("32-bit", "f32w", 144.0),
+                      ("16-bit values", "u16f", 48.0))
+
+
+def three_x_part_errors(dev) -> dict:
+    """B2 and B7 at one pass on float32 lines (the tensor cores with three x
+    parts) against their plain versions on 4096 lines of 1024 samples: B2's
+    magnitude sqrt(re^2 + im^2) as a relative L2 error (linear scaling, no
+    FPN mean) and its log scale (``fused_prep.scale_error`` over the 60 dB
+    from the samples' display floor), B7's spectra with and without
+    background removal (``fused_prep.prep_error``)."""
+    out = {}
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    cv = _curves(1024, bench.bench_config(), dev)
+    ops = [fp._operator_parts(w, "default") for w in (cv.depth_op_re, cv.depth_op_im)]
+    zero = torch.zeros((2, 512), device=dev)
+    preps = {bg: _curves(1024, bench.fft_config(background_removal=bg), dev) for bg in (False, True)}
+    for name, kind, floor in THREE_X_PART_CASES:
+        raw = _raw(kind, 4096, 1024, g, dev).float()
+        mean2 = torch.randn((2, 512), generator=g, device=dev) * 50.0
+        a, b = fp._scale_affine(True, 512, floor, floor + 60.0, 0.0, 1.0)
+        kw = dict(bitshift=False, log_scaling=True, a=a, b=b)
+        lin = dict(bitshift=False, log_scaling=False, a=1.0, b=0.0)
+        rms, worst, ok = fp.scale_error(fp.fold_depth_scale(raw, *ops, mean2, **kw),
+                                        fp.depth_scale_plain(raw, *ops, mean2, **kw))
+        mag = fp.planar_error([fp.fold_depth_scale(raw, *ops, zero, **lin)],
+                              [fp.depth_scale_plain(raw, *ops, zero, **lin)])
+        out[f"depth_scale float32 lines, {name}"] = {"rms": rms, "max": worst, "ok": ok,
+                                                     "magnitude_rel_l2": mag}
+        for bg, pcv in preps.items():
+            one = fp._operator_parts(pcv.prep_operator, "default")
+            rows = (pcv.phase.real.contiguous(), pcv.phase.imag.contiguous())
+            out[f"prep_phase float32 lines, {name}{', background' if bg else ''}"] = \
+                fp.prep_error(fp.prep_phase(raw, one, *rows, bitshift=False),
+                              fp.prep_phase_plain(raw, one, *rows, bitshift=False))
     return out
 
 
@@ -388,7 +437,7 @@ def long_times(dev, n: int = 4096) -> dict:
 
 def times(dev) -> dict:
     out = {}
-    for name in bench.FOLD_KERNELS + bench.PREP_KERNELS:
+    for name in bench.FOLD_KERNELS + bench.PREP_KERNELS + THREE_X_PART_KERNELS:
         kernel = bench._kernel_cases(name, dev)[0]
         out[name] = bench.cuda_ms(kernel, 10, 2)
     cv = _curves(1024, bench.bench_config(), dev)
@@ -398,6 +447,11 @@ def times(dev) -> dict:
     raw16 = bench.random_buffers(bench.FULL_ACQ, 1, dev, seed=5).reshape(-1, 1024)
     out["depth_scale unshifted (five terms)"] = bench.cuda_ms(
         lambda: fp.fold_depth_scale(raw16, *one, mean2, **kw), 10, 2)
+    # 16-bit values as float32 lines: the three-x-part kernel without x_lo
+    raw16f = _raw("u16f", bench.FULL_ACQ.ascans_per_buffer, 1024,
+                  torch.Generator(device=dev), dev).float()
+    out["depth_scale float32 lines of 16-bit values (five terms)"] = bench.cuda_ms(
+        lambda: fp.fold_depth_scale(raw16f, *one, mean2, **kw), 10, 2)
     parts = [fp._operator_parts(w, "high") for w in (cv.depth_op_re, cv.depth_op_im)]
     raw8 = torch.randint(0, 256, (bench.FULL_ACQ.ascans_per_buffer, 1024), dtype=torch.uint8,
                          device=dev)

@@ -26,9 +26,11 @@ This module holds, for each of the ten kernel families:
   ``csrc/fold_concat.cu`` and ``csrc/prep_gemm.cu``; every rung on
   uint8/uint16 lines runs the bf16 tensor-core kernels of
   ``csrc/fold_split.cu`` and ``csrc/prep_split.cu`` -- the one-pass rung as
-  three bf16 parts of the float32 operator (:class:`OnePass`) -- and the
-  one-pass rung on float32 lines the float32-FMA template on the CUDA
-  cores; ``compute_dtype="bfloat16"`` runs the persistent one-term kernel
+  three bf16 parts of the float32 operator (:class:`OnePass`) -- and so
+  does the one-pass rung on float32 lines of the families in
+  :data:`FLOAT_LINE_TENSOR_CORE` (x as three bf16 parts, six terms); the
+  other families' one pass on float32 lines runs the float32-FMA template
+  on the CUDA cores; ``compute_dtype="bfloat16"`` runs the persistent one-term kernel
   of ``csrc/fold_bf16.cuh`` with x rounded to nearest and one bf16
   operator part, on every input type -- the fold families (``depth``,
   ``depth_scale``, ``depth_scale_concat``) in ``csrc/fold_bf16.cu``, the
@@ -95,10 +97,19 @@ LAUNCHES = {"depth": 0, "depth_split": 0, "depth_scale": 0,
             "depth_scale_concat_split": 0, "prep_phase": 0, "prep_phase_split": 0,
             "prep_real": 0, "prep_real_split": 0}
 
+#: The one-pass families whose float32 lines (samples above 16 bits) run on
+#: the tensor cores: x split into three bf16 parts (x_hi + x_mid + x_lo,
+#: exact), six wgmma terms against the float32 operator's three parts
+#: (``csrc/fold_split.cuh``, ``pack3``).  The others keep the float32-FMA
+#: kernel for float32 lines.
+FLOAT_LINE_TENSOR_CORE = ("depth_scale", "prep_phase")
+
 #: The one-pass launches of every family by route: ``tensor_core``
-#: (uint8/uint16 lines: bf16 wgmma on the float32 operator's three parts),
-#: ``simt`` (float32 lines: the float32-FMA kernel) -- at float32 compute
-#: the input type alone picks between those two -- or ``tensor_core_bf16``
+#: (uint8/uint16 lines, and float32 lines of :data:`FLOAT_LINE_TENSOR_CORE`:
+#: bf16 wgmma on the float32 operator's three parts), ``simt`` (float32
+#: lines of the other families: the float32-FMA kernel) -- at float32
+#: compute the input type and the family alone pick between those two -- or
+#: ``tensor_core_bf16``
 #: (``compute_dtype="bfloat16"``, any input type: x rounded to bf16, one
 #: wgmma term against the one rounded bf16 operator part: for ``depth``,
 #: ``depth_scale`` and ``depth_scale_concat`` the persistent one-term
@@ -336,6 +347,19 @@ class OnePass(tuple):
     @functools.cached_property
     def split(self) -> Tuple[torch.Tensor, ...]:
         return _split_bf16(self[0], _ONE_PASS_PARTS)
+
+
+def x_parts(x: torch.Tensor) -> int:
+    """The bf16 parts of x that are not all zero: 1 where x is exact in
+    bf16 (x_hi alone), 2 where x - x_hi is (x_hi + x_lo: samples of at most
+    16 significant bits), 3 otherwise (x_hi + x_mid + x_lo, exact for any
+    float32 x).  The tensor-core kernels skip the terms of the parts a
+    stage's tile does not need; :func:`bench.kernel_bound` counts them."""
+    hi = _bf16_trunc(x)
+    if torch.equal(x, hi):
+        return 1
+    rem = x - hi
+    return 2 if torch.equal(rem, _bf16_trunc(rem)) else 3
 
 
 def _dot_split(x: torch.Tensor, w_parts: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -675,15 +699,16 @@ def _kernel_operands(raw2d, axes, family: str):
     ``compute_dtype="bfloat16"`` (:func:`operator_rung` made that form): the
     tensor cores, x rounded to bf16 and one term, for every input type.  The
     one-pass rung runs on the tensor cores against the float32 operator's
-    three bf16 parts for uint8/uint16 lines, and on the float32-FMA kernel
-    for float32 lines (samples above 16 bits, which x_hi + x_lo cannot
-    carry): the input type alone decides, never a failed build or launch."""
+    three bf16 parts for uint8/uint16 lines (x_hi + x_lo) and for float32
+    lines of :data:`FLOAT_LINE_TENSOR_CORE` (x_hi + x_mid + x_lo), and on the
+    float32-FMA kernel for float32 lines of the other families: the input
+    type and the family alone decide, never a failed build or launch."""
     passes = 2 * len(axes[0]) - 1
     if passes > 1:
         return passes, axes, family + "_split", None
     if axes[0][0].dtype == torch.bfloat16:
         return _BF16_PASS, axes, family, "tensor_core_bf16"
-    if raw2d.dtype == torch.float32:
+    if raw2d.dtype == torch.float32 and family not in FLOAT_LINE_TENSOR_CORE:
         return 1, axes, family, "simt"
     split = [w.split if isinstance(w, OnePass) else _split_bf16(w[0], _ONE_PASS_PARTS)
              for w in axes]

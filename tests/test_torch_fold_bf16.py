@@ -15,7 +15,8 @@ parts every F = 256 samples) against the JAX package's bf16
 ``fused_depth_transform`` in
 interpret mode at 2048- and 4096-sample lines; the bench's ``depth_bf16``
 row and ``*_f32lines`` names (B1/B2/B5/B7/B8 at one pass on 24-bit samples
-as float32 lines: the float32-FMA kernels) through ``bench._kernel_cases``
+as float32 lines: B2 and B7 on the tensor cores as three x parts, the others
+on the float32-FMA kernels) through ``bench._kernel_cases``
 with the launches replaced by stand-ins that take the wrapper's route and
 run the plain version, beside ``bench.kernel_bound`` for those rows.  The
 agreement of B1/B2/B5 at bf16 with the JAX package's Pallas kernels is
@@ -181,12 +182,16 @@ def small_bench(monkeypatch):
 @pytest.mark.parametrize("name", bench.F32_LINE_KERNELS)
 def test_f32line_cases_take_the_simt_route(small_bench, name):
     """Each ``*_f32lines`` case feeds 24-bit samples as float32 lines (no
-    bitshift): its launch takes the float32-FMA route, equals its plain
-    version, and its library call is the float32 product of the same x by
-    the float32 operator [W_re | W_im] (or P)."""
+    bitshift): its launch takes the float32-FMA route -- the tensor-core
+    route with three x parts for ``depth_scale`` and ``prep_phase``
+    (``fused_prep.FLOAT_LINE_TENSOR_CORE``) --, equals its plain version,
+    and its library call is the float32 product of the same x by the
+    float32 operator [W_re | W_im] (or P); its bound counts the six terms
+    of three x parts on the tensor-core route."""
     kernel, plain, library, bound = bench._kernel_cases(name, "cpu")
     got, want = kernel(), plain()
-    assert small_bench == ["simt"]
+    family = name[:-len("_f32lines")]
+    assert small_bench == ["tensor_core" if family in tfp.FLOAT_LINE_TENSOR_CORE else "simt"]
     for g, w in zip(*((t if isinstance(t, tuple) else (t,)) for t in (got, want))):
         assert g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
     y = library()
@@ -195,7 +200,7 @@ def test_f32line_cases_take_the_simt_route(small_bench, name):
     assert tuple(y.shape) == (SMALL.ascans_per_buffer, n_out * (1 if name.startswith("prep")
                                                                  else 2))
     assert bound == bench.kernel_bound(name, lines=SMALL.ascans_per_buffer, n_in=256,
-                                       n_out=n_out, in_itemsize=4, x_lo_zero=False)
+                                       n_out=n_out, in_itemsize=4, x_parts=3)
 
 
 def test_float32_lines_are_24_bit_samples():
@@ -210,21 +215,27 @@ def test_float32_lines_are_24_bit_samples():
 
 @pytest.mark.parametrize("name", bench.F32_LINE_KERNELS)
 def test_kernel_bound_of_the_f32line_rows(name):
-    """At the main path's shapes on float32 lines: one float32 product of
-    275 GFLOP at 67 TFLOP/s, 4.103 ms, bound by its operations; bytes are
-    the float32 lines, the float32 operator (two per axis for the fold
-    families' re and im, one P) and the output."""
+    """At the main path's shapes on float32 lines of 24-bit samples (three
+    x parts): one float32 product of 275 GFLOP at 67 TFLOP/s, 4.103 ms, or
+    for ``depth_scale`` and ``prep_phase`` six bf16 terms of it at 989
+    TFLOP/s, 1.668 ms, bound by its operations; bytes are the float32
+    lines, the operator (the float32 one, or its three bf16 parts; two for
+    the fold families' re and im, one P) and the output."""
     n_out = 1024 if name.startswith("prep") else 512
-    got = bench.kernel_bound(name, lines=131072, n_in=1024, n_out=n_out, in_itemsize=4)
-    assert got["bound_ms"] == pytest.approx(4.1027, abs=1e-4)
+    got = bench.kernel_bound(name, lines=131072, n_in=1024, n_out=n_out, in_itemsize=4,
+                             x_parts=3)
+    family = name[:-len("_f32lines")]
+    tensor_core = family in tfp.FLOAT_LINE_TENSOR_CORE
+    assert got["bound_ms"] == pytest.approx(1.6676 if tensor_core else 4.1027, abs=1e-4)
     assert got["bound_by"] == "operations"
-    assert got["flops"] == 2 * 131072 * 1024 * 1024
+    assert got["flops"] == (6 if tensor_core else 1) * 2 * 131072 * 1024 * 1024
     gemms = 1 if name.startswith("prep") else 2
     out = {"depth": 2 * 131072 * 512 * 4, "depth_scale": 131072 * 512 * 4 + 2 * 512 * 4,
            "depth_scale_concat": 131072 * 512 * 4 + 2 * 512 * 4,
            "prep_phase": 131072 * 1024 * 8 + 2 * 1024 * 4,
-           "prep_real": 131072 * 1024 * 4}[name[:-len("_f32lines")]]
-    assert got["bytes"] == 131072 * 1024 * 4 + gemms * 1024 * n_out * 4 + out
+           "prep_real": 131072 * 1024 * 4}[family]
+    op = 3 * 1024 * n_out * 2 if tensor_core else 1024 * n_out * 4
+    assert got["bytes"] == 131072 * 1024 * 4 + gemms * op + out
 
 
 def test_bf16_depth_case_takes_the_bf16_route(small_bench):

@@ -587,20 +587,67 @@ def test_cuda_kernel_matches_plain(cuda_device, np_rng, n_in, lines, in_dtype, b
 @pytest.mark.cuda
 def test_cuda_one_pass_route_follows_the_input_type(cuda_device, np_rng):
     """At one pass uint8/uint16 lines run on the tensor cores and float32
-    lines on the float32-FMA kernel; both count as ``depth``; full 16-bit
-    samples (x_lo in every stage) stay within the planar bound."""
+    lines on the float32-FMA kernel for the planar kernel (``depth``) and
+    on the tensor cores with three x parts for the scaled kernel
+    (``depth_scale``); each counts as its family; full 16-bit samples (x_lo
+    in every stage; as float32 lines x_mid, not x_lo) and 24-bit float32
+    lines (all three x parts) stay within the planar and the scale bounds
+    (display floor 48 and 96 dB, 20 log10 of the samples' range over 8-bit
+    values)."""
     wre, wim = (tfp._operator_parts(torch.from_numpy(w).to(cuda_device), "default")
                 for w in _operators())
     full = torch.from_numpy(np_rng.integers(0, 1 << 16, size=(300, N)).astype(np.uint16))
-    for raw, route in ((full.to(cuda_device), "tensor_core"),
-                       (full.to(cuda_device).float(), "simt")):
+    wide = torch.from_numpy(np_rng.integers(0, 1 << 24, size=(300, N)).astype(np.float32))
+    mean2 = torch.from_numpy(np_rng.normal(0, 50.0, size=(2, N // 2)).astype(np.float32))
+    mean2 = mean2.to(cuda_device)
+    for raw, route, scale_route, floor_db in (
+            (full.to(cuda_device), "tensor_core", "tensor_core", 48.0),
+            (full.to(cuda_device).float(), "simt", "tensor_core", 48.0),
+            (wide.to(cuda_device), "simt", "tensor_core", 96.0)):
         tfp.reset_launch_counts()
         got = tfp.fold_depth(raw, wre, wim, bitshift=False)
+        a, b = tfp._scale_affine(True, N // 2, floor_db, floor_db + 60.0, 0.0, 1.0)
+        kw = dict(bitshift=False, log_scaling=True, a=a, b=b)
+        mag = tfp.fold_depth_scale(raw, wre, wim, mean2, **kw)
         torch.cuda.synchronize()
-        assert tfp.LAUNCHES["depth"] == 1 and tfp.LAUNCHES["depth_split"] == 0
+        assert tfp.LAUNCHES["depth"] == tfp.LAUNCHES["depth_scale"] == 1
+        assert tfp.LAUNCHES["depth_split"] == tfp.LAUNCHES["depth_scale_split"] == 0
         assert tfp.ONE_PASS_ROUTES["depth"] == {**{"tensor_core": 0, "simt": 0, "tensor_core_bf16": 0}, route: 1}
+        assert tfp.ONE_PASS_ROUTES["depth_scale"] == \
+            {**{"tensor_core": 0, "simt": 0, "tensor_core_bf16": 0}, scale_route: 1}
         err = tfp.planar_error(got, tfp.depth_plain(raw, wre, wim, bitshift=False))
         assert err <= tfp.PLANAR_REL_L2, (route, err)
+        _scale_close(mag, tfp.depth_scale_plain(raw, wre, wim, mean2, **kw).cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [N, 1001])
+def test_cuda_three_x_parts_match_plain(cuda_device, np_rng, n):
+    """B2 and B7 at one pass on 24-bit float32 lines (the tensor cores with
+    three x parts) against their plain versions on 299 lines: n = 256 reads
+    the raw tile by TMA, n = 1001 (rows not 16-byte aligned) through the
+    element-wise producer, which writes TMA's swizzled layout; display
+    floor 96 dB (20 log10 of 2^24 over 2^8)."""
+    raw = torch.from_numpy(np_rng.integers(0, 1 << 24, size=(299, n)).astype(np.float32))
+    raw = raw.to(cuda_device)
+    wre, wim = (tfp._operator_parts(torch.from_numpy(w).to(cuda_device), "default")
+                for w in _operators(n))
+    half = wre[0].shape[1]
+    mean2 = torch.from_numpy(np_rng.normal(0, 50.0, size=(2, half)).astype(np.float32))
+    a, b = tfp._scale_affine(True, half, 96.0, 156.0, 0.0, 1.0)
+    kw = dict(bitshift=False, log_scaling=True, a=a, b=b)
+    tfp.reset_launch_counts()
+    got = tfp.fold_depth_scale(raw, wre, wim, mean2.to(cuda_device), **kw)
+    op, phase = _prep_operator(n, background_removal=True)
+    one = tfp._operator_parts(torch.from_numpy(op).to(cuda_device), "default")
+    rows = tuple(r.to(cuda_device) for r in _rows(phase))
+    spectra = tfp.prep_phase(raw, one, *rows, bitshift=False)
+    torch.cuda.synchronize()
+    assert tfp.ONE_PASS_ROUTES["depth_scale"]["tensor_core"] == 1
+    assert tfp.ONE_PASS_ROUTES["prep_phase"]["tensor_core"] == 1
+    _scale_close(got, tfp.depth_scale_plain(raw, wre, wim, mean2.to(cuda_device), **kw)
+                 .cpu().numpy())
+    _prep_close(spectra, tfp.prep_phase_plain(raw, one, *rows, bitshift=False).cpu().numpy())
 
 
 @pytest.mark.cuda
@@ -891,21 +938,25 @@ def test_cuda_prep_kernel_matches_plain(cuda_device, np_rng, n_in, lines, in_dty
 @pytest.mark.cuda
 def test_cuda_prep_one_pass_route_follows_the_input_type(cuda_device, np_rng):
     """At one pass the prep kernels run on the tensor cores for uint16
-    lines and on the float32-FMA kernel for float32 lines, counted as
-    ``prep_phase`` / ``prep_real`` with their route."""
+    lines; on float32 lines (16-bit and 24-bit values) the phase kernel
+    runs there with three x parts and the real kernel on the float32-FMA
+    kernel, counted as ``prep_phase`` / ``prep_real`` with their route."""
     op, phase = _prep_operator(background_removal=True)
     one = tfp._operator_parts(torch.from_numpy(op).to(cuda_device), "default")
     rows = tuple(r.to(cuda_device) for r in _rows(phase))
     full = torch.from_numpy(np_rng.integers(0, 1 << 16, size=(300, N)).astype(np.uint16))
-    for raw, route in ((full.to(cuda_device), "tensor_core"),
-                       (full.to(cuda_device).float(), "simt")):
+    wide = torch.from_numpy(np_rng.integers(0, 1 << 24, size=(300, N)).astype(np.float32))
+    for raw, route, real_route in ((full.to(cuda_device), "tensor_core", "tensor_core"),
+                                   (full.to(cuda_device).float(), "tensor_core", "simt"),
+                                   (wide.to(cuda_device), "tensor_core", "simt")):
         tfp.reset_launch_counts()
         got = tfp.prep_phase(raw, one, *rows, bitshift=False)
         real = tfp.prep_real(raw, one, bitshift=False)
         torch.cuda.synchronize()
         assert tfp.LAUNCHES["prep_phase"] == tfp.LAUNCHES["prep_real"] == 1
         assert tfp.ONE_PASS_ROUTES["prep_phase"] == {**{"tensor_core": 0, "simt": 0, "tensor_core_bf16": 0}, route: 1}
-        assert tfp.ONE_PASS_ROUTES["prep_real"] == {**{"tensor_core": 0, "simt": 0, "tensor_core_bf16": 0}, route: 1}
+        assert tfp.ONE_PASS_ROUTES["prep_real"] == \
+            {**{"tensor_core": 0, "simt": 0, "tensor_core_bf16": 0}, real_route: 1}
         err = tfp.prep_error(got, tfp.prep_phase_plain(raw, one, *rows, bitshift=False))
         assert err <= tfp.PREP_REL_L2, (route, err)
         assert tfp.prep_error(real, tfp.prep_real_plain(raw, one, bitshift=False)) \

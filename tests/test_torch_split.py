@@ -22,9 +22,15 @@ At the default rung the plain version is the semantics, one float32 product
 per axis, and not a replay of the kernel's terms: the staged three-part terms
 are held against it for integer samples of up to 16 bits, its own controls
 (two of the three parts; no x_lo) fail, and float32 lines above 16 bits miss
-the bound through the split, which is why they keep the float32-FMA kernel
-(:func:`simt`).  The same holds for the concat kernel (two views of the
-wide operator's three parts) and the prep kernels at one pass.
+the bound through the two-part split of x.  The same holds for the concat
+kernel (two views of the wide operator's three parts) and the prep kernels
+at one pass.  Float32 lines of the scaled two-operator kernel (B2) and the
+phase kernel (B7) at one pass split x into three parts (:func:`staged3`:
+x_lo w_0, x_mid w_1, x_mid w_0, x_hi w_2, x_hi w_1, x_hi w_0 per stage, the
+x_lo group skipped where a tile is exact in 16 bits and the x_mid group too
+where it is exact in bf16), held against the plain versions and the JAX
+package at ``bit_depth=24``; without x_lo w_0 (five terms) they fail.  The
+other families keep the float32-FMA kernel for float32 lines (:func:`simt`).
 """
 
 import dataclasses
@@ -53,13 +59,19 @@ def _operators(n):
     return cv.depth_op_re, cv.depth_op_im
 
 
+#: Float32 lines by the bits of their samples: 24 ("f32") and 32 ("f32w")
+#: bits, and 16-bit values as float32 ("f16": x_lo zero).
+FLOAT_BITS = {"f32": 24, "f32w": 32, "f16": 16}
+
+
 def _input(kind, lines, n, seed=11):
     """(raw, bitshift): shifted 12-bit samples (x_lo zero, as on the main
-    path), unshifted 12-bit, full 16-bit ("u16f"), uint8, or 24-bit float
-    input decoded before the kernel."""
+    path), unshifted 12-bit, full 16-bit ("u16f"), uint8, or float input
+    decoded before the kernel (:data:`FLOAT_BITS`)."""
     rng = np.random.default_rng(seed)
-    if kind == "f32":
-        return torch.from_numpy(rng.integers(0, 1 << 24, size=(lines, n)).astype(np.float32)), False
+    if kind in FLOAT_BITS:
+        vals = rng.integers(0, 1 << FLOAT_BITS[kind], size=(lines, n), dtype=np.int64)
+        return torch.from_numpy(vals.astype(np.float32)), False
     if kind == "u8":
         return torch.from_numpy(rng.integers(0, 256, size=(lines, n)).astype(np.uint8)), False
     if kind == "u16f":
@@ -89,6 +101,42 @@ def staged(x, parts, vote=True):
     return acc
 
 
+def x_split3(x):
+    """x as three bf16-exact parts, each the mask truncation of what the
+    parts above leave (``pack3`` in ``csrc/fold_split.cuh``): x_hi + x_mid +
+    x_lo == x for any float32 x."""
+    hi = tfp._bf16_trunc(x)
+    mid = tfp._bf16_trunc(x - hi)
+    return hi, mid, x - hi - mid
+
+
+def staged3(x, parts, vote=True, x_lo_terms=True):
+    """The three-x-part kernel's sum (float32 lines at one pass, against the
+    float32 operator's three bf16 ``parts``): per 64-sample stage and
+    64-line group, x_lo w_0, then x_mid w_1, x_mid w_0, then x_hi w_2, x_hi
+    w_1, x_hi w_0 into one float32 partial sum, added to the running sum.
+    The vote skips the x_lo group where the tile's x_lo is zero, the x_mid
+    group too where its x_mid is.  ``x_lo_terms=False`` drops x_lo w_0 (the
+    five-term control)."""
+    hi, mid, lo = x_split3(x)
+    w = [p.to(torch.float32) for p in parts]
+    acc = torch.zeros((x.shape[0], w[0].shape[1]))
+    for k0 in range(0, x.shape[1], STAGE):
+        ks = slice(k0, k0 + STAGE)
+        for m0 in range(0, x.shape[0], GROUP):
+            ms = slice(m0, m0 + GROUP)
+            has_mid = not vote or bool(mid[ms, ks].ne(0).any())
+            has_lo = has_mid and (not vote or bool(lo[ms, ks].ne(0).any())) and x_lo_terms
+            terms = ([lo[ms, ks] @ w[0][ks]] if has_lo else []) \
+                + ([mid[ms, ks] @ w[j][ks] for j in (1, 0)] if has_mid else []) \
+                + [hi[ms, ks] @ w[j][ks] for j in (2, 1, 0)]
+            part = terms[0]
+            for t in terms[1:]:
+                part = part + t
+            acc[ms] = acc[ms] + part
+    return acc
+
+
 def simt(x, w):
     """The float32-FMA kernel's sum of ``x @ w``: one float32 sum over the
     contraction, sample by sample."""
@@ -98,21 +146,24 @@ def simt(x, w):
     return acc
 
 
-def kernel_sums(raw, x, parts):
-    """The sums of the kernel that a launch on (raw, parts) runs: the staged
-    terms of the bf16 parts -- at one pass the float32 operator's three, for
-    integer lines -- or, at one pass on float32 lines, the float32-FMA sum."""
+def kernel_sums(raw, x, parts, family):
+    """The sums of the kernel of ``family`` that a launch on (raw, parts)
+    runs: the staged terms of the bf16 parts -- at one pass the float32
+    operator's three, for integer lines, and for float32 lines of
+    ``fused_prep.FLOAT_LINE_TENSOR_CORE`` with three x parts -- or, at one
+    pass on float32 lines of the other families, the float32-FMA sum.  The
+    route is the wrapper's own (``fused_prep._kernel_operands``)."""
     if isinstance(parts, tfp.OnePass):
-        if raw.dtype == torch.float32:
+        if tfp._kernel_operands(raw, (parts,), family)[3] == "simt":
             return simt(x, parts[0])
-        parts = parts.split
+        return (staged3 if raw.dtype == torch.float32 else staged)(x, parts.split)
     return staged(x, parts)
 
 
-def _staged_scale(x, wre, wim, mean2, a, b, raw=None, fast_log=False):
+def _staged_scale(x, wre, wim, mean2, a, b, raw=None, fast_log=False, family="depth_scale"):
     raw = x if raw is None else raw
-    re = kernel_sums(raw, x, wre) - mean2[0:1]
-    im = kernel_sums(raw, x, wim) - mean2[1:2]
+    re = kernel_sums(raw, x, wre, family) - mean2[0:1]
+    im = kernel_sums(raw, x, wim, family) - mean2[1:2]
     return tfp._scale_epilogue(re * re + im * im, log_scaling=True, a=a, b=b,
                                fast_log=fast_log)
 
@@ -135,7 +186,7 @@ def test_staged_order_within_the_planar_bound(precision, kind, n, lines):
     wre, wim = (tfp._operator_parts(w, precision) for w in _operators(n))
     raw, bitshift = _input(kind, lines, n)
     x = tfp._decode_block(raw, bitshift)
-    err = tfp.planar_error((kernel_sums(raw, x, wre), kernel_sums(raw, x, wim)),
+    err = tfp.planar_error([kernel_sums(raw, x, w, "depth") for w in (wre, wim)],
                            tfp.depth_plain(raw, wre, wim, bitshift=bitshift))
     assert err <= tfp.PLANAR_REL_L2, err
 
@@ -209,10 +260,12 @@ def test_default_rung_controls_fail_under_the_staged_order(epi, control):
 @pytest.mark.parametrize("epi", ["planar", "scale", "concat"])
 def test_float_lines_above_16_bits_miss_the_bound_through_the_split(epi):
     """x_hi + x_lo keeps 16 bits of a sample: 24-bit float32 lines through
-    the three-part terms miss the one-pass rung's bounds, so that input stays
-    on the float32-FMA kernel, which holds them; for the concat kernel the
-    terms of the two views of the wide operator's parts, and the float32-FMA
-    sum over the two views of the wide float32 operator."""
+    the two-x-part terms miss the one-pass rung's bounds, which is why the
+    kernels that take float32 lines at one pass either split x in three
+    (the scaled kernel: :func:`staged3`) or keep the float32-FMA kernel (the
+    planar and the concat kernel), and either holds them; for the concat
+    kernel the terms of the two views of the wide operator's parts, and the
+    float32-FMA sum over the two views of the wide float32 operator."""
     ops = [tfp._operator_parts(w, "default") for w in _operators(256)]
     raw, _ = _input("f32", 200, 256)
     if epi == "concat":
@@ -224,7 +277,8 @@ def test_float_lines_above_16_bits_miss_the_bound_through_the_split(epi):
                                      want)
         assert not ok and rms > 2 * tfp.SCALE_RMS, rms
         sums = [tfp.OnePass(view[0]) for view in concat_views(wide)]
-        assert tfp.scale_error(_staged_scale(raw, *sums, mean2, a, b), want)[2]
+        assert tfp.scale_error(_staged_scale(raw, *sums, mean2, a, b,
+                                             family="depth_scale_concat"), want)[2]
     elif epi == "planar":
         want = tfp.depth_plain(raw, *ops, bitshift=False)
         assert tfp.planar_error([staged(raw, w.split) for w in ops], want) > 2 * tfp.PLANAR_REL_L2
@@ -235,6 +289,90 @@ def test_float_lines_above_16_bits_miss_the_bound_through_the_split(epi):
         rms, _, ok = tfp.scale_error(_staged_scale(raw, *[w.split for w in ops], mean2, a, b), want)
         assert not ok and rms > 2 * tfp.SCALE_RMS, rms
         assert tfp.scale_error(_staged_scale(raw, *ops, mean2, a, b), want)[2]
+
+
+def _scale_f64(x, ops, mean2, a, b):
+    """The scaled image of the float32 operators' product in float64,
+    rounded once to float32 before the log."""
+    m = mean2.double()
+    re = x.double() @ ops[0][0].double() - m[0:1]
+    im = x.double() @ ops[1][0].double() - m[1:2]
+    return tfp._scale_epilogue((re * re + im * im).float(), log_scaling=True, a=a, b=b)
+
+
+@pytest.mark.parametrize("kind", ["f32", "f32w", "f16"])
+@pytest.mark.parametrize("n,lines", [(256, 200), (320, 130), (1024, 130)])
+def test_three_x_parts_within_the_scale_bounds(kind, n, lines):
+    """The scaled kernel's one pass on float32 lines (B2): the six terms of
+    three x parts (five where a stage's samples are exact in 16 bits, as
+    "f16" is) against depth_scale_plain within the scale bounds, on 24- and
+    32-bit samples; n = 320 ends on a partial stage, 130 and 200 lines on a
+    partial 64-line group.  The route is the wrapper's, and the staged sum
+    stands at least as close to the float64 product as the plain version
+    does."""
+    ops = [tfp._operator_parts(w, "default") for w in _operators(n)]
+    raw, _ = _input(kind, lines, n)
+    assert tfp._kernel_operands(raw, ops, "depth_scale")[3] == "tensor_core"
+    mean2, a, b = _scale_args(n // 2)
+    got = _staged_scale(raw, *ops, mean2, a, b)
+    want = tfp.depth_scale_plain(raw, *ops, mean2, bitshift=False, log_scaling=True, a=a, b=b)
+    rms, worst, ok = tfp.scale_error(got, want)
+    assert ok, (rms, worst)
+    exact = _scale_f64(raw, ops, mean2, a, b)
+    assert tfp.scale_error(got, exact)[0] <= tfp.scale_error(want, exact)[0] + tfp.SCALE_RMS / 10
+
+
+@pytest.mark.parametrize("epi", ["scale", "phase"])
+@pytest.mark.parametrize("kind", ["f32", "f32w"])
+def test_three_x_parts_five_term_control_fails(epi, kind):
+    """Control: the three-x-part kernel without x_lo w_0 (five terms) fails
+    the bounds against the float32 product on 24- and 32-bit lines, scaled
+    (B2) and phase (B7, with background removal)."""
+    raw, _ = _input(kind, 200, 256)
+    if epi == "scale":
+        ops = [tfp._operator_parts(w, "default") for w in _operators(256)]
+        mean2, a, b = _scale_args(128)
+        re, im = (staged3(raw, w.split, x_lo_terms=False) - mean2[i:i + 1]
+                  for i, w in enumerate(ops))
+        got = tfp._scale_epilogue(re * re + im * im, log_scaling=True, a=a, b=b)
+        rms, _, ok = tfp.scale_error(got, tfp.depth_scale_plain(
+            raw, *ops, mean2, bitshift=False, log_scaling=True, a=a, b=b))
+        assert not ok and rms > 2 * tfp.SCALE_RMS, rms
+    else:
+        op, rows = _prep_operator(256, True)
+        one = tfp._operator_parts(op, "default")
+        y = staged3(raw, one.split, x_lo_terms=False)
+        err = tfp.prep_error(torch.complex(y * rows[0], y * rows[1]),
+                             tfp.prep_phase_plain(raw, one, *rows, bitshift=False))
+        assert err > 2 * tfp.PREP_REL_L2, err
+
+
+@pytest.mark.parametrize("kind", ["f16", "u16f"])
+def test_three_x_parts_vote_changes_no_bit(kind):
+    """16-bit values as float32 lines have no x_lo, 8-bit ones no x_mid
+    either: the votes skip those groups and the sums are bit for bit those
+    of all six terms (adding exact zeros changes no sum)."""
+    wre, _ = _operators(256)
+    parts = tfp._operator_parts(wre, "default").split
+    raw, _ = _input(kind, 200, 256)
+    x = raw.to(torch.float32)
+    _, mid, lo = x_split3(x)
+    assert not bool(lo.ne(0).any()) and bool(mid.ne(0).any())
+    assert torch.equal(staged3(x, parts), staged3(x, parts, vote=False))
+    x8 = (x / 256).floor()
+    assert not bool(x_split3(x8)[1].ne(0).any())
+    assert torch.equal(staged3(x8, parts), staged3(x8, parts, vote=False))
+    assert tfp.x_parts(x8) == 1 and tfp.x_parts(x) == 2
+
+
+def test_x_parts_of_float_lines():
+    """x_hi + x_mid + x_lo is x exactly for any float32, so 24- and 32-bit
+    samples need three parts, which the vote keeps."""
+    for kind in ("f32", "f32w"):
+        x, _ = _input(kind, 64, 256)
+        hi, mid, lo = x_split3(x)
+        assert all(torch.equal(p, tfp._bf16_trunc(p)) for p in (hi, mid, lo))
+        assert torch.equal(hi + mid + lo, x) and tfp.x_parts(x) == 3
 
 
 def test_one_pass_operator_carries_its_parts_once():
@@ -371,7 +509,7 @@ def test_prep_controls_still_fail_under_the_staged_order(epi, background_removal
 def _kernel_prep(raw, x, parts, rows):
     """The prep kernel's output on (raw, parts): :func:`kernel_sums`, through
     the phasor epilogue for the phase kernel (``rows`` given)."""
-    y = kernel_sums(raw, x, parts)
+    y = kernel_sums(raw, x, parts, "prep_real" if rows is None else "prep_phase")
     return y if rows is None else torch.complex(y * rows[0], y * rows[1])
 
 
@@ -413,9 +551,10 @@ def test_prep_real_one_pass_staged_within_the_prep_bound(background_removal, kin
     pytest.param("phase", False, id="False"), pytest.param("phase", True, id="True"),
     pytest.param("real", False, id="real-False"), pytest.param("real", True, id="real-True")])
 def test_prep_float_lines_above_16_bits_miss_the_bound_through_the_split(epi, background_removal):
-    """24-bit float32 lines through the three-part terms miss the prep bound
-    (x_hi + x_lo keeps 16 bits of a sample), so the prep kernels' one pass
-    keeps the float32-FMA kernel for them, which holds it."""
+    """24-bit float32 lines through the two-x-part terms miss the prep bound
+    (x_hi + x_lo keeps 16 bits of a sample), so the phase kernel's one pass
+    splits x in three for them and the real kernel keeps the float32-FMA
+    kernel, and either holds it."""
     op, rows = _prep_operator(256, background_removal)
     rows = rows if epi == "phase" else None
     one = tfp._operator_parts(op, "default")
@@ -423,6 +562,78 @@ def test_prep_float_lines_above_16_bits_miss_the_bound_through_the_split(epi, ba
     want = _prep_plain(raw, one, rows, False)
     assert tfp.prep_error(_staged_prep(raw, one.split, rows), want) > 2 * tfp.PREP_REL_L2
     assert tfp.prep_error(_kernel_prep(raw, raw, one, rows), want) <= tfp.PREP_REL_L2
+
+
+@pytest.mark.parametrize("background_removal", [False, True])
+@pytest.mark.parametrize("kind", ["f32", "f32w", "f16"])
+@pytest.mark.parametrize("n,lines", [(256, 200), (320, 130), (1024, 130)])
+def test_prep_phase_three_x_parts_within_the_prep_bound(background_removal, kind, n, lines):
+    """The phase kernel's one pass on float32 lines (B7): the six terms of
+    three x parts (five on 16-bit values) against prep_phase_plain within
+    the prep bound, with and without background removal, on 24- and 32-bit
+    samples, a partial stage (n = 320) and partial 64-line groups; the real
+    kernel keeps the float32-FMA kernel on the same lines."""
+    op, rows = _prep_operator(n, background_removal)
+    one = tfp._operator_parts(op, "default")
+    raw, _ = _input(kind, lines, n)
+    assert tfp._kernel_operands(raw, (one,), "prep_phase")[3] == "tensor_core"
+    assert tfp._kernel_operands(raw, (one,), "prep_real")[3] == "simt"
+    err = tfp.prep_error(_kernel_prep(raw, raw, one, rows),
+                         _prep_plain(raw, one, rows, False))
+    assert err <= tfp.PREP_REL_L2, err
+
+
+@pytest.mark.parametrize("family", ["depth_scale", "prep_phase"])
+def test_three_x_parts_match_the_jax_package_at_24_bits(family):
+    """The JAX package's fused_depth_scale / fused_prep at ``bit_depth=24``
+    (Pallas in interpret mode, as its own CPU tests run it) against the
+    port's emulated six-term sums on the same uint32 buffer, decoded to
+    float32 lines as the port's wrapper decodes them: within the scale
+    bounds (RMS 1e-6, max 1e-4 display units above the display floor) or
+    the prep bound (relative L2 1e-6), with the floor of 24-bit samples."""
+    import importlib
+
+    import jax.numpy as jnp
+    import octproz_tpu.params as jparams
+
+    jfp = importlib.import_module("octproz_tpu.pallas.fused_prep")
+    n = 256
+    geometry = dict(samples_per_line=n, ascans_per_bscan=32, bscans_per_buffer=4, bit_depth=24)
+    changes = dict(bitshift=False, grayscale_min=96.0, grayscale_max=156.0)
+    if family == "prep_phase":
+        changes.update(fft_via_matmul=False, use_pallas_prep=True)
+    acq = AcqParams(**geometry)
+    cfg = dataclasses.replace(default_full_config(), **changes)
+    jacq = jparams.AcqParams(**geometry)
+    jcfg = dataclasses.replace(jparams.default_full_config(), **changes)
+    cv = tcurves.make_curves(acq, cfg, resample_coeffs=(0.0, n - 1.0, 10.0, -4.0),
+                             dispersion_coeffs=(0.0, 0.0, 8.0, 0.0), device="cpu")
+    raw = np.random.default_rng(24).integers(0, 1 << 24, size=acq.buffer_shape,
+                                             dtype=np.int64).astype(np.uint32)
+    x = tfp._predecode(torch.from_numpy(raw).reshape(-1, n), 24, False)
+    assert x.dtype == torch.float32 and tfp.x_parts(x) == 3
+    if family == "depth_scale":
+        ops = [tfp._operator_parts(w, "default") for w in (cv.depth_op_re, cv.depth_op_im)]
+        mean2 = torch.from_numpy(np.random.default_rng(5).normal(0, 50.0, size=(2, n // 2))
+                                 .astype(np.float32))
+        a, b = tfp._scale_affine(True, n // 2, cfg.grayscale_min, cfg.grayscale_max,
+                                 cfg.addend, cfg.multiplicator)
+        got = _staged_scale(x, *ops, mean2, a, b)
+        want = jfp.fused_depth_scale(jnp.asarray(raw), jnp.asarray(cv.depth_op_re.numpy()),
+                                     jnp.asarray(cv.depth_op_im.numpy()),
+                                     jnp.asarray(mean2.numpy()), jacq, jcfg, interpret=True)
+        want = torch.from_numpy(np.array(want, np.float32)).reshape(got.shape)
+        rms, worst, ok = tfp.scale_error(got, want)
+        assert ok, (rms, worst)
+    else:
+        one = tfp._operator_parts(cv.prep_operator, "default")
+        rows = (cv.phase.real.contiguous(), cv.phase.imag.contiguous())
+        got = _kernel_prep(x, x, one, rows)
+        want = jfp.fused_prep(jnp.asarray(raw), jnp.asarray(cv.prep_operator.numpy()),
+                              jnp.asarray(cv.phase.numpy()), jacq, jcfg, interpret=True)
+        want = torch.from_numpy(np.array(want)).reshape(got.shape)
+        err = tfp.prep_error(got, want)
+        assert err <= tfp.PREP_REL_L2, err
 
 
 def _one_pass_prep_control_error(epi, background_removal, control):
@@ -463,7 +674,7 @@ ROUTES = [
     # (family, input dtype, precision, passes, LAUNCHES key, route)
     ("prep_phase", torch.uint16, "default", 1, "prep_phase", "tensor_core"),
     ("prep_phase", torch.uint8, "default", 1, "prep_phase", "tensor_core"),
-    ("prep_phase", torch.float32, "default", 1, "prep_phase", "simt"),
+    ("prep_phase", torch.float32, "default", 1, "prep_phase", "tensor_core"),
     ("prep_real", torch.uint16, "default", 1, "prep_real", "tensor_core"),
     ("prep_real", torch.float32, "default", 1, "prep_real", "simt"),
     ("prep_phase", torch.uint16, "high", 3, "prep_phase_split", None),
@@ -473,6 +684,11 @@ ROUTES = [
     ("prep_real", torch.uint8, "default", 1, "prep_real", "tensor_core"),
     ("depth_scale_concat", torch.uint8, "default", 1, "depth_scale_concat", "tensor_core"),
     ("depth_scale_concat", torch.float32, "default", 1, "depth_scale_concat", "simt"),
+    ("depth_scale", torch.float32, "default", 1, "depth_scale", "tensor_core"),
+    ("depth_scale", torch.uint16, "default", 1, "depth_scale", "tensor_core"),
+    ("depth", torch.float32, "default", 1, "depth", "simt"),
+    ("depth", torch.uint8, "default", 1, "depth", "tensor_core"),
+    ("depth_scale", torch.float32, "high", 3, "depth_scale_split", None),
 ]
 
 
@@ -480,24 +696,29 @@ ROUTES = [
 def test_route_helper_follows_the_family_and_the_input_type(family, dtype, precision, passes,
                                                             key, route):
     """``_kernel_operands`` for the one-operator kernels (the prep kernels
-    on P, the concat kernels on [W_re | W_im]): the one pass goes to the
-    tensor cores on uint8/uint16 lines (the operator's three bf16 parts,
-    made once and kept) and to the float32-FMA kernel on float32 lines (the
-    float32 operator); the split rungs pass their parts as they are."""
+    on P, the concat kernels on [W_re | W_im]) and the two-operator fold
+    kernels (W_re, W_im): the one pass goes to the tensor cores on
+    uint8/uint16 lines, and on float32 lines for ``depth_scale`` and
+    ``prep_phase`` (the operator's three bf16 parts, made once and kept),
+    and to the float32-FMA kernel on float32 lines of the other families
+    (the float32 operator); the split rungs pass their parts as they are."""
     if family.startswith("prep"):
         op, _ = _prep_operator(256, False)
-        parts = tfp._operator_parts(op, precision)
-    else:
+        axes, ops = (tfp._operator_parts(op, precision),), (op,)
+    elif family == "depth_scale_concat":
         wre, wim = _operators(256)
-        op = torch.cat([wre, wim], dim=1)
-        parts = tfp.concat_operator(wre, wim, precision)
+        ops = (torch.cat([wre, wim], dim=1),)
+        axes = (tfp.concat_operator(wre, wim, precision),)
+    else:
+        ops = _operators(256)
+        axes = tuple(tfp._operator_parts(w, precision) for w in ops)
     raw = torch.zeros((8, 256), dtype=dtype)
-    got_passes, (got,), got_key, got_route = tfp._kernel_operands(raw, (parts,), family)
+    got_passes, got, got_key, got_route = tfp._kernel_operands(raw, axes, family)
     assert (got_passes, got_key, got_route) == (passes, key, route)
-    assert got is (parts.split if route == "tensor_core" else parts)
+    assert all(g is (p.split if route == "tensor_core" else p) for g, p in zip(got, axes))
     if route == "tensor_core":  # a float32 operator without its parts is split per call
-        again = tfp._kernel_operands(raw, ((op,),), family)[1][0]
-        assert all(torch.equal(a, b) for a, b in zip(again, parts.split))
+        again = tfp._kernel_operands(raw, tuple((w,) for w in ops), family)[1]
+        assert all(torch.equal(a, b) for g, p in zip(again, axes) for a, b in zip(g, p.split))
 
 
 # ---------------------------------------------------------------------------
@@ -639,7 +860,8 @@ def test_kernel_bound_hand_values(name, n_out, parts, x_lo_zero, terms, ms):
     at 989 TFLOP/s, x_lo being zero); 0.834 ms for every family at one pass
     on integer samples (three bf16 terms; 1.390 ms for the five that samples
     with x_lo need): every family is bound by its operations."""
-    got = bench.kernel_bound(name, n_out=n_out, parts=parts, x_lo_zero=x_lo_zero, **MAIN)
+    got = bench.kernel_bound(name, n_out=n_out, parts=parts, x_parts=1 if x_lo_zero else 2,
+                             **MAIN)
     assert got["bound_ms"] == pytest.approx(ms, abs=1e-4)
     assert got["bound_by"] == "operations"
     assert got["flops"] == terms * 4 * 131072 * 1024 * 512  # 2.75e11 per term
@@ -648,34 +870,70 @@ def test_kernel_bound_hand_values(name, n_out, parts, x_lo_zero, terms, ms):
 @pytest.mark.parametrize("name", ["depth", "depth_scale", "depth_scale_concat"])
 def test_kernel_bound_of_the_one_pass_routes(name):
     """uint8/uint16 lines run the tensor-core route (three bf16 parts per
-    axis to read, bf16 peak); float32 lines keep the float32-FMA kernel and
-    its float32 bound, with the float32 operator's bytes."""
+    axis to read, bf16 peak); float32 lines of 24 bits (three x parts) run
+    it too for the scaled kernel, six bf16 terms, and keep the float32-FMA
+    kernel and its float32 bound for the others, with the float32
+    operator's bytes."""
     u16 = bench.kernel_bound(name, n_out=512, **MAIN)
     u8 = bench.kernel_bound(name, n_out=512, in_itemsize=1, **MAIN)
-    f32 = bench.kernel_bound(name, n_out=512, in_itemsize=4, **MAIN)
+    f32 = bench.kernel_bound(name, n_out=512, in_itemsize=4, x_parts=3, **MAIN)
     assert u16["bound_ms"] == u8["bound_ms"] == pytest.approx(0.8338, abs=1e-4)
     assert u16["bytes"] - u8["bytes"] == 131072 * 1024
-    assert f32["bound_ms"] == pytest.approx(4.1027, abs=1e-4)
-    assert f32["flops"] == 4 * 131072 * 1024 * 512
     out = 131072 * 512 * 4 * (2 if name == "depth" else 1) + (2 * 512 * 4 if name != "depth" else 0)
     assert u16["bytes"] == 131072 * 1024 * 2 + 2 * 3 * 1024 * 512 * 2 + out
-    assert f32["bytes"] == 131072 * 1024 * 4 + 2 * 1024 * 512 * 4 + out
+    if name == "depth_scale":
+        assert f32["bound_ms"] == pytest.approx(1.6676, abs=1e-4)
+        assert f32["flops"] == 6 * 4 * 131072 * 1024 * 512
+        assert f32["bytes"] == u16["bytes"] + 131072 * 1024 * 2
+    else:
+        assert f32["bound_ms"] == pytest.approx(4.1027, abs=1e-4)
+        assert f32["flops"] == 4 * 131072 * 1024 * 512
+        assert f32["bytes"] == 131072 * 1024 * 4 + 2 * 1024 * 512 * 4 + out
 
 
 @pytest.mark.parametrize("itemsize,ms", [(2, 0.8338), (1, 0.8338), (4, 4.1027)])
 def test_kernel_bound_of_the_prep_one_pass_routes(itemsize, ms):
-    """The prep kernels at one pass: three bf16 terms on uint8/uint16
-    lines, the float32 bound on float32 lines, each with the bytes of its
-    operator (three bf16 parts or the float32 one); the real kernel follows
-    the phase kernel, less the phasor rows and half the store."""
-    phase = bench.kernel_bound("prep_phase", n_out=1024, in_itemsize=itemsize, **MAIN)
-    real = bench.kernel_bound("prep_real", n_out=1024, in_itemsize=itemsize, **MAIN)
-    assert phase["bound_ms"] == pytest.approx(ms, abs=1e-4)
+    """The prep kernels at one pass: the real kernel's bound ``ms`` -- three
+    bf16 terms on uint8/uint16 lines, the float32 bound on float32 lines --
+    each with the bytes of its operator (three bf16 parts or the float32
+    one); the phase kernel follows it, plus the phasor rows and twice the
+    store, but on float32 lines of 24 bits (three x parts) it runs six bf16
+    terms against the three parts."""
+    xp = 3 if itemsize == 4 else 1
+    phase = bench.kernel_bound("prep_phase", n_out=1024, in_itemsize=itemsize, x_parts=xp,
+                               **MAIN)
+    real = bench.kernel_bound("prep_real", n_out=1024, in_itemsize=itemsize, x_parts=xp,
+                              **MAIN)
     assert real["bound_ms"] == pytest.approx(ms, abs=1e-4)
-    assert real["flops"] == phase["flops"]
-    op = 3 * 1024 * 1024 * 2 if itemsize <= 2 else 1024 * 1024 * 4
-    assert phase["bytes"] == 131072 * 1024 * (itemsize + 8) + op + 2 * 1024 * 4
+    bf16_op = 3 * 1024 * 1024 * 2
+    op = bf16_op if itemsize <= 2 else 1024 * 1024 * 4
     assert real["bytes"] == 131072 * 1024 * (itemsize + 4) + op
+    if itemsize == 4:
+        assert phase["bound_ms"] == pytest.approx(1.6676, abs=1e-4)
+        assert phase["flops"] == 6 * real["flops"]
+        op = bf16_op
+    else:
+        assert phase["bound_ms"] == pytest.approx(ms, abs=1e-4)
+        assert real["flops"] == phase["flops"]
+    assert phase["bytes"] == 131072 * 1024 * (itemsize + 8) + op + 2 * 1024 * 4
+
+
+@pytest.mark.parametrize("name,n_out", [("depth_scale", 512), ("prep_phase", 1024),
+                                        ("depth_scale_f32lines", 512),
+                                        ("prep_phase_f32lines", 1024)])
+@pytest.mark.parametrize("x_parts,terms,ms", [(3, 6, 1.6676), (2, 5, 1.3897), (1, 3, 0.8338)])
+def test_kernel_bound_counts_the_x_parts_of_float_lines(name, n_out, x_parts, terms, ms):
+    """On float32 lines the scaled and the phase kernel's one pass runs sum_i
+    (3 - i) terms over the x parts the data needs: six for samples above 16
+    bits (1.668 ms at the main geometry), five for 16-bit values, three for
+    values exact in bf16; the families without the route keep 4.103 ms."""
+    got = bench.kernel_bound(name, n_out=n_out, in_itemsize=4, x_parts=x_parts, **MAIN)
+    gemms = 1 if name.startswith("prep") else 2
+    assert got["flops"] == terms * gemms * 2 * 131072 * 1024 * n_out
+    assert got["bound_ms"] == pytest.approx(ms, abs=1e-4) and got["bound_by"] == "operations"
+    other = name.replace("depth_scale", "depth").replace("prep_phase", "prep_real")
+    assert bench.kernel_bound(other, n_out=n_out, in_itemsize=4, x_parts=x_parts,
+                              **MAIN)["bound_ms"] == pytest.approx(4.1027, abs=1e-4)
 
 
 @pytest.mark.parametrize("name,n_out,ms,by", [
@@ -717,7 +975,7 @@ def test_kernel_bound_counts_terms_and_bytes():
     the raw buffer, four bf16 parts, the mean line and the float32 image
     (0.54 GB), B3 two float32 planes (0.81 GB); a contraction of 16 samples
     is bound by its bytes."""
-    full = bench.kernel_bound("depth_split", n_out=512, parts=2, x_lo_zero=False, **MAIN)
+    full = bench.kernel_bound("depth_split", n_out=512, parts=2, x_parts=2, **MAIN)
     assert full["bound_ms"] == pytest.approx(0.8338, abs=1e-4)
     b4 = bench.kernel_bound("depth_scale_split", n_out=512, parts=2, **MAIN)
     assert b4["bytes"] == 131072 * 1024 * 2 + 4 * 1024 * 512 * 2 + 2 * 512 * 4 + 131072 * 512 * 4
