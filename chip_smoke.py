@@ -15,10 +15,10 @@ nonzero and the final line is not printed:
    not 16-byte aligned, read element by element; 1088 for the concat and
    the prep kernels: 544 bins, a half-empty last tile), every family's
    one pass on both of its routes (uint8/uint16 lines on the tensor cores;
-   float32 lines -- 24- and 32-bit samples, n_in 1024 to 4096, 999 and
-   131073 lines -- on the tensor cores with three x parts for B2 and B7
-   and on the float32-FMA kernel for B1, B5 and B8; the route read back
-   and logged), then controls (a kernel computing a neighbouring rung, the
+   float32 lines -- 24- and 32-bit samples, n_in 1000 to 4096, 999 and
+   131073 lines -- on the tensor cores with three x parts for B2, B5, B7
+   and B8 and on the float32-FMA kernel for B1; the route read back and
+   logged), then controls (a kernel computing a neighbouring rung, the
    three-x-part kernels without x_lo, or for the concat kernels reading
    the im half one column early) that must fail;
 4. fold path: ``FdOctModel`` on full 1024 x 512 x 256 buffers of the
@@ -37,9 +37,9 @@ nonzero and the final line is not printed:
    split rung's runs; each rung's full-size prep output against the plain
    versions; then 24-bit samples in uint32 containers through the fold,
    concat fold and FFT paths (with and without dispersion) at the default
-   rung, each run between a reset and a read of the launch counts (B2 and
-   B7 on the tensor cores with three x parts, B1, B5 and B8 on the
-   float32-FMA kernels), with the full-size checks of phases 4 and 5;
+   rung, each run between a reset and a read of the launch counts (B2, B5,
+   B7 and B8 on the tensor cores with three x parts, B1 on the float32-FMA
+   kernel), with the full-size checks of phases 4 and 5;
 6. stream: ``StreamingEngine`` over full 12-bit buffers replayed from RAM
    by ``VirtualOctSource``, the benchmark chain with ``fold_concat`` at the
    default and the "high" rung, per buffer and in batch chunks of four, on
@@ -180,8 +180,8 @@ PALLAS = "octproz_tpu/pallas/fused_prep.py:"
 # family -> (source of the kernel the main path launches, Pallas kernel body
 # it replaces); every family runs on the tensor cores for the main path's
 # uint16 lines: the fold families enter through fold_gemm.cu and
-# fold_concat.cu, the prep families through prep_gemm.cu, which keep the
-# float32-FMA kernel for the one pass on float32 lines
+# fold_split.cu, the prep families through prep_split.cu; fold_gemm.cu keeps
+# the float32-FMA kernel for the planar kernel's one pass on float32 lines
 KERNELS = {
     "depth": ("fold_split.cu", 261),
     "depth_split": ("fold_split.cu", 271),
@@ -202,15 +202,15 @@ KERNELS = {
     "prep_real_bf16": ("prep_bf16.cu", 238),
 }
 #: The one pass of the five one-pass families on float32 lines (samples
-#: above 16 bits, ``bench.F32_LINE_KERNELS``): B2 and B7 on the tensor cores
-#: with three x parts, B1, B5 and B8 on the float32-FMA kernels; their
+#: above 16 bits, ``bench.F32_LINE_KERNELS``): B2, B5, B7 and B8 on the
+#: tensor cores with three x parts, B1 on the float32-FMA kernel; their
 #: launches are those of the 24-bit paths (``phase_wide_samples``).
 F32_ROWS = {
     "depth_f32lines": ("fold_gemm.cu", 261),
     "depth_scale_f32lines": ("fold_split.cu", 375),
-    "depth_scale_concat_f32lines": ("fold_concat.cu", 337),
+    "depth_scale_concat_f32lines": ("fold_split.cu", 337),
     "prep_phase_f32lines": ("prep_split.cu", 228),
-    "prep_real_f32lines": ("prep_gemm.cu", 238),
+    "prep_real_f32lines": ("prep_split.cu", 238),
 }
 #: The bf16 rows of KERNELS by their LAUNCHES family.
 BF16_ROWS = {k[:-len("_bf16")]: k for k in KERNELS if k.endswith("_bf16")}
@@ -404,8 +404,8 @@ def phase_kernels():
     ]
     ops = {}
     # 1088: the concat cases; 128, 200, 256: the one-term kernel's narrow cases;
-    # 1001, 2048, 4096: the float32-line cases
-    for n_in in sorted({c[0] for c in cases} | {1088, 128, 200, 256, 1001, 2048, 4096}):
+    # 1000, 1001, 2048, 4096: the float32-line cases
+    for n_in in sorted({c[0] for c in cases} | {1088, 128, 200, 256, 1000, 1001, 2048, 4096}):
         acq = AcqParams(samples_per_line=n_in, ascans_per_bscan=8, bscans_per_buffer=1)
         cv = curves_mod.make_curves(acq, bench.bench_config(), **{
             **bench.CURVE_KW, "resample_coeffs": (0.0, n_in - 1.0, 20.0, -10.0)}, device=dev)
@@ -486,8 +486,8 @@ def _one_pass_route(family, kind, bf16=False):
     """The one-pass route a launch of ``family`` on ``kind`` lines must
     take: at float32 compute the input type and the family pick it --
     uint8/uint16 lines on the tensor cores, float32 lines on the tensor
-    cores with three x parts for ``fp.FLOAT_LINE_TENSOR_CORE`` (B2, B7) and
-    on the float32-FMA kernel for the others (B1, B5, B8); at bf16 compute
+    cores with three x parts for ``fp.FLOAT_LINE_TENSOR_CORE`` (B2, B5, B7,
+    B8) and on the float32-FMA kernel for the planar one (B1); at bf16 compute
     (``bf16``) the bf16 route on every input type."""
     from octproz_tpu_torch.kernels import fused_prep as fp
 
@@ -954,11 +954,15 @@ def _concat_kernel_cases(worst, ops, g, dev):
     ]
     _concat_controls(controls, g)
 
-    # The one pass on both routes beyond the main path's inputs: unshifted
-    # 12-bit and full 16-bit samples (x_lo terms), 544 bins (a half-empty
-    # last tile) and 550 (each view's three parts read element by element),
-    # lin on 8-bit values, float32 lines on the float32-FMA kernel; on a
-    # generator of their own, with the display floor of their samples'
+    # The one pass beyond the main path's inputs: unshifted 12-bit and full
+    # 16-bit samples (x_lo terms), 544 bins (a half-empty last tile) and 550
+    # (each view's three parts read element by element), lin on 8-bit
+    # values; float32 lines with three x parts -- 24- and 32-bit samples,
+    # longer lines, a partial 128-line tile (999) and one more line than a
+    # full buffer, 1000 samples (half = 500: the im views not 16-byte
+    # aligned, so the element-wise producer writes the operator tiles and
+    # the raw tile's swizzled boxes) and 1001 (rows not 16-byte aligned) --
+    # on a generator of their own, with the display floor of their samples'
     # range; then the one pass's own controls against the float32 product.
     g_one = torch.Generator(device=dev)
     g_one.manual_seed(9)
@@ -973,6 +977,14 @@ def _concat_kernel_cases(worst, ops, g, dev):
         (1100, 999, "u8", 1, False, f32),
         (1024, 2048, "f32", 1, True, f32),
         (1100, 999, "f32", 1, True, f32),
+        (1024, 4096, "f32w", 1, True, f32),
+        (1024, 999, "f32w", 1, True, bf16),
+        (2048, 999, "f32", 1, True, f32),
+        (4096, 999, "f32w", 1, True, f32),
+        (1024, 131073, "f32", 1, True, f32),
+        (1000, 999, "f32", 1, True, f32),
+        (1000, 999, "f32w", 1, True, f32),
+        (1001, 999, "f32", 1, True, f32),
     ], ops, worst, g_one, dev)
     raw = _raw("u16", 4096, 1024, g_one, dev)
     two = fp.OnePass(w1, split=(*one.split[:2], torch.zeros_like(one.split[2])))
@@ -981,6 +993,12 @@ def _concat_kernel_cases(worst, ops, g, dev):
         ("one-pass concat kernel on two of its three parts", (raw, two), (raw, one)),
         ("one-pass concat kernel without x_lo (x_hi input)", (x_hi16, one), (raw, one)),
     ], g_one, floor_db=ONE_PASS_FLOOR_DB["u16"])
+    # float32 lines: the three-x-part concat kernel without x_lo w_0 (x cut
+    # to x_hi + x_mid) must fail
+    wide = _raw("f32", 4096, 1024, g_one, dev)
+    _concat_controls([("three-x-part concat kernel without x_lo (x_hi + x_mid input)",
+                       (_without_x_lo(wide), one), (wide, one))],
+                     g_one, floor_db=ONE_PASS_FLOOR_DB["f32"])
 
 
 def _concat_controls(controls, g, floor_db=0.0):
@@ -1019,6 +1037,8 @@ def _concat_cases(cases, ops, worst, g, dev):
         row = _row(family, passes)
         if n_in == 1024 and kind == "u16s" and odt == torch.float32:
             worst[row] = max(worst[row], err)  # the main path's inputs
+        if n_in == 1024 and kind == "f32" and passes == 1 and odt == torch.float32:
+            worst[family + "_f32lines"] = max(worst[family + "_f32lines"], err)
         route = _route_read_back(family, kind, bf16=passes == 0) if passes <= 1 else ""
         log(f"[kernels] {row:<24} n_in={n_in} lines={lines} {kind} passes={passes} "
             f"{'log' if log_scaling else 'lin'} {str(odt).replace('torch.', '')}{route}: "
@@ -1068,11 +1088,10 @@ def _prep_kernel_cases(worst, g, dev):
     n_in = 1664 -- plus n_in = 1100 (ragged in n_in and n_out), 1088 (a
     half-empty last tile of the tensor-core kernels) and the operator with
     background removal folded in (denser, so more reordering); both
-    kernels' one pass on both of its routes (uint8/uint16 lines on the
-    tensor cores; float32 lines on the tensor cores with three x parts for
-    the phase kernel -- 24- and 32-bit samples, n_in up to 4096, 999 and
-    131073 lines -- and on the float32-FMA kernel for the real kernel; the
-    route read back after each one-pass case); then the controls, which
+    kernels' one pass (uint8/uint16 lines on the tensor cores; float32
+    lines there too with three x parts -- 24- and 32-bit samples, n_in up
+    to 4096, 999 and 131073 lines; the route read back after each one-pass
+    case); then the controls, which
     must fail -- at the split rungs a neighbouring rung, at one pass each
     kernel on two of its three parts, without x_lo and on float32 lines
     without x_lo (x_hi + x_mid), against the float32 product."""
@@ -1117,8 +1136,8 @@ def _prep_kernel_cases(worst, g, dev):
     # The prep kernels' one pass beyond the cases above: unshifted 12-bit
     # and full 16-bit samples (x_lo terms), background removal, n_in = 1088
     # and 1100 (its uint16 rows not 16-byte aligned: the element-wise
-    # producer), and float32 lines on the float32-FMA kernel; on a generator
-    # of their own, so the controls keep their data.
+    # producer), and float32 lines with three x parts; on a generator of
+    # their own, so the controls keep their data.
     one_pass = [
         (1024, 4096, "u16", 1, "phase", False),
         (1024, 4096, "u16f", 1, "phase", False),
@@ -1134,9 +1153,10 @@ def _prep_kernel_cases(worst, g, dev):
         (1100, 999, "u16", 1, "real", True),
         (1024, 2048, "f32", 1, "real", False),
         (1100, 999, "f32", 1, "real", False),
-        # the phase kernel on float32 lines: the tensor cores with three x
+        # both kernels on float32 lines: the tensor cores with three x
         # parts, 24- and 32-bit samples, background removal, longer lines,
-        # ragged line counts; the real kernel at 4096 on the float32-FMA one
+        # ragged line counts, rows not 16-byte aligned (1001: the
+        # element-wise producer)
         (1024, 4096, "f32", 1, "phase", False),
         (1024, 4096, "f32w", 1, "phase", True),
         (1664, 999, "f32", 1, "phase", True),
@@ -1145,6 +1165,13 @@ def _prep_kernel_cases(worst, g, dev):
         (1024, 131073, "f32", 1, "phase", False),
         (1001, 999, "f32", 1, "phase", True),
         (4096, 999, "f32w", 1, "real", False),
+        (1024, 4096, "f32", 1, "real", False),
+        (1024, 4096, "f32w", 1, "real", True),
+        (1664, 999, "f32", 1, "real", True),
+        (2048, 999, "f32w", 1, "real", False),
+        (4096, 999, "f32", 1, "real", True),
+        (1024, 131073, "f32", 1, "real", False),
+        (1001, 999, "f32", 1, "real", True),
     ]
     ops = {(n, bg): _prep_operators(n, bg, dev)
            for n, bg in {(c[0], c[5]) for c in cases + one_pass}}
@@ -1526,9 +1553,9 @@ def phase_wide_samples(worst):
     display range moved up by the wider samples' 96.3 dB), each run -- buffer
     0 (FPN) from the host, steady buffers and a chunk -- between a reset and
     a read of the launch counts: every family the path runs launched, every
-    launch on the route its family takes on float32 lines (B2 and B7 on the
-    tensor cores with three x parts, B1, B5 and B8 on the float32-FMA
-    kernels).  Then the fold paths' steady output at full size against the
+    launch on the route its family takes on float32 lines (B2, B5, B7 and
+    B8 on the tensor cores with three x parts, B1 on the float32-FMA
+    kernel).  Then the fold paths' steady output at full size against the
     float64 product of their float32 operator, and the FFT paths' prep
     output against its plain version.  Returns the launches by
     ``F32_ROWS`` row."""

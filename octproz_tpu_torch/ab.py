@@ -14,8 +14,9 @@ the concat fold path (``fold_concat``), at the default, "high" and bf16
 rungs on the FFT path and at the default and bf16 rungs on the FFT path
 without dispersion, and the FFT path's stages with ``bench.fft_stage_ms``
 at those five settings (a setting that checkout's ``bench`` cannot make is
-skipped), and the fold and the FFT path's steady state at the default rung
-on 24-bit samples in uint32 containers (``bench.WIDE_ACQ`` and
+skipped), and the steady state at the default rung of the fold path, the
+concat fold path and the FFT path with and without dispersion on 24-bit
+samples in uint32 containers (``bench.WIDE_ACQ`` and
 ``bench.wide_config``; for a checkout whose ``bench`` has no 24-bit
 buffers, the same buffers from the same seed, made and timed in the turn
 itself), and prints one JSON line: the card's name and power limit, and
@@ -79,7 +80,10 @@ def wide_ms(cfg):
     model.process_buffer(bufs[0])
     n = itertools.count()
     return bench.cuda_ms(lambda: model.process_buffer(bufs[next(n) % 4]), iters=12)
-w = {{"fold": wide_ms(bench.bench_config()), "fft": wide_ms(bench.fft_config())}}
+w = {{"fold": wide_ms(bench.bench_config()),
+     "concat": wide_ms(bench.bench_config(fold_concat=True)),
+     "fft": wide_ms(bench.fft_config()),
+     "fft, no dispersion": wide_ms(bench.fft_config(dispersion=False))}}
 print(json.dumps({{"kernels": {{n: {{"ms": v["ms"], "plain_ms": v["plain_ms"],
                                   "library_ms": v["library_ms"]}} for n, v in k.items()}},
                   "steady_ms": s, "concat_steady_ms": c,

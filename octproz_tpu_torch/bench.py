@@ -92,11 +92,10 @@ FOLD_KERNELS = ("depth", "depth_split", "depth_scale", "depth_scale_split",
 PREP_KERNELS = ("prep_phase", "prep_phase_split", "prep_real", "prep_real_split",
                 "prep_phase_bf16", "prep_real_bf16")
 #: The one-pass families on float32 lines (``*_f32lines``: samples above 16
-#: bits, decoded before the kernel): ``depth_scale`` and ``prep_phase`` on
-#: the tensor cores as three x parts (``fused_prep.FLOAT_LINE_TENSOR_CORE``,
-#: six bf16 terms), the others on the float32-FMA kernels
-#: (``csrc/fold_gemm.cu``, ``fold_concat.cu``, ``prep_gemm.cu``); off the
-#: main path, timed on 24-bit samples.
+#: bits, decoded before the kernel): all but ``depth`` on the tensor cores
+#: as three x parts (``fused_prep.FLOAT_LINE_TENSOR_CORE``, six bf16
+#: terms), ``depth`` on the float32-FMA kernel (``csrc/fold_gemm.cuh``);
+#: off the main path, timed on 24-bit samples.
 F32_LINE_KERNELS = ("depth_f32lines", "depth_scale_f32lines", "depth_scale_concat_f32lines",
                     "prep_phase_f32lines", "prep_real_f32lines")
 
@@ -340,12 +339,12 @@ def kernel_bound(name: str, lines: int, n_in: int, n_out: int, *, parts: int = 1
     three on the three-part route, and x part i meets operator parts 0 ..
     parts - 1 - i: sum_i (parts - i) terms.  The split rungs' products are
     bf16 x bf16 (989 TFLOP/s), the one-pass rung's float32 (67 TFLOP/s) on
-    the float32 lines of the families outside
-    ``fused_prep.FLOAT_LINE_TENSOR_CORE`` -- but every family runs its one
-    pass on uint8/uint16 lines (``in_itemsize`` <= 2), and those families
-    on float32 lines too, as the bf16 terms of the float32 operator's three
-    parts (``fused_prep.ONE_PASS_ROUTES``): the bound is the work of the
-    route the input takes.  With ``bf16`` (``compute_dtype="bfloat16"``)
+    the float32 lines of the family outside
+    ``fused_prep.FLOAT_LINE_TENSOR_CORE`` (``depth``) -- but every family
+    runs its one pass on uint8/uint16 lines (``in_itemsize`` <= 2), and
+    those families on float32 lines too, as the bf16 terms of the float32
+    operator's three parts (``fused_prep.ONE_PASS_ROUTES``): the bound is
+    the work of the route the input takes.  With ``bf16`` (``compute_dtype="bfloat16"``)
     one bf16 term against one bf16 part, on any input type.
     Bytes: the raw input, every operator part the kernel reads (float32
     unsplit, bf16 split or rounded), the FPN mean line or phasor rows, and

@@ -2,9 +2,9 @@
 // families, each the counterpart of a Pallas kernel in
 // octproz_tpu/pallas/fused_prep.py:
 //
-//   fold_split<EPI=PLANAR, 3 parts> | fold_gemm<EPI=PLANAR>  _kernel_depth  (:261-268)
+//   fold_split<EPI=PLANAR, 3 parts> | fold_gemm  _kernel_depth  (:261-268)
 //   fold_split<EPI=PLANAR>  (3|5)      _kernel_depth_split        (:271-280)
-//   fold_split<EPI=SCALE, 3 parts>     _kernel_depth_scale        (:375-419)
+//   fold_split<EPI=SCALE, 3 parts>     _kernel_depth_scale        (:375-419; XP=3 on float32 lines)
 //   fold_split<EPI=SCALE>   (3|5)      _kernel_depth_scale_split  (:422-438)
 //   one_term<InT, Planar>  (fold_bf16.cu)  _kernel_depth at compute_dtype="bfloat16"
 //   one_term<InT, Scale>   (fold_bf16.cu)  _kernel_depth_scale at compute_dtype="bfloat16"
@@ -15,7 +15,7 @@
 // input type (float32 lines -- samples above 16 bits, decoded by the
 // wrapper -- as three x parts, six terms: terms() in fold_split.cuh), for
 // the planar kernel on uint8 and uint16 lines.  The planar kernel's one
-// pass on float32 lines runs the float32-FMA template of fold_gemm.cuh
+// pass on float32 lines runs the float32-FMA kernel of fold_gemm.cuh
 // against the float32 operator.  The input type and the family alone pick
 // the route at float32 compute; compute_dtype="bfloat16" runs the
 // persistent one-term kernel of fold_bf16.cu on every input type, the
@@ -69,7 +69,7 @@ int fold_gemm_planar(const void* raw, int in_kind, int bitshift, int passes,
   args.lines = lines;
   args.n_in = n_in;
   args.half = half;
-  return launch<PLANAR, float, false>(args, static_cast<cudaStream_t>(stream));
+  return launch(args, static_cast<cudaStream_t>(stream));
 }
 
 // mode: 0 log (a*log10(p)+b), 1 lin (a*sqrt(p)+b), 2 fast log

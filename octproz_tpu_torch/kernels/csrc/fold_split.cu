@@ -1,7 +1,6 @@
 // The fold kernels on bf16 tensor cores (template and design notes in
-// fold_split.cuh): every rung of every fold family on uint8/uint16 lines.
-// Behind fold_gemm_planar and fold_gemm_scale (fold_gemm.cu) at 3 and 5
-// passes,
+// fold_split.cuh).  Behind fold_gemm_planar and fold_gemm_scale
+// (fold_gemm.cu) at 3 and 5 passes,
 //
 //   fold_split<EPI=PLANAR>  _kernel_depth_split        (octproz_tpu/pallas/fused_prep.py:271-280)
 //   fold_split<EPI=SCALE>   _kernel_depth_scale_split  (:422-438)
@@ -13,11 +12,13 @@
 //   fold_split<EPI=PLANAR, PARTS=3>  _kernel_depth        (:261-268)
 //   fold_split<EPI=SCALE,  PARTS=3>  _kernel_depth_scale  (:375-419)
 //
-// and behind fold_gemm_scale_concat (fold_concat.cu) the same SCALE
-// instantiations, at 3 and 5 passes and at one pass on uint8/uint16 lines:
+// and behind the C entry fold_gemm_scale_concat, here, the same SCALE
+// instantiations at every rung of float32 compute, on every input type:
 //
-//   fold_split<EPI=SCALE>            _kernel_depth_scale_concat_split  (:354-372)
-//   fold_split<EPI=SCALE, PARTS=3>   _kernel_depth_scale_concat        (:337-351)
+//   fold_split<EPI=SCALE>                  _kernel_depth_scale_concat_split  (:354-372)
+//   fold_split<EPI=SCALE, PARTS=3>         _kernel_depth_scale_concat        (:337-351)
+//   fold_split<EPI=SCALE, PARTS=3, XP=3>   _kernel_depth_scale_concat on float32 lines
+//   one_term<InT, Scale<OutT>> (fold_bf16.cu)  the same at compute_dtype="bfloat16"
 //
 // The one-pass rung is a float32 product.  Its float32 operator arrives
 // here as three bf16 parts (two mask truncations and a rounded remainder:
@@ -27,16 +28,15 @@
 // the same instantiations -- give that product at float32 grade on the
 // tensor cores.  What bounds it, on one H100 (H100 80GB HBM3, 700 W): at the
 // main path's geometry each term is 275 GFLOP of bf16 products, so shifted
-// 12-bit samples (three terms) are bound to 0.83 ms at 989 TFLOP/s, where
-// the float32-FMA template is bound to 4.1 ms at 67 TFLOP/s.  A float32
-// sample (above 16 bits, of which x_hi + x_lo keeps 16) is exactly x_hi +
-// x_mid + x_lo: the scaled kernel's one pass on float32 lines runs the six
-// terms of those three x parts against the three operator parts
-// (fold_split<EPI=SCALE, PARTS=3, XP=3>, terms()), 1.67 ms at 989 TFLOP/s on
-// 24-bit samples.  The planar and the concat kernel keep the float32-FMA
-// template for float32 lines (fold_gemm.cuh, through fold_gemm.cu and
-// fold_concat.cu): their callers route by input type, and the planar entry
-// here refuses a float32 launch at one pass.
+// 12-bit samples (three terms) are bound to 0.83 ms at 989 TFLOP/s.  A
+// float32 sample (above 16 bits, of which x_hi + x_lo keeps 16) is exactly
+// x_hi + x_mid + x_lo: the scaled kernels' one pass on float32 lines, the
+// two-operator and the concat kernel alike, runs the six terms of those
+// three x parts against the three operator parts (fold_split<EPI=SCALE,
+// PARTS=3, XP=3>, terms()), 1.67 ms at 989 TFLOP/s on 24-bit samples.  The
+// planar kernel keeps the float32-FMA kernel for float32 lines
+// (fold_gemm.cuh, through fold_gemm.cu): its caller routes by input type,
+// and the planar entry here refuses a float32 launch at one pass.
 //
 // A block's two operator halves are (W_re, n0) and (W_im, n0): 64 bins of
 // re and im (COLS = BINS).  The concat kernels read one wide (n_in, 2*half)
@@ -45,14 +45,21 @@
 // W_im are two views of that part, at W and W + half with row pitch
 // 2 * half, and they compute the terms of the two-operator kernel -- at one
 // pass the three parts of both views, six pointers, each checked for TMA's
-// 16-byte alignment (half % 8 != 0 takes the element-wise producer).
+// 16-byte alignment (half % 8 != 0 takes the element-wise producer, which
+// writes the raw tile in the layout the kernel reads, the three-x-part
+// kernel's swizzled boxes included).
 //
 // compute_dtype="bfloat16" (passes = BF16_PASS: one term) runs the
 // persistent one-term kernel of fold_bf16.cu, planar and scaled, called
-// from fold_gemm.cu and fold_concat.cu; a one-term launch reaching the
-// entries here is refused (terms()).
+// from fold_gemm.cu and fold_gemm_scale_concat; a one-term launch reaching
+// the split pipeline is refused (terms()).
 
 #include "fold_split.cuh"
+
+extern "C" int fold_bf16_scale_concat(const void* raw, int in_kind, int bitshift,
+                                      const void* const w[3], const float* mean2, void* out,
+                                      int out_bf16, int mode, float a, float b, long long lines,
+                                      int n_in, int half, void* stream);
 
 namespace {
 namespace split {
@@ -92,7 +99,7 @@ Params params(const void* raw, int bitshift, const void* const wre[3], const voi
   return p;
 }
 
-// The SCALE launch of n_terms pass terms (3 or 5).
+// The SCALE launch of n_terms pass terms (terms(): 3, 5, or 6 with three x parts).
 int scale(Params p, int in_kind, int n_terms, const float* mean2, void* out, int out_bf16,
           int mode, float a, float b, void* stream) {
   p.mean2 = mean2;
@@ -135,16 +142,23 @@ int fold_split_scale(const void* raw, int in_kind, int bitshift, int passes,
                       a, b, stream);
 }
 
-// The tensor-core launch of fold_gemm_scale_concat (fold_concat.cu): w
-// holds the 2 or 3 bf16 parts of the wide (n_in, 2 * half) operator
-// [W_re | W_im] for 3 or 5 passes, at 1 pass on uint8/uint16 lines the
-// three bf16 parts of the float32 wide operator (5 terms), each read as the
-// views (W, n0) and (W + half, n0) at row pitch 2 * half.  (fold_concat.cu
-// keeps float32 lines at one pass on the float32-FMA template.)
-int fold_split_scale_concat(const void* raw, int in_kind, int bitshift, int passes,
-                            const void* const w[3], const float* mean2, void* out,
-                            int out_bf16, int mode, float a, float b, long long lines,
-                            int n_in, int half, void* stream) {
+// in_kind: 0 uint8, 1 uint16, 2 float32.  passes: 3 or 5 with 2 or 3 bf16
+// parts of the wide (n_in, 2 * half) operator [W_re | W_im]; 1 with the
+// float32 wide operator's three bf16 parts for every input type (5 terms
+// on uint8/uint16 lines, 6 on float32 lines); each part read as the views
+// (W, n0) and (W + half, n0) at row pitch 2 * half.  BF16_PASS
+// (compute_dtype="bfloat16") with its one rounded bf16 part for any lines,
+// forwarded to fold_bf16.cu.  Unused part pointers may be NULL.  mode: 0
+// log (a*log10(p)+b), 1 lin (a*sqrt(p)+b).
+int fold_gemm_scale_concat(const void* raw, int in_kind, int bitshift, int passes,
+                           const void* w0, const void* w1, const void* w2, const float* mean2,
+                           void* out, int out_bf16, int mode, float a, float b,
+                           long long lines, int n_in, int half, void* stream) {
+  if (mode != MODE_LOG && mode != MODE_LIN) return static_cast<int>(cudaErrorInvalidValue);
+  const void* const w[3] = {w0, w1, w2};
+  if (passes == BF16_PASS)
+    return fold_bf16_scale_concat(raw, in_kind, bitshift, w, mean2, out, out_bf16, mode, a, b,
+                                  lines, n_in, half, stream);
   const void* wim[3];
   for (int q = 0; q < 3; ++q)
     wim[q] = w[q] ? static_cast<const __nv_bfloat16*>(w[q]) + half : nullptr;

@@ -22,17 +22,19 @@
 //   prep_split<EPI=REAL,   PARTS=3>  _kernel_real         (:238-242, prep_split.cu)
 //
 // and on float32 lines (samples above 16 bits) the one-pass rung of the
-// scaled two-operator kernel and the phase kernel, x split into three parts
-// (XP = 3, pack3) against the same three operator parts, six terms:
+// scaled kernels and the prep kernels, x split into three parts (XP = 3,
+// pack3) against the same three operator parts, six terms:
 //
 //   fold_split<EPI=SCALE,  PARTS=3, XP=3>  _kernel_depth_scale  (:375-419)
+//   fold_split<EPI=SCALE,  PARTS=3, XP=3>  _kernel_depth_scale_concat  (:337-351, two views)
 //   prep_split<EPI=PHASE,  PARTS=3, XP=3>  _kernel_phase        (:228-235, prep_split.cu)
+//   prep_split<EPI=REAL,   PARTS=3, XP=3>  _kernel_real         (:238-242, prep_split.cu)
 //
 // compute_dtype="bfloat16" (one product term; B1, B2, B5, B7 and B8 at
 // :264, :344, :401/:409, :231, :240) runs the persistent one-term kernel of
-// fold_bf16.cuh instead.  The float32-FMA template of fold_gemm.cuh and
-// prep_gemm.cu serves the one pass of float32 compute on float32 lines of
-// the planar, the concat and the real kernel alone (B1, B5, B8).
+// fold_bf16.cuh instead.  The float32-FMA kernel of fold_gemm.cuh serves
+// the one pass of float32 compute on float32 lines of the planar kernel
+// alone (B1).
 //
 // What bounds them, on one H100 (H100 80GB HBM3, 700 W: 989 TFLOP/s of
 // dense bf16, 3.35 TB/s): at the main path's geometry (131072 lines x 1024
@@ -122,7 +124,7 @@
 #include <cuda.h>  // CUtensorMap and its enums (types only; no libcuda link)
 #include <cudaTypedefs.h>
 
-#include "fold_gemm.cuh"
+#include "gemm_common.cuh"
 
 namespace {
 namespace split {

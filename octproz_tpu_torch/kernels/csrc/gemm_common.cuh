@@ -1,6 +1,6 @@
 // Pieces shared by the GEMM kernels of this directory (fold_gemm.cuh,
-// prep_gemm.cu, fold_split.cuh): the epilogues, the input kinds, the SIMT
-// tile geometry of the float32-lines kernels and the bf16 truncation of x.
+// fold_split.cuh, fold_bf16.cuh): the epilogues and the scale's modes,
+// store and fast log, the input kinds and the bf16 truncation of x.
 
 #pragma once
 
@@ -23,11 +23,34 @@ enum InKind { IN_U8 = 0, IN_U16 = 1, IN_FLOAT = 2 };
 // term (the tensor-core kernels of fold_split.cuh, on every input type).
 constexpr int BF16_PASS = 0;
 
-constexpr int BM = 64;       // lines per block tile
-constexpr int BK = 16;       // contraction (n_in) per K step
-constexpr int TM = 4;        // lines per thread
-constexpr int THREADS = 256; // 16 x 16 threads
-constexpr int TY = THREADS / 16;
+// The scale epilogue's modes: 0 log (a*log10(p)+b), 1 lin (a*sqrt(p)+b), 2
+// fast log (a*fast_log2(p)+b, a already multiplied by log10(2)).
+enum Mode { MODE_LOG = 0, MODE_LIN = 1, MODE_FAST_LOG = 2 };
+
+template <typename OutT>
+__device__ __forceinline__ OutT store_cast(float v);
+template <>
+__device__ __forceinline__ float store_cast<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 store_cast<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// _fast_log2: exponent extraction plus the degree-5 polynomial _LOG2_POLY.
+__device__ __forceinline__ float fast_log2(float p) {
+  const int i = __float_as_int(p);
+  const int e = static_cast<int>(static_cast<unsigned>(i) >> 23) - 127;
+  const float m = __int_as_float((i & 0x007FFFFF) | 0x3F800000);
+  float r = 4.342836333e-02f;
+  r = r * m + -4.048623094e-01f;
+  r = r * m + 1.593884548f;
+  r = r * m + -3.492466043f;
+  r = r * m + 5.046852936f;
+  r = r * m + -2.786805564f;
+  return static_cast<float>(e) + r;
+}
 
 // _dot_split's x split: x_hi = mask truncation to bf16 (x_lo = bf16_rn of
 // the remainder, fold_split.cuh).

@@ -1,6 +1,6 @@
 // The prep kernels of compute_dtype="bfloat16" on the one-term kernel of
 // fold_bf16.cuh (its design notes there), behind prep_gemm_phase and
-// prep_gemm_real (prep_gemm.cu) at passes = BF16_PASS, on every input
+// prep_gemm_real (prep_split.cu) at passes = BF16_PASS, on every input
 // type:
 //
 //   one_term<InT, Prep<PHASE>>  _kernel_phase  (octproz_tpu/pallas/fused_prep.py:228-235, call :535)

@@ -1,42 +1,40 @@
 // The prep kernels on Hopper's bf16 tensor cores (sm_90a): stages 1-3 of
-// the FFT path -- decode, the pass terms of _dot_split for y = x @ P
-// against bf16 operator parts, then the phasor epilogue (y cos, y sin) into
-// complex64 or a float32 y -- at every rung on uint8/uint16 lines, and the
-// phase kernel's one pass on float32 lines too.  The
-// counterparts of
+// the FFT path -- decode, the pass terms of y = x @ P against bf16 operator
+// parts, then the phasor epilogue (y cos, y sin) into complex64 or a
+// float32 y -- at every rung of float32 compute, behind the C entry points
+// prep_gemm_phase and prep_gemm_real, the counterparts of
 //
-//   prep_split<EPI=PHASE>            _kernel_phase_split  (octproz_tpu/pallas/fused_prep.py:245-251)
+//   prep_split<EPI=PHASE, PARTS=3>   _kernel_phase        (octproz_tpu/pallas/fused_prep.py:228-235)
+//   prep_split<EPI=REAL,  PARTS=3>   _kernel_real         (:238-242)
+//   prep_split<EPI=PHASE>            _kernel_phase_split  (:245-251)
 //   prep_split<EPI=REAL>             _kernel_real_split   (:254-258)
-//   prep_split<EPI=PHASE, PARTS=3>   _kernel_phase        (:228-235; XP=3 on float32 lines)
-//   prep_split<EPI=REAL,  PARTS=3>   _kernel_real         (:238-242, integer lines)
+//   one_term<InT, Prep<PHASE>>       _kernel_phase at compute_dtype="bfloat16" (prep_bf16.cu)
+//   one_term<InT, Prep<REAL>>        _kernel_real at compute_dtype="bfloat16"  (prep_bf16.cu)
 //
-// with InT in {uint8, uint16, float}, launched by prep_gemm_phase and
-// prep_gemm_real (prep_gemm.cu) at 3 and 5 passes, and by both at one pass
-// for uint8/uint16 lines.  At one pass the float32 operator arrives as its
-// three bf16 parts and the launch runs the five terms of "highest" (terms()
-// in fold_split.cuh): the float32 product at float32 grade for samples of at
-// most 16 bits.  On float32 lines (samples above 16 bits) the phase
-// kernel's one pass splits x into three parts (x_hi + x_mid + x_lo, exact)
-// and runs their six terms (prep_split<EPI=PHASE, PARTS=3, XP=3>); the real
-// kernel keeps the float32-FMA kernel of prep_gemm.cu there, and its entry
-// here refuses a float32 launch at one pass.  The input type and the family
-// alone pick the route.  compute_dtype=
-// "bfloat16" (passes = BF16_PASS, one term) runs the persistent kernel of
-// prep_bf16.cu, and such a launch is refused here.
+// with InT in {uint8, uint16, float}.  The split rungs (3 and 5 passes) read
+// the operator's 2 or 3 bf16 parts.  The one-pass rung is a float32
+// product: its float32 operator arrives as three bf16 parts, and the launch
+// runs the five terms of "highest" on uint8/uint16 lines (x_hi + x_lo, terms()
+// in fold_split.cuh), and on float32 lines -- samples above 16 bits, which
+// the wrapper decoded already -- splits x into three parts (x_hi + x_mid +
+// x_lo, exact) and runs their six terms (XP=3), both epilogues alike.  A
+// one-pass launch without three parts is refused: no float32 kernel stands
+// behind it.  compute_dtype="bfloat16" (passes = BF16_PASS, one term) runs
+// the persistent kernel of prep_bf16.cu.
 //
 // What bounds it, on one H100 (H100 80GB HBM3, 700 W: 989 TFLOP/s of dense
 // bf16, 3.35 TB/s): at the FFT path's geometry (131072 lines x 1024 samples
-// -> 1024 columns, shifted 12-bit samples, x_lo zero) the x_hi terms are
-// 275 GFLOP of bf16 products each -- two at "high", 0.56 ms; three at one
-// pass, 0.83 ms (five with x_lo, 1.39 ms), where the float32-FMA kernel is
-// bound to 4.1 ms at 67 TFLOP/s -- against 0.27 GB in and 1.07 GB (complex64)
+// -> 1024 columns) each pass term is 275 GFLOP of bf16 products -- two at
+// "high" on shifted 12-bit samples (x_lo zero), 0.56 ms; three at one pass,
+// 0.83 ms (five with x_lo, 1.39 ms; six on 24-bit float32 lines, 1.67 ms)
+// -- against 0.27 GB in (0.54 GB of float32 lines) and 1.07 GB (complex64)
 // or 0.54 GB (float32) out, 0.40 / 0.24 ms: compute bound, with a store
 // large enough to matter.
 //
 // Design: the pipeline of fold_split.cuh (mainloop: TMA ring of operator
 // parts, x decoded and split into wgmma's register operand, one
 // m64n128k16 per part and 16 samples, the float32 fold every 64-sample
-// stage, the x_lo vote) with one operator: a block owns 128 lines x 128
+// stage, the votes) with one operator: a block owns 128 lines x 128
 // columns of P, its two 64-column halves the pairs (P, n0) and
 // (P, n0 + 64) of one tensor map -- at 131072 x 1024 -> 1024 the fold
 // kernels' 8192 blocks.
@@ -121,30 +119,62 @@ Params params(const void* raw, int bitshift, const void* const w[3], void* out,
 }  // namespace
 
 extern "C" {
+int prep_bf16_phase(const void* raw, int in_kind, int bitshift, const void* const w[3],
+                    const float* cos_row, const float* sin_row, void* out, long long lines,
+                    int n_in, int n_out, void* stream);
+int prep_bf16_real(const void* raw, int in_kind, int bitshift, const void* const w[3],
+                   void* out, long long lines, int n_in, int n_out, void* stream);
+}
 
-// The tensor-core launches of prep_gemm_phase / prep_gemm_real
-// (prep_gemm.cu): w holds the operator's 2 or 3 bf16 parts, (n_in, n_out)
-// row-major, for 3 or 5 passes; at 1 pass the float32 operator's three bf16
-// parts (5 terms on uint8/uint16 lines; 6 on float32 lines, the phase
-// kernel alone).
-int prep_split_phase(const void* raw, int in_kind, int bitshift, int passes,
-                     const void* const w[3], const float* cos_row, const float* sin_row,
-                     void* out, long long lines, int n_in, int n_out, void* stream) {
+namespace {
+
+// The tensor-core launch of a prep kernel: w holds the operator's 2 or 3
+// bf16 parts, (n_in, n_out) row-major, for 3 or 5 passes; at 1 pass the
+// float32 operator's three bf16 parts (5 terms on uint8/uint16 lines, 6 on
+// float32 lines).
+template <int EPI>
+int launch_prep(const void* raw, int in_kind, int bitshift, int passes, const void* const w[3],
+                const float* cos_row, const float* sin_row, void* out, long long lines,
+                int n_in, int n_out, void* stream) {
   split::Params p = split::params(raw, bitshift, w, out, lines, n_in, n_out);
   p.cos_row = cos_row;
   p.sin_row = sin_row;
-  return split::dispatch<split::Prep<PHASE>::K, true>(
+  return split::dispatch<split::Prep<EPI>::template K, true>(
       in_kind, split::terms(in_kind, passes, split::parts_of(w)), p,
       static_cast<cudaStream_t>(stream));
 }
 
-int prep_split_real(const void* raw, int in_kind, int bitshift, int passes,
-                    const void* const w[3], void* out, long long lines, int n_in, int n_out,
-                    void* stream) {
-  split::Params p = split::params(raw, bitshift, w, out, lines, n_in, n_out);
-  return split::dispatch<split::Prep<REAL>::K>(
-      in_kind, split::terms(in_kind, passes, split::parts_of(w)), p,
-      static_cast<cudaStream_t>(stream));
+}  // namespace
+
+extern "C" {
+
+// in_kind: 0 uint8, 1 uint16, 2 float32.  passes: 3 or 5 with 2 or 3 bf16
+// operator parts; 1 with the float32 operator's three bf16 parts for every
+// input type; BF16_PASS (compute_dtype="bfloat16") with its one rounded
+// bf16 part for any lines, forwarded to prep_bf16.cu.  Unused part pointers
+// may be NULL.  out: complex64 (lines, n_out), written as interleaved float
+// pairs.
+int prep_gemm_phase(const void* raw, int in_kind, int bitshift, int passes,
+                    const void* w0, const void* w1, const void* w2,
+                    const float* cos_row, const float* sin_row, void* out,
+                    long long lines, int n_in, int n_out, void* stream) {
+  const void* const w[3] = {w0, w1, w2};
+  if (passes == BF16_PASS)
+    return prep_bf16_phase(raw, in_kind, bitshift, w, cos_row, sin_row, out, lines, n_in,
+                           n_out, stream);
+  return launch_prep<PHASE>(raw, in_kind, bitshift, passes, w, cos_row, sin_row, out, lines,
+                            n_in, n_out, stream);
+}
+
+// As prep_gemm_phase without the phasor; out: float32 (lines, n_out).
+int prep_gemm_real(const void* raw, int in_kind, int bitshift, int passes,
+                   const void* w0, const void* w1, const void* w2, void* out,
+                   long long lines, int n_in, int n_out, void* stream) {
+  const void* const w[3] = {w0, w1, w2};
+  if (passes == BF16_PASS)
+    return prep_bf16_real(raw, in_kind, bitshift, w, out, lines, n_in, n_out, stream);
+  return launch_prep<REAL>(raw, in_kind, bitshift, passes, w, nullptr, nullptr, out, lines,
+                           n_in, n_out, stream);
 }
 
 }  // extern "C"

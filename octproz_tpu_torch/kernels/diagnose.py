@@ -18,9 +18,9 @@ power limit and:
   unshifted 12-bit samples, full 16-bit samples, float input and
   n_in = 1664, and the prep real kernel (bound ``fused_prep.PREP_REL_L2``)
   on the same inputs with and without background removal in the operator,
-  and B2 and B7 at one pass on float32 lines (``three_x_part_errors``:
-  24- and 32-bit samples and 16-bit values, the tensor cores with three x
-  parts) -- for the shipped kernel, ``one_chain`` (the same terms summed across
+  and B2, B5, B7 and B8 at one pass on float32 lines
+  (``three_x_part_errors``: 24- and 32-bit samples and 16-bit values, the
+  tensor cores with three x parts) -- for the shipped kernel, ``one_chain`` (the same terms summed across
   n_in in one wgmma chain instead of folded into a float32 sum every
   64-sample stage; in the one-term kernel instead of every F samples, its
   tiles then wide at every n_in) and ``no_turns`` (the two warpgroups start
@@ -46,8 +46,9 @@ power limit and:
   kernel;
 * ``ms``: B1, B2, B5, B7 and B8 (one pass), B3, B4, B6, B9 and B10
   ("high") at the main path's shapes (one 131072-line buffer of shifted
-  12-bit samples), B2 and B7 on 24-bit float32 lines (six terms; B2 also
-  on 16-bit values as float32 lines: five), B2 on unshifted samples (five terms), B4 on uint8
+  12-bit samples), B2, B5, B7 and B8 on 24-bit float32 lines (six terms;
+  B2 also on 16-bit values as float32 lines: five), B2 on unshifted
+  samples (five terms), B4 on uint8
   samples of the same shape, and B2 at bf16 with linear and fast-log
   scaling (what the log10 epilogue costs),
   for the shipped kernel, ``one_chain``, ``no_turns``, and the timing-only
@@ -84,7 +85,8 @@ from . import build
 from . import fused_prep as fp
 
 #: The float32-line rows on the tensor cores (three x parts, six terms).
-THREE_X_PART_KERNELS = ("depth_scale_f32lines", "prep_phase_f32lines")
+THREE_X_PART_KERNELS = ("depth_scale_f32lines", "depth_scale_concat_f32lines",
+                        "prep_phase_f32lines", "prep_real_f32lines")
 VARIANTS = {"shipped": 0, "one_chain": 1, "no_turns": 8, "no_loads": 2, "no_mma": 4,
             "no_loads_no_mma": 6, "wgmma_only": 50, "no_stores": 64}
 #: the variants whose output is right: their errors are read too
@@ -177,17 +179,19 @@ THREE_X_PART_CASES = (("24-bit", "f32", 96.0), ("32-bit", "f32w", 144.0),
 
 
 def three_x_part_errors(dev) -> dict:
-    """B2 and B7 at one pass on float32 lines (the tensor cores with three x
-    parts) against their plain versions on 4096 lines of 1024 samples: B2's
-    magnitude sqrt(re^2 + im^2) as a relative L2 error (linear scaling, no
-    FPN mean) and its log scale (``fused_prep.scale_error`` over the 60 dB
-    from the samples' display floor), B7's spectra with and without
-    background removal (``fused_prep.prep_error``)."""
+    """B2, B5, B7 and B8 at one pass on float32 lines (the tensor cores with
+    three x parts) against their plain versions on 4096 lines of 1024
+    samples: B2's magnitude sqrt(re^2 + im^2) as a relative L2 error
+    (linear scaling, no FPN mean) and B2's and B5's log scale
+    (``fused_prep.scale_error`` over the 60 dB from the samples' display
+    floor), B7's and B8's spectra with and without background removal
+    (``fused_prep.prep_error``)."""
     out = {}
     g = torch.Generator(device=dev)
     g.manual_seed(5)
     cv = _curves(1024, bench.bench_config(), dev)
     ops = [fp._operator_parts(w, "default") for w in (cv.depth_op_re, cv.depth_op_im)]
+    wide = fp.concat_operator(cv.depth_op_re, cv.depth_op_im, "default")
     zero = torch.zeros((2, 512), device=dev)
     preps = {bg: _curves(1024, bench.fft_config(background_removal=bg), dev) for bg in (False, True)}
     for name, kind, floor in THREE_X_PART_CASES:
@@ -202,12 +206,18 @@ def three_x_part_errors(dev) -> dict:
                               [fp.depth_scale_plain(raw, *ops, zero, **lin)])
         out[f"depth_scale float32 lines, {name}"] = {"rms": rms, "max": worst, "ok": ok,
                                                      "magnitude_rel_l2": mag}
+        rms, worst, ok = fp.scale_error(fp.fold_depth_scale_concat(raw, wide, mean2, **kw),
+                                        fp.depth_scale_concat_plain(raw, wide, mean2, **kw))
+        out[f"depth_scale_concat float32 lines, {name}"] = {"rms": rms, "max": worst, "ok": ok}
         for bg, pcv in preps.items():
             one = fp._operator_parts(pcv.prep_operator, "default")
             rows = (pcv.phase.real.contiguous(), pcv.phase.imag.contiguous())
-            out[f"prep_phase float32 lines, {name}{', background' if bg else ''}"] = \
+            tag = f"float32 lines, {name}{', background' if bg else ''}"
+            out[f"prep_phase {tag}"] = \
                 fp.prep_error(fp.prep_phase(raw, one, *rows, bitshift=False),
                               fp.prep_phase_plain(raw, one, *rows, bitshift=False))
+            out[f"prep_real {tag}"] = fp.prep_error(fp.prep_real(raw, one, bitshift=False),
+                                                    fp.prep_real_plain(raw, one, bitshift=False))
     return out
 
 

@@ -23,14 +23,15 @@ from it in the epilogue.
 This module holds, for each of the ten kernel families:
 
 * the CUDA kernel (the C entry points of ``csrc/fold_gemm.cu``,
-  ``csrc/fold_concat.cu`` and ``csrc/prep_gemm.cu``; every rung on
+  ``csrc/fold_split.cu`` and ``csrc/prep_split.cu``; every rung on
   uint8/uint16 lines runs the bf16 tensor-core kernels of
   ``csrc/fold_split.cu`` and ``csrc/prep_split.cu`` -- the one-pass rung as
   three bf16 parts of the float32 operator (:class:`OnePass`) -- and so
   does the one-pass rung on float32 lines of the families in
-  :data:`FLOAT_LINE_TENSOR_CORE` (x as three bf16 parts, six terms); the
-  other families' one pass on float32 lines runs the float32-FMA template
-  on the CUDA cores; ``compute_dtype="bfloat16"`` runs the persistent one-term kernel
+  :data:`FLOAT_LINE_TENSOR_CORE` (x as three bf16 parts, six terms): every
+  one-pass family but the planar one, whose float32 lines run the
+  float32-FMA kernel of ``csrc/fold_gemm.cuh`` on the CUDA cores;
+  ``compute_dtype="bfloat16"`` runs the persistent one-term kernel
   of ``csrc/fold_bf16.cuh`` with x rounded to nearest and one bf16
   operator part, on every input type -- the fold families (``depth``,
   ``depth_scale``, ``depth_scale_concat``) in ``csrc/fold_bf16.cu``, the
@@ -100,15 +101,16 @@ LAUNCHES = {"depth": 0, "depth_split": 0, "depth_scale": 0,
 #: The one-pass families whose float32 lines (samples above 16 bits) run on
 #: the tensor cores: x split into three bf16 parts (x_hi + x_mid + x_lo,
 #: exact), six wgmma terms against the float32 operator's three parts
-#: (``csrc/fold_split.cuh``, ``pack3``).  The others keep the float32-FMA
-#: kernel for float32 lines.
-FLOAT_LINE_TENSOR_CORE = ("depth_scale", "prep_phase")
+#: (``csrc/fold_split.cuh``, ``pack3``) -- the concat kernel's as the two
+#: views of each wide part.  The planar kernel (``depth``) alone keeps the
+#: float32-FMA kernel for float32 lines.
+FLOAT_LINE_TENSOR_CORE = ("depth_scale", "depth_scale_concat", "prep_phase", "prep_real")
 
 #: The one-pass launches of every family by route: ``tensor_core``
 #: (uint8/uint16 lines, and float32 lines of :data:`FLOAT_LINE_TENSOR_CORE`:
 #: bf16 wgmma on the float32 operator's three parts), ``simt`` (float32
-#: lines of the other families: the float32-FMA kernel) -- at float32
-#: compute the input type and the family alone pick between those two -- or
+#: lines of ``depth``: the float32-FMA kernel) -- at float32 compute the
+#: input type and the family alone pick between those two -- or
 #: ``tensor_core_bf16``
 #: (``compute_dtype="bfloat16"``, any input type: x rounded to bf16, one
 #: wgmma term against the one rounded bf16 operator part: for ``depth``,
@@ -330,11 +332,11 @@ def _split_bf16(w: torch.Tensor, parts: int = 2) -> Tuple[torch.Tensor, ...]:
 
 class OnePass(tuple):
     """The one-pass rung's operator as the wrappers take it: a 1-tuple of
-    the float32 operator -- what the plain versions and the SIMT kernels
-    read -- that also carries ``split``, its three bf16 parts
-    (:func:`_split_bf16`), which the tensor-core kernels read for integer
-    lines.  ``split`` is computed at first use and kept, so an operator held
-    in ``Curves.depth_parts``, ``Curves.depth_concat_parts`` or
+    the float32 operator -- what the plain versions and the planar SIMT
+    kernel read -- that also carries ``split``, its three bf16 parts
+    (:func:`_split_bf16`), which the tensor-core kernels read.  ``split``
+    is computed at first use and kept, so an operator held in
+    ``Curves.depth_parts``, ``Curves.depth_concat_parts`` or
     ``Curves.prep_parts`` is split once per curve build; one made per call
     is split per call."""
 
@@ -701,8 +703,10 @@ def _kernel_operands(raw2d, axes, family: str):
     one-pass rung runs on the tensor cores against the float32 operator's
     three bf16 parts for uint8/uint16 lines (x_hi + x_lo) and for float32
     lines of :data:`FLOAT_LINE_TENSOR_CORE` (x_hi + x_mid + x_lo), and on the
-    float32-FMA kernel for float32 lines of the other families: the input
-    type and the family alone decide, never a failed build or launch."""
+    float32-FMA kernel for float32 lines of the planar family: the input
+    type and the family alone decide, never a failed build or launch.  The
+    C entries refuse a one-pass tensor-core launch without three bf16
+    parts; none of them falls back to a float32 kernel."""
     passes = 2 * len(axes[0]) - 1
     if passes > 1:
         return passes, axes, family + "_split", None

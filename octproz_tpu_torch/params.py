@@ -180,8 +180,9 @@ class ProcConfig:
     # epilogues stay float32).
     compute_dtype: str = "float32"
     # Error budget of the folded GEMM, float32 compute:
-    #   "default": one pass; on the CUDA kernel a float32-FMA GEMM
-    #              (well inside the ~2^-8 relative budget of this rung)
+    #   "default": one pass, a float32 product (on the CUDA kernels the
+    #              bf16 terms of the operator's three bf16 parts; well
+    #              inside the ~2^-8 relative budget of this rung)
     #   "high":    3 passes of bf16 operand splits, ~2^-16 relative
     #   "highest": 5 passes of bf16 operand splits, ~2^-24 relative
     # Ignored when compute_dtype="bfloat16".

@@ -15,8 +15,8 @@ parts every F = 256 samples) against the JAX package's bf16
 ``fused_depth_transform`` in
 interpret mode at 2048- and 4096-sample lines; the bench's ``depth_bf16``
 row and ``*_f32lines`` names (B1/B2/B5/B7/B8 at one pass on 24-bit samples
-as float32 lines: B2 and B7 on the tensor cores as three x parts, the others
-on the float32-FMA kernels) through ``bench._kernel_cases``
+as float32 lines: B2, B5, B7 and B8 on the tensor cores as three x parts, B1
+on the float32-FMA kernel) through ``bench._kernel_cases``
 with the launches replaced by stand-ins that take the wrapper's route and
 run the plain version, beside ``bench.kernel_bound`` for those rows.  The
 agreement of B1/B2/B5 at bf16 with the JAX package's Pallas kernels is
@@ -182,9 +182,9 @@ def small_bench(monkeypatch):
 @pytest.mark.parametrize("name", bench.F32_LINE_KERNELS)
 def test_f32line_cases_take_the_simt_route(small_bench, name):
     """Each ``*_f32lines`` case feeds 24-bit samples as float32 lines (no
-    bitshift): its launch takes the float32-FMA route -- the tensor-core
-    route with three x parts for ``depth_scale`` and ``prep_phase``
-    (``fused_prep.FLOAT_LINE_TENSOR_CORE``) --, equals its plain version,
+    bitshift): its launch takes the tensor-core route with three x parts
+    (``fused_prep.FLOAT_LINE_TENSOR_CORE``) -- the float32-FMA route for
+    ``depth`` --, equals its plain version,
     and its library call is the float32 product of the same x by the
     float32 operator [W_re | W_im] (or P); its bound counts the six terms
     of three x parts on the tensor-core route."""
@@ -216,9 +216,9 @@ def test_float32_lines_are_24_bit_samples():
 @pytest.mark.parametrize("name", bench.F32_LINE_KERNELS)
 def test_kernel_bound_of_the_f32line_rows(name):
     """At the main path's shapes on float32 lines of 24-bit samples (three
-    x parts): one float32 product of 275 GFLOP at 67 TFLOP/s, 4.103 ms, or
-    for ``depth_scale`` and ``prep_phase`` six bf16 terms of it at 989
-    TFLOP/s, 1.668 ms, bound by its operations; bytes are the float32
+    x parts): six bf16 terms of 275 GFLOP at 989 TFLOP/s, 1.668 ms, or for
+    ``depth`` one float32 product at 67 TFLOP/s, 4.103 ms, bound by its
+    operations; bytes are the float32
     lines, the operator (the float32 one, or its three bf16 parts; two for
     the fold families' re and im, one P) and the output."""
     n_out = 1024 if name.startswith("prep") else 512

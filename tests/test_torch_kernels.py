@@ -27,6 +27,7 @@ file also run where JAX is not installed:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_kernels.py
 """
 
+import ctypes
 import dataclasses
 import importlib
 
@@ -531,7 +532,8 @@ CUDA_CASES = [
     (256, 300, torch.uint8, False, 3, None, None),
     (256, 300, torch.uint8, False, 3, "log", torch.float32),
     # the one-pass rung on the tensor cores (integer lines: x_lo nonzero
-    # unshifted, the ragged edges) and on the float32-FMA kernel (float32)
+    # unshifted, the ragged edges); float32 lines: the planar kernel on the
+    # float32-FMA kernel, the scaled one with three x parts
     (256, 300, torch.uint16, False, 1, None, None),
     (256, 300, torch.uint16, False, 1, "log", torch.float32),
     (256, 300, torch.uint16, False, 1, "fast_log", torch.float32),
@@ -648,6 +650,94 @@ def test_cuda_three_x_parts_match_plain(cuda_device, np_rng, n):
     _scale_close(got, tfp.depth_scale_plain(raw, wre, wim, mean2.to(cuda_device), **kw)
                  .cpu().numpy())
     _prep_close(spectra, tfp.prep_phase_plain(raw, one, *rows, bitshift=False).cpu().numpy())
+
+
+#: (n_in, lines, bits) of B5 and B8 on float32 lines: n_in 1000 gives half =
+#: 500 (the concat kernel's im views not 16-byte aligned: the element-wise
+#: producer), 1001 rows not 16-byte aligned (the element-wise producer for
+#: both), 999 a partial 128-line tile, 131073 lines one more than a buffer.
+F32_CONCAT_REAL_CASES = [(256, 299, 24), (256, 299, 32), (1000, 999, 24), (1000, 299, 32),
+                         (1001, 999, 24), (1001, 299, 32), (1024, 131073, 24)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,lines,bits", F32_CONCAT_REAL_CASES)
+def test_cuda_concat_and_real_three_x_parts_match_plain(cuda_device, np_rng, n, lines, bits):
+    """B5 and B8 at one pass on float32 lines of 24- and 32-bit samples (the
+    tensor cores with three x parts) against their plain versions, the
+    route read back: log scaling over the 60 dB from the samples' display
+    floor (96 / 144 dB, 20 log10 of their range over 8-bit values), the
+    real spectra with background removal in the operator."""
+    raw = torch.from_numpy(np_rng.integers(0, 1 << bits, size=(lines, n), dtype=np.int64)
+                           .astype(np.float32)).to(cuda_device)
+    wre, wim = (torch.from_numpy(w).to(cuda_device) for w in _operators(n))
+    wide = tfp.concat_operator(wre, wim, "default")
+    half = n // 2
+    mean2 = torch.from_numpy(np_rng.normal(0, 50.0, size=(2, half)).astype(np.float32))
+    floor = 20.0 * np.log10(2.0 ** (bits - 8))
+    a, b = tfp._scale_affine(True, half, floor, floor + 60.0, 0.0, 1.0)
+    kw = dict(bitshift=False, log_scaling=True, a=a, b=b)
+    op, _ = _prep_operator(n, background_removal=True)
+    one = tfp._operator_parts(torch.from_numpy(op).to(cuda_device), "default")
+    tfp.reset_launch_counts()
+    got = tfp.fold_depth_scale_concat(raw, wide, mean2.to(cuda_device), **kw)
+    spectra = tfp.prep_real(raw, one, bitshift=False)
+    torch.cuda.synchronize()
+    for family in ("depth_scale_concat", "prep_real"):
+        assert tfp.ONE_PASS_ROUTES[family] == \
+            {**{"tensor_core": 0, "simt": 0, "tensor_core_bf16": 0}, "tensor_core": 1}
+    _scale_close(got, tfp.depth_scale_concat_plain(raw, wide, mean2.to(cuda_device), **kw)
+                 .cpu().numpy())
+    _prep_close(spectra, tfp.prep_real_plain(raw, one, bitshift=False).cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["depth_scale_concat", "prep_real"])
+def test_cuda_three_x_parts_without_x_lo_fail(cuda_device, np_rng, family):
+    """Control: B5 and B8 fed 24-bit float32 lines cut to x_hi + x_mid (what
+    the three-x-part kernel sums without x_lo w_0) fail the bounds against
+    the float32 product of the whole lines."""
+    raw = torch.from_numpy(np_rng.integers(0, 1 << 24, size=(300, N), dtype=np.int64)
+                           .astype(np.float32)).to(cuda_device)
+    hi = tfp._bf16_trunc(raw)
+    cut = hi + tfp._bf16_trunc(raw - hi)
+    if family == "prep_real":
+        op, _ = _prep_operator(background_removal=True)
+        one = tfp._operator_parts(torch.from_numpy(op).to(cuda_device), "default")
+        assert tfp.prep_error(tfp.prep_real(cut, one, bitshift=False),
+                              tfp.prep_real_plain(raw, one, bitshift=False)) \
+            > 2 * tfp.PREP_REL_L2
+        return
+    wre, wim = (torch.from_numpy(w).to(cuda_device) for w in _operators())
+    wide = tfp.concat_operator(wre, wim, "default")
+    mean2 = torch.zeros((2, N // 2), device=cuda_device)
+    a, b = tfp._scale_affine(True, N // 2, 96.0, 156.0, 0.0, 1.0)
+    kw = dict(bitshift=False, log_scaling=True, a=a, b=b)
+    got = tfp.fold_depth_scale_concat(cut, wide, mean2, **kw)
+    assert not tfp.scale_error(got, tfp.depth_scale_concat_plain(raw, wide, mean2, **kw))[2]
+
+
+@pytest.mark.cuda
+def test_cuda_one_pass_launch_without_three_parts_is_refused(cuda_device):
+    """On float32 lines at one pass the C entries of B5 and B8 take the
+    float32 operator's three bf16 parts only: a launch with the float32
+    operator in their place is refused, not run on another kernel."""
+    from octproz_tpu_torch.kernels import build
+
+    lib = build.load()
+    raw = torch.zeros((8, N), device=cuda_device)
+    w = torch.zeros((N, N), device=cuda_device)
+    mean2 = torch.zeros((2, N // 2), device=cuda_device)
+    out = torch.empty((8, N), device=cuda_device)
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = lib.prep_gemm_real(raw.data_ptr(), 2, 0, 1, w.data_ptr(), None, None,
+                            out.data_ptr(), 8, N, N, stream)
+    assert rc != 0
+    rc = lib.fold_gemm_scale_concat(raw.data_ptr(), 2, 0, 1, w.data_ptr(), None, None,
+                                    mean2.data_ptr(), out.data_ptr(), 0, 0,
+                                    ctypes.c_float(1.0), ctypes.c_float(0.0), 8, N, N // 2,
+                                    stream)
+    assert rc != 0
 
 
 @pytest.mark.cuda
@@ -938,17 +1028,17 @@ def test_cuda_prep_kernel_matches_plain(cuda_device, np_rng, n_in, lines, in_dty
 @pytest.mark.cuda
 def test_cuda_prep_one_pass_route_follows_the_input_type(cuda_device, np_rng):
     """At one pass the prep kernels run on the tensor cores for uint16
-    lines; on float32 lines (16-bit and 24-bit values) the phase kernel
-    runs there with three x parts and the real kernel on the float32-FMA
-    kernel, counted as ``prep_phase`` / ``prep_real`` with their route."""
+    lines, and on float32 lines (16-bit and 24-bit values) there too with
+    three x parts, counted as ``prep_phase`` / ``prep_real`` with their
+    route."""
     op, phase = _prep_operator(background_removal=True)
     one = tfp._operator_parts(torch.from_numpy(op).to(cuda_device), "default")
     rows = tuple(r.to(cuda_device) for r in _rows(phase))
     full = torch.from_numpy(np_rng.integers(0, 1 << 16, size=(300, N)).astype(np.uint16))
     wide = torch.from_numpy(np_rng.integers(0, 1 << 24, size=(300, N)).astype(np.float32))
     for raw, route, real_route in ((full.to(cuda_device), "tensor_core", "tensor_core"),
-                                   (full.to(cuda_device).float(), "tensor_core", "simt"),
-                                   (wide.to(cuda_device), "tensor_core", "simt")):
+                                   (full.to(cuda_device).float(), "tensor_core", "tensor_core"),
+                                   (wide.to(cuda_device), "tensor_core", "tensor_core")):
         tfp.reset_launch_counts()
         got = tfp.prep_phase(raw, one, *rows, bitshift=False)
         real = tfp.prep_real(raw, one, bitshift=False)
@@ -1053,11 +1143,13 @@ CONCAT_CUDA_CASES = [
     (1088, 130, torch.uint16, False, 3, True, torch.float32),
     (1100, 65, torch.uint16, True, 5, True, torch.float32),
     # the one pass on the tensor cores: x_lo terms, then the same two
-    # shapes, each view three parts; float32 lines on the float32-FMA kernel
+    # shapes, each view three parts; float32 lines with three x parts, 1000
+    # samples (half % 8 != 0) on the element-wise producer
     (256, 300, torch.uint16, False, 1, True, torch.float32),
     (1088, 130, torch.uint16, True, 1, True, torch.float32),
     (1100, 65, torch.uint16, True, 1, False, torch.float32),
     (1664, 70, torch.float32, False, 1, True, torch.float32),
+    (1000, 130, torch.float32, False, 1, True, torch.float32),
 ]
 
 
@@ -1097,20 +1189,20 @@ def _concat_one_pass(cuda_device, raw, wide, floor_db):
 @pytest.mark.cuda
 def test_cuda_concat_one_pass_route_follows_the_input_type(cuda_device, np_rng):
     """At one pass the concat kernel runs on the tensor cores for uint16
-    lines (unshifted 12-bit: x_lo terms) and on the float32-FMA kernel for
-    float32 lines, both counted as ``depth_scale_concat``, both within the
-    scale bounds (display floor 24 dB, as for 12-bit samples in
+    lines (unshifted 12-bit: x_lo terms) and for float32 lines (three x
+    parts), both counted as ``depth_scale_concat``, both within the scale
+    bounds (display floor 24 dB, as for 12-bit samples in
     ``chip_smoke.py``)."""
     wre, wim = (torch.from_numpy(w).to(cuda_device) for w in _operators())
     wide = tfp.concat_operator(wre, wim, "default")
     raw = _cuda_raw(np_rng, 300, N, torch.uint16, cuda_device)
-    for lines, route in ((raw, "tensor_core"), (raw.float(), "simt")):
+    for lines in (raw, raw.float()):
         tfp.reset_launch_counts()
         got, want = _concat_one_pass(cuda_device, lines, wide, 24.0)
         torch.cuda.synchronize()
         assert tfp.LAUNCHES["depth_scale_concat"] == 1
         assert tfp.ONE_PASS_ROUTES["depth_scale_concat"] == \
-            {**{"tensor_core": 0, "simt": 0, "tensor_core_bf16": 0}, route: 1}
+            {**{"tensor_core": 0, "simt": 0, "tensor_core_bf16": 0}, "tensor_core": 1}
         _scale_close(got, want.cpu().numpy())
 
 

@@ -24,13 +24,14 @@ are held against it for integer samples of up to 16 bits, its own controls
 (two of the three parts; no x_lo) fail, and float32 lines above 16 bits miss
 the bound through the two-part split of x.  The same holds for the concat
 kernel (two views of the wide operator's three parts) and the prep kernels
-at one pass.  Float32 lines of the scaled two-operator kernel (B2) and the
-phase kernel (B7) at one pass split x into three parts (:func:`staged3`:
-x_lo w_0, x_mid w_1, x_mid w_0, x_hi w_2, x_hi w_1, x_hi w_0 per stage, the
-x_lo group skipped where a tile is exact in 16 bits and the x_mid group too
-where it is exact in bf16), held against the plain versions and the JAX
-package at ``bit_depth=24``; without x_lo w_0 (five terms) they fail.  The
-other families keep the float32-FMA kernel for float32 lines (:func:`simt`).
+at one pass.  Float32 lines of the scaled kernels (B2, and B5 on the two
+views of the wide operator's parts) and the prep kernels (B7, B8) at one
+pass split x into three parts (:func:`staged3`: x_lo w_0, x_mid w_1, x_mid
+w_0, x_hi w_2, x_hi w_1, x_hi w_0 per stage, the x_lo group skipped where a
+tile is exact in 16 bits and the x_mid group too where it is exact in
+bf16), held against the plain versions and the JAX package at
+``bit_depth=24``; without x_lo w_0 (five terms) they fail.  The planar
+kernel (B1) keeps the float32-FMA kernel for float32 lines (:func:`simt`).
 """
 
 import dataclasses
@@ -151,7 +152,7 @@ def kernel_sums(raw, x, parts, family):
     runs: the staged terms of the bf16 parts -- at one pass the float32
     operator's three, for integer lines, and for float32 lines of
     ``fused_prep.FLOAT_LINE_TENSOR_CORE`` with three x parts -- or, at one
-    pass on float32 lines of the other families, the float32-FMA sum.  The
+    pass on float32 lines of the planar family, the float32-FMA sum.  The
     route is the wrapper's own (``fused_prep._kernel_operands``)."""
     if isinstance(parts, tfp.OnePass):
         if tfp._kernel_operands(raw, (parts,), family)[3] == "simt":
@@ -262,10 +263,10 @@ def test_float_lines_above_16_bits_miss_the_bound_through_the_split(epi):
     """x_hi + x_lo keeps 16 bits of a sample: 24-bit float32 lines through
     the two-x-part terms miss the one-pass rung's bounds, which is why the
     kernels that take float32 lines at one pass either split x in three
-    (the scaled kernel: :func:`staged3`) or keep the float32-FMA kernel (the
-    planar and the concat kernel), and either holds them; for the concat
-    kernel the terms of the two views of the wide operator's parts, and the
-    float32-FMA sum over the two views of the wide float32 operator."""
+    (the scaled kernels: :func:`staged3`) or keep the float32-FMA kernel
+    (the planar kernel), and either holds them; for the concat kernel the
+    terms of the two views of the wide operator's three parts, with two x
+    parts and with three."""
     ops = [tfp._operator_parts(w, "default") for w in _operators(256)]
     raw, _ = _input("f32", 200, 256)
     if epi == "concat":
@@ -276,9 +277,11 @@ def test_float_lines_above_16_bits_miss_the_bound_through_the_split(epi):
         rms, _, ok = tfp.scale_error(_staged_scale(raw, *concat_views(wide.split), mean2, a, b),
                                      want)
         assert not ok and rms > 2 * tfp.SCALE_RMS, rms
-        sums = [tfp.OnePass(view[0]) for view in concat_views(wide)]
-        assert tfp.scale_error(_staged_scale(raw, *sums, mean2, a, b,
-                                             family="depth_scale_concat"), want)[2]
+        assert tfp._kernel_operands(raw, (wide,), "depth_scale_concat")[3] == "tensor_core"
+        re, im = (staged3(raw, view) - mean2[i:i + 1]
+                  for i, view in enumerate(concat_views(wide.split)))
+        got = tfp._scale_epilogue(re * re + im * im, log_scaling=True, a=a, b=b)
+        assert tfp.scale_error(got, want)[2]
     elif epi == "planar":
         want = tfp.depth_plain(raw, *ops, bitshift=False)
         assert tfp.planar_error([staged(raw, w.split) for w in ops], want) > 2 * tfp.PLANAR_REL_L2
@@ -322,28 +325,36 @@ def test_three_x_parts_within_the_scale_bounds(kind, n, lines):
     assert tfp.scale_error(got, exact)[0] <= tfp.scale_error(want, exact)[0] + tfp.SCALE_RMS / 10
 
 
-@pytest.mark.parametrize("epi", ["scale", "phase"])
+@pytest.mark.parametrize("epi", ["scale", "phase", "concat", "real"])
 @pytest.mark.parametrize("kind", ["f32", "f32w"])
 def test_three_x_parts_five_term_control_fails(epi, kind):
     """Control: the three-x-part kernel without x_lo w_0 (five terms) fails
     the bounds against the float32 product on 24- and 32-bit lines, scaled
-    (B2) and phase (B7, with background removal)."""
+    (B2, and B5 on the two views of the wide operator's parts), phase (B7)
+    and real (B8), both with background removal."""
     raw, _ = _input(kind, 200, 256)
-    if epi == "scale":
+    if epi in ("scale", "concat"):
         ops = [tfp._operator_parts(w, "default") for w in _operators(256)]
         mean2, a, b = _scale_args(128)
-        re, im = (staged3(raw, w.split, x_lo_terms=False) - mean2[i:i + 1]
-                  for i, w in enumerate(ops))
+        kw = dict(bitshift=False, log_scaling=True, a=a, b=b)
+        if epi == "scale":
+            views = [w.split for w in ops]
+            want = tfp.depth_scale_plain(raw, *ops, mean2, **kw)
+        else:
+            wide = tfp.concat_operator(*ops, "default")
+            views = concat_views(wide.split)
+            want = tfp.depth_scale_concat_plain(raw, wide, mean2, **kw)
+        re, im = (staged3(raw, view, x_lo_terms=False) - mean2[i:i + 1]
+                  for i, view in enumerate(views))
         got = tfp._scale_epilogue(re * re + im * im, log_scaling=True, a=a, b=b)
-        rms, _, ok = tfp.scale_error(got, tfp.depth_scale_plain(
-            raw, *ops, mean2, bitshift=False, log_scaling=True, a=a, b=b))
+        rms, _, ok = tfp.scale_error(got, want)
         assert not ok and rms > 2 * tfp.SCALE_RMS, rms
     else:
         op, rows = _prep_operator(256, True)
+        rows = rows if epi == "phase" else None
         one = tfp._operator_parts(op, "default")
-        y = staged3(raw, one.split, x_lo_terms=False)
-        err = tfp.prep_error(torch.complex(y * rows[0], y * rows[1]),
-                             tfp.prep_phase_plain(raw, one, *rows, bitshift=False))
+        err = tfp.prep_error(_staged3_prep(raw, one, rows, x_lo_terms=False),
+                             _prep_plain(raw, one, rows, False))
         assert err > 2 * tfp.PREP_REL_L2, err
 
 
@@ -513,6 +524,14 @@ def _kernel_prep(raw, x, parts, rows):
     return y if rows is None else torch.complex(y * rows[0], y * rows[1])
 
 
+def _staged3_prep(x, one, rows, x_lo_terms=True):
+    """The three-x-part prep kernel's output on float32 lines x against the
+    float32 operator's three parts (``one.split``): :func:`staged3`,
+    through the phasor epilogue for the phase kernel (``rows`` given)."""
+    y = staged3(x, one.split, x_lo_terms=x_lo_terms)
+    return y if rows is None else torch.complex(y * rows[0], y * rows[1])
+
+
 def _one_pass_prep_error(epi, background_removal, kind, n, lines):
     """The staged terms of the one-pass prep kernel ``epi`` on integer lines
     (the float32 operator's three parts, five terms where a stage has x_lo)
@@ -552,9 +571,8 @@ def test_prep_real_one_pass_staged_within_the_prep_bound(background_removal, kin
     pytest.param("real", False, id="real-False"), pytest.param("real", True, id="real-True")])
 def test_prep_float_lines_above_16_bits_miss_the_bound_through_the_split(epi, background_removal):
     """24-bit float32 lines through the two-x-part terms miss the prep bound
-    (x_hi + x_lo keeps 16 bits of a sample), so the phase kernel's one pass
-    splits x in three for them and the real kernel keeps the float32-FMA
-    kernel, and either holds it."""
+    (x_hi + x_lo keeps 16 bits of a sample), so both prep kernels' one
+    pass splits x in three for them, which holds it."""
     op, rows = _prep_operator(256, background_removal)
     rows = rows if epi == "phase" else None
     one = tfp._operator_parts(op, "default")
@@ -564,33 +582,42 @@ def test_prep_float_lines_above_16_bits_miss_the_bound_through_the_split(epi, ba
     assert tfp.prep_error(_kernel_prep(raw, raw, one, rows), want) <= tfp.PREP_REL_L2
 
 
-@pytest.mark.parametrize("background_removal", [False, True])
+@pytest.mark.parametrize("epi,background_removal", [
+    pytest.param("phase", False, id="False"), pytest.param("phase", True, id="True"),
+    pytest.param("real", False, id="real-False"), pytest.param("real", True, id="real-True")])
 @pytest.mark.parametrize("kind", ["f32", "f32w", "f16"])
 @pytest.mark.parametrize("n,lines", [(256, 200), (320, 130), (1024, 130)])
-def test_prep_phase_three_x_parts_within_the_prep_bound(background_removal, kind, n, lines):
-    """The phase kernel's one pass on float32 lines (B7): the six terms of
-    three x parts (five on 16-bit values) against prep_phase_plain within
-    the prep bound, with and without background removal, on 24- and 32-bit
-    samples, a partial stage (n = 320) and partial 64-line groups; the real
-    kernel keeps the float32-FMA kernel on the same lines."""
+def test_prep_phase_three_x_parts_within_the_prep_bound(epi, background_removal, kind, n,
+                                                        lines):
+    """The prep kernels' one pass on float32 lines, phase (B7) and real
+    (B8): the six terms of three x parts (five on 16-bit values) against
+    prep_phase_plain / prep_real_plain within the prep bound, with and
+    without background removal, on 24- and 32-bit samples, a partial stage
+    (n = 320) and partial 64-line groups; both on the tensor-core route."""
     op, rows = _prep_operator(n, background_removal)
+    rows = rows if epi == "phase" else None
     one = tfp._operator_parts(op, "default")
     raw, _ = _input(kind, lines, n)
     assert tfp._kernel_operands(raw, (one,), "prep_phase")[3] == "tensor_core"
-    assert tfp._kernel_operands(raw, (one,), "prep_real")[3] == "simt"
-    err = tfp.prep_error(_kernel_prep(raw, raw, one, rows),
-                         _prep_plain(raw, one, rows, False))
+    assert tfp._kernel_operands(raw, (one,), "prep_real")[3] == "tensor_core"
+    got = _kernel_prep(raw, raw, one, rows)
+    assert torch.equal(got, _staged3_prep(raw, one, rows))
+    err = tfp.prep_error(got, _prep_plain(raw, one, rows, False))
     assert err <= tfp.PREP_REL_L2, err
 
 
-@pytest.mark.parametrize("family", ["depth_scale", "prep_phase"])
+@pytest.mark.parametrize("family", ["depth_scale", "depth_scale_concat", "prep_phase",
+                                    "prep_real"])
 def test_three_x_parts_match_the_jax_package_at_24_bits(family):
-    """The JAX package's fused_depth_scale / fused_prep at ``bit_depth=24``
-    (Pallas in interpret mode, as its own CPU tests run it) against the
-    port's emulated six-term sums on the same uint32 buffer, decoded to
-    float32 lines as the port's wrapper decodes them: within the scale
-    bounds (RMS 1e-6, max 1e-4 display units above the display floor) or
-    the prep bound (relative L2 1e-6), with the floor of 24-bit samples."""
+    """The JAX package's fused_depth_scale (with ``fold_concat`` for the
+    concat kernel) / fused_prep (without dispersion for the real kernel) at
+    ``bit_depth=24`` (Pallas in interpret mode, as its own CPU tests run
+    it) against the port's emulated six-term sums on the same uint32
+    buffer, decoded to float32 lines as the port's wrapper decodes them --
+    the concat kernel's over the two views of the wide operator's three
+    parts: within the scale bounds (RMS 1e-6, max 1e-4 display units above
+    the display floor) or the prep bound (relative L2 1e-6), with the floor
+    of 24-bit samples."""
     import importlib
 
     import jax.numpy as jnp
@@ -600,8 +627,11 @@ def test_three_x_parts_match_the_jax_package_at_24_bits(family):
     n = 256
     geometry = dict(samples_per_line=n, ascans_per_bscan=32, bscans_per_buffer=4, bit_depth=24)
     changes = dict(bitshift=False, grayscale_min=96.0, grayscale_max=156.0)
-    if family == "prep_phase":
-        changes.update(fft_via_matmul=False, use_pallas_prep=True)
+    if family.startswith("prep"):
+        changes.update(fft_via_matmul=False, use_pallas_prep=True,
+                       dispersion=family == "prep_phase")
+    if family == "depth_scale_concat":
+        changes.update(fold_concat=True)
     acq = AcqParams(**geometry)
     cfg = dataclasses.replace(default_full_config(), **changes)
     jacq = jparams.AcqParams(**geometry)
@@ -612,13 +642,20 @@ def test_three_x_parts_match_the_jax_package_at_24_bits(family):
                                              dtype=np.int64).astype(np.uint32)
     x = tfp._predecode(torch.from_numpy(raw).reshape(-1, n), 24, False)
     assert x.dtype == torch.float32 and tfp.x_parts(x) == 3
-    if family == "depth_scale":
+    if family.startswith("depth"):
         ops = [tfp._operator_parts(w, "default") for w in (cv.depth_op_re, cv.depth_op_im)]
         mean2 = torch.from_numpy(np.random.default_rng(5).normal(0, 50.0, size=(2, n // 2))
                                  .astype(np.float32))
         a, b = tfp._scale_affine(True, n // 2, cfg.grayscale_min, cfg.grayscale_max,
                                  cfg.addend, cfg.multiplicator)
-        got = _staged_scale(x, *ops, mean2, a, b)
+        if family == "depth_scale":
+            got = _staged_scale(x, *ops, mean2, a, b)
+        else:
+            wide = tfp.concat_operator(*ops, "default")
+            assert tfp._kernel_operands(x, (wide,), family)[3] == "tensor_core"
+            re, im = (staged3(x, view) - mean2[i:i + 1]
+                      for i, view in enumerate(concat_views(wide.split)))
+            got = tfp._scale_epilogue(re * re + im * im, log_scaling=True, a=a, b=b)
         want = jfp.fused_depth_scale(jnp.asarray(raw), jnp.asarray(cv.depth_op_re.numpy()),
                                      jnp.asarray(cv.depth_op_im.numpy()),
                                      jnp.asarray(mean2.numpy()), jacq, jcfg, interpret=True)
@@ -627,11 +664,15 @@ def test_three_x_parts_match_the_jax_package_at_24_bits(family):
         assert ok, (rms, worst)
     else:
         one = tfp._operator_parts(cv.prep_operator, "default")
-        rows = (cv.phase.real.contiguous(), cv.phase.imag.contiguous())
+        phase = family == "prep_phase"
+        rows = (cv.phase.real.contiguous(), cv.phase.imag.contiguous()) if phase else None
+        assert tfp._kernel_operands(x, (one,), family)[3] == "tensor_core"
         got = _kernel_prep(x, x, one, rows)
         want = jfp.fused_prep(jnp.asarray(raw), jnp.asarray(cv.prep_operator.numpy()),
-                              jnp.asarray(cv.phase.numpy()), jacq, jcfg, interpret=True)
+                              jnp.asarray(cv.phase.numpy()) if phase else None, jacq, jcfg,
+                              interpret=True)
         want = torch.from_numpy(np.array(want)).reshape(got.shape)
+        assert got.dtype == want.dtype
         err = tfp.prep_error(got, want)
         assert err <= tfp.PREP_REL_L2, err
 
@@ -676,14 +717,14 @@ ROUTES = [
     ("prep_phase", torch.uint8, "default", 1, "prep_phase", "tensor_core"),
     ("prep_phase", torch.float32, "default", 1, "prep_phase", "tensor_core"),
     ("prep_real", torch.uint16, "default", 1, "prep_real", "tensor_core"),
-    ("prep_real", torch.float32, "default", 1, "prep_real", "simt"),
+    ("prep_real", torch.float32, "default", 1, "prep_real", "tensor_core"),
     ("prep_phase", torch.uint16, "high", 3, "prep_phase_split", None),
     ("prep_real", torch.uint16, "highest", 5, "prep_real_split", None),
     ("depth_scale_concat", torch.uint16, "default", 1, "depth_scale_concat", "tensor_core"),
     ("depth_scale_concat", torch.uint16, "high", 3, "depth_scale_concat_split", None),
     ("prep_real", torch.uint8, "default", 1, "prep_real", "tensor_core"),
     ("depth_scale_concat", torch.uint8, "default", 1, "depth_scale_concat", "tensor_core"),
-    ("depth_scale_concat", torch.float32, "default", 1, "depth_scale_concat", "simt"),
+    ("depth_scale_concat", torch.float32, "default", 1, "depth_scale_concat", "tensor_core"),
     ("depth_scale", torch.float32, "default", 1, "depth_scale", "tensor_core"),
     ("depth_scale", torch.uint16, "default", 1, "depth_scale", "tensor_core"),
     ("depth", torch.float32, "default", 1, "depth", "simt"),
@@ -698,10 +739,10 @@ def test_route_helper_follows_the_family_and_the_input_type(family, dtype, preci
     """``_kernel_operands`` for the one-operator kernels (the prep kernels
     on P, the concat kernels on [W_re | W_im]) and the two-operator fold
     kernels (W_re, W_im): the one pass goes to the tensor cores on
-    uint8/uint16 lines, and on float32 lines for ``depth_scale`` and
-    ``prep_phase`` (the operator's three bf16 parts, made once and kept),
-    and to the float32-FMA kernel on float32 lines of the other families
-    (the float32 operator); the split rungs pass their parts as they are."""
+    uint8/uint16 lines, and on float32 lines for every family but ``depth``
+    (the operator's three bf16 parts, made once and kept), and to the
+    float32-FMA kernel on float32 lines of ``depth`` (the float32
+    operator); the split rungs pass their parts as they are."""
     if family.startswith("prep"):
         op, _ = _prep_operator(256, False)
         axes, ops = (tfp._operator_parts(op, precision),), (op,)
@@ -782,6 +823,39 @@ def test_concat_one_pass_views_staged_within_the_scale_bounds(kind, n):
                                         a=a, b=b)
     rms, worst, ok = tfp.scale_error(got, want)
     assert ok, (rms, worst)
+
+
+@pytest.mark.parametrize("kind", ["f32", "f32w"])
+@pytest.mark.parametrize("n,lines", [(256, 200), (320, 130), (1000, 130)])
+def test_concat_three_x_parts_views_within_the_scale_bounds(kind, n, lines):
+    """The concat kernel's one pass on float32 lines (B5): the six terms of
+    three x parts against the two views of the wide float32 operator's
+    three bf16 parts, against depth_scale_concat_plain within the scale
+    bounds on 24- and 32-bit samples (display floor 96 / 144 dB, as the
+    card's cases use); n = 320 ends on a partial stage and n = 1000 gives
+    half = 500, half % 8 != 0: the im views are not 16-byte aligned, which
+    on the card takes the element-wise producer.  The route is the
+    wrapper's, and the staged sum stands at least as close to the float64
+    product as the plain version does."""
+    wre, wim = _operators(n)
+    wide = tfp.concat_operator(wre, wim, "default")
+    raw, _ = _input(kind, lines, n)
+    assert tfp._kernel_operands(raw, (wide,), "depth_scale_concat")[3] == "tensor_core"
+    half = n // 2
+    mean2 = torch.from_numpy(np.random.default_rng(5).normal(0, 50.0, size=(2, half))
+                             .astype(np.float32))
+    floor = {"f32": 96.0, "f32w": 144.0}[kind]
+    a, b = tfp._scale_affine(True, half, floor, floor + 60.0, 0.0, 1.0)
+    re, im = (staged3(raw, view) - mean2[i:i + 1]
+              for i, view in enumerate(concat_views(wide.split)))
+    got = tfp._scale_epilogue(re * re + im * im, log_scaling=True, a=a, b=b)
+    want = tfp.depth_scale_concat_plain(raw, wide, mean2, bitshift=False, log_scaling=True,
+                                        a=a, b=b)
+    rms, worst, ok = tfp.scale_error(got, want)
+    assert ok, (rms, worst)
+    ops = [tfp._operator_parts(w, "default") for w in (wre, wim)]
+    exact = _scale_f64(raw, ops, mean2, a, b)
+    assert tfp.scale_error(got, exact)[0] <= tfp.scale_error(want, exact)[0] + tfp.SCALE_RMS / 10
 
 
 def test_concat_one_pass_views_one_column_early_fail():
@@ -871,9 +945,9 @@ def test_kernel_bound_hand_values(name, n_out, parts, x_lo_zero, terms, ms):
 def test_kernel_bound_of_the_one_pass_routes(name):
     """uint8/uint16 lines run the tensor-core route (three bf16 parts per
     axis to read, bf16 peak); float32 lines of 24 bits (three x parts) run
-    it too for the scaled kernel, six bf16 terms, and keep the float32-FMA
-    kernel and its float32 bound for the others, with the float32
-    operator's bytes."""
+    it too for the scaled kernels, two-operator and concat, six bf16 terms,
+    and keep the float32-FMA kernel and its float32 bound for the planar
+    one, with the float32 operator's bytes."""
     u16 = bench.kernel_bound(name, n_out=512, **MAIN)
     u8 = bench.kernel_bound(name, n_out=512, in_itemsize=1, **MAIN)
     f32 = bench.kernel_bound(name, n_out=512, in_itemsize=4, x_parts=3, **MAIN)
@@ -881,7 +955,7 @@ def test_kernel_bound_of_the_one_pass_routes(name):
     assert u16["bytes"] - u8["bytes"] == 131072 * 1024
     out = 131072 * 512 * 4 * (2 if name == "depth" else 1) + (2 * 512 * 4 if name != "depth" else 0)
     assert u16["bytes"] == 131072 * 1024 * 2 + 2 * 3 * 1024 * 512 * 2 + out
-    if name == "depth_scale":
+    if name != "depth":
         assert f32["bound_ms"] == pytest.approx(1.6676, abs=1e-4)
         assert f32["flops"] == 6 * 4 * 131072 * 1024 * 512
         assert f32["bytes"] == u16["bytes"] + 131072 * 1024 * 2
@@ -891,49 +965,47 @@ def test_kernel_bound_of_the_one_pass_routes(name):
         assert f32["bytes"] == 131072 * 1024 * 4 + 2 * 1024 * 512 * 4 + out
 
 
-@pytest.mark.parametrize("itemsize,ms", [(2, 0.8338), (1, 0.8338), (4, 4.1027)])
+@pytest.mark.parametrize("itemsize,ms", [(2, 0.8338), (1, 0.8338), (4, 1.6676)])
 def test_kernel_bound_of_the_prep_one_pass_routes(itemsize, ms):
     """The prep kernels at one pass: the real kernel's bound ``ms`` -- three
-    bf16 terms on uint8/uint16 lines, the float32 bound on float32 lines --
-    each with the bytes of its operator (three bf16 parts or the float32
-    one); the phase kernel follows it, plus the phasor rows and twice the
-    store, but on float32 lines of 24 bits (three x parts) it runs six bf16
-    terms against the three parts."""
+    bf16 terms on uint8/uint16 lines, six on float32 lines of 24 bits (three
+    x parts) -- each against the float32 operator's three bf16 parts; the
+    phase kernel runs the same terms, plus the phasor rows and twice the
+    store."""
     xp = 3 if itemsize == 4 else 1
     phase = bench.kernel_bound("prep_phase", n_out=1024, in_itemsize=itemsize, x_parts=xp,
                                **MAIN)
     real = bench.kernel_bound("prep_real", n_out=1024, in_itemsize=itemsize, x_parts=xp,
                               **MAIN)
     assert real["bound_ms"] == pytest.approx(ms, abs=1e-4)
-    bf16_op = 3 * 1024 * 1024 * 2
-    op = bf16_op if itemsize <= 2 else 1024 * 1024 * 4
+    assert phase["bound_ms"] == pytest.approx(ms, abs=1e-4)
+    terms = 6 if itemsize == 4 else 3
+    assert real["flops"] == phase["flops"] == terms * 2 * 131072 * 1024 * 1024
+    op = 3 * 1024 * 1024 * 2
     assert real["bytes"] == 131072 * 1024 * (itemsize + 4) + op
-    if itemsize == 4:
-        assert phase["bound_ms"] == pytest.approx(1.6676, abs=1e-4)
-        assert phase["flops"] == 6 * real["flops"]
-        op = bf16_op
-    else:
-        assert phase["bound_ms"] == pytest.approx(ms, abs=1e-4)
-        assert real["flops"] == phase["flops"]
     assert phase["bytes"] == 131072 * 1024 * (itemsize + 8) + op + 2 * 1024 * 4
 
 
 @pytest.mark.parametrize("name,n_out", [("depth_scale", 512), ("prep_phase", 1024),
                                         ("depth_scale_f32lines", 512),
-                                        ("prep_phase_f32lines", 1024)])
+                                        ("prep_phase_f32lines", 1024),
+                                        ("depth_scale_concat_f32lines", 512),
+                                        ("prep_real_f32lines", 1024)])
 @pytest.mark.parametrize("x_parts,terms,ms", [(3, 6, 1.6676), (2, 5, 1.3897), (1, 3, 0.8338)])
 def test_kernel_bound_counts_the_x_parts_of_float_lines(name, n_out, x_parts, terms, ms):
-    """On float32 lines the scaled and the phase kernel's one pass runs sum_i
-    (3 - i) terms over the x parts the data needs: six for samples above 16
-    bits (1.668 ms at the main geometry), five for 16-bit values, three for
-    values exact in bf16; the families without the route keep 4.103 ms."""
+    """On float32 lines the scaled, the concat and the prep kernels' one
+    pass runs sum_i (3 - i) terms over the x parts the data needs: six for
+    samples above 16 bits (1.668 ms at the main geometry), five for 16-bit
+    values, three for values exact in bf16; the planar family, without the
+    route, keeps 4.103 ms."""
     got = bench.kernel_bound(name, n_out=n_out, in_itemsize=4, x_parts=x_parts, **MAIN)
     gemms = 1 if name.startswith("prep") else 2
     assert got["flops"] == terms * gemms * 2 * 131072 * 1024 * n_out
     assert got["bound_ms"] == pytest.approx(ms, abs=1e-4) and got["bound_by"] == "operations"
-    other = name.replace("depth_scale", "depth").replace("prep_phase", "prep_real")
-    assert bench.kernel_bound(other, n_out=n_out, in_itemsize=4, x_parts=x_parts,
-                              **MAIN)["bound_ms"] == pytest.approx(4.1027, abs=1e-4)
+    if not name.startswith("prep"):
+        planar = "depth_f32lines" if name.endswith("_f32lines") else "depth"
+        assert bench.kernel_bound(planar, n_out=n_out, in_itemsize=4, x_parts=x_parts,
+                                  **MAIN)["bound_ms"] == pytest.approx(4.1027, abs=1e-4)
 
 
 @pytest.mark.parametrize("name,n_out,ms,by", [
