@@ -14,13 +14,12 @@ nonzero and the final line is not printed:
    64-bin tile, and for the concat kernel's split rung an im view that is
    not 16-byte aligned, read element by element; 1088 for the concat and
    the prep kernels: 544 bins, a half-empty last tile), every family's
-   one pass on both of its routes (uint8/uint16 lines on the tensor cores;
-   float32 lines -- 24- and 32-bit samples, n_in 1000 to 4096, 999 and
-   131073 lines -- on the tensor cores with three x parts for B2, B5, B7
-   and B8 and on the float32-FMA kernel for B1; the route read back and
-   logged), then controls (a kernel computing a neighbouring rung, the
-   three-x-part kernels without x_lo, or for the concat kernels reading
-   the im half one column early) that must fail;
+   one pass on the tensor cores (uint8/uint16 lines; float32 lines --
+   24- and 32-bit samples and 16-bit values, n_in 1000 to 4096, 999 and
+   131073 lines -- with three x parts for all five one-pass families; the
+   route read back and logged), then controls (a kernel computing a
+   neighbouring rung, the three-x-part kernels without x_lo, or for the
+   concat kernels reading the im half one column early) that must fail;
 4. fold path: ``FdOctModel`` on full 1024 x 512 x 256 buffers of the
    reference benchmark chain on the folded GEMM -- FPN determination,
    steady buffers and a batched chunk -- at the default and the "high"
@@ -37,9 +36,14 @@ nonzero and the final line is not printed:
    split rung's runs; each rung's full-size prep output against the plain
    versions; then 24-bit samples in uint32 containers through the fold,
    concat fold and FFT paths (with and without dispersion) at the default
-   rung, each run between a reset and a read of the launch counts (B2, B5,
-   B7 and B8 on the tensor cores with three x parts, B1 on the float32-FMA
-   kernel), with the full-size checks of phases 4 and 5;
+   rung, each run between a reset and a read of the launch counts (every
+   one-pass launch on the tensor cores with three x parts), with the
+   full-size checks of phases 4 and 5; then the fold path with continuous
+   FPN (``FpnMode.CONTINUOUS``: the FPN mean determined on every buffer,
+   so B1 runs on every one) on 12-bit and 24-bit samples, B1's launches
+   counted (one per buffer, on the tensor cores) and one buffer's planes
+   held against the float64 product of its float32 operators, with its
+   steady ms per buffer;
 6. stream: ``StreamingEngine`` over full 12-bit buffers replayed from RAM
    by ``VirtualOctSource``, the benchmark chain with ``fold_concat`` at the
    default and the "high" rung, per buffer and in batch chunks of four, on
@@ -178,10 +182,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CSRC = "octproz_tpu_torch/kernels/csrc/"
 PALLAS = "octproz_tpu/pallas/fused_prep.py:"
 # family -> (source of the kernel the main path launches, Pallas kernel body
-# it replaces); every family runs on the tensor cores for the main path's
-# uint16 lines: the fold families enter through fold_gemm.cu and
-# fold_split.cu, the prep families through prep_split.cu; fold_gemm.cu keeps
-# the float32-FMA kernel for the planar kernel's one pass on float32 lines
+# it replaces); every family runs on the tensor cores: the fold families
+# enter through fold_split.cu, the prep families through prep_split.cu
 KERNELS = {
     "depth": ("fold_split.cu", 261),
     "depth_split": ("fold_split.cu", 271),
@@ -202,11 +204,11 @@ KERNELS = {
     "prep_real_bf16": ("prep_bf16.cu", 238),
 }
 #: The one pass of the five one-pass families on float32 lines (samples
-#: above 16 bits, ``bench.F32_LINE_KERNELS``): B2, B5, B7 and B8 on the
-#: tensor cores with three x parts, B1 on the float32-FMA kernel; their
-#: launches are those of the 24-bit paths (``phase_wide_samples``).
+#: above 16 bits, ``bench.F32_LINE_KERNELS``): all five on the tensor cores
+#: with three x parts; their launches are those of the 24-bit paths
+#: (``phase_wide_samples``, and B1's of ``phase_continuous_fpn``).
 F32_ROWS = {
-    "depth_f32lines": ("fold_gemm.cu", 261),
+    "depth_f32lines": ("fold_split.cu", 261),
     "depth_scale_f32lines": ("fold_split.cu", 375),
     "depth_scale_concat_f32lines": ("fold_split.cu", 337),
     "prep_phase_f32lines": ("prep_split.cu", 228),
@@ -240,10 +242,9 @@ PREP = tuple(k for k in KERNELS if k.startswith("prep") and k not in BF16_ROWS.v
 # (``_prep_snr_db``).
 RUNG_GAP_DB = 20.0
 #: Display floor (dB) of the one-pass kernel cases by sample kind: 20 log10 of
-#: the samples' range over that of 8-bit values (12, 16, 24 and 32 bits).
-ONE_PASS_FLOOR_DB = {"u16": 24.0, "u16f": 48.0, "f32": 96.0, "f32w": 144.0}
-#: The sample kinds that arrive as float32 lines: 24 and 32 bits.
-FLOAT_KINDS = ("f32", "f32w")
+#: the samples' range over that of 8-bit values (12, 16, 24 and 32 bits; 16-bit
+#: values as float32 lines).
+ONE_PASS_FLOOR_DB = {"u16": 24.0, "u16f": 48.0, "f16": 48.0, "f32": 96.0, "f32w": 144.0}
 #: The precision rungs the FFT path phase drives.
 RUNGS = ("default", "high", "highest")
 #: The bf16 rung (compute_dtype="bfloat16") must sit this far below the
@@ -299,10 +300,13 @@ def phase_build():
 def _raw(kind, lines, n_in, g, dev):
     """Random raw lines: "u16s" 12-bit samples shifted to 8 bits (as on the
     main path: x_lo = 0), "u16" 12 bits unshifted (x_lo != 0), "u16f" all 16
-    bits, "u8", or "f32" / "f32w" (a 24-bit / 32-bit source decoded before
-    the kernel)."""
+    bits, "u8", or "f32" / "f32w" / "f16" (a 24-bit / 32-bit / 16-bit source
+    decoded before the kernel: float32 lines)."""
     import torch
 
+    if kind == "f16":
+        return torch.randint(0, 1 << 16, (lines, n_in), dtype=torch.int32,
+                             generator=g, device=dev).to(torch.float32)
     if kind == "u16f":
         return torch.randint(-32768, 32768, (lines, n_in), dtype=torch.int16,
                              generator=g, device=dev).view(torch.uint16)
@@ -356,7 +360,7 @@ def phase_kernels():
     and float inputs) --, fast_log, lin, float32 and bf16 stores,
     uint8/uint16/float inputs, an odd line count and n_in = 1664; the
     one-pass rung's route is read back after each of its cases
-    (``_one_pass_route``); then the controls, which must fail."""
+    (``_route_read_back``); then the controls, which must fail."""
     import torch
 
     from octproz_tpu_torch import bench
@@ -482,29 +486,14 @@ def _fold_cases(cases, parts, worst, g, dev):
             raise AssertionError(f"{row} kernel disagrees with its plain version")
 
 
-def _one_pass_route(family, kind, bf16=False):
-    """The one-pass route a launch of ``family`` on ``kind`` lines must
-    take: at float32 compute the input type and the family pick it --
-    uint8/uint16 lines on the tensor cores, float32 lines on the tensor
-    cores with three x parts for ``fp.FLOAT_LINE_TENSOR_CORE`` (B2, B5, B7,
-    B8) and on the float32-FMA kernel for the planar one (B1); at bf16 compute
-    (``bf16``) the bf16 route on every input type."""
-    from octproz_tpu_torch.kernels import fused_prep as fp
-
-    if bf16:
-        return "tensor_core_bf16"
-    if kind in FLOAT_KINDS and family not in fp.FLOAT_LINE_TENSOR_CORE:
-        return "simt"
-    return "tensor_core"
-
-
 def _route_read_back(family, kind, bf16=False):
-    """The one-pass route of the last launch against the route its family
-    and input type pick (``_one_pass_route``).  The launch counts were reset
-    before that one launch."""
+    """The one-pass route of the last launch against the route it must
+    take: at float32 compute the tensor cores on every input type (float32
+    lines with three x parts), at bf16 compute (``bf16``) the bf16 route.
+    The launch counts were reset before that one launch."""
     from octproz_tpu_torch.kernels import fused_prep as fp
 
-    want = _one_pass_route(family, kind, bf16)
+    want = "tensor_core_bf16" if bf16 else "tensor_core"
     if fp.ONE_PASS_ROUTES[family] != {**dict.fromkeys(fp.ONE_PASS_ROUTES[family], 0), want: 1}:
         raise AssertionError(f"{family} on {kind} lines took the routes "
                              f"{fp.ONE_PASS_ROUTES[family]}, want {want}")
@@ -534,13 +523,13 @@ def _one_pass_kernel_cases(worst, parts, dev):
     path's inputs, on data of its own generator: on the tensor cores with
     x_lo nonzero (unshifted 12-bit and full 16-bit samples: five terms),
     uint8, every scale mode and store, n_in = 1664 and the ragged shapes;
-    float32 lines (24- and 32-bit samples, n_in up to 4096, 999 and 131073
-    lines): the scaled kernel on the tensor cores with three x parts, the
-    planar one on the float32-FMA kernel; then its controls, which must
-    fail against the float32 product: the "high" parts (two of its three,
-    the third zeroed) through its entry, its three-part math without x_lo
-    (x_hi as uint16 samples), and on float32 lines the three-x-part kernel
-    without x_lo (x_hi + x_mid as its input)."""
+    float32 lines (24- and 32-bit samples and 16-bit values, n_in 1000 to
+    4096, 999 and 131073 lines): the planar and the scaled kernel on the
+    tensor cores with three x parts; then its controls, which must fail
+    against the float32 product: the "high" parts (two of its three, the
+    third zeroed) through its entry, its three-part math without x_lo (x_hi
+    as uint16 samples), and on float32 lines of 24 and 32 bits the
+    three-x-part kernel without x_lo (x_hi + x_mid as its input)."""
     import torch
 
     from octproz_tpu_torch.kernels import fused_prep as fp
@@ -561,10 +550,10 @@ def _one_pass_kernel_cases(worst, parts, dev):
         (1100, 999, "u16", 1, None, None),
         (1100, 999, "u16s", 1, "log", f32),
         (1100, 999, "u8", 1, "lin", f32),
-        # float32 lines at one pass: the planar kernel on the float32-FMA
-        # kernel, the scaled one on the tensor cores with three x parts --
-        # 24- and 32-bit samples, the main path's n_in and longer lines, a
-        # partial 128-line tile (999) and one more line than a full buffer
+        # float32 lines at one pass, the planar and the scaled kernel on the
+        # tensor cores with three x parts -- 24- and 32-bit samples, the main
+        # path's n_in and longer lines, a partial 128-line tile (999) and one
+        # more line than a full buffer
         (1024, 2048, "f32", 1, None, None),
         (1024, 2048, "f32", 1, "log", f32),
         (1024, 4096, "f32w", 1, "log", f32),
@@ -582,6 +571,26 @@ def _one_pass_kernel_cases(worst, parts, dev):
     g = torch.Generator(device=dev)
     g.manual_seed(6)
     _fold_cases(cases, parts, worst, g, dev)
+    # the planar kernel on float32 lines beyond the cases above, on a
+    # generator of its own (the cases above keep their data): 32-bit samples
+    # and 16-bit values (no x_lo), n_in up to 4096, 999 and 131073 lines,
+    # and the element-wise producer -- rows of 1001 samples not 16-byte
+    # aligned, and at n_in 1000 an operator row pitch (half = 500) that is
+    # no multiple of 8
+    g_planar = torch.Generator(device=dev)
+    g_planar.manual_seed(19)
+    _fold_cases([
+        (1024, 4096, "f32w", 1, None, None),
+        (1024, 4096, "f16", 1, None, None),
+        (1024, 4096, "f16", 1, "log", f32),
+        (1664, 999, "f32", 1, None, None),
+        (2048, 999, "f32w", 1, None, None),
+        (4096, 999, "f32", 1, None, None),
+        (1024, 131073, "f32", 1, None, None),
+        (1001, 999, "f32w", 1, None, None),
+        (1000, 999, "f32", 1, None, None),
+        (1000, 999, "f32w", 1, "log", f32),
+    ], parts, worst, g_planar, dev)
     raw = _raw("u16", 4096, 1024, g, dev)
     p1 = parts(1024, "default")
     two = tuple(fp.OnePass(w[0], split=(*w.split[:2], torch.zeros_like(w.split[2])))
@@ -592,11 +601,13 @@ def _one_pass_kernel_cases(worst, parts, dev):
         ("one-pass kernel without x_lo (x_hi input)", (x_hi16, *p1), (raw, *p1)),
     ], g, floor_db=ONE_PASS_FLOOR_DB["u16"])
     # float32 lines: the three-x-part kernel without x_lo w_0 (five terms:
-    # x cut to its 16 leading bits, x_hi + x_mid) must fail
-    wide = _raw("f32", 4096, 1024, g, dev)
-    _fold_controls([("three-x-part kernel without x_lo (x_hi + x_mid input)",
-                     (_without_x_lo(wide), *p1), (wide, *p1))],
-                   g, floor_db=ONE_PASS_FLOOR_DB["f32"])
+    # x cut to its 16 leading bits, x_hi + x_mid) must fail, planar and
+    # scaled, on 24- and 32-bit samples
+    for kind in ("f32", "f32w"):
+        wide = _raw(kind, 4096, 1024, g, dev)
+        _fold_controls([(f"three-x-part kernel without x_lo (x_hi + x_mid input, {kind})",
+                         (_without_x_lo(wide), *p1), (wide, *p1))],
+                       g, floor_db=ONE_PASS_FLOOR_DB[kind])
 
 
 def _without_x_lo(x):
@@ -1553,9 +1564,8 @@ def phase_wide_samples(worst):
     display range moved up by the wider samples' 96.3 dB), each run -- buffer
     0 (FPN) from the host, steady buffers and a chunk -- between a reset and
     a read of the launch counts: every family the path runs launched, every
-    launch on the route its family takes on float32 lines (B2, B5, B7 and
-    B8 on the tensor cores with three x parts, B1 on the float32-FMA
-    kernel).  Then the fold paths' steady output at full size against the
+    launch on the tensor cores with three x parts.  Then the fold paths'
+    steady output at full size against the
     float64 product of their float32 operator, and the FFT paths' prep
     output against its plain version.  Returns the launches by
     ``F32_ROWS`` row."""
@@ -1589,8 +1599,7 @@ def phase_wide_samples(worst):
             _run_fft_path(model, host_raw, bufs, tag)
         ran = _read_launches(families, t0, tag)
         routes = {k: dict(fp.ONE_PASS_ROUTES[k]) for k in families}
-        want = {k: {**dict.fromkeys(routes[k], 0), _one_pass_route(k, "f32"): n}
-                for k, n in ran.items()}
+        want = {k: {**dict.fromkeys(routes[k], 0), "tensor_core": n} for k, n in ran.items()}
         log(f"[wide] {tag} one-pass routes {routes}")
         if routes != want:
             raise AssertionError(f"{tag}: one-pass launches by route {routes}, want {want}")
@@ -1616,6 +1625,83 @@ def phase_wide_samples(worst):
                 raise AssertionError(f"24-bit full-size {family} output disagrees with the "
                                      f"plain version")
         del model
+    return launches
+
+
+#: Buffers per width of ``phase_continuous_fpn``.
+CONTINUOUS_BUFFERS = 4
+
+
+def phase_continuous_fpn(info):
+    """The fold path with continuous FPN (``FpnMode.CONTINUOUS``: the FPN
+    mean line determined anew on every buffer, so every buffer runs the
+    planar kernel B1 and then the torch FPN and scaling, never the
+    steady-state kernel) through ``FdOctModel`` at full width: 12-bit
+    samples in uint16 (``bench.FULL_ACQ``) and 24-bit samples in uint32
+    (``bench.WIDE_ACQ`` with ``bench.wide_config``: float32 lines, B1 with
+    three x parts).  Each width's ``CONTINUOUS_BUFFERS`` buffers run between
+    a reset and a read of the launch counts: ``depth`` once per buffer, all
+    on the tensor cores, and no other family; every output finite, of the
+    buffer's shape, and the mean line of the last buffer not that of the
+    one before.  Then, after the counts were read, the last buffer's B1
+    planes against the float64 product of the float32 operators (within
+    ``fused_prep.PLANAR_REL_L2``, the plain version's distance logged
+    beside), and the steady ms per buffer (``bench.steady_ms_per_buffer``).
+    Returns the launches by row (``depth``, ``depth_f32lines``)."""
+    import torch
+
+    from octproz_tpu_torch import bench
+    from octproz_tpu_torch.kernels import fused_prep as fp
+    from octproz_tpu_torch.models.fdoct import FdOctModel
+    from octproz_tpu_torch.params import FpnMode
+
+    dev = torch.device("cuda", 0)
+    card = f"{info['device_name']}, power limit {info['power_limit']}"
+    base = bench.bench_config(fpn_mode=FpnMode.CONTINUOUS)
+    launches = {}
+    for row, acq, cfg in (("depth", bench.FULL_ACQ, base),
+                          ("depth_f32lines", bench.WIDE_ACQ, bench.wide_config(base))):
+        tag = f"{acq.bit_depth}-bit continuous-FPN fold path"
+        model = FdOctModel(acq, cfg, **bench.CURVE_KW, device=dev)
+        bufs = bench.random_buffers(acq, CONTINUOUS_BUFFERS, dev, seed=60 + acq.bit_depth)
+        torch.cuda.synchronize()
+        fp.reset_launch_counts()
+        t0 = time.perf_counter()
+        outs, means = [], []
+        for buf in bufs:
+            outs.append(model.process_buffer(buf))
+            means.append(model.fpn_state.mean_line)
+        ran = _read_launches(("depth",), t0, tag)
+        others = {k: v for k, v in fp.LAUNCHES.items() if k != "depth" and v}
+        routes = dict(fp.ONE_PASS_ROUTES["depth"])
+        log(f"[continuous] {tag}: depth launches {ran['depth']} for {len(bufs)} buffers, "
+            f"routes {routes}, other families {others or 'none'}")
+        if ran["depth"] != len(bufs) or others \
+                or routes != {**dict.fromkeys(routes, 0), "tensor_core": len(bufs)}:
+            raise AssertionError(f"{tag}: want one depth launch per buffer on the tensor cores "
+                                 f"and nothing else, got {dict(fp.LAUNCHES)}, routes {routes}")
+        launches[row] = ran["depth"]
+        _check_output(outs, acq, tag)
+        if torch.equal(means[-1], means[-2]):
+            raise AssertionError(f"{tag}: the FPN mean line was not determined anew")
+        # the last buffer's B1 planes, after the counts were read
+        raw2d = fp._predecode(bufs[-1].reshape(-1, acq.samples_per_line), acq.bit_depth,
+                              cfg.bitshift)
+        got = fp.fold_depth(raw2d, *model.curves.depth_parts, bitshift=cfg.bitshift)
+        x = fp._decode_block(raw2d, cfg.bitshift).double()
+        exact = [x @ model.curves.depth_op_re.double(), x @ model.curves.depth_op_im.double()]
+        plain = fp.depth_plain(raw2d, *model.curves.depth_parts, bitshift=cfg.bitshift)
+        err, plain_err = fp.planar_error(got, exact), fp.planar_error(plain, exact)
+        ok = err <= fp.PLANAR_REL_L2
+        log(f"[continuous] {tag}: B1 planes of buffer {len(bufs) - 1} vs the float64 product: "
+            f"rel L2 {err:.3e} (bound {fp.PLANAR_REL_L2:g}; plain version {plain_err:.3e}) "
+            f"-> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{tag}: B1's planes disagree with the float64 product")
+        del got, x, exact, plain, outs, means, model, bufs
+        ms = bench.steady_ms_per_buffer(cfg, dev, acq=acq)
+        log(f"[continuous] {tag} steady state (default): {ms:.3f} ms/buffer, "
+            f"{acq.ascans_per_buffer / ms / 1e3:.3f} MHz ({card})")
     return launches
 
 
@@ -2972,7 +3058,7 @@ def phase_bf16_path(worst):
     concat path and the FFT path with dispersion (phase kernel) and without
     (real kernel), between one reset and one read of the launch counts.
     Every launch of the five families must be on the bf16 route, none on
-    the three-part one-pass route, the float32-FMA kernel or a split rung,
+    the three-part one-pass route or a split rung,
     as many as the runs dispatch (``BF16_MAIN_LAUNCHES``).  Then each
     steady output and buffer 0's planar GEMM at full size: the scaled ones
     against the float64 product of the rounded operands, the others
@@ -3317,6 +3403,8 @@ def main() -> None:
     worst = phase_kernels()
     launches = {**phase_main_path(worst), **phase_fft_path(worst)}
     launches.update(phase_wide_samples(worst))
+    for k, v in phase_continuous_fpn(info).items():
+        launches[k] += v
     launches.update(phase_stream(worst, info))
     for k, v in phase_acquisition(info).items():
         launches[k] += v

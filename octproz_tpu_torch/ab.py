@@ -19,10 +19,17 @@ concat fold path and the FFT path with and without dispersion on 24-bit
 samples in uint32 containers (``bench.WIDE_ACQ`` and
 ``bench.wide_config``; for a checkout whose ``bench`` has no 24-bit
 buffers, the same buffers from the same seed, made and timed in the turn
-itself), and prints one JSON line: the card's name and power limit, and
-per turn the kernel, plain-version and library milliseconds, the steady
-milliseconds per buffer of each path (``wide_steady_ms`` at 24 bits) and
-the FFT path's stage milliseconds.  Both checkouts are timed on one card in one call, so power
+itself), and the steady state of the fold path with continuous FPN
+(``FpnMode.CONTINUOUS``: the FPN mean determined anew on every buffer, so
+the planar kernel B1 runs on every one) on 12-bit and on 24-bit samples,
+and prints one JSON line: the card's name and power limit, and per turn
+the kernel, plain-version and library milliseconds, the steady
+milliseconds per buffer of each path (``wide_steady_ms`` at 24 bits,
+``continuous_steady_ms`` with continuous FPN) and the FFT path's stage
+milliseconds, and ``sass``: the two builds' kernels compared by their SASS
+(``cuobjdump -sass``) -- how many both have, which of those differ, and
+which only one has -- so a difference in time between kernels whose code
+is equal reads as noise.  Both checkouts are timed on one card in one call, so power
 limit and neighbours are the same; the spread between a checkout's two
 turns is the noise.
 """
@@ -31,6 +38,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -47,6 +55,8 @@ import dataclasses, itertools, json, math, sys
 sys.path.insert(0, {root!r})
 import torch
 from octproz_tpu_torch import bench
+from octproz_tpu_torch.kernels import build
+from octproz_tpu_torch.params import FpnMode
 torch.backends.cuda.matmul.allow_tf32 = False
 dev = torch.device("cuda", 0)
 known = set(bench.FOLD_KERNELS + bench.PREP_KERNELS + getattr(bench, "F32_LINE_KERNELS", ()))
@@ -84,10 +94,17 @@ w = {{"fold": wide_ms(bench.bench_config()),
      "concat": wide_ms(bench.bench_config(fold_concat=True)),
      "fft": wide_ms(bench.fft_config()),
      "fft, no dispersion": wide_ms(bench.fft_config(dispersion=False))}}
+try:
+    cont = bench.bench_config(fpn_mode=FpnMode.CONTINUOUS)
+except (TypeError, ValueError):
+    cont = None
+fpn = {{}} if cont is None else {{"12-bit": bench.steady_ms_per_buffer(cont, dev),
+                                "24-bit": wide_ms(cont)}}
 print(json.dumps({{"kernels": {{n: {{"ms": v["ms"], "plain_ms": v["plain_ms"],
                                   "library_ms": v["library_ms"]}} for n, v in k.items()}},
                   "steady_ms": s, "concat_steady_ms": c,
-                  "fft_steady_ms": f, "fft_stage_ms": st, "wide_steady_ms": w}}))
+                  "fft_steady_ms": f, "fft_stage_ms": st, "wide_steady_ms": w,
+                  "continuous_steady_ms": fpn, "library": str(build.library_path())}}))
 """
 
 
@@ -98,6 +115,35 @@ def turn(root: str) -> dict:
     if done.returncode != 0:
         raise RuntimeError(f"turn in {root} failed ({done.returncode}):\n{done.stderr[-4000:]}")
     return json.loads(done.stdout.strip().splitlines()[-1])
+
+
+def sass(lib: str) -> dict:
+    """Each kernel's SASS in the library ``lib`` (``cuobjdump -sass``), its
+    instructions by kernel name; the anonymous namespace's per-file tag is
+    taken out of the names, so two builds of one source name a kernel
+    alike."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    out = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", lib],
+                         capture_output=True, text=True, check=True).stdout
+    kernels, name = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = re.sub(r"_GLOBAL__N__\w+?_cu_[0-9a-f]{8}", "_GLOBAL__N_", m.group(1))
+            kernels[name] = []
+        elif name and "/*" in line:
+            kernels[name].append(" ".join(line.split()))
+    return kernels
+
+
+def sass_diff(lib_a: str, lib_b: str) -> dict:
+    """The kernels of two libraries by their SASS: how many both have, the
+    names of those whose SASS differs, and those only one has."""
+    a, b = sass(lib_a), sass(lib_b)
+    shared = set(a) & set(b)
+    return {"shared": len(shared), "differ": sorted(n for n in shared if a[n] != b[n]),
+            "only_A": sorted(set(a) - set(b)), "only_B": sorted(set(b) - set(a))}
 
 
 def main() -> None:
@@ -115,7 +161,8 @@ def main() -> None:
         turns.append({"checkout": tag, "root": root, **turn(root)})
         print(f"[ab] turn {len(turns)} ({tag}) done", file=sys.stderr, flush=True)
     print(json.dumps({"device_name": info["device_name"], "power_limit": info["power_limit"],
-                      "A": other, "B": here, "turns": turns}))
+                      "A": other, "B": here, "turns": turns,
+                      "sass": sass_diff(turns[0]["library"], turns[1]["library"])}))
 
 
 if __name__ == "__main__":

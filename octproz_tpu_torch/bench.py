@@ -92,10 +92,8 @@ FOLD_KERNELS = ("depth", "depth_split", "depth_scale", "depth_scale_split",
 PREP_KERNELS = ("prep_phase", "prep_phase_split", "prep_real", "prep_real_split",
                 "prep_phase_bf16", "prep_real_bf16")
 #: The one-pass families on float32 lines (``*_f32lines``: samples above 16
-#: bits, decoded before the kernel): all but ``depth`` on the tensor cores
-#: as three x parts (``fused_prep.FLOAT_LINE_TENSOR_CORE``, six bf16
-#: terms), ``depth`` on the float32-FMA kernel (``csrc/fold_gemm.cuh``);
-#: off the main path, timed on 24-bit samples.
+#: bits, decoded before the kernel): on the tensor cores as three x parts,
+#: six bf16 terms; off the main path, timed on 24-bit samples.
 F32_LINE_KERNELS = ("depth_f32lines", "depth_scale_f32lines", "depth_scale_concat_f32lines",
                     "prep_phase_f32lines", "prep_real_f32lines")
 
@@ -314,9 +312,8 @@ def fft_stage_ms(cfg: ProcConfig, device, ring: int = 4,
 
 
 #: Published peaks of one H100 SXM (NVIDIA's data sheet, dense, 700 W):
-#: bf16 on the tensor cores, float32 outside them, and HBM3.
+#: bf16 on the tensor cores, and HBM3.
 PEAK_BF16_FLOPS = 989e12
-PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
@@ -324,8 +321,8 @@ def kernel_bound(name: str, lines: int, n_in: int, n_out: int, *, parts: int = 1
                  in_itemsize: int = 2, out_itemsize: int = 4,
                  x_parts: int = 1, bf16: bool = False) -> Dict[str, object]:
     """The least time one H100 could take for a kernel family's work: the
-    larger of its FLOPs over the peak of their type and its bytes over the
-    memory rate.  ``n_out`` is ``half`` for the fold families and the
+    larger of its FLOPs over the bf16 tensor-core peak and its bytes over
+    the memory rate.  ``n_out`` is ``half`` for the fold families and the
     operator's width for the prep families; ``parts`` the operator parts
     per axis as the wrapper takes them (1, or 2/3 at the split rungs).
 
@@ -336,32 +333,25 @@ def kernel_bound(name: str, lines: int, n_in: int, n_out: int, *, parts: int = 1
     bf16 parts of x the data needs (``fused_prep.x_parts``: 1 where x is
     exact in bf16, as shifted 12-bit samples are; 2 for samples of at most
     16 bits; 3 above), of which the kernel splits x into at most two, or
-    three on the three-part route, and x part i meets operator parts 0 ..
-    parts - 1 - i: sum_i (parts - i) terms.  The split rungs' products are
-    bf16 x bf16 (989 TFLOP/s), the one-pass rung's float32 (67 TFLOP/s) on
-    the float32 lines of the family outside
-    ``fused_prep.FLOAT_LINE_TENSOR_CORE`` (``depth``) -- but every family
-    runs its one pass on uint8/uint16 lines (``in_itemsize`` <= 2), and
-    those families on float32 lines too, as the bf16 terms of the float32
-    operator's three parts (``fused_prep.ONE_PASS_ROUTES``): the bound is
-    the work of the route the input takes.  With ``bf16`` (``compute_dtype="bfloat16"``)
-    one bf16 term against one bf16 part, on any input type.
-    Bytes: the raw input, every operator part the kernel reads (float32
-    unsplit, bf16 split or rounded), the FPN mean line or phasor rows, and
-    the output, each once."""
-    from .kernels.fused_prep import _ONE_PASS_PARTS, FLOAT_LINE_TENSOR_CORE
+    three at one pass on float32 lines (``in_itemsize`` 4), and x part i
+    meets operator parts 0 .. parts - 1 - i: sum_i (parts - i) terms.  Every
+    product is bf16 x bf16 on the tensor cores (989 TFLOP/s): the split
+    rungs', and the one pass as the terms of the float32 operator's three
+    bf16 parts on every input type (``fused_prep.ONE_PASS_ROUTES``).  With
+    ``bf16`` (``compute_dtype="bfloat16"``) one bf16 term against one bf16
+    part, on any input type.  Bytes: the raw input, every bf16 operator
+    part the kernel reads, the FPN mean line or phasor rows, and the
+    output, each once."""
+    from .kernels.fused_prep import _ONE_PASS_PARTS
 
-    three_x_parts = (parts == 1 and in_itemsize == 4 and not bf16
-                     and name.removesuffix("_f32lines") in FLOAT_LINE_TENSOR_CORE)
-    if parts == 1 and (in_itemsize <= 2 or three_x_parts) and not bf16:
+    three_x_parts = parts == 1 and in_itemsize == 4 and not bf16
+    if parts == 1 and not bf16:
         parts = _ONE_PASS_PARTS
-    split = parts > 1
-    on_tensor_cores = split or bf16
     xp = min(x_parts, 3 if three_x_parts else 2)
-    terms = sum(parts - i for i in range(xp)) if split else 1
+    terms = sum(parts - i for i in range(xp)) if parts > 1 else 1
     gemms = 1 if name.startswith("prep") else 2
     flops = terms * gemms * 2 * lines * n_in * n_out
-    op_bytes = gemms * parts * n_in * n_out * (2 if on_tensor_cores else 4)
+    op_bytes = gemms * parts * n_in * n_out * 2
     if name.startswith("prep_phase"):
         extra, out = 2 * n_out * 4, lines * n_out * 8          # complex64 spectra
     elif name.startswith("prep"):
@@ -371,7 +361,7 @@ def kernel_bound(name: str, lines: int, n_in: int, n_out: int, *, parts: int = 1
     else:
         extra, out = 0, 2 * lines * n_out * 4                   # planar re, im
     nbytes = lines * n_in * in_itemsize + op_bytes + extra + out
-    flop_ms = flops / (PEAK_BF16_FLOPS if on_tensor_cores else PEAK_FP32_FLOPS) * 1e3
+    flop_ms = flops / PEAK_BF16_FLOPS * 1e3
     byte_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     return {"bound_ms": max(flop_ms, byte_ms),
             "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
@@ -414,8 +404,8 @@ def _kernel_cases(name: str, device):
     families -> 1024 columns; the split families at the "high" rung (3
     passes), the ``*_bf16`` names the one-pass family's bf16 route, the
     ``*_f32lines`` names its one pass on 24-bit samples as float32 lines
-    (:func:`float32_lines`, no bitshift: the three-x-part tensor-core route
-    or the float32-FMA kernel, by family).
+    (:func:`float32_lines`, no bitshift: the three-x-part tensor-core
+    route).
     ``library`` is the matmul of :func:`library_operands`; the bound is
     :func:`kernel_bound` with x_parts read from the data and the lines'
     item size."""

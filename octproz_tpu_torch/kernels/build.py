@@ -23,8 +23,8 @@ import subprocess
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("fold_gemm.cu", "fold_split.cu", "fold_bf16.cu", "prep_split.cu", "prep_bf16.cu")
-HEADERS = ("gemm_common.cuh", "fold_gemm.cuh", "fold_split.cuh", "fold_bf16.cuh")
+SOURCES = ("fold_split.cu", "fold_bf16.cu", "prep_split.cu", "prep_bf16.cu")
+HEADERS = ("gemm_common.cuh", "fold_split.cuh", "fold_bf16.cuh")
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,7 +1,7 @@
 // The one-term fold kernels of compute_dtype="bfloat16" (the kernel and its
 // design notes in fold_bf16.cuh), behind fold_gemm_planar, fold_gemm_scale
-// (fold_gemm.cu) and fold_gemm_scale_concat (fold_split.cu) at passes =
-// BF16_PASS, on every input type:
+// and fold_gemm_scale_concat (fold_split.cu) at passes = BF16_PASS, on every
+// input type:
 //
 //   one_term<InT, Planar>       _kernel_depth               (octproz_tpu/pallas/fused_prep.py:261-268)
 //   one_term<InT, Scale<OutT>>  _kernel_depth_scale         (:375-419)

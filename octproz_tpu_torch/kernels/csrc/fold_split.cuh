@@ -21,10 +21,11 @@
 //   prep_split<EPI=PHASE,  PARTS=3>  _kernel_phase        (:228-235, prep_split.cu)
 //   prep_split<EPI=REAL,   PARTS=3>  _kernel_real         (:238-242, prep_split.cu)
 //
-// and on float32 lines (samples above 16 bits) the one-pass rung of the
-// scaled kernels and the prep kernels, x split into three parts (XP = 3,
-// pack3) against the same three operator parts, six terms:
+// and on float32 lines (samples above 16 bits) the one-pass rung of every
+// family, x split into three parts (XP = 3, pack3) against the same three
+// operator parts, six terms:
 //
+//   fold_split<EPI=PLANAR, PARTS=3, XP=3>  _kernel_depth        (:261-268)
 //   fold_split<EPI=SCALE,  PARTS=3, XP=3>  _kernel_depth_scale  (:375-419)
 //   fold_split<EPI=SCALE,  PARTS=3, XP=3>  _kernel_depth_scale_concat  (:337-351, two views)
 //   prep_split<EPI=PHASE,  PARTS=3, XP=3>  _kernel_phase        (:228-235, prep_split.cu)
@@ -32,9 +33,7 @@
 //
 // compute_dtype="bfloat16" (one product term; B1, B2, B5, B7 and B8 at
 // :264, :344, :401/:409, :231, :240) runs the persistent one-term kernel of
-// fold_bf16.cuh instead.  The float32-FMA kernel of fold_gemm.cuh serves
-// the one pass of float32 compute on float32 lines of the planar kernel
-// alone (B1).
+// fold_bf16.cuh instead.
 //
 // What bounds them, on one H100 (H100 80GB HBM3, 700 W: 989 TFLOP/s of
 // dense bf16, 3.35 TB/s): at the main path's geometry (131072 lines x 1024
@@ -965,17 +964,15 @@ int dispatch_input(int in_kind, const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// ... and n_terms (terms(): 3 or 5 with 2 or 3 parts; with XP3 also 6,
-// K<float, 3, 3>, the three x parts of float32 lines; any other is
-// refused).
-template <template <typename, int, int> class K, bool XP3 = false>
+// ... and n_terms (terms(): 3 or 5 with 2 or 3 parts, 6 for K<float, 3, 3>,
+// the three x parts of float32 lines; any other is refused).
+template <template <typename, int, int> class K>
 int dispatch(int in_kind, int n_terms, const Params& p, cudaStream_t stream) {
   switch (n_terms) {
     case 3: return dispatch_input<K, 2>(in_kind, p, stream);
     case 5: return dispatch_input<K, 3>(in_kind, p, stream);
     case 6:
-      if constexpr (XP3)
-        if (in_kind == IN_FLOAT) return K<float, 3, 3>::run(p, stream);
+      if (in_kind == IN_FLOAT) return K<float, 3, 3>::run(p, stream);
       break;
   }
   return static_cast<int>(cudaErrorInvalidValue);

@@ -1,5 +1,5 @@
-// Pieces shared by the GEMM kernels of this directory (fold_gemm.cuh,
-// fold_split.cuh, fold_bf16.cuh): the epilogues and the scale's modes,
+// Pieces shared by the GEMM kernels of this directory (fold_split.cuh,
+// fold_bf16.cuh): the epilogues and the scale's modes,
 // store and fast log, the input kinds and the bf16 truncation of x.
 
 #pragma once

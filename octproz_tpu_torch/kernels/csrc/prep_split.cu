@@ -139,7 +139,7 @@ int launch_prep(const void* raw, int in_kind, int bitshift, int passes, const vo
   split::Params p = split::params(raw, bitshift, w, out, lines, n_in, n_out);
   p.cos_row = cos_row;
   p.sin_row = sin_row;
-  return split::dispatch<split::Prep<EPI>::template K, true>(
+  return split::dispatch<split::Prep<EPI>::template K>(
       in_kind, split::terms(in_kind, passes, split::parts_of(w)), p,
       static_cast<cudaStream_t>(stream));
 }

@@ -18,7 +18,7 @@ power limit and:
   unshifted 12-bit samples, full 16-bit samples, float input and
   n_in = 1664, and the prep real kernel (bound ``fused_prep.PREP_REL_L2``)
   on the same inputs with and without background removal in the operator,
-  and B2, B5, B7 and B8 at one pass on float32 lines
+  and B1, B2, B5, B7 and B8 at one pass on float32 lines
   (``three_x_part_errors``: 24- and 32-bit samples and 16-bit values, the
   tensor cores with three x parts) -- for the shipped kernel, ``one_chain`` (the same terms summed across
   n_in in one wgmma chain instead of folded into a float32 sum every
@@ -46,7 +46,7 @@ power limit and:
   kernel;
 * ``ms``: B1, B2, B5, B7 and B8 (one pass), B3, B4, B6, B9 and B10
   ("high") at the main path's shapes (one 131072-line buffer of shifted
-  12-bit samples), B2, B5, B7 and B8 on 24-bit float32 lines (six terms;
+  12-bit samples), B1, B2, B5, B7 and B8 on 24-bit float32 lines (six terms;
   B2 also on 16-bit values as float32 lines: five), B2 on unshifted
   samples (five terms), B4 on uint8
   samples of the same shape, and B2 at bf16 with linear and fast-log
@@ -66,7 +66,11 @@ power limit and:
   kernel and of its plain version (a float32 cuBLAS product) against the
   float64 product of the same rounded operands, beside
   ``PREP_REL_L2`` -- for the shipped kernel; and B8 on a dense random
-  operator at n_in = 4352, where a wgmma chain's sums cancel most.
+  operator at n_in = 4352, where a wgmma chain's sums cancel most;
+* ``plain_drift``: B2 at one pass on 24-bit float32 lines at n_in = 1024
+  to 4096, per seed, against its plain version and both against the
+  float64 product of the same float32 operators (``plain_drift``) -- for
+  the shipped kernel.
 
 Only ``one_chain`` and ``no_turns`` compute the right terms; the other
 variants' output is wrong by design and only their time is read.
@@ -84,9 +88,6 @@ from .. import bench
 from . import build
 from . import fused_prep as fp
 
-#: The float32-line rows on the tensor cores (three x parts, six terms).
-THREE_X_PART_KERNELS = ("depth_scale_f32lines", "depth_scale_concat_f32lines",
-                        "prep_phase_f32lines", "prep_real_f32lines")
 VARIANTS = {"shipped": 0, "one_chain": 1, "no_turns": 8, "no_loads": 2, "no_mma": 4,
             "no_loads_no_mma": 6, "wgmma_only": 50, "no_stores": 64}
 #: the variants whose output is right: their errors are read too
@@ -179,10 +180,11 @@ THREE_X_PART_CASES = (("24-bit", "f32", 96.0), ("32-bit", "f32w", 144.0),
 
 
 def three_x_part_errors(dev) -> dict:
-    """B2, B5, B7 and B8 at one pass on float32 lines (the tensor cores with
-    three x parts) against their plain versions on 4096 lines of 1024
-    samples: B2's magnitude sqrt(re^2 + im^2) as a relative L2 error
-    (linear scaling, no FPN mean) and B2's and B5's log scale
+    """B1, B2, B5, B7 and B8 at one pass on float32 lines (the tensor cores
+    with three x parts) against their plain versions on 4096 lines of 1024
+    samples: B1's planes (``fused_prep.planar_error``), B2's magnitude
+    sqrt(re^2 + im^2) as a relative L2 error (linear scaling, no FPN mean)
+    and B2's and B5's log scale
     (``fused_prep.scale_error`` over the 60 dB from the samples' display
     floor), B7's and B8's spectra with and without background removal
     (``fused_prep.prep_error``)."""
@@ -200,6 +202,8 @@ def three_x_part_errors(dev) -> dict:
         a, b = fp._scale_affine(True, 512, floor, floor + 60.0, 0.0, 1.0)
         kw = dict(bitshift=False, log_scaling=True, a=a, b=b)
         lin = dict(bitshift=False, log_scaling=False, a=1.0, b=0.0)
+        out[f"depth float32 lines, {name}"] = fp.planar_error(
+            fp.fold_depth(raw, *ops, bitshift=False), fp.depth_plain(raw, *ops, bitshift=False))
         rms, worst, ok = fp.scale_error(fp.fold_depth_scale(raw, *ops, mean2, **kw),
                                         fp.depth_scale_plain(raw, *ops, mean2, **kw))
         mag = fp.planar_error([fp.fold_depth_scale(raw, *ops, zero, **lin)],
@@ -218,6 +222,47 @@ def three_x_part_errors(dev) -> dict:
                               fp.prep_phase_plain(raw, one, *rows, bitshift=False))
             out[f"prep_real {tag}"] = fp.prep_error(fp.prep_real(raw, one, bitshift=False),
                                                     fp.prep_real_plain(raw, one, bitshift=False))
+    return out
+
+
+#: n_in and seeds of ``plain_drift``
+DRIFT_WIDTHS = (1024, 1664, 2048, 4096)
+DRIFT_SEEDS = tuple(range(100, 108))
+
+
+def plain_drift(dev) -> dict:
+    """B2 at one pass on float32 lines of 24-bit samples (999 lines, log
+    scaling over the 60 dB from the 96 dB display floor, a random FPN mean
+    line: the smoke's float32-line cases) per n_in and seed:
+    ``fused_prep.scale_error``'s RMS and max of the kernel against its
+    plain version, and of each against the float64 product of the same
+    float32 operators (p in float64, rounded once to float32 before the
+    log).  Where the kernel misses the max bound against the plain version,
+    these say which side is off: the plain version's one float32 product
+    per axis drifts with n_in, the kernel folds a float32 sum every 64
+    samples."""
+    out = {}
+    for n in DRIFT_WIDTHS:
+        cv = _curves(n, bench.bench_config(), dev)
+        wre, wim = (fp._operator_parts(w, "default") for w in (cv.depth_op_re, cv.depth_op_im))
+        a, b = fp._scale_affine(True, n // 2, 96.0, 156.0, 0.0, 1.0)
+        kw = dict(bitshift=False, log_scaling=True, a=a, b=b)
+        for seed in DRIFT_SEEDS:
+            g = torch.Generator(device=dev)
+            g.manual_seed(seed)
+            raw = _raw("f32", 999, n, g, dev)
+            mean2 = torch.randn((2, n // 2), generator=g, device=dev) * 50.0
+            got = fp.fold_depth_scale(raw, wre, wim, mean2, **kw)
+            plain = fp.depth_scale_plain(raw, wre, wim, mean2, **kw)
+            x, m = raw.double(), mean2.double()
+            re = x @ wre[0].double() - m[0:1]
+            im = x @ wim[0].double() - m[1:2]
+            exact = fp._scale_epilogue((re * re + im * im).float(), log_scaling=True, a=a, b=b)
+            out[f"n_in={n} seed={seed}"] = {
+                name: dict(zip(("rms", "max", "ok"), fp.scale_error(x_, ref)))
+                for name, (x_, ref) in (("kernel_vs_plain", (got, plain)),
+                                        ("kernel_vs_f64", (got, exact)),
+                                        ("plain_vs_f64", (plain, exact)))}
     return out
 
 
@@ -447,7 +492,7 @@ def long_times(dev, n: int = 4096) -> dict:
 
 def times(dev) -> dict:
     out = {}
-    for name in bench.FOLD_KERNELS + bench.PREP_KERNELS + THREE_X_PART_KERNELS:
+    for name in bench.FOLD_KERNELS + bench.PREP_KERNELS + bench.F32_LINE_KERNELS:
         kernel = bench._kernel_cases(name, dev)[0]
         out[name] = bench.cuda_ms(kernel, 10, 2)
     cv = _curves(1024, bench.bench_config(), dev)
@@ -498,6 +543,7 @@ def main() -> None:
                 record["long_ms"][name] = {**long_times(dev, 1024), **long_times(dev, 4096)}
             if name == "shipped":
                 record["scale"] = scale_errors(dev)
+                record["plain_drift"] = plain_drift(dev)
                 record["prep_bf16"] = prep_bf16_errors(dev)
             record["ms"][name] = times(dev)
     print(json.dumps(record))

@@ -22,18 +22,14 @@ from it in the epilogue.
 
 This module holds, for each of the ten kernel families:
 
-* the CUDA kernel (the C entry points of ``csrc/fold_gemm.cu``,
-  ``csrc/fold_split.cu`` and ``csrc/prep_split.cu``; every rung on
-  uint8/uint16 lines runs the bf16 tensor-core kernels of
-  ``csrc/fold_split.cu`` and ``csrc/prep_split.cu`` -- the one-pass rung as
-  three bf16 parts of the float32 operator (:class:`OnePass`) -- and so
-  does the one-pass rung on float32 lines of the families in
-  :data:`FLOAT_LINE_TENSOR_CORE` (x as three bf16 parts, six terms): every
-  one-pass family but the planar one, whose float32 lines run the
-  float32-FMA kernel of ``csrc/fold_gemm.cuh`` on the CUDA cores;
-  ``compute_dtype="bfloat16"`` runs the persistent one-term kernel
-  of ``csrc/fold_bf16.cuh`` with x rounded to nearest and one bf16
-  operator part, on every input type -- the fold families (``depth``,
+* the CUDA kernel (the C entry points of ``csrc/fold_split.cu`` and
+  ``csrc/prep_split.cu``; every rung of float32 compute runs the bf16
+  tensor-core kernels there -- the one-pass rung as three bf16 parts of the
+  float32 operator (:class:`OnePass`), and on float32 lines with x as
+  three bf16 parts too, six terms; ``compute_dtype="bfloat16"`` runs the
+  persistent one-term kernel of ``csrc/fold_bf16.cuh`` with x rounded to
+  nearest and one bf16 operator part, on every input type -- the fold
+  families (``depth``,
   ``depth_scale``, ``depth_scale_concat``) in ``csrc/fold_bf16.cu``, the
   prep families in ``csrc/prep_bf16.cu``; one wgmma chain up to
   :data:`BF16_CHAIN_MAX` samples, beyond it the bulk of the sums moved out
@@ -98,26 +94,17 @@ LAUNCHES = {"depth": 0, "depth_split": 0, "depth_scale": 0,
             "depth_scale_concat_split": 0, "prep_phase": 0, "prep_phase_split": 0,
             "prep_real": 0, "prep_real_split": 0}
 
-#: The one-pass families whose float32 lines (samples above 16 bits) run on
-#: the tensor cores: x split into three bf16 parts (x_hi + x_mid + x_lo,
-#: exact), six wgmma terms against the float32 operator's three parts
-#: (``csrc/fold_split.cuh``, ``pack3``) -- the concat kernel's as the two
-#: views of each wide part.  The planar kernel (``depth``) alone keeps the
-#: float32-FMA kernel for float32 lines.
-FLOAT_LINE_TENSOR_CORE = ("depth_scale", "depth_scale_concat", "prep_phase", "prep_real")
-
-#: The one-pass launches of every family by route: ``tensor_core``
-#: (uint8/uint16 lines, and float32 lines of :data:`FLOAT_LINE_TENSOR_CORE`:
-#: bf16 wgmma on the float32 operator's three parts), ``simt`` (float32
-#: lines of ``depth``: the float32-FMA kernel) -- at float32 compute the
-#: input type and the family alone pick between those two -- or
-#: ``tensor_core_bf16``
+#: The one-pass launches of every family by route: ``tensor_core`` (float32
+#: compute: bf16 wgmma on the float32 operator's three parts -- x_hi + x_lo
+#: on uint8/uint16 lines; on float32 lines, samples above 16 bits, x split
+#: into three bf16 parts, x_hi + x_mid + x_lo exactly, six terms:
+#: ``csrc/fold_split.cuh``, ``pack3``) or ``tensor_core_bf16``
 #: (``compute_dtype="bfloat16"``, any input type: x rounded to bf16, one
 #: wgmma term against the one rounded bf16 operator part: for ``depth``,
 #: ``depth_scale`` and ``depth_scale_concat`` the persistent one-term
 #: kernel of ``csrc/fold_bf16.cu``, for ``prep_phase`` and ``prep_real``
 #: its instantiations in ``csrc/prep_bf16.cu``).
-ONE_PASS_ROUTES = {key: {"tensor_core": 0, "simt": 0, "tensor_core_bf16": 0}
+ONE_PASS_ROUTES = {key: {"tensor_core": 0, "tensor_core_bf16": 0}
                    for key in LAUNCHES if not key.endswith("_split")}
 
 
@@ -332,8 +319,8 @@ def _split_bf16(w: torch.Tensor, parts: int = 2) -> Tuple[torch.Tensor, ...]:
 
 class OnePass(tuple):
     """The one-pass rung's operator as the wrappers take it: a 1-tuple of
-    the float32 operator -- what the plain versions and the planar SIMT
-    kernel read -- that also carries ``split``, its three bf16 parts
+    the float32 operator -- what the plain versions read -- that also
+    carries ``split``, its three bf16 parts
     (:func:`_split_bf16`), which the tensor-core kernels read.  ``split``
     is computed at first use and kept, so an operator held in
     ``Curves.depth_parts``, ``Curves.depth_concat_parts`` or
@@ -701,19 +688,15 @@ def _kernel_operands(raw2d, axes, family: str):
     ``compute_dtype="bfloat16"`` (:func:`operator_rung` made that form): the
     tensor cores, x rounded to bf16 and one term, for every input type.  The
     one-pass rung runs on the tensor cores against the float32 operator's
-    three bf16 parts for uint8/uint16 lines (x_hi + x_lo) and for float32
-    lines of :data:`FLOAT_LINE_TENSOR_CORE` (x_hi + x_mid + x_lo), and on the
-    float32-FMA kernel for float32 lines of the planar family: the input
-    type and the family alone decide, never a failed build or launch.  The
-    C entries refuse a one-pass tensor-core launch without three bf16
-    parts; none of them falls back to a float32 kernel."""
+    three bf16 parts, on every input type: x_hi + x_lo on uint8/uint16
+    lines, x_hi + x_mid + x_lo on float32 lines (the kernel picks the x
+    parts by input type).  The C entries refuse a one-pass launch without
+    three bf16 parts; none of them falls back to a float32 kernel."""
     passes = 2 * len(axes[0]) - 1
     if passes > 1:
         return passes, axes, family + "_split", None
     if axes[0][0].dtype == torch.bfloat16:
         return _BF16_PASS, axes, family, "tensor_core_bf16"
-    if raw2d.dtype == torch.float32 and family not in FLOAT_LINE_TENSOR_CORE:
-        return 1, axes, family, "simt"
     split = [w.split if isinstance(w, OnePass) else _split_bf16(w[0], _ONE_PASS_PARTS)
              for w in axes]
     _check_parts([p for parts in split for p in parts], raw2d.shape[1], raw2d.device, family,
@@ -728,11 +711,11 @@ def _count_launch(key: str, route) -> None:
 
 
 def _launch_depth(raw2d, w_re_parts, w_im_parts, *, bitshift: bool):
-    """The planar fold kernel: ``fold_gemm_planar`` routes the split rungs
-    and the one pass on integer lines to ``csrc/fold_split.cu``, the one
-    pass on float32 lines to the float32-FMA kernel, and
-    ``compute_dtype="bfloat16"`` to the one-term kernel's ``Planar``
-    epilogue (``csrc/fold_bf16.cu``: re and im stored from the registers)."""
+    """The planar fold kernel: ``fold_gemm_planar`` runs the split rungs and
+    the one pass (on float32 lines with three x parts) on the pipeline of
+    ``csrc/fold_split.cuh``, and ``compute_dtype="bfloat16"`` on the
+    one-term kernel's ``Planar`` epilogue (``csrc/fold_bf16.cu``: re and im
+    stored from the registers)."""
     from . import build
 
     lines, n_in, half = _check_launch(raw2d, w_re_parts, w_im_parts)

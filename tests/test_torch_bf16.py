@@ -402,7 +402,7 @@ def test_bf16_kernels_match_plain_on_card(cuda_device, kind):
             <= tfp.PREP_REL_L2
         torch.cuda.synchronize()
         for family in ("depth", "depth_scale", "depth_scale_concat", "prep_phase", "prep_real"):
-            assert tfp.ONE_PASS_ROUTES[family] == {"tensor_core": 0, "simt": 0,
+            assert tfp.ONE_PASS_ROUTES[family] == {"tensor_core": 0,
                                                    "tensor_core_bf16": 1}, family
 
 

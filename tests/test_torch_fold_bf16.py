@@ -15,8 +15,8 @@ parts every F = 256 samples) against the JAX package's bf16
 ``fused_depth_transform`` in
 interpret mode at 2048- and 4096-sample lines; the bench's ``depth_bf16``
 row and ``*_f32lines`` names (B1/B2/B5/B7/B8 at one pass on 24-bit samples
-as float32 lines: B2, B5, B7 and B8 on the tensor cores as three x parts, B1
-on the float32-FMA kernel) through ``bench._kernel_cases``
+as float32 lines, all five on the tensor cores as three x parts) through
+``bench._kernel_cases``
 with the launches replaced by stand-ins that take the wrapper's route and
 run the plain version, beside ``bench.kernel_bound`` for those rows.  The
 agreement of B1/B2/B5 at bf16 with the JAX package's Pallas kernels is
@@ -180,18 +180,16 @@ def small_bench(monkeypatch):
 
 
 @pytest.mark.parametrize("name", bench.F32_LINE_KERNELS)
-def test_f32line_cases_take_the_simt_route(small_bench, name):
+def test_f32line_cases_take_the_three_x_part_route(small_bench, name):
     """Each ``*_f32lines`` case feeds 24-bit samples as float32 lines (no
-    bitshift): its launch takes the tensor-core route with three x parts
-    (``fused_prep.FLOAT_LINE_TENSOR_CORE``) -- the float32-FMA route for
-    ``depth`` --, equals its plain version,
+    bitshift): its launch takes the tensor-core route with three x parts,
+    equals its plain version,
     and its library call is the float32 product of the same x by the
     float32 operator [W_re | W_im] (or P); its bound counts the six terms
     of three x parts on the tensor-core route."""
     kernel, plain, library, bound = bench._kernel_cases(name, "cpu")
     got, want = kernel(), plain()
-    family = name[:-len("_f32lines")]
-    assert small_bench == ["tensor_core" if family in tfp.FLOAT_LINE_TENSOR_CORE else "simt"]
+    assert small_bench == ["tensor_core"]
     for g, w in zip(*((t if isinstance(t, tuple) else (t,)) for t in (got, want))):
         assert g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
     y = library()
@@ -216,26 +214,23 @@ def test_float32_lines_are_24_bit_samples():
 @pytest.mark.parametrize("name", bench.F32_LINE_KERNELS)
 def test_kernel_bound_of_the_f32line_rows(name):
     """At the main path's shapes on float32 lines of 24-bit samples (three
-    x parts): six bf16 terms of 275 GFLOP at 989 TFLOP/s, 1.668 ms, or for
-    ``depth`` one float32 product at 67 TFLOP/s, 4.103 ms, bound by its
-    operations; bytes are the float32
-    lines, the operator (the float32 one, or its three bf16 parts; two for
-    the fold families' re and im, one P) and the output."""
+    x parts): six bf16 terms of 275 GFLOP at 989 TFLOP/s, 1.668 ms, bound
+    by its operations; bytes are the float32 lines, the operator's three
+    bf16 parts (two operators for the fold families' re and im, one P) and
+    the output."""
     n_out = 1024 if name.startswith("prep") else 512
     got = bench.kernel_bound(name, lines=131072, n_in=1024, n_out=n_out, in_itemsize=4,
                              x_parts=3)
     family = name[:-len("_f32lines")]
-    tensor_core = family in tfp.FLOAT_LINE_TENSOR_CORE
-    assert got["bound_ms"] == pytest.approx(1.6676 if tensor_core else 4.1027, abs=1e-4)
+    assert got["bound_ms"] == pytest.approx(1.6676, abs=1e-4)
     assert got["bound_by"] == "operations"
-    assert got["flops"] == (6 if tensor_core else 1) * 2 * 131072 * 1024 * 1024
+    assert got["flops"] == 6 * 2 * 131072 * 1024 * 1024
     gemms = 1 if name.startswith("prep") else 2
     out = {"depth": 2 * 131072 * 512 * 4, "depth_scale": 131072 * 512 * 4 + 2 * 512 * 4,
            "depth_scale_concat": 131072 * 512 * 4 + 2 * 512 * 4,
            "prep_phase": 131072 * 1024 * 8 + 2 * 1024 * 4,
            "prep_real": 131072 * 1024 * 4}[family]
-    op = 3 * 1024 * n_out * 2 if tensor_core else 1024 * n_out * 4
-    assert got["bytes"] == 131072 * 1024 * 4 + gemms * op + out
+    assert got["bytes"] == 131072 * 1024 * 4 + gemms * 3 * 1024 * n_out * 2 + out
 
 
 def test_bf16_depth_case_takes_the_bf16_route(small_bench):
@@ -397,7 +392,7 @@ def _bf16_operators(n, dev):
 
 
 def _routes_are_bf16(family):
-    assert tfp.ONE_PASS_ROUTES[family] == {"tensor_core": 0, "simt": 0,
+    assert tfp.ONE_PASS_ROUTES[family] == {"tensor_core": 0,
                                            "tensor_core_bf16": 1}, tfp.ONE_PASS_ROUTES[family]
 
 

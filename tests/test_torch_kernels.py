@@ -532,8 +532,8 @@ CUDA_CASES = [
     (256, 300, torch.uint8, False, 3, None, None),
     (256, 300, torch.uint8, False, 3, "log", torch.float32),
     # the one-pass rung on the tensor cores (integer lines: x_lo nonzero
-    # unshifted, the ragged edges); float32 lines: the planar kernel on the
-    # float32-FMA kernel, the scaled one with three x parts
+    # unshifted, the ragged edges); float32 lines: the planar and the scaled
+    # kernel with three x parts
     (256, 300, torch.uint16, False, 1, None, None),
     (256, 300, torch.uint16, False, 1, "log", torch.float32),
     (256, 300, torch.uint16, False, 1, "fast_log", torch.float32),
@@ -588,24 +588,21 @@ def test_cuda_kernel_matches_plain(cuda_device, np_rng, n_in, lines, in_dtype, b
 
 @pytest.mark.cuda
 def test_cuda_one_pass_route_follows_the_input_type(cuda_device, np_rng):
-    """At one pass uint8/uint16 lines run on the tensor cores and float32
-    lines on the float32-FMA kernel for the planar kernel (``depth``) and
-    on the tensor cores with three x parts for the scaled kernel
-    (``depth_scale``); each counts as its family; full 16-bit samples (x_lo
-    in every stage; as float32 lines x_mid, not x_lo) and 24-bit float32
-    lines (all three x parts) stay within the planar and the scale bounds
-    (display floor 48 and 96 dB, 20 log10 of the samples' range over 8-bit
-    values)."""
+    """At one pass uint8/uint16 lines run on the tensor cores, and float32
+    lines on the tensor cores with three x parts, for the planar kernel
+    (``depth``) and the scaled kernel (``depth_scale``) alike; each counts
+    as its family; full 16-bit samples (x_lo in every stage; as float32
+    lines x_mid, not x_lo) and 24-bit float32 lines (all three x parts)
+    stay within the planar and the scale bounds (display floor 48 and 96
+    dB, 20 log10 of the samples' range over 8-bit values)."""
     wre, wim = (tfp._operator_parts(torch.from_numpy(w).to(cuda_device), "default")
                 for w in _operators())
     full = torch.from_numpy(np_rng.integers(0, 1 << 16, size=(300, N)).astype(np.uint16))
     wide = torch.from_numpy(np_rng.integers(0, 1 << 24, size=(300, N)).astype(np.float32))
     mean2 = torch.from_numpy(np_rng.normal(0, 50.0, size=(2, N // 2)).astype(np.float32))
     mean2 = mean2.to(cuda_device)
-    for raw, route, scale_route, floor_db in (
-            (full.to(cuda_device), "tensor_core", "tensor_core", 48.0),
-            (full.to(cuda_device).float(), "simt", "tensor_core", 48.0),
-            (wide.to(cuda_device), "simt", "tensor_core", 96.0)):
+    for raw, floor_db in ((full.to(cuda_device), 48.0), (full.to(cuda_device).float(), 48.0),
+                          (wide.to(cuda_device), 96.0)):
         tfp.reset_launch_counts()
         got = tfp.fold_depth(raw, wre, wim, bitshift=False)
         a, b = tfp._scale_affine(True, N // 2, floor_db, floor_db + 60.0, 0.0, 1.0)
@@ -614,11 +611,10 @@ def test_cuda_one_pass_route_follows_the_input_type(cuda_device, np_rng):
         torch.cuda.synchronize()
         assert tfp.LAUNCHES["depth"] == tfp.LAUNCHES["depth_scale"] == 1
         assert tfp.LAUNCHES["depth_split"] == tfp.LAUNCHES["depth_scale_split"] == 0
-        assert tfp.ONE_PASS_ROUTES["depth"] == {**{"tensor_core": 0, "simt": 0, "tensor_core_bf16": 0}, route: 1}
-        assert tfp.ONE_PASS_ROUTES["depth_scale"] == \
-            {**{"tensor_core": 0, "simt": 0, "tensor_core_bf16": 0}, scale_route: 1}
+        for family in ("depth", "depth_scale"):
+            assert tfp.ONE_PASS_ROUTES[family] == {"tensor_core": 1, "tensor_core_bf16": 0}
         err = tfp.planar_error(got, tfp.depth_plain(raw, wre, wim, bitshift=False))
-        assert err <= tfp.PLANAR_REL_L2, (route, err)
+        assert err <= tfp.PLANAR_REL_L2, (raw.dtype, err)
         _scale_close(mag, tfp.depth_scale_plain(raw, wre, wim, mean2, **kw).cpu().numpy())
 
 
@@ -685,22 +681,57 @@ def test_cuda_concat_and_real_three_x_parts_match_plain(cuda_device, np_rng, n, 
     torch.cuda.synchronize()
     for family in ("depth_scale_concat", "prep_real"):
         assert tfp.ONE_PASS_ROUTES[family] == \
-            {**{"tensor_core": 0, "simt": 0, "tensor_core_bf16": 0}, "tensor_core": 1}
+            {"tensor_core": 1, "tensor_core_bf16": 0}
     _scale_close(got, tfp.depth_scale_concat_plain(raw, wide, mean2.to(cuda_device), **kw)
                  .cpu().numpy())
     _prep_close(spectra, tfp.prep_real_plain(raw, one, bitshift=False).cpu().numpy())
 
 
+#: (n_in, lines, bits) of B1 on float32 lines: 16 bits (values with no x_lo,
+#: the vote skips its group), 24 and 32; n_in 1000 gives half = 500, an
+#: operator row pitch TMA cannot describe, and 1001 rows that are not
+#: 16-byte aligned (the element-wise producer both); 999 lines a partial
+#: 128-line tile, 131073 one more than a buffer.
+F32_PLANAR_CASES = [(256, 299, 16), (256, 299, 24), (256, 299, 32), (1000, 999, 24),
+                    (1000, 299, 32), (1001, 999, 24), (1001, 299, 32), (1024, 999, 16),
+                    (1664, 999, 24), (2048, 999, 32), (4096, 999, 24), (1024, 131073, 24)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("family", ["depth_scale_concat", "prep_real"])
+@pytest.mark.parametrize("n,lines,bits", F32_PLANAR_CASES)
+def test_cuda_planar_three_x_parts_match_plain(cuda_device, np_rng, n, lines, bits):
+    """B1 at one pass on float32 lines of 16-, 24- and 32-bit samples (the
+    tensor cores with three x parts) against its plain version within the
+    planar bound, the route read back."""
+    raw = torch.from_numpy(np_rng.integers(0, 1 << bits, size=(lines, n), dtype=np.int64)
+                           .astype(np.float32)).to(cuda_device)
+    wre, wim = (tfp._operator_parts(torch.from_numpy(w).to(cuda_device), "default")
+                for w in _operators(n))
+    tfp.reset_launch_counts()
+    got = tfp.fold_depth(raw, wre, wim, bitshift=False)
+    torch.cuda.synchronize()
+    assert tfp.ONE_PASS_ROUTES["depth"] == {"tensor_core": 1, "tensor_core_bf16": 0}
+    err = tfp.planar_error(got, tfp.depth_plain(raw, wre, wim, bitshift=False))
+    assert err <= tfp.PLANAR_REL_L2, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["depth_scale_concat", "prep_real", "depth"])
 def test_cuda_three_x_parts_without_x_lo_fail(cuda_device, np_rng, family):
-    """Control: B5 and B8 fed 24-bit float32 lines cut to x_hi + x_mid (what
-    the three-x-part kernel sums without x_lo w_0) fail the bounds against
-    the float32 product of the whole lines."""
+    """Control: B5, B8 and B1 fed 24-bit float32 lines cut to x_hi + x_mid
+    (what the three-x-part kernel sums without x_lo w_0) fail the bounds
+    against the float32 product of the whole lines."""
     raw = torch.from_numpy(np_rng.integers(0, 1 << 24, size=(300, N), dtype=np.int64)
                            .astype(np.float32)).to(cuda_device)
     hi = tfp._bf16_trunc(raw)
     cut = hi + tfp._bf16_trunc(raw - hi)
+    if family == "depth":
+        wre, wim = (tfp._operator_parts(torch.from_numpy(w).to(cuda_device), "default")
+                    for w in _operators())
+        assert tfp.planar_error(tfp.fold_depth(cut, wre, wim, bitshift=False),
+                                tfp.depth_plain(raw, wre, wim, bitshift=False)) \
+            > 2 * tfp.PLANAR_REL_L2
+        return
     if family == "prep_real":
         op, _ = _prep_operator(background_removal=True)
         one = tfp._operator_parts(torch.from_numpy(op).to(cuda_device), "default")
@@ -719,7 +750,7 @@ def test_cuda_three_x_parts_without_x_lo_fail(cuda_device, np_rng, family):
 
 @pytest.mark.cuda
 def test_cuda_one_pass_launch_without_three_parts_is_refused(cuda_device):
-    """On float32 lines at one pass the C entries of B5 and B8 take the
+    """On float32 lines at one pass the C entries of B1, B5 and B8 take the
     float32 operator's three bf16 parts only: a launch with the float32
     operator in their place is refused, not run on another kernel."""
     from octproz_tpu_torch.kernels import build
@@ -737,6 +768,11 @@ def test_cuda_one_pass_launch_without_three_parts_is_refused(cuda_device):
                                     mean2.data_ptr(), out.data_ptr(), 0, 0,
                                     ctypes.c_float(1.0), ctypes.c_float(0.0), 8, N, N // 2,
                                     stream)
+    assert rc != 0
+    half = w[:, :N // 2].contiguous()
+    rc = lib.fold_gemm_planar(raw.data_ptr(), 2, 0, 1, half.data_ptr(), None, None,
+                              half.data_ptr(), None, None, out.data_ptr(), out.data_ptr(),
+                              8, N, N // 2, stream)
     assert rc != 0
 
 
@@ -1044,9 +1080,9 @@ def test_cuda_prep_one_pass_route_follows_the_input_type(cuda_device, np_rng):
         real = tfp.prep_real(raw, one, bitshift=False)
         torch.cuda.synchronize()
         assert tfp.LAUNCHES["prep_phase"] == tfp.LAUNCHES["prep_real"] == 1
-        assert tfp.ONE_PASS_ROUTES["prep_phase"] == {**{"tensor_core": 0, "simt": 0, "tensor_core_bf16": 0}, route: 1}
+        assert tfp.ONE_PASS_ROUTES["prep_phase"] == {**{"tensor_core": 0, "tensor_core_bf16": 0}, route: 1}
         assert tfp.ONE_PASS_ROUTES["prep_real"] == \
-            {**{"tensor_core": 0, "simt": 0, "tensor_core_bf16": 0}, real_route: 1}
+            {**{"tensor_core": 0, "tensor_core_bf16": 0}, real_route: 1}
         err = tfp.prep_error(got, tfp.prep_phase_plain(raw, one, *rows, bitshift=False))
         assert err <= tfp.PREP_REL_L2, (route, err)
         assert tfp.prep_error(real, tfp.prep_real_plain(raw, one, bitshift=False)) \
@@ -1202,7 +1238,7 @@ def test_cuda_concat_one_pass_route_follows_the_input_type(cuda_device, np_rng):
         torch.cuda.synchronize()
         assert tfp.LAUNCHES["depth_scale_concat"] == 1
         assert tfp.ONE_PASS_ROUTES["depth_scale_concat"] == \
-            {**{"tensor_core": 0, "simt": 0, "tensor_core_bf16": 0}, "tensor_core": 1}
+            {"tensor_core": 1, "tensor_core_bf16": 0}
         _scale_close(got, want.cpu().numpy())
 
 

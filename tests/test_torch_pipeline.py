@@ -190,6 +190,10 @@ SLICE_CONFIGS = {
     "fold-gauss-window": dict(window=(WindowType.GAUSS, 0.5, 0.8)),
     "fold-taylor-window": dict(window=(WindowType.TAYLOR, 0.45, 0.9)),
     "fold-highest-continuous": dict(matmul_precision="highest", fpn_mode=FpnMode.CONTINUOUS),
+    # continuous FPN on wide samples: the planar kernel (B1, three x parts on
+    # float32 lines) on every buffer, then the FPN and the scaling
+    "fold-24bit-continuous": dict(bit_depth=24, bitshift=False, fpn_mode=FpnMode.CONTINUOUS),
+    "fold-32bit-continuous": dict(bit_depth=32, bitshift=False, fpn_mode=FpnMode.CONTINUOUS),
     "fft-prep-8bit": dict(fft_via_matmul=False, use_pallas_prep=True, bit_depth=8,
                           bitshift=False),
     "fft-prep-16bit-high": dict(fft_via_matmul=False, use_pallas_prep=True, bit_depth=16,

@@ -333,7 +333,7 @@ def test_prep_bf16_matches_plain_on_card(cuda_device, kind):
                 tfp.reset_launch_counts()
                 got, want = _run(raw, parts, epi_rows, KINDS[kind])
                 torch.cuda.synchronize()
-                assert tfp.ONE_PASS_ROUTES[family] == {"tensor_core": 0, "simt": 0,
+                assert tfp.ONE_PASS_ROUTES[family] == {"tensor_core": 0,
                                                        "tensor_core_bf16": 1}, family
                 assert got.dtype == want.dtype and got.shape == (lines, n)
                 err = tfp.prep_error(got, want)

@@ -24,14 +24,14 @@ are held against it for integer samples of up to 16 bits, its own controls
 (two of the three parts; no x_lo) fail, and float32 lines above 16 bits miss
 the bound through the two-part split of x.  The same holds for the concat
 kernel (two views of the wide operator's three parts) and the prep kernels
-at one pass.  Float32 lines of the scaled kernels (B2, and B5 on the two
-views of the wide operator's parts) and the prep kernels (B7, B8) at one
-pass split x into three parts (:func:`staged3`: x_lo w_0, x_mid w_1, x_mid
-w_0, x_hi w_2, x_hi w_1, x_hi w_0 per stage, the x_lo group skipped where a
-tile is exact in 16 bits and the x_mid group too where it is exact in
-bf16), held against the plain versions and the JAX package at
-``bit_depth=24``; without x_lo w_0 (five terms) they fail.  The planar
-kernel (B1) keeps the float32-FMA kernel for float32 lines (:func:`simt`).
+at one pass.  Float32 lines of every one-pass family -- the planar kernel
+(B1), the scaled kernels (B2, and B5 on the two views of the wide
+operator's parts) and the prep kernels (B7, B8) -- split x into three parts
+at one pass (:func:`staged3`: x_lo w_0, x_mid w_1, x_mid w_0, x_hi w_2, x_hi
+w_1, x_hi w_0 per stage, the x_lo group skipped where a tile is exact in 16
+bits and the x_mid group too where it is exact in bf16), held against the
+plain versions and the JAX package at ``bit_depth=24``; without x_lo w_0
+(five terms) they fail.
 """
 
 import dataclasses
@@ -138,25 +138,13 @@ def staged3(x, parts, vote=True, x_lo_terms=True):
     return acc
 
 
-def simt(x, w):
-    """The float32-FMA kernel's sum of ``x @ w``: one float32 sum over the
-    contraction, sample by sample."""
-    acc = torch.zeros((x.shape[0], w.shape[1]))
-    for k in range(x.shape[1]):
-        acc = acc + x[:, k:k + 1] * w[k:k + 1]
-    return acc
-
-
 def kernel_sums(raw, x, parts, family):
     """The sums of the kernel of ``family`` that a launch on (raw, parts)
     runs: the staged terms of the bf16 parts -- at one pass the float32
-    operator's three, for integer lines, and for float32 lines of
-    ``fused_prep.FLOAT_LINE_TENSOR_CORE`` with three x parts -- or, at one
-    pass on float32 lines of the planar family, the float32-FMA sum.  The
-    route is the wrapper's own (``fused_prep._kernel_operands``)."""
+    operator's three (the wrapper's operands, ``fused_prep._kernel_operands``),
+    with three x parts on float32 lines."""
     if isinstance(parts, tfp.OnePass):
-        if tfp._kernel_operands(raw, (parts,), family)[3] == "simt":
-            return simt(x, parts[0])
+        assert tfp._kernel_operands(raw, (parts,), family)[3] == "tensor_core"
         return (staged3 if raw.dtype == torch.float32 else staged)(x, parts.split)
     return staged(x, parts)
 
@@ -183,7 +171,7 @@ def test_staged_order_within_the_planar_bound(precision, kind, n, lines):
     """The staged order against depth_plain: n = 320 ends on a partial
     stage, 130 and 200 lines on a partial 64-line group.  At "default" the
     reference is the float32 product and the kernel's sums are the three-part
-    terms (the float32-FMA sum for float32 lines)."""
+    terms (with three x parts on float32 lines)."""
     wre, wim = (tfp._operator_parts(w, precision) for w in _operators(n))
     raw, bitshift = _input(kind, lines, n)
     x = tfp._decode_block(raw, bitshift)
@@ -262,11 +250,10 @@ def test_default_rung_controls_fail_under_the_staged_order(epi, control):
 def test_float_lines_above_16_bits_miss_the_bound_through_the_split(epi):
     """x_hi + x_lo keeps 16 bits of a sample: 24-bit float32 lines through
     the two-x-part terms miss the one-pass rung's bounds, which is why the
-    kernels that take float32 lines at one pass either split x in three
-    (the scaled kernels: :func:`staged3`) or keep the float32-FMA kernel
-    (the planar kernel), and either holds them; for the concat kernel the
-    terms of the two views of the wide operator's three parts, with two x
-    parts and with three."""
+    kernels split x in three at one pass on float32 lines
+    (:func:`staged3`), which holds them; for the concat kernel the terms of
+    the two views of the wide operator's three parts, with two x parts and
+    with three."""
     ops = [tfp._operator_parts(w, "default") for w in _operators(256)]
     raw, _ = _input("f32", 200, 256)
     if epi == "concat":
@@ -285,7 +272,8 @@ def test_float_lines_above_16_bits_miss_the_bound_through_the_split(epi):
     elif epi == "planar":
         want = tfp.depth_plain(raw, *ops, bitshift=False)
         assert tfp.planar_error([staged(raw, w.split) for w in ops], want) > 2 * tfp.PLANAR_REL_L2
-        assert tfp.planar_error([simt(raw, w[0]) for w in ops], want) <= tfp.PLANAR_REL_L2
+        assert tfp._kernel_operands(raw, ops, "depth")[3] == "tensor_core"
+        assert tfp.planar_error([staged3(raw, w.split) for w in ops], want) <= tfp.PLANAR_REL_L2
     else:
         mean2, a, b = _scale_args(128)
         want = tfp.depth_scale_plain(raw, *ops, mean2, bitshift=False, log_scaling=True, a=a, b=b)
@@ -325,15 +313,20 @@ def test_three_x_parts_within_the_scale_bounds(kind, n, lines):
     assert tfp.scale_error(got, exact)[0] <= tfp.scale_error(want, exact)[0] + tfp.SCALE_RMS / 10
 
 
-@pytest.mark.parametrize("epi", ["scale", "phase", "concat", "real"])
+@pytest.mark.parametrize("epi", ["scale", "phase", "concat", "real", "planar"])
 @pytest.mark.parametrize("kind", ["f32", "f32w"])
 def test_three_x_parts_five_term_control_fails(epi, kind):
     """Control: the three-x-part kernel without x_lo w_0 (five terms) fails
-    the bounds against the float32 product on 24- and 32-bit lines, scaled
-    (B2, and B5 on the two views of the wide operator's parts), phase (B7)
-    and real (B8), both with background removal."""
+    the bounds against the float32 product on 24- and 32-bit lines, planar
+    (B1), scaled (B2, and B5 on the two views of the wide operator's
+    parts), phase (B7) and real (B8), both with background removal."""
     raw, _ = _input(kind, 200, 256)
-    if epi in ("scale", "concat"):
+    if epi == "planar":
+        ops = [tfp._operator_parts(w, "default") for w in _operators(256)]
+        err = tfp.planar_error([staged3(raw, w.split, x_lo_terms=False) for w in ops],
+                               tfp.depth_plain(raw, *ops, bitshift=False))
+        assert err > 2 * tfp.PLANAR_REL_L2, err
+    elif epi in ("scale", "concat"):
         ops = [tfp._operator_parts(w, "default") for w in _operators(256)]
         mean2, a, b = _scale_args(128)
         kw = dict(bitshift=False, log_scaling=True, a=a, b=b)
@@ -606,18 +599,19 @@ def test_prep_phase_three_x_parts_within_the_prep_bound(epi, background_removal,
     assert err <= tfp.PREP_REL_L2, err
 
 
-@pytest.mark.parametrize("family", ["depth_scale", "depth_scale_concat", "prep_phase",
+@pytest.mark.parametrize("family", ["depth", "depth_scale", "depth_scale_concat", "prep_phase",
                                     "prep_real"])
 def test_three_x_parts_match_the_jax_package_at_24_bits(family):
-    """The JAX package's fused_depth_scale (with ``fold_concat`` for the
-    concat kernel) / fused_prep (without dispersion for the real kernel) at
-    ``bit_depth=24`` (Pallas in interpret mode, as its own CPU tests run
-    it) against the port's emulated six-term sums on the same uint32
-    buffer, decoded to float32 lines as the port's wrapper decodes them --
-    the concat kernel's over the two views of the wide operator's three
-    parts: within the scale bounds (RMS 1e-6, max 1e-4 display units above
-    the display floor) or the prep bound (relative L2 1e-6), with the floor
-    of 24-bit samples."""
+    """The JAX package's fused_depth_transform (the planar kernel) /
+    fused_depth_scale (with ``fold_concat`` for the concat kernel) /
+    fused_prep (without dispersion for the real kernel) at ``bit_depth=24``
+    (Pallas in interpret mode, as its own CPU tests run it) against the
+    port's emulated six-term sums on the same uint32 buffer, decoded to
+    float32 lines as the port's wrapper decodes them -- the concat kernel's
+    over the two views of the wide operator's three parts: within the
+    planar bound (relative L2 3e-6), the scale bounds (RMS 1e-6, max 1e-4
+    display units above the display floor) or the prep bound (relative L2
+    1e-6), with the floor of 24-bit samples."""
     import importlib
 
     import jax.numpy as jnp
@@ -642,7 +636,17 @@ def test_three_x_parts_match_the_jax_package_at_24_bits(family):
                                              dtype=np.int64).astype(np.uint32)
     x = tfp._predecode(torch.from_numpy(raw).reshape(-1, n), 24, False)
     assert x.dtype == torch.float32 and tfp.x_parts(x) == 3
-    if family.startswith("depth"):
+    if family == "depth":
+        ops = [tfp._operator_parts(w, "default") for w in (cv.depth_op_re, cv.depth_op_im)]
+        got = [kernel_sums(x, x, w, family) for w in ops]
+        want = jfp.fused_depth_transform(jnp.asarray(raw), jnp.asarray(cv.depth_op_re.numpy()),
+                                         jnp.asarray(cv.depth_op_im.numpy()), jacq, jcfg,
+                                         interpret=True)
+        want = [torch.from_numpy(np.array(w, np.float32)).reshape(g.shape)
+                for w, g in zip(want, got)]
+        err = tfp.planar_error(got, want)
+        assert err <= tfp.PLANAR_REL_L2, err
+    elif family.startswith("depth"):
         ops = [tfp._operator_parts(w, "default") for w in (cv.depth_op_re, cv.depth_op_im)]
         mean2 = torch.from_numpy(np.random.default_rng(5).normal(0, 50.0, size=(2, n // 2))
                                  .astype(np.float32))
@@ -727,7 +731,7 @@ ROUTES = [
     ("depth_scale_concat", torch.float32, "default", 1, "depth_scale_concat", "tensor_core"),
     ("depth_scale", torch.float32, "default", 1, "depth_scale", "tensor_core"),
     ("depth_scale", torch.uint16, "default", 1, "depth_scale", "tensor_core"),
-    ("depth", torch.float32, "default", 1, "depth", "simt"),
+    ("depth", torch.float32, "default", 1, "depth", "tensor_core"),
     ("depth", torch.uint8, "default", 1, "depth", "tensor_core"),
     ("depth_scale", torch.float32, "high", 3, "depth_scale_split", None),
 ]
@@ -738,11 +742,9 @@ def test_route_helper_follows_the_family_and_the_input_type(family, dtype, preci
                                                             key, route):
     """``_kernel_operands`` for the one-operator kernels (the prep kernels
     on P, the concat kernels on [W_re | W_im]) and the two-operator fold
-    kernels (W_re, W_im): the one pass goes to the tensor cores on
-    uint8/uint16 lines, and on float32 lines for every family but ``depth``
-    (the operator's three bf16 parts, made once and kept), and to the
-    float32-FMA kernel on float32 lines of ``depth`` (the float32
-    operator); the split rungs pass their parts as they are."""
+    kernels (W_re, W_im): the one pass goes to the tensor cores on every
+    input type (the operator's three bf16 parts, made once and kept); the
+    split rungs pass their parts as they are."""
     if family.startswith("prep"):
         op, _ = _prep_operator(256, False)
         axes, ops = (tfp._operator_parts(op, precision),), (op,)
@@ -945,9 +947,8 @@ def test_kernel_bound_hand_values(name, n_out, parts, x_lo_zero, terms, ms):
 def test_kernel_bound_of_the_one_pass_routes(name):
     """uint8/uint16 lines run the tensor-core route (three bf16 parts per
     axis to read, bf16 peak); float32 lines of 24 bits (three x parts) run
-    it too for the scaled kernels, two-operator and concat, six bf16 terms,
-    and keep the float32-FMA kernel and its float32 bound for the planar
-    one, with the float32 operator's bytes."""
+    it too for the planar and the scaled kernels, two-operator and concat,
+    six bf16 terms against the same three parts per axis."""
     u16 = bench.kernel_bound(name, n_out=512, **MAIN)
     u8 = bench.kernel_bound(name, n_out=512, in_itemsize=1, **MAIN)
     f32 = bench.kernel_bound(name, n_out=512, in_itemsize=4, x_parts=3, **MAIN)
@@ -955,14 +956,9 @@ def test_kernel_bound_of_the_one_pass_routes(name):
     assert u16["bytes"] - u8["bytes"] == 131072 * 1024
     out = 131072 * 512 * 4 * (2 if name == "depth" else 1) + (2 * 512 * 4 if name != "depth" else 0)
     assert u16["bytes"] == 131072 * 1024 * 2 + 2 * 3 * 1024 * 512 * 2 + out
-    if name != "depth":
-        assert f32["bound_ms"] == pytest.approx(1.6676, abs=1e-4)
-        assert f32["flops"] == 6 * 4 * 131072 * 1024 * 512
-        assert f32["bytes"] == u16["bytes"] + 131072 * 1024 * 2
-    else:
-        assert f32["bound_ms"] == pytest.approx(4.1027, abs=1e-4)
-        assert f32["flops"] == 4 * 131072 * 1024 * 512
-        assert f32["bytes"] == 131072 * 1024 * 4 + 2 * 1024 * 512 * 4 + out
+    assert f32["bound_ms"] == pytest.approx(1.6676, abs=1e-4)
+    assert f32["flops"] == 6 * 4 * 131072 * 1024 * 512
+    assert f32["bytes"] == u16["bytes"] + 131072 * 1024 * 2
 
 
 @pytest.mark.parametrize("itemsize,ms", [(2, 0.8338), (1, 0.8338), (4, 1.6676)])
@@ -990,22 +986,25 @@ def test_kernel_bound_of_the_prep_one_pass_routes(itemsize, ms):
                                         ("depth_scale_f32lines", 512),
                                         ("prep_phase_f32lines", 1024),
                                         ("depth_scale_concat_f32lines", 512),
-                                        ("prep_real_f32lines", 1024)])
+                                        ("prep_real_f32lines", 1024), ("depth", 512),
+                                        ("depth_f32lines", 512)])
 @pytest.mark.parametrize("x_parts,terms,ms", [(3, 6, 1.6676), (2, 5, 1.3897), (1, 3, 0.8338)])
 def test_kernel_bound_counts_the_x_parts_of_float_lines(name, n_out, x_parts, terms, ms):
-    """On float32 lines the scaled, the concat and the prep kernels' one
-    pass runs sum_i (3 - i) terms over the x parts the data needs: six for
-    samples above 16 bits (1.668 ms at the main geometry), five for 16-bit
-    values, three for values exact in bf16; the planar family, without the
-    route, keeps 4.103 ms."""
+    """On float32 lines the planar, the scaled, the concat and the prep
+    kernels' one pass runs sum_i (3 - i) terms over the x parts the data
+    needs: six for samples above 16 bits (1.668 ms at the main geometry),
+    five for 16-bit values, three for values exact in bf16; the planar
+    family's bound equals the scaled one's (its planes' bytes stay under
+    its operations)."""
     got = bench.kernel_bound(name, n_out=n_out, in_itemsize=4, x_parts=x_parts, **MAIN)
     gemms = 1 if name.startswith("prep") else 2
     assert got["flops"] == terms * gemms * 2 * 131072 * 1024 * n_out
     assert got["bound_ms"] == pytest.approx(ms, abs=1e-4) and got["bound_by"] == "operations"
-    if not name.startswith("prep"):
-        planar = "depth_f32lines" if name.endswith("_f32lines") else "depth"
-        assert bench.kernel_bound(planar, n_out=n_out, in_itemsize=4, x_parts=x_parts,
-                                  **MAIN)["bound_ms"] == pytest.approx(4.1027, abs=1e-4)
+    if name.startswith("depth"):
+        scaled = name.replace("depth", "depth_scale", 1) if not name.startswith("depth_scale") \
+            else name
+        assert bench.kernel_bound(scaled, n_out=n_out, in_itemsize=4, x_parts=x_parts,
+                                  **MAIN)["bound_ms"] == got["bound_ms"]
 
 
 @pytest.mark.parametrize("name,n_out,ms,by", [
