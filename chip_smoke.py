@@ -95,7 +95,10 @@ nonzero and the final line is not printed:
    ``POST /render`` refresh timed and the host volume's copy to the card
    timed alone; the engine's rate from RAM without and with a viewer in
    the same call; a recording with ``save_screenshots=True`` leaving three
-   PNGs that decode;
+   PNGs that decode; ``cli.main``'s ``replay --live --live-volume`` on a
+   raw file of two full buffers, ``/render.json`` and ``/volume.png`` read
+   from its viewer while it streams, then rc 0, the viewer's port closed
+   and its threads joined;
 9. mesh: the sharded step (``parallel``) at full width on the one card,
    the launch counts read around each run: ``FdOctModel`` on
    ``make_mesh(4, 1, [cuda:0] * 4)`` with the benchmark chain (FPN once),
@@ -158,7 +161,31 @@ nonzero and the final line is not printed:
    call for its product (``bench.library_operands``) and its bound
    (``bench.kernel_bound``), and the one-pass families on float32 lines
    (``bench.F32_LINE_KERNELS``, 24-bit samples, off the main path)
-   likewise, and both paths' steady state on 24-bit samples.
+   likewise, and both paths' steady state on 24-bit samples;
+14. configurations: every configuration the CPU tests hold against the JAX
+   package (``slice_configs()``, tests/test_torch_pipeline.py's
+   ``SLICE_CONFIGS``: the rungs, FPN modes, the "xla" fold backend, the
+   unfused scaling, bf16 stores, fast log, lin scaling, the post stages,
+   the concat kernels, the FFT path through the prep kernels and through
+   torch ops -- the resampling matrix, the gather resampler at every
+   interpolation, background removal --, 8- to 32-bit samples, the window
+   types, bf16 compute) and ``fold_k_split``, through ``FdOctModel`` on
+   the card and on the CPU on the same 8-B-scan buffers of full-width lines
+   (buffer 0, two steady buffers, a chunk with strategy "auto", for some a
+   scan chunk): each card run's kernel families and routes checked, every
+   output held to the CPU's within 1e-4 display units (a bf16 step more on
+   a bf16 store) -- where it misses, the card's output held to the image of
+   the float64 products instead, at most a 1e-5 share of its voxels past
+   1e-4 and each of those within its float32 bound, the CPU's distance
+   printed --, the FPN mean lines within rtol 1e-5; then the user-facing
+   chains at full depth
+   (``default_chains()``: ``ProcConfig()``'s torch-ops FFT chain,
+   ``benchmark_config(tpu=False)`` with the gather resampler, the torch-ops
+   chain at bf16, the fold path on the "xla" backend and unfused):
+   buffer 0, steady buffers and ``process_volume``, each against the
+   kernel route computing the same function on the card and on its first
+   8 B-scans against the port on the CPU, with its ms per buffer, its
+   FPN-determination buffer's ms and its stages, and the post stages' ms.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the kernels' JSON record (the bf16 routes as ``*_bf16``, the one pass on
@@ -326,7 +353,9 @@ def _raw(kind, lines, n_in, g, dev):
 def _compare(raw, wre, wim, bitshift, mode, odt, g, ref=None, floor_db=0.0):
     """The kernel on (raw, wre, wim) against the plain version on ``ref``
     (default the same inputs), log scaling over the 60 dB from ``floor_db``
-    up.  Returns (max |err|, detail, within bounds)."""
+    up; a one-pass scaled output against the float64 product of the same
+    float32 operator (``_scale_check``).  Returns (max |err|, detail, within
+    bounds)."""
     import torch
 
     from octproz_tpu_torch.kernels import fused_prep as fp
@@ -347,11 +376,37 @@ def _compare(raw, wre, wim, bitshift, mode, odt, g, ref=None, floor_db=0.0):
               fast_log=mode == "fast_log", out_dtype=odt)
     got = fp.fold_depth_scale(raw, wre, wim, mean2, **kw)
     want = fp.depth_scale_plain(rraw, rre, rim, mean2, **kw)
-    rms, worst, ok = fp.scale_error(got, want)
+    exact = None
+    if len(rre) == 1 and rre[0].dtype == torch.float32:  # the one pass
+        exact = fp.depth_scale_f64(rraw, rre, rim, mean2, bitshift=bitshift,
+                                   log_scaling=mode != "lin", a=a, b=b,
+                                   fast_log=mode == "fast_log")
+    return _scale_check(got, want, odt, exact)
+
+
+def _scale_check(got, want, odt, exact=None):
+    """A scaled kernel output within the scale bounds: against ``exact``
+    where it is given -- at the one pass, the image of the float64 products
+    of the same float32 operator (``fused_prep.depth_scale_f64``), from
+    which the float32 plain version ``want`` drifts on long lines
+    (``diagnose.plain_drift``: up to 1.07e-4 on float32 lines at n_in >=
+    1664, the kernel within 1e-5), its own distance printed beside -- else
+    against ``want``.  Returns (max |err|, detail, within the bounds)."""
+    import torch
+
+    from octproz_tpu_torch.kernels import fused_prep as fp
+
     bound = (f"{fp.SCALE_MAX:g} + bf16 step" if odt == torch.bfloat16
              else f"RMS {fp.SCALE_RMS:g}, max {fp.SCALE_MAX:g}")
-    return worst, (f"above the display floor RMS {rms:.3e}, max {worst:.3e} "
-                   f"(bound {bound})"), ok
+    if exact is None:
+        rms, worst, ok = fp.scale_error(got, want)
+        return worst, (f"above the display floor RMS {rms:.3e}, max {worst:.3e} "
+                       f"(bound {bound})"), ok
+    rms, worst, ok = fp.scale_error(got, exact)
+    rms_p, worst_p, _ = fp.scale_error(want, exact)
+    return worst, (f"against the float64 product above the display floor RMS {rms:.3e}, "
+                   f"max {worst:.3e} (bound {bound}; the float32 plain version RMS "
+                   f"{rms_p:.3e}, max {worst_p:.3e})"), ok
 
 
 def phase_kernels():
@@ -876,7 +931,9 @@ def _bf16_prep_edge_cases(worst, dev):
 def _compare_concat(raw, wide, bitshift, log_scaling, odt, g, ref=None, floor_db=0.0):
     """A concat kernel on (raw, wide parts) against its plain version on
     ``ref`` (default the same inputs), log scaling over the 60 dB from
-    ``floor_db`` up.  Returns (max |err|, detail, within the bounds)."""
+    ``floor_db`` up; at the one pass against the float64 product of the same
+    float32 operator (``_scale_check``).  Returns (max |err|, detail, within
+    the bounds)."""
     import torch
 
     from octproz_tpu_torch.kernels import fused_prep as fp
@@ -889,11 +946,12 @@ def _compare_concat(raw, wide, bitshift, log_scaling, odt, g, ref=None, floor_db
     kw = dict(bitshift=bitshift, log_scaling=log_scaling, a=a, b=b, out_dtype=odt)
     got = fp.fold_depth_scale_concat(raw, wide, mean2, **kw)
     want = fp.depth_scale_concat_plain(rraw, rwide, mean2, **kw)
-    rms, worst, ok = fp.scale_error(got, want)
-    bound = (f"{fp.SCALE_MAX:g} + bf16 step" if odt == torch.bfloat16
-             else f"RMS {fp.SCALE_RMS:g}, max {fp.SCALE_MAX:g}")
-    return worst, (f"above the display floor RMS {rms:.3e}, max {worst:.3e} "
-                   f"(bound {bound})"), ok
+    exact = None
+    if len(rwide) == 1 and rwide[0].dtype == torch.float32:  # the one pass
+        w = rwide[0]
+        exact = fp.depth_scale_f64(rraw, (w[:, :half],), (w[:, half:],), mean2,
+                                   bitshift=bitshift, log_scaling=log_scaling, a=a, b=b)
+    return _scale_check(got, want, odt, exact)
 
 
 def _concat_kernel_cases(worst, ops, g, dev):
@@ -1326,17 +1384,10 @@ def _check_steady_full_size(model, out, raw):
         rms, worst, _ = fp.scale_error(got, plain)
         log(f"[main] {family} full buffer ({rung}) vs plain version (float32 product): "
             f"above the display floor RMS {rms:.3e}, max {worst:.3e}")
-        x = fp._decode_block(raw2d, cfg.bitshift)
-        w_re, w_im = model.curves.depth_op_re, model.curves.depth_op_im
+        w = (model.curves.depth_op_re, model.curves.depth_op_im)
         if rung == fp.BF16:
-            x, w_re, w_im = (t.to(torch.bfloat16) for t in (x, w_re, w_im))
-        x = x.double()
-        m64 = mean2.double()
-        re = x @ w_re.double() - m64[0:1]
-        im = x @ w_im.double() - m64[1:2]
-        p = re * re + im * im
-        ref = fp._f32(a) * (torch.log10(p) if cfg.log_scaling else torch.sqrt(p)) + fp._f32(b)
-        del x, re, im, p
+            w = tuple(t.to(torch.bfloat16) for t in w)
+        ref = fp.depth_scale_f64(raw2d, (w[0],), (w[1],), mean2, **kw)
         rms, worst, _ = fp.scale_error(plain, ref)
         log(f"[main] plain version (float32 product) vs the float64 product: above the "
             f"display floor RMS {rms:.3e}, max {worst:.3e}")
@@ -2659,6 +2710,75 @@ def _application_screenshots(dev, tmp):
     return launches
 
 
+#: Buffers ``replay --live`` streams in the application phase (the file's
+#: two buffers, replayed in turn).
+REPLAY_BUFFERS = 12
+
+
+def _application_replay_live(dev, tmp):
+    """Part 5: ``cli.main``'s ``replay`` with ``--live --live-volume`` on a
+    raw file of two full buffers (the benchmark chain's flags), in a thread:
+    ``/render.json`` and ``/volume.png`` fetched from its viewer while it
+    streams, then its return code 0, the viewer's port closed and the
+    thread, the engine's and the viewer's threads joined.  Returns the
+    launches (B1 once, B2 once per steady buffer)."""
+    import socket
+    import threading
+
+    from octproz_tpu_torch import bench, cli
+    from octproz_tpu_torch.viz.image import png_size
+
+    acq = bench.FULL_ACQ
+    raw = os.path.join(tmp, "replay.raw")
+    bench.random_buffers(acq, 2, dev, seed=97).cpu().numpy().tofile(raw)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    url = f"http://127.0.0.1:{port}/"
+    device, chain = _cli_args(dev)
+    argv = [*device, "replay", raw, *chain, "--live", "--live-port", str(port),
+            "--live-volume", "--max-buffers", str(REPLAY_BUFFERS), "--wait-us", "20000"]
+
+    def run():
+        result = {}
+        thread = threading.Thread(target=lambda: result.update(rc=cli.main(argv)),
+                                  name="octproz-replay-live")
+        t0 = time.perf_counter()
+        thread.start()
+        while thread.is_alive() and "png" not in result:
+            try:
+                result["render"] = json.loads(_http(url + "render.json")[1])
+                png = _http(url + "volume.png")[1]
+                if png.startswith(b"\x89PNG\r\n\x1a\n"):
+                    result["png"] = png
+            except OSError:
+                pass  # the viewer is not up yet
+            time.sleep(0.1)
+        _join_threads((thread,), (*ENGINE_THREADS, "octproz-liveview"))
+        result["s"] = time.perf_counter() - t0
+        return result
+
+    result, launches = _acquisition_launches(run, lambda r: REPLAY_BUFFERS - 1,
+                                             "replay --live")
+    os.remove(raw)
+    if result.get("rc") != 0:
+        raise AssertionError(f"replay --live returned {result.get('rc')}")
+    if "png" not in result or len(result["render"].get("modes", ())) != 7:
+        raise AssertionError(f"replay --live: /render.json {result.get('render')} and no "
+                             f"/volume.png while it streamed")
+    try:
+        socket.create_connection(("127.0.0.1", port), timeout=2).close()
+    except OSError:
+        pass
+    else:
+        raise AssertionError(f"replay --live left its viewer's port {port} open")
+    log(f"[app] cli replay --live --live-volume, {REPLAY_BUFFERS} full buffers: /render.json "
+        f"({len(result['render']['modes'])} modes) and /volume.png "
+        f"({'x'.join(map(str, png_size(result['png'])))}) read while it streamed; rc 0, the "
+        f"viewer closed, its threads joined ({result['s']:.1f} s)")
+    return launches
+
+
 def phase_application(info, dev=None):
     """The host application at full width: see the module docstring, phase
     8.  Returns B1's and B2's launch counts, summed over the phase's runs."""
@@ -2674,7 +2794,7 @@ def phase_application(info, dev=None):
         _application_render(info, volume, dev)
         del volume
         for part in (_application_viewer(info, dev, tmp), _application_rates(info, dev),
-                     _application_screenshots(dev, tmp)):
+                     _application_screenshots(dev, tmp), _application_replay_live(dev, tmp)):
             for k in totals:
                 totals[k] += part[k]
     for k in totals:
@@ -3126,6 +3246,804 @@ def phase_bf16_path(worst):
     return launches
 
 
+#: B-scans per buffer of the configuration matrix (``phase_configurations``):
+#: full-width lines, 512 A-scans of 1024 samples, 4096 lines a buffer.
+CONFIG_BSCANS = 8
+#: The card's output against the port's on the CPU, as the CPU tests hold
+#: the port to the JAX package (tests/test_torch_pipeline.py: SCALE_ATOL,
+#: ``_same_fpn``): |card - CPU| <= 1e-4 display units over the shown
+#: voxels, one bf16 step (``fused_prep.BF16_STEP`` |CPU|) more on a bf16
+#: store; FPN mean lines within rtol 1e-5 and an absolute 1e-5 of the
+#: line's largest value.
+CONFIG_ATOL = 1e-4
+CONFIG_FPN_RTOL = 1e-5
+#: Where an output misses against the CPU's, the share of its shown voxels
+#: that may lie past ``CONFIG_ATOL`` from the float64 products, each within
+#: its float32 bound (``config_near_exact``): the share ``_check_output``
+#: allows voxels at -inf.
+CONFIG_DEEP_SHARE = 1e-5
+#: Seed of the matrix's buffers (numpy), one more per configuration.
+CONFIG_SEED = 2000
+
+
+def slice_configs():
+    """``SLICE_CONFIGS`` of tests/test_torch_pipeline.py, name for name and
+    change for change: the configurations the CPU tests hold against the
+    JAX package.  The phase keeps its own copy (it imports nothing from
+    tests/); tests/test_torch_card_configs.py holds the two equal.  Each is
+    ``default_full_config()`` with bitshift and FPN from the first two
+    B-scans, then its changes; "bit_depth" is the samples' width, "window"
+    (type, center, fill factor) replaces the Hann window."""
+    from octproz_tpu_torch.params import FpnMode, Interpolation, WindowType
+
+    return {
+        "once-default": {},
+        "once-high": dict(matmul_precision="high"),
+        "once-highest": dict(matmul_precision="highest"),
+        "fpn-off": dict(fpn_mode=FpnMode.OFF),
+        "fpn-continuous": dict(fpn_mode=FpnMode.CONTINUOUS),
+        "fold-xla": dict(fold_backend="xla"),
+        "unfused-scale": dict(fused_scale=False),
+        "bf16-store": dict(output_dtype="bfloat16"),
+        "fast-log": dict(fast_log=True),
+        "lin-scale": dict(log_scaling=False),
+        "fold-bscan-flip": dict(bscan_flip=True),
+        "fold-sinusoidal": dict(sinusoidal_correction=True),
+        "fold-post-background": dict(post_background_removal=True,
+                                     post_background_weight=0.8, post_background_offset=0.05),
+        "fold-post-stages-bf16": dict(bscan_flip=True, sinusoidal_correction=True,
+                                      post_background_removal=True, output_dtype="bfloat16"),
+        "fold-ignores-use-pallas-prep": dict(use_pallas_prep=True),
+        "fold-concat": dict(fold_concat=True),
+        "fold-concat-high": dict(fold_concat=True, matmul_precision="high"),
+        "fold-concat-highest": dict(fold_concat=True, matmul_precision="highest"),
+        "fold-concat-lin-bf16": dict(fold_concat=True, log_scaling=False,
+                                     output_dtype="bfloat16"),
+        "fold-concat-fpn-off": dict(fold_concat=True, fpn_mode=FpnMode.OFF),
+        "fold-concat-post-stages": dict(fold_concat=True, bscan_flip=True,
+                                        sinusoidal_correction=True),
+        "fft-prep-default": dict(fft_via_matmul=False, use_pallas_prep=True),
+        "fft-prep-high": dict(fft_via_matmul=False, use_pallas_prep=True,
+                              matmul_precision="high"),
+        "fft-prep-highest": dict(fft_via_matmul=False, use_pallas_prep=True,
+                                 matmul_precision="highest"),
+        "fft-prep-real-default": dict(fft_via_matmul=False, use_pallas_prep=True,
+                                      dispersion=False),
+        "fft-prep-real-high": dict(fft_via_matmul=False, use_pallas_prep=True,
+                                   dispersion=False, matmul_precision="high"),
+        "fft-prep-background": dict(fft_via_matmul=False, use_pallas_prep=True,
+                                    background_removal=True, rolling_average_window=8),
+        "fft-matmul": dict(fft_via_matmul=False),
+        "fft-matmul-high": dict(fft_via_matmul=False, matmul_precision="high"),
+        "fft-gather-cubic": dict(fft_via_matmul=False, resample_via_matmul=False),
+        "fft-gather-lanczos": dict(fft_via_matmul=False, resample_via_matmul=False,
+                                   interpolation=Interpolation.LANCZOS),
+        "fft-background": dict(fft_via_matmul=False, background_removal=True),
+        "fft-fpn-off": dict(fft_via_matmul=False, use_pallas_prep=True, fpn_mode=FpnMode.OFF),
+        "fft-fpn-continuous": dict(fft_via_matmul=False, use_pallas_prep=True,
+                                   fpn_mode=FpnMode.CONTINUOUS),
+        "fft-lin-scale": dict(fft_via_matmul=False, use_pallas_prep=True, log_scaling=False),
+        "fft-bf16-store": dict(fft_via_matmul=False, output_dtype="bfloat16"),
+        "fft-post-stages-bf16": dict(fft_via_matmul=False, use_pallas_prep=True,
+                                     bscan_flip=True, sinusoidal_correction=True,
+                                     post_background_removal=True, output_dtype="bfloat16"),
+        "fold-8bit": dict(bit_depth=8, bitshift=False),
+        "fold-8bit-shift": dict(bit_depth=8),
+        "fold-10bit": dict(bit_depth=10, bitshift=False),
+        "fold-10bit-shift": dict(bit_depth=10),
+        "fold-16bit": dict(bit_depth=16, bitshift=False),
+        "fold-16bit-shift": dict(bit_depth=16),
+        "fold-24bit": dict(bit_depth=24, bitshift=False),
+        "fold-24bit-shift": dict(bit_depth=24, grayscale_min=-120.0, grayscale_max=40.0),
+        "fold-32bit": dict(bit_depth=32, bitshift=False),
+        "fold-32bit-shift": dict(bit_depth=32, grayscale_min=-120.0, grayscale_max=40.0),
+        "fold-16bit-high": dict(bit_depth=16, bitshift=False, matmul_precision="high"),
+        "fold-16bit-fast-log": dict(bit_depth=16, bitshift=False, fast_log=True),
+        "fold-background": dict(background_removal=True, rolling_average_window=8),
+        "fold-background-high": dict(background_removal=True, rolling_average_window=8,
+                                     matmul_precision="high"),
+        "fold-linear": dict(interpolation=Interpolation.LINEAR),
+        "fold-quadratic": dict(interpolation=Interpolation.QUADRATIC),
+        "fold-lanczos": dict(interpolation=Interpolation.LANCZOS),
+        "fold-no-resampling": dict(resampling=False),
+        "fold-gauss-window": dict(window=(WindowType.GAUSS, 0.5, 0.8)),
+        "fold-taylor-window": dict(window=(WindowType.TAYLOR, 0.45, 0.9)),
+        "fold-highest-continuous": dict(matmul_precision="highest",
+                                        fpn_mode=FpnMode.CONTINUOUS),
+        "fold-24bit-continuous": dict(bit_depth=24, bitshift=False,
+                                      fpn_mode=FpnMode.CONTINUOUS),
+        "fold-32bit-continuous": dict(bit_depth=32, bitshift=False,
+                                      fpn_mode=FpnMode.CONTINUOUS),
+        "fft-prep-8bit": dict(fft_via_matmul=False, use_pallas_prep=True, bit_depth=8,
+                              bitshift=False),
+        "fft-prep-16bit-high": dict(fft_via_matmul=False, use_pallas_prep=True, bit_depth=16,
+                                    bitshift=False, matmul_precision="high"),
+        "fft-gather-linear-16bit": dict(fft_via_matmul=False, resample_via_matmul=False,
+                                        interpolation=Interpolation.LINEAR, bit_depth=16,
+                                        bitshift=False),
+        "bf16-fold": dict(compute_dtype="bfloat16"),
+        "bf16-fold-high-ignored": dict(compute_dtype="bfloat16", matmul_precision="high"),
+        "bf16-fold-xla": dict(compute_dtype="bfloat16", fold_backend="xla"),
+        "bf16-fold-concat": dict(compute_dtype="bfloat16", fold_concat=True),
+        "bf16-fold-concat-bf16-store": dict(compute_dtype="bfloat16", fold_concat=True,
+                                            output_dtype="bfloat16"),
+        "bf16-fold-fast-log": dict(compute_dtype="bfloat16", fast_log=True),
+        "bf16-fold-16bit": dict(compute_dtype="bfloat16", bit_depth=16, bitshift=False),
+        "bf16-fold-24bit": dict(compute_dtype="bfloat16", bit_depth=24, bitshift=False),
+        "bf16-fold-post-stages": dict(compute_dtype="bfloat16", bscan_flip=True,
+                                      sinusoidal_correction=True, post_background_removal=True),
+        "bf16-fft-prep": dict(compute_dtype="bfloat16", fft_via_matmul=False,
+                              use_pallas_prep=True),
+        "bf16-fft-prep-real": dict(compute_dtype="bfloat16", fft_via_matmul=False,
+                                   use_pallas_prep=True, dispersion=False),
+        "bf16-fft-prep-8bit": dict(compute_dtype="bfloat16", fft_via_matmul=False,
+                                   use_pallas_prep=True, bit_depth=8, bitshift=False),
+        "bf16-fft-matmul": dict(compute_dtype="bfloat16", fft_via_matmul=False),
+    }
+
+
+#: Names of ``slice_configs()`` the configurations phase does not run, each
+#: with its reason.  None: a configuration the CPU tests gain later runs on
+#: the card, or is named here with the reason.
+CONFIGS_LEFT_OUT = {}
+#: The configurations the CPU tests also run as one chunk with strategy
+#: "scan" from a fresh FPN state (tests/test_torch_pipeline.py,
+#: ``test_scan_chunk_matches_jax``).
+SCAN_CONFIGS = ("once-default", "once-high", "fpn-continuous", "fft-prep-default", "fft-matmul",
+                "fft-fpn-continuous", "bf16-fold", "bf16-fft-prep")
+
+
+#: Configurations the phase runs beyond ``slice_configs()``: ``fold_k_split``
+#: (a TPU overlap knob, accepted and without effect on the output) on the
+#: default rung's scaled kernel with fast log and a bf16 store.
+CARD_ONLY_CONFIGS = {"fold-k-split-fast-log-bf16-store": dict(fold_k_split=4, fast_log=True,
+                                                              output_dtype="bfloat16")}
+
+
+def config_model(changes, device, ascans=None, bscans=CONFIG_BSCANS):
+    """``FdOctModel`` of one configuration of ``slice_configs()`` on
+    ``device``, built as the CPU tests build theirs, at full width: 1024
+    samples, ``ascans`` A-scans (default ``bench.FULL_ACQ``'s 512) and
+    ``bscans`` B-scans per buffer, ``bench.CURVE_KW``'s curves, a post
+    background line (made from a seed) where the configuration removes
+    one."""
+    from octproz_tpu_torch import bench
+    from octproz_tpu_torch.models.fdoct import FdOctModel
+    from octproz_tpu_torch.params import default_full_config
+
+    changes = dict(changes)
+    bit_depth = changes.pop("bit_depth", 12)
+    window = changes.pop("window", None)
+    cfg = dataclasses.replace(default_full_config(), bitshift=True, bscans_for_noise=2)
+    cfg = dataclasses.replace(cfg, **changes)
+    acq = dataclasses.replace(bench.FULL_ACQ, bit_depth=bit_depth, bscans_per_buffer=bscans,
+                              ascans_per_bscan=ascans or bench.FULL_ACQ.ascans_per_bscan)
+    kw = dict(bench.CURVE_KW)
+    if window is not None:
+        kind, center, fill = window
+        kw.update(window_type=kind, window_center=center, window_fill_factor=fill)
+    if cfg.post_background_removal:
+        kw["post_background"] = np.random.default_rng(5).uniform(
+            0.0, 0.3, size=acq.output_ascan_length).astype(np.float32)
+    return FdOctModel(acq, cfg, **kw, device=device)
+
+
+def config_buffers(acq, count, seed):
+    """``count`` host buffers of ``acq.bit_depth``-bit samples in their
+    container type, made from ``seed`` with numpy (as the CPU tests make
+    theirs)."""
+    rng = np.random.default_rng(seed)
+    dtype = np.uint8 if acq.bit_depth <= 8 else np.uint16 if acq.bit_depth <= 16 else np.uint32
+    return [rng.integers(0, 1 << acq.bit_depth, size=acq.buffer_shape).astype(dtype)
+            for _ in range(count)]
+
+
+def run_config(model, raws, strategy="auto"):
+    """The CPU tests' calls on ``model``: with ``strategy`` "auto", buffer 0
+    (FPN determination) and two steady buffers through ``process_buffer``,
+    then the other buffers as one chunk with strategy "auto"; with "scan",
+    all of ``raws`` as one chunk with strategy "scan" from the fresh FPN
+    state.  Returns the outputs and the FPN state after each call."""
+    if strategy == "scan":
+        out = model.process_chunk(np.stack(raws), strategy="scan")
+        return [out], [model.fpn_state]
+    outs, states = [], []
+    for raw in raws[:3]:
+        outs.append(model.process_buffer(raw))
+        states.append(model.fpn_state)
+    outs.append(model.process_chunk(np.stack(raws[3:]), strategy="auto"))
+    states.append(model.fpn_state)
+    return outs, states
+
+
+def config_close(got, want):
+    """``got`` (an output on the card) against ``want`` (the port's on the
+    CPU) as the CPU tests hold the port to the JAX package (``_close``):
+    the same shape, no NaN or +inf, the same finite mask (so the same -inf
+    voxels: p = 0, which a real DC bin gives without dispersion), more than
+    half of the voxels shown in ``want`` (finite, at or above the display
+    floor), and over those |got - want| <= ``CONFIG_ATOL``, one bf16 step
+    more on a bf16 store.  Returns (max |err| over the shown voxels, within
+    the bound, -inf voxels); raises on the rest."""
+    import torch
+
+    from octproz_tpu_torch.kernels import fused_prep as fp
+
+    g, w = got.detach().to(want.device).double(), want.detach().double()
+    if g.shape != w.shape:
+        raise AssertionError(f"shape {tuple(g.shape)} != {tuple(w.shape)}")
+    for side, t in (("card", g), ("CPU", w)):
+        if bool(torch.isnan(t).any()) or bool(torch.isposinf(t).any()):
+            raise AssertionError(f"NaN or +inf in the {side}'s output")
+    finite = torch.isfinite(g)
+    if not torch.equal(finite, torch.isfinite(w)):
+        raise AssertionError(f"finite masks differ: -inf at {int((~finite).sum())} voxels on "
+                             f"the card, {int((~torch.isfinite(w)).sum())} on the CPU")
+    shown = torch.isfinite(w) & (w >= 0)
+    if float(shown.double().mean()) <= 0.5:
+        raise AssertionError("most voxels lie below the display floor")
+    err = (g - w)[shown].abs()
+    limit = CONFIG_ATOL + (fp.BF16_STEP * w[shown].abs() if got.dtype == torch.bfloat16
+                           else 0.0)
+    return float(err.max()), bool((err <= limit).all()), int((~finite).sum())
+
+
+def config_same_fpn(got, want):
+    """Two FPN states as the CPU tests compare the port's with JAX's
+    (``_same_fpn``): the same ``determined`` flag and mean lines within
+    rtol ``CONFIG_FPN_RTOL`` and an absolute ``CONFIG_FPN_RTOL`` of the
+    line's largest value (at least 1).  Returns (max |difference|, within
+    the bound)."""
+    if got.determined != want.determined:
+        raise AssertionError(f"FPN determined {got.determined} on the card, "
+                             f"{want.determined} on the CPU")
+    g, w = (s.mean_line.detach().cpu().double() for s in (got, want))
+    tol = CONFIG_FPN_RTOL * (w.abs() + max(float(w.abs().max()), 1.0))
+    diff = (g - w).abs()
+    return float(diff.max()), bool((diff <= tol).all())
+
+
+def hold_config(tag, got, want, got_states, want_states, exact=None):
+    """Every output and FPN state of one configuration's run on the card
+    against the CPU's (``config_close``, ``config_same_fpn``).  Where an
+    output misses against the CPU's, each side is held against the image of
+    the float64 products, its FPN mean lines determined in float64 from the
+    segments that side's steps picked (``exact(side)``, "card" or "cpu",
+    called once each: ``run_config_f64``), as
+    ``_check_steady_full_size`` holds the steady-state kernel: the card's
+    output within the bound of ``config_near_exact``, the CPU's distance
+    printed beside it; the mean lines themselves are held to each other.
+    Returns (max |err| against the CPU's, max FPN mean-line difference,
+    -inf voxels); raises where an output or a mean line misses its bound."""
+    worst, fpn_worst, black, images = 0.0, 0.0, 0, {}
+    for k, (g, w) in enumerate(zip(got, want)):
+        err, ok, neg = config_close(g, w)
+        worst, black = max(worst, err), black + neg
+        if ok:
+            continue
+        if exact is None:
+            raise AssertionError(f"{tag}: output {k} is {err:.3e} off the CPU's (bound "
+                                 f"{CONFIG_ATOL:g} display units, one bf16 step more on a "
+                                 f"bf16 store)")
+        for side in ("card", "cpu"):
+            images[side] = images.get(side) or exact(side)
+        card, ok, past, ratio = config_near_exact(g, images["card"][k])
+        cpu, _, cpu_past, _ = config_near_exact(w, images["cpu"][k])
+        log(f"[configs] {tag}: output {k} is {err:.3e} off the CPU's; against the float64 "
+            f"products the card's {card:.3e}, {past} voxel(s) past {CONFIG_ATOL:g} (at most "
+            f"{CONFIG_DEEP_SHARE:g} of {g.numel()}, each within its float32 bound: largest "
+            f"share of it {ratio:.3f}), the CPU's {cpu:.3e}, {cpu_past} past it "
+            f"-> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{tag}: output {k} is {card:.3e} off the float64 products, "
+                                 f"{past} voxel(s) past {CONFIG_ATOL:g} display units, the "
+                                 f"largest at {ratio:.3f} of its float32 bound")
+    for k, (g, w) in enumerate(zip(got_states, want_states)):
+        diff, ok = config_same_fpn(g, w)
+        if not ok:
+            raise AssertionError(f"{tag}: FPN mean line after call {k} is {diff:.3e} off the "
+                                 f"CPU's (rtol {CONFIG_FPN_RTOL:g})")
+        fpn_worst = max(fpn_worst, diff)
+    return worst, fpn_worst, black
+
+
+#: Unit roundoff of the card's float32 sums, taken as one ulp, 2^-23: the
+#: tensor cores truncate their accumulation (round to nearest is half of it).
+F32_ULP = 2.0 ** -23
+
+
+def _depth_f64(model, x, absolute=False):
+    """The depth profiles (re, im) of the decoded lines ``x`` of ``model``'s
+    configuration with every product in float64 (see ``image_f64``).  With
+    ``absolute`` the same chain on |x| and the operators' magnitudes: for
+    each depth sample the sum of the magnitudes of the terms its float32
+    sum adds (on the FFT path every bin of a line sums the line's whole prep
+    output), and 0 for im."""
+    import torch
+
+    from octproz_tpu_torch.kernels import fused_prep as fp
+    from octproz_tpu_torch.ops import background, resample
+
+    cfg, acq, cv = model.cfg, model.acq, model.curves
+    rung = fp.operator_rung(cfg)
+    f64 = torch.float64
+    mag = torch.abs if absolute else (lambda t: t)
+
+    def product(x, w):
+        """x @ w as the rung takes its operands, summed in float64."""
+        if rung == fp.BF16:
+            return mag(x.to(torch.bfloat16).to(f64)) @ mag(w.to(torch.bfloat16).to(f64))
+        parts = fp._SPLIT_PARTS.get(rung)
+        if parts is None:
+            return mag(x.to(f64)) @ mag(w.to(f64))
+        x_hi = fp._bf16_trunc(x)
+        x_lo = (x - x_hi).to(torch.bfloat16).to(f64)
+        w_parts = [mag(p.to(f64)) for p in fp._split_bf16(w.to(torch.float32), parts)]
+        return mag(x_hi.to(f64)) @ sum(w_parts) + mag(x_lo) @ sum(w_parts[:-1])
+
+    half = acq.output_ascan_length
+    if cfg.fft_via_matmul:
+        return product(x, cv.depth_op_re), product(x, cv.depth_op_im)
+    if cfg.use_pallas_prep:
+        y = product(x, cv.prep_operator)
+    else:
+        if cfg.background_removal:
+            x = background.remove_background(x, cfg.rolling_average_window)
+        if cfg.resampling and (cfg.resample_via_matmul or absolute):
+            r = cv.resample_matrix
+            if r is None:  # the gather resampler's taps as a matrix
+                r = torch.from_numpy(resample.build_resample_matrix(
+                    cv.resample_curve.cpu().numpy(), cfg.interpolation)).to(x.device)
+            y = product(x, r.T)
+        elif cfg.resampling:
+            y = resample.apply_gather(x, cv.resample_curve, cfg.interpolation).to(f64)
+        else:
+            y = mag(x.to(f64))
+        if cfg.windowing:
+            y = y * mag(cv.window.to(f64))
+    if absolute:
+        return y.sum(-1, keepdim=True).expand(-1, half), torch.zeros_like(y[:, :half])
+    if cfg.dispersion:
+        y = y * cv.phase.to(torch.complex128)
+    z = torch.fft.ifft(y.to(torch.complex128), dim=-1, norm="forward")[..., :half]
+    return z.real, z.imag
+
+
+def _fpn_f64(re, im, lines, picked):
+    """The FPN mean line of float64 depth profiles (re, im): per bin the
+    mean of the segment -- ``FPN_SEGMENTS`` segments of the first ``lines``
+    lines, as ``ops.fpn`` cuts them -- nearest ``picked``, the float32 mean
+    line the step determined, so that rounding cannot pick another segment
+    of the tie band here."""
+    import torch
+
+    from octproz_tpu_torch.params import FPN_SEGMENTS
+
+    seg = max(lines // FPN_SEGMENTS, 1)
+    means = [t[:FPN_SEGMENTS * seg].reshape(FPN_SEGMENTS, seg, -1).mean(1) for t in (re, im)]
+    picked = picked.to(re.device, torch.float64)
+    nearest = ((means[0] - picked[0]) ** 2 + (means[1] - picked[1]) ** 2).argmin(0, keepdim=True)
+    return torch.stack([m.gather(0, nearest)[0] for m in means])
+
+
+def image_f64(model, raw, fused, mean=None, picked=None):
+    """The image of one buffer of ``model``'s configuration with its
+    products in float64: the samples as the port decodes them and its
+    float32 elementwise stages (background removal, the gather resampler),
+    then each product of the chain -- the depth operators, the prep
+    operator, the resampling matrix, the window and phasor, the inverse
+    FFT -- in float64 on the port's float32 operators, on the operands as
+    the configuration's rung takes them (at ``compute_dtype="bfloat16"`` x
+    and the operator rounded to bf16; at a split rung the sum of its pass
+    terms, x_hi and x_lo against the operator's bf16 parts); the FPN mean
+    line determined here in float64 where the step determined one
+    (``picked``, its float32 mean line, names the segments: ``_fpn_f64``),
+    else the float64 ``mean`` carried from the buffer that did (None: FPN
+    off) subtracted; p rounded once to float32, then the port's scaling
+    (the steady-state kernel's epilogue where ``fused``: fast log with
+    ``fast_log``) and post stages.  Returns (the image, the float32 bound
+    of each voxel in display units -- Higham's bound gamma_n * sum |terms|
+    on any float32 evaluation of its depth sum, n the samples (on the FFT
+    path plus log2 n for the transform) at ``F32_ULP``, carried through the
+    scaling and the post stages --, the float64 mean line)."""
+    import math
+
+    import torch
+
+    from octproz_tpu_torch import pipeline
+    from octproz_tpu_torch.kernels import fused_prep as fp
+    from octproz_tpu_torch.ops import convert
+
+    cfg, acq, cv = model.cfg, model.acq, model.curves
+    raw = torch.as_tensor(raw).to(model.device)
+    x = convert.decode(raw, acq.bit_depth, cfg.bitshift).reshape(-1, acq.samples_per_line)
+    re, im = _depth_f64(model, x)
+    if picked is not None:
+        lines = min(cfg.bscans_for_noise, acq.bscans_per_buffer) * acq.ascans_per_bscan
+        mean = _fpn_f64(re, im, lines, picked)
+    if mean is not None:
+        re, im = re - mean[0], im - mean[1]
+    p = re * re + im * im
+    a, b = fp._scale_affine(cfg.log_scaling, acq.output_ascan_length, cfg.grayscale_min,
+                            cfg.grayscale_max, cfg.addend, cfg.multiplicator)
+    image = fp._scale_epilogue(p.to(torch.float32), log_scaling=cfg.log_scaling, a=a, b=b,
+                               fast_log=fused and cfg.fast_log)
+    s_re, s_im = _depth_f64(model, x, absolute=True)
+    n = acq.samples_per_line + (0 if cfg.fft_via_matmul else math.ceil(math.log2(x.shape[-1])))
+    e = n * F32_ULP / (1.0 - n * F32_ULP) * torch.sqrt(s_re * s_re + s_im * s_im)
+    if cfg.log_scaling:
+        ratio = e / torch.sqrt(p)
+        bound = abs(a) / math.log(10.0) * (2.0 * ratio + ratio * ratio)
+    else:
+        bound = abs(a) * e
+    shape = (acq.bscans_per_buffer, acq.ascans_per_bscan, acq.output_ascan_length)
+    moved = dataclasses.replace(cfg, post_background_removal=False)  # a clamp: no growth
+    return (pipeline.postprocess_volume(image.reshape(shape), cv, cfg),
+            pipeline.postprocess_volume(bound.to(torch.float32).reshape(shape), cv, moved),
+            mean)
+
+
+def config_steps(model, raws):
+    """What each of ``raws``' steps did on ``model``'s device, replayed
+    through ``process_buffer`` from a fresh FPN state (a chunk, batched or
+    scanned, runs its buffers' steps): (the steady-state kernel computed
+    it, the FPN mean line it determined or None) per buffer."""
+    from octproz_tpu_torch import pipeline
+    from octproz_tpu_torch.params import FpnMode
+
+    model.redetermine_fpn()
+    steps = []
+    for raw in raws:
+        cfg, state = model.cfg, model.fpn_state
+        determines = cfg.fpn_mode != FpnMode.OFF and (cfg.fpn_mode == FpnMode.CONTINUOUS
+                                                      or not state.determined)
+        model.process_buffer(raw)
+        steps.append((pipeline.fused_ready(cfg, state),
+                      model.fpn_state.mean_line if determines else None))
+    return steps
+
+
+def images_f64(model, raws, steps):
+    """``image_f64`` of each of ``raws`` in turn with ``steps``
+    (``config_steps`` of the side held to them), the float64 FPN mean line
+    carried from the buffer that determined it: (image, float32 bound) per
+    buffer."""
+    mean, out = None, []
+    for raw, (fused, picked) in zip(raws, steps):
+        image, bound, mean = image_f64(model, raw, fused, mean=mean, picked=picked)
+        out.append((image, bound))
+    return out
+
+
+def run_config_f64(model, raws, steps, strategy="auto"):
+    """``run_config``'s outputs computed by ``images_f64`` on ``model``'s
+    device: (image, float32 bound) per output."""
+    import torch
+
+    pairs = images_f64(model, raws, steps)
+    if strategy == "scan":
+        groups = [pairs]
+    else:
+        groups = [*([pair] for pair in pairs[:3]), pairs[3:]]
+    return [tuple(torch.stack(t) if len(group) > 1 else t[0] for t in zip(*group))
+            for group in groups]
+
+
+def config_near_exact(got, exact):
+    """``got`` against ``exact`` = (the image of the float64 products, the
+    float32 bound of each voxel) from ``image_f64``: the same finite mask;
+    over the shown voxels (finite, at or above the display floor in the
+    image) |got - image| <= ``CONFIG_ATOL`` (one bf16 step more on a bf16
+    store), but for at most a ``CONFIG_DEEP_SHARE`` share of them, each of
+    which within that bound plus its float32 bound -- the deepest nulls,
+    where any float32 evaluation order moves the log by more (the port's
+    own float32 output on the CPU lies past 1e-4 from these products at a
+    few voxels of many of the matrix's outputs).  Returns (max |err|, within, voxels past ``CONFIG_ATOL``, the largest
+    ratio of such a voxel's error to its limit)."""
+    import torch
+
+    from octproz_tpu_torch.kernels import fused_prep as fp
+
+    image, bound = exact
+    g, w = got.detach().to(image.device).double(), image.double()
+    if not torch.equal(torch.isfinite(g), torch.isfinite(w)):
+        raise AssertionError("finite masks differ from the float64 products'")
+    shown = torch.isfinite(w) & (w >= 0)
+    err = (g - w)[shown].abs()
+    limit = CONFIG_ATOL + (fp.BF16_STEP * w[shown].abs() if got.dtype == torch.bfloat16
+                           else 0.0)
+    past = err > limit
+    count = int(past.sum())
+    allowed = limit + bound.to(image.device).double()[shown]
+    ratio = float((err[past] / allowed[past]).max()) if count else 0.0
+    ok = count <= CONFIG_DEEP_SHARE * err.numel() and ratio <= 1.0
+    return float(err.max()), ok, count, ratio
+
+
+def default_chains():
+    """The configurations users get without a preset or from the FFT-path
+    preset, run at full depth by ``phase_configurations``: (name, the
+    configuration, the configuration whose kernel route computes the same
+    function on the card, or None).  ``ProcConfig()``'s FFT path -- the
+    CLI's chain without ``--preset`` -- through torch ops (decode, resampling
+    matrix, window, dispersion) and cuFFT, against the prep kernel;
+    ``benchmark_config(tpu=False)`` with the gather resampler, against the
+    prep kernel (the same taps as the matrix); that torch-ops chain at
+    ``compute_dtype="bfloat16"`` (the prep kernel rounds its folded operator
+    to bf16, the torch ops the resampling matrix: not the same function);
+    the fold path on the "xla" backend (plain matmuls) and with
+    ``fused_scale`` off (B1 and the torch FPN and scaling on every buffer),
+    each against the steady-state kernel."""
+    from octproz_tpu_torch import bench
+    from octproz_tpu_torch.models.presets import benchmark_config
+    from octproz_tpu_torch.params import FpnMode, ProcConfig
+
+    chain = ProcConfig(resampling=True, windowing=True, dispersion=True, fpn_mode=FpnMode.ONCE)
+    fft = benchmark_config(tpu=False)
+    return (
+        ("torch-ops FFT chain", chain, dataclasses.replace(chain, use_pallas_prep=True)),
+        ("benchmark_config(tpu=False), gather resampler",
+         dataclasses.replace(fft, resample_via_matmul=False),
+         dataclasses.replace(fft, use_pallas_prep=True)),
+        ("torch-ops FFT chain at bf16", dataclasses.replace(chain, compute_dtype="bfloat16"),
+         None),
+        ("fold path, xla backend", bench.bench_config(fold_backend="xla"), bench.bench_config()),
+        ("fold path, fused_scale off", bench.bench_config(fused_scale=False),
+         bench.bench_config()),
+    )
+
+
+def _hold_full(tag, got, want, exact):
+    """One full buffer's output on the card against ``want`` (the kernel
+    route's on the card) as ``config_close`` holds it; where it misses,
+    each against the image of the float64 products with the FPN mean line
+    determined in float64 from the segments it picked (``exact(side)``,
+    "chain" or "route") -- the output within the
+    bound, the kernel route's distance printed beside.  Returns the max
+    |err| held."""
+    err, ok, _ = config_close(got, want)
+    if ok:
+        log(f"[configs] {tag}: steady output vs the kernel route on the card: max {err:.3e} "
+            f"-> ok")
+        return err
+    card, ok, past, ratio = config_near_exact(got, exact("chain"))
+    route, _, route_past, _ = config_near_exact(want, exact("route"))
+    log(f"[configs] {tag}: steady output {err:.3e} off the kernel route's; against the float64 "
+        f"products {card:.3e}, {past} voxel(s) past {CONFIG_ATOL:g} (at most "
+        f"{CONFIG_DEEP_SHARE:g} of {got.numel()}, each within its float32 bound: largest share "
+        f"of it {ratio:.3f}), the kernel route {route:.3e}, {route_past} past it "
+        f"-> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{tag}: full-size output {card:.3e} off the float64 products, "
+                             f"{past} voxel(s) past {CONFIG_ATOL:g}, the largest at {ratio:.3f} "
+                             f"of its float32 bound")
+    return card
+
+
+def _default_chain(info, dev, name, cfg, twin, raws):
+    """One chain of ``default_chains()`` on full buffers (see
+    ``phase_configurations``).  Returns its launches by ``kernels`` row."""
+    import torch
+
+    from octproz_tpu_torch import bench, pipeline
+    from octproz_tpu_torch.kernels import fused_prep as fp
+    from octproz_tpu_torch.models.fdoct import FdOctModel
+
+    acq, card = bench.FULL_ACQ, f"{info['device_name']}, power limit {info['power_limit']}"
+    model = FdOctModel(acq, cfg, **bench.CURVE_KW, device=dev)
+    torch.cuda.synchronize()
+    fp.reset_launch_counts()
+    out0 = model.process_buffer(raws[0])
+    state = model.fpn_state
+    steady = [model.process_buffer(raw) for raw in raws[1:]]
+    volume = model.process_volume(np.stack(raws[1:]))
+    ran = _config_launches(name, cfg, acq)
+    _check_output([out0, *steady], acq, name)
+    if not torch.equal(volume, torch.cat(steady)):
+        raise AssertionError(f"{name}: process_volume != the steady process_buffer calls")
+    del volume
+    log(f"[configs] {name}: buffer 0 + {len(steady)} steady + process_volume of "
+        f"{len(steady)} (== the steady calls); launches {ran or 'none'}")
+    # against the kernel route on the card, full buffer
+    if twin is not None:
+        other = FdOctModel(acq, twin, **bench.CURVE_KW, device=dev)
+        torch.cuda.synchronize()
+        fp.reset_launch_counts()
+        other.process_buffer(raws[0])
+        want = other.process_buffer(raws[1])
+        for row, n in _config_launches(f"{name}, kernel route", twin, acq).items():
+            ran[row] = ran.get(row, 0) + n
+        sides = {"chain": (model, state), "route": (other, other.fpn_state)}
+        _hold_full(name, steady[0], want, lambda side: images_f64(
+            sides[side][0], raws[:2], [(False, sides[side][1].mean_line),
+                                       (pipeline.fused_ready(sides[side][0].cfg,
+                                                             sides[side][1]), None)])[1])
+        del other, want, sides
+    # against the port on the CPU, the first CONFIG_BSCANS B-scans (FPN from
+    # the first bscans_for_noise of them: every stage reads only these)
+    cut = [raw[:CONFIG_BSCANS] for raw in raws[:2]]
+    cpu = FdOctModel(dataclasses.replace(acq, bscans_per_buffer=CONFIG_BSCANS), cfg,
+                     **bench.CURVE_KW, device="cpu")
+    want, want_states = [], []
+    for raw in cut:
+        want.append(cpu.process_buffer(raw))
+        want_states.append(cpu.fpn_state)
+    got = [out0[:CONFIG_BSCANS], steady[0][:CONFIG_BSCANS]]
+    picked = {"card": state.mean_line, "cpu": want_states[0].mean_line}
+    worst, fpn_worst, black = hold_config(
+        f"{name}, first {CONFIG_BSCANS} B-scans", got, want, [state, model.fpn_state],
+        want_states, exact=lambda side: images_f64(
+            cpu, cut, [(False, picked[side]), (pipeline.fused_ready(cfg, state), None)]))
+    log(f"[configs] {name}: first {CONFIG_BSCANS} B-scans vs the port on the CPU: max "
+        f"{worst:.3e}, FPN mean line max difference {fpn_worst:.3e}, -inf voxels {black} on "
+        f"each side -> ok")
+    del out0, steady, cpu
+    ms = bench.steady_ms_per_buffer(cfg, dev)
+    fpn_ms = bench.fpn_buffer_ms(cfg, dev)
+    line = (f"[configs] {name}: steady {ms:.3f} ms/buffer ({acq.ascans_per_buffer / ms / 1e3:.3f} "
+            f"MHz), FPN-determination buffer {fpn_ms:.3f} ms")
+    if not cfg.fft_via_matmul:
+        line += "; stages " + ", ".join(f"{k} {v:.4f} ms"
+                                        for k, v in bench.fft_stage_ms(cfg, dev).items())
+    if twin is not None:
+        ms, fpn_ms = bench.steady_ms_per_buffer(twin, dev), bench.fpn_buffer_ms(twin, dev)
+        line += (f"; its kernel route steady {ms:.3f} ms/buffer, FPN-determination buffer "
+                 f"{fpn_ms:.3f} ms")
+    log(f"{line} ({card})")
+    return ran
+
+
+def _full_depth_chains(info, dev):
+    """``default_chains()`` on full 1024 x 512 x 256 buffers of 12-bit
+    samples made with numpy from a seed: buffer 0 (FPN determination), two
+    steady buffers and one ``process_volume`` call of those two (equal to
+    them), between a reset and a read of the launch counts; the first
+    steady output against the kernel route computing the same function on
+    the card (``_hold_full``), the first ``CONFIG_BSCANS`` B-scans of buffer
+    0 and of the first steady buffer against the port on the CPU
+    (``hold_config``); the steady ms per buffer, the FPN-determination
+    buffer's ms and on the FFT path the stages (CUDA events), and the
+    kernel route's steady and FPN-determination ms; then the post stages'
+    ms on a full buffer.  Returns the launches by ``kernels``
+    row."""
+    from octproz_tpu_torch import bench
+
+    acq = bench.FULL_ACQ
+    rng = np.random.default_rng(CONFIG_SEED - 1)
+    raws = [rng.integers(0, 1 << acq.bit_depth, size=acq.buffer_shape, dtype=np.uint16)
+            for _ in range(3)]
+    launches = {}
+    for name, cfg, twin in default_chains():
+        for row, n in _default_chain(info, dev, name, cfg, twin, raws).items():
+            launches[row] = launches.get(row, 0) + n
+    stages = bench.post_stage_ms(dev)
+    log("[configs] post stages on one full buffer: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in stages.items())
+        + f" ({info['device_name']}, power limit {info['power_limit']})")
+    return launches
+
+
+def config_families(cfg):
+    """The kernel families a configuration's run launches on the card: on
+    the fold path with ``fold_backend="pallas"`` the planar kernel
+    ("depth") on every buffer the steady-state kernel does not compute --
+    the FPN-determination buffer at ``FpnMode.ONCE``, every buffer at
+    ``CONTINUOUS`` or with ``fused_scale`` off -- and the steady-state
+    kernel ("depth_scale", "depth_scale_concat" with ``fold_concat``) on
+    the others; on the FFT path with the prep kernels "prep_phase" (with
+    dispersion) or "prep_real"; at float32 compute and a split rung each as
+    its "_split" family.  None on the "xla" fold backend or the torch-ops
+    FFT path."""
+    from octproz_tpu_torch.params import FpnMode
+
+    split = "_split" if cfg.compute_dtype == "float32" and cfg.matmul_precision != "default" \
+        else ""
+    if not cfg.fft_via_matmul:
+        if not cfg.use_pallas_prep:
+            return set()
+        return {("prep_phase" if cfg.dispersion else "prep_real") + split}
+    if cfg.fold_backend == "xla":
+        return set()
+    fused = cfg.fused_scale and cfg.fpn_mode != FpnMode.CONTINUOUS
+    families = set()
+    if not fused or cfg.fpn_mode == FpnMode.ONCE:
+        families.add("depth" + split)
+    if fused:
+        families.add(("depth_scale_concat" if cfg.fold_concat else "depth_scale") + split)
+    return families
+
+
+def config_row(family, cfg, acq):
+    """The ``kernels`` line's row of a launch of ``family``: its bf16 row at
+    ``compute_dtype="bfloat16"``, its float32-line row for a one-pass
+    family on samples above 16 bits, else the family's own."""
+    if family.endswith("_split"):
+        return family
+    if cfg.compute_dtype == "bfloat16":
+        return family + "_bf16"
+    return family + ("_f32lines" if acq.bit_depth > 16 else "")
+
+
+def _config_launches(tag, cfg, acq):
+    """The launch counts of one configuration's run on the card, read after
+    it: the families launched must be ``config_families(cfg)``, every
+    one-pass launch on the route of its compute dtype.  Returns them by
+    ``kernels`` row."""
+    import torch
+
+    from octproz_tpu_torch.kernels import fused_prep as fp
+
+    torch.cuda.synchronize()
+    ran = {k: v for k, v in fp.LAUNCHES.items() if v}
+    want = config_families(cfg)
+    if set(ran) != want:
+        raise AssertionError(f"{tag}: launched {ran}, want the families {sorted(want)}")
+    route = "tensor_core_bf16" if cfg.compute_dtype == "bfloat16" else "tensor_core"
+    for k, n in ran.items():
+        routes = fp.ONE_PASS_ROUTES.get(k)
+        if routes is not None and routes != {**dict.fromkeys(routes, 0), route: n}:
+            raise AssertionError(f"{tag}: {k} launched on the routes {routes}, want {route}")
+    return {config_row(k, cfg, acq): n for k, n in ran.items()}
+
+
+def phase_configurations(info, dev=None):
+    """The configuration matrix: every configuration of ``slice_configs()``
+    (and ``CARD_ONLY_CONFIGS``) through ``FdOctModel`` on the card and on
+    the CPU, on the same ``CONFIG_BSCANS``-B-scan buffers of full-width
+    lines made with numpy from a seed -- buffer 0 (FPN determination), two
+    steady buffers, a chunk of two with strategy "auto", and for
+    ``SCAN_CONFIGS`` a chunk of three with strategy "scan" from a fresh FPN
+    state.  Each card run between a reset and a read of the launch counts
+    (``_config_launches``); every output and FPN state held to the CPU's
+    (``hold_config``).  Then the user-facing chains of ``default_chains()``
+    at full depth (``_full_depth_chains``).  Returns the launches by
+    ``kernels`` row."""
+    import torch
+
+    from octproz_tpu_torch.kernels import fused_prep as fp
+
+    dev = torch.device("cuda", 0) if dev is None else dev
+    t_phase = time.perf_counter()
+    log(f"[configs] float32 matmuls: TF32 {torch.backends.cuda.matmul.allow_tf32} "
+        f"(precision {torch.get_float32_matmul_precision()!r}); cuDNN TF32 "
+        f"{torch.backends.cudnn.allow_tf32}")
+    configs = {**{n: c for n, c in slice_configs().items() if n not in CONFIGS_LEFT_OUT},
+               **CARD_ONLY_CONFIGS}
+    launches = {}
+    for i, (name, changes) in enumerate(configs.items()):
+        for strategy, count in (("auto", 5), *((("scan", 3),) if name in SCAN_CONFIGS else ())):
+            t0 = time.perf_counter()
+            tag = f"{name} ({strategy})"
+            card = config_model(changes, dev)
+            raws = config_buffers(card.acq, count, CONFIG_SEED + i)
+            torch.cuda.synchronize()
+            fp.reset_launch_counts()
+            got, got_states = run_config(card, raws, strategy)
+            ran = _config_launches(tag, card.cfg, card.acq)
+            t_card = time.perf_counter() - t0
+            cpu = config_model(changes, "cpu")
+            want, want_states = run_config(cpu, raws, strategy)
+            models = {"card": card, "cpu": cpu}
+            worst, fpn_worst, black = hold_config(
+                tag, got, want, got_states, want_states,
+                exact=lambda side: run_config_f64(cpu, raws, config_steps(models[side], raws),
+                                                  strategy))
+            for row, n in ran.items():
+                launches[row] = launches.get(row, 0) + n
+            log(f"[configs] {tag}: max |card - CPU| {worst:.3e}, FPN mean line max "
+                f"difference {fpn_worst:.3e}, -inf voxels {black} on each side; launches "
+                f"{ran or 'none'} ({t_card:.1f} s card, {time.perf_counter() - t0:.1f} s "
+                f"with the CPU) -> ok")
+            del card, cpu, got, want, got_states, want_states
+    log(f"[configs] {len(configs)} configurations ({len(SCAN_CONFIGS)} also as a scan chunk) "
+        f"held to the CPU in {time.perf_counter() - t_phase:.1f} s")
+    for row, n in _full_depth_chains(info, dev).items():
+        launches[row] = launches.get(row, 0) + n
+    log(f"[configs] phase wall time {time.perf_counter() - t_phase:.1f} s; launches {launches} "
+        f"({info['device_name']}, power limit {info['power_limit']})")
+    return launches
+
+
 def phase_fidelity():
     import torch
 
@@ -3416,6 +4334,8 @@ def main() -> None:
     phase_fidelity()
     phase_trace(info)
     times = phase_times(info)
+    for k, v in phase_configurations(info).items():
+        launches[k] += v
     kernels = [{"name": name, "route": "cuda", "source": CSRC + source,
                 "replaces": PALLAS + str(line), "launches": launches[name],
                 "max_abs_err": worst[name],

@@ -265,6 +265,51 @@ def steady_ms_per_buffer(cfg: ProcConfig, device, ring: int = 4,
     return cuda_ms(lambda: model.process_buffer(bufs[next(turn) % ring]), iters=iters)
 
 
+def fpn_buffer_ms(cfg: ProcConfig, device, ring: int = 4, iters: int = 12,
+                  acq: AcqParams = FULL_ACQ) -> float:
+    """CUDA-event ms of the FPN-determination buffer (the first-buffer
+    latency): ``FdOctModel.process_buffer`` from a fresh FPN state
+    (``redetermine_fpn`` before each call), cycling over ``ring`` distinct
+    buffers already on the device (:func:`random_buffers`)."""
+    from .models.fdoct import FdOctModel
+
+    model = FdOctModel(acq, cfg, **CURVE_KW, device=device)
+    bufs = random_buffers(acq, ring, device, seed=11)
+    turn = itertools.count()
+
+    def first_buffer():
+        model.redetermine_fpn()
+        model.process_buffer(bufs[next(turn) % ring])
+
+    return cuda_ms(first_buffer, iters=iters)
+
+
+def post_stage_ms(device, iters: int = 12) -> Dict[str, float]:
+    """CUDA-event ms of each post stage alone on one full processed buffer
+    (bscans, ascans, depth) of float32 values in [0, 1): the B-scan flip,
+    the sinusoidal scan correction (the handheld preset's curve) and the
+    post-process background removal (its mean A-scan, weight 0.8, offset
+    0.05)."""
+    from . import curves as curves_mod
+    from .models.presets import handheld_sinusoidal_config
+    from .ops import postprocess
+
+    cv = curves_mod.make_curves(FULL_ACQ, handheld_sinusoidal_config(), **CURVE_KW,
+                                device=device)
+    g = torch.Generator(device=device)
+    g.manual_seed(12)
+    vol = torch.rand((FULL_ACQ.bscans_per_buffer, FULL_ACQ.ascans_per_bscan,
+                      FULL_ACQ.output_ascan_length), generator=g, device=device)
+    background = postprocess.get_background(vol)
+    return {"bscan_flip": cuda_ms(lambda: postprocess.bscan_flip(vol), iters=iters),
+            "sinusoidal_correction": cuda_ms(
+                lambda: postprocess.sinusoidal_correction(vol, cv.sinusoidal_curve),
+                iters=iters),
+            "post_background_removal": cuda_ms(
+                lambda: postprocess.remove_post_background(vol, background, 0.8, 0.05),
+                iters=iters)}
+
+
 def fft_stage_ms(cfg: ProcConfig, device, ring: int = 4,
                  iters: int = 12) -> Dict[str, float]:
     """CUDA-event ms per buffer of the FFT path's stages in the steady

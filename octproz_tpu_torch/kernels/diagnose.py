@@ -254,10 +254,7 @@ def plain_drift(dev) -> dict:
             mean2 = torch.randn((2, n // 2), generator=g, device=dev) * 50.0
             got = fp.fold_depth_scale(raw, wre, wim, mean2, **kw)
             plain = fp.depth_scale_plain(raw, wre, wim, mean2, **kw)
-            x, m = raw.double(), mean2.double()
-            re = x @ wre[0].double() - m[0:1]
-            im = x @ wim[0].double() - m[1:2]
-            exact = fp._scale_epilogue((re * re + im * im).float(), log_scaling=True, a=a, b=b)
+            exact = fp.depth_scale_f64(raw, wre, wim, mean2, **kw)
             out[f"n_in={n} seed={seed}"] = {
                 name: dict(zip(("rms", "max", "ok"), fp.scale_error(x_, ref)))
                 for name, (x_, ref) in (("kernel_vs_plain", (got, plain)),

@@ -493,13 +493,18 @@ def depth_scale_concat_plain(raw2d, w_parts, mean2, *, bitshift: bool,
 
 def depth_scale_f64(raw2d, w_re_parts, w_im_parts, mean2, *, bitshift: bool,
                     log_scaling: bool, a: float, b: float, fast_log: bool = False):
-    """The scaled image of one bf16 part per axis (``compute_dtype=
-    "bfloat16"``) from the float64 products of the rounded operands: p =
-    (x W_re - m_re)^2 + (x W_im - m_im)^2 in float64, rounded once to
-    float32, then the scale epilogue.  No yardstick of speed: a reference
-    more exact than the plain version, whose float32 product drifts from it
-    on long lines (kernels/diagnose.py's ``one_term`` readings)."""
-    x = _decode_block(raw2d, bitshift).to(torch.bfloat16).to(torch.float64)
+    """The scaled image of one operator part per axis -- the one-pass
+    rung's float32 operator, or at ``compute_dtype="bfloat16"`` one bf16
+    part, and then x rounded to bf16 as well, as the kernels take it --
+    from the float64 products of those operands: p = (x W_re - m_re)^2 +
+    (x W_im - m_im)^2 in float64, rounded once to float32, then the scale
+    epilogue.  No yardstick of speed: a reference more exact than the plain
+    version, whose float32 product drifts from it on long lines
+    (kernels/diagnose.py's ``one_term`` and ``plain_drift`` readings)."""
+    x = _decode_block(raw2d, bitshift)
+    if w_re_parts[0].dtype == torch.bfloat16:
+        x = x.to(torch.bfloat16)
+    x = x.to(torch.float64)
     m = mean2.to(torch.float64)
     re = x @ w_re_parts[0].to(torch.float64) - m[0:1, :]
     im = x @ w_im_parts[0].to(torch.float64) - m[1:2, :]
