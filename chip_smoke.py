@@ -185,7 +185,27 @@ nonzero and the final line is not printed:
    buffer 0, steady buffers and ``process_volume``, each against the
    kernel route computing the same function on the card and on its first
    8 B-scans against the port on the CPU, with its ms per buffer, its
-   FPN-determination buffer's ms and its stages, and the post stages' ms.
+   FPN-determination buffer's ms and its stages, and the post stages' ms;
+15. harnesses: the fidelity anchor (``fullgeom_fidelity.run``) at the full
+   1024 x 512 x 256 geometry of the PhytoOCT device model -- the SNR bound
+   derived from the float64 oracle on the 12-bit codes against the analog
+   interferogram, within ``BOUND_MATCH_DB`` of ``bench.IN_BOUND_SNR_DB``;
+   every rung's PSNR against the oracle with FPN off and on ("default" and
+   "highest" at least ``FLOAT32_MARGIN_DB`` above the bound, "high" at
+   least the bound, bf16 under it), each rung's run between a reset and a
+   read of the launch counts (its family on its route: the steady-state
+   kernel with FPN off, the FPN buffer's planar kernel with FPN on); the
+   ``cli compare`` gate on the saved pair --, then the soak (``soak``'s
+   upload-only, engine, upload-only windows of ``SOAK_WINDOW_S``, the
+   feeder built alike in both kinds, its pinned slots allocated by the
+   warm-up, none in a timed window) on the JAX soak's chain (bf16 compute and store,
+   chunks of 8) on the packed-12 and the uint16 wire, ``SOAK_CYCLES``
+   cycles each, and one cycle each of the FFT path with the prep kernel,
+   of ``ProcConfig()``'s torch-ops FFT chain (no kernel) and of 24-bit
+   samples in uint32 on the fold path: each engine window's launches one
+   per chunk of its family on its route and nothing else, the
+   engine's MHz, the upload-only MHz and their ratio logged, and each
+   chain's streamed output held to ``process_buffer`` on the same buffers.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the kernels' JSON record (the bf16 routes as ``*_bf16``, the one pass on
@@ -3964,18 +3984,18 @@ def config_row(family, cfg, acq):
     return family + ("_f32lines" if acq.bit_depth > 16 else "")
 
 
-def _config_launches(tag, cfg, acq):
+def _config_launches(tag, cfg, acq, want=None):
     """The launch counts of one configuration's run on the card, read after
-    it: the families launched must be ``config_families(cfg)``, every
-    one-pass launch on the route of its compute dtype.  Returns them by
-    ``kernels`` row."""
+    it: the families launched must be ``want`` (by default
+    ``config_families(cfg)``), every one-pass launch on the route of its
+    compute dtype.  Returns them by ``kernels`` row."""
     import torch
 
     from octproz_tpu_torch.kernels import fused_prep as fp
 
     torch.cuda.synchronize()
     ran = {k: v for k, v in fp.LAUNCHES.items() if v}
-    want = config_families(cfg)
+    want = config_families(cfg) if want is None else want
     if set(ran) != want:
         raise AssertionError(f"{tag}: launched {ran}, want the families {sorted(want)}")
     route = "tensor_core_bf16" if cfg.compute_dtype == "bfloat16" else "tensor_core"
@@ -4315,6 +4335,230 @@ def phase_times(info):
     return times
 
 
+#: Phase 15's soak: the window of each upload-only and engine run (s), and
+#: the cycles of the soak chain on each wire (the other chains run one).
+SOAK_WINDOW_S = 3.0
+SOAK_CYCLES = 2
+#: The anchor's gates: its derived bound within this of
+#: ``bench.IN_BOUND_SNR_DB``; "default" and "highest" this far above it.
+BOUND_MATCH_DB = 0.1
+FLOAT32_MARGIN_DB = 10.0
+
+
+def first_buffer_families(cfg):
+    """The kernel families of one buffer from a fresh FPN state: with FPN
+    once the FPN buffer's planar kernel, else the steady-state kernel."""
+    from octproz_tpu_torch.params import FpnMode
+
+    once = cfg.fpn_mode == FpnMode.ONCE
+    return {f for f in config_families(cfg) if f.startswith("depth_scale") != once}
+
+
+def _anchor_watch(acq, launches):
+    """A ``watch`` for ``fullgeom_fidelity``: each rung's run between a
+    reset and a read of the launch counts, which must be the rung's family
+    (``first_buffer_families``) on its route; summed into ``launches`` by
+    ``kernels`` row."""
+    import torch
+
+    from octproz_tpu_torch.kernels import fused_prep as fp
+
+    @contextlib.contextmanager
+    def watch(rung, cfg):
+        torch.cuda.synchronize()
+        fp.reset_launch_counts()
+        yield
+        tag = f"anchor {rung}, FPN {cfg.fpn_mode.value}"
+        ran = _config_launches(tag, cfg, acq, first_buffer_families(cfg))
+        log(f"[harness] {tag}: launches {ran}")
+        for row, n in ran.items():
+            launches[row] = launches.get(row, 0) + n
+
+    return watch
+
+
+def _harness_anchor(info, dev, tmp):
+    """The full-geometry fidelity anchor (``fullgeom_fidelity.run`` at
+    1024 x 512 x 256): the derived SNR bound, each rung's PSNR with FPN off
+    and on, and the ``cli compare`` gate, each held to its gate."""
+    from octproz_tpu_torch import bench
+    from octproz_tpu_torch import fullgeom_fidelity as fg
+
+    acq = bench.FULL_ACQ
+    launches = {}
+    t0 = time.perf_counter()
+    report = fg.run(acq.samples_per_line, acq.ascans_per_bscan, acq.bscans_per_buffer,
+                    save_pair_dir=tmp, device=dev, watch=_anchor_watch(acq, launches),
+                    log=lambda msg: log(f"[harness] anchor: {msg}"))
+    card = f"{info['device_name']}, power limit {info['power_limit']}"
+    bound = report["snr_bound_db"]
+    log(f"[harness] anchor at {acq.bscans_per_buffer}x{acq.ascans_per_bscan}x"
+        f"{acq.samples_per_line}: SNR bound {bound:.4f} dB (bench.IN_BOUND_SNR_DB "
+        f"{bench.IN_BOUND_SNR_DB}) ({time.perf_counter() - t0:.1f} s) ({card})")
+    failed = []
+    if abs(bound - bench.IN_BOUND_SNR_DB) > BOUND_MATCH_DB:
+        failed.append(f"bound {bound:.4f} dB not within {BOUND_MATCH_DB} dB of "
+                      f"{bench.IN_BOUND_SNR_DB}")
+    gates = {"default": bound + FLOAT32_MARGIN_DB, "highest": bound + FLOAT32_MARGIN_DB,
+             "high": bound}
+    for key, fpn in (("rungs", "off"), ("rungs_fpn_on", "on")):
+        for rung, r in report[key].items():
+            log(f"[harness] anchor FPN {fpn}, {rung}: PSNR {r['psnr_db']:.4f} dB vs the float64 "
+                f"oracle, within the bound {r['within_reference_snr_bound']} "
+                f"({r['seconds']:.1f} s) ({card})")
+            if rung == "bfloat16":
+                if r["within_reference_snr_bound"]:
+                    failed.append(f"FPN {fpn}: bf16 claims the bound ({r['psnr_db']:.4f} dB)")
+            elif r["psnr_db"] < gates[rung]:
+                failed.append(f"FPN {fpn}: {rung} {r['psnr_db']:.4f} dB < {gates[rung]:.4f}")
+    gate = report["cli_compare"]
+    log(f"[harness] anchor cli compare (highest vs the saved oracle volume, --min-psnr "
+        f"{gate['argv'][-1]}): rc {gate['returncode']}, passed {gate['passed']}")
+    if not gate["passed"]:
+        failed.append("the cli compare gate failed")
+    if failed:
+        raise AssertionError("anchor: " + "; ".join(failed))
+    return launches
+
+
+def _soak_stream_check(model, ring, wire, chunk, tag, tmp):
+    """The engine's float32 recorder stream of its first two buffers (one
+    chunk) against ``process_buffer`` on the same buffers, on the same model
+    (FPN determined): within ``fused_prep.scale_error``'s bounds, a bf16
+    step more on a bf16 store."""
+    import torch
+
+    from octproz_tpu_torch import soak
+    from octproz_tpu_torch.kernels import fused_prep as fp
+    from octproz_tpu_torch.runtime import StreamingEngine
+
+    eng = StreamingEngine(model, soak.HostRing(model.acq, ring), wire_format=wire,
+                          dispatch_chunk=chunk, chunk_strategy="auto")
+    eng.start_recording(_recording(tmp, f"soak{wire}{chunk}", 2))
+    eng.run(max_buffers=max(chunk, 2))
+    soak.join_engine_threads()
+    got = _recorded(eng, 2, model.acq.processed_buffer_shape, tag)
+    put = model.put_packed_buffer if wire == "packed12" else model.put_buffer
+    worst = 0.0
+    for i in range(2):
+        want = model.fetch(model.process_buffer(put(ring[i])))
+        g = torch.from_numpy(got[i])
+        if model.cfg.output_dtype == "bfloat16":
+            g = g.to(torch.bfloat16)  # the recorded float32 of a bf16 store: exact
+        rms, err, ok = fp.scale_error(g, torch.from_numpy(want))
+        if not ok:
+            raise AssertionError(f"{tag}: streamed buffer {i} differs from process_buffer: "
+                                 f"RMS {rms:.3e}, max {err:.3e}")
+        worst = max(worst, err)
+    log(f"[harness] {tag}: 2 streamed buffers == process_buffer within the scale bounds "
+        f"(max {worst:.3e}{', bf16 store' if model.cfg.output_dtype == 'bfloat16' else ''})")
+
+
+def _soak_engine_window(model, ring, wire, chunk, family, tag):
+    """The engine window of a soak cycle (``soak.engine_window``) between a
+    reset and a read of the launch counts (``_config_launches``): ``family``
+    once per chunk the engine began and nothing else (no kernel at all for
+    ``family`` None: a torch-ops chain).  Returns the window, its launches
+    by ``kernels`` row and the launches per chunk as text."""
+    import torch
+
+    from octproz_tpu_torch import soak
+    from octproz_tpu_torch.kernels import fused_prep as fp
+
+    torch.cuda.synchronize()
+    fp.reset_launch_counts()
+    eng = soak.engine_window(model, ring, wire, chunk, SOAK_WINDOW_S)
+    ran = _config_launches(tag, model.cfg, model.acq, {family} if family else set())
+    n, chunks = sum(ran.values()), -(-eng["buffers"] // chunk)
+    if eng["buffers"] < chunk or (family and not chunks <= n <= chunks + 1):
+        raise AssertionError(f"{tag}: {eng['buffers']} buffers, launches {ran}; want "
+                             f"{family} once per chunk and nothing else")
+    return eng, ran, f"{n} for {chunks} chunks of {chunk} ({n / max(chunks, 1):.3f} a chunk)"
+
+
+def _soak_chain(info, tag, model, wire, chunk, cycles, family, tmp):
+    """``cycles`` soak cycles of ``model`` on ``wire``, each upload-only,
+    engine (``_soak_engine_window``), upload-only, built from ``soak``'s
+    windows, with no pinned host block allocated after the warm-up (every
+    window's feeder takes its slots from the cache); then the stream
+    check.  Returns the engine windows' launches by ``kernels`` row."""
+    import torch
+
+    from octproz_tpu_torch import soak
+
+    card = f"{info['device_name']}, power limit {info['power_limit']}"
+    ring = soak.host_ring(model.acq, wire)
+    records, launches = [], {}
+    for c in range(cycles):
+        soak.warm_up(model, ring, wire, chunk)
+        pinned = torch.cuda.host_memory_stats()["num_host_alloc"]
+        before = soak.upload_window(model, ring, wire, chunk, SOAK_WINDOW_S)
+        eng, ran, per_chunk = _soak_engine_window(model, ring, wire, chunk, family,
+                                                  f"soak {tag}, cycle {c}")
+        after = soak.upload_window(model, ring, wire, chunk, SOAK_WINDOW_S)
+        pinned = torch.cuda.host_memory_stats()["num_host_alloc"] - pinned
+        if pinned:
+            raise AssertionError(f"soak {tag}, cycle {c}: {pinned} pinned host blocks "
+                                 f"allocated in the timed windows")
+        rec = soak.cycle_record(wire, chunk, SOAK_WINDOW_S, before, eng, after)
+        log(f"[harness] soak {tag}, cycle {c}: engine {rec['engine_mhz']:.4f} MHz "
+            f"({rec['engine_buffers']} buffers in {rec['engine_seconds']:.3f} s), upload-only "
+            f"{rec['upload_before_mhz']:.4f} / {rec['upload_after_mhz']:.4f} MHz "
+            f"({rec['upload_buffers']} buffers), ratio {rec['ratio']:.4f}; launches "
+            f"{ran or 'none'}" + (f", {family} {per_chunk}" if family else "") + f" ({card})")
+        for row, n in ran.items():
+            launches[row] = launches.get(row, 0) + n
+        records.append(rec)
+    summary = soak.summarize(records, wire, chunk, SOAK_WINDOW_S)
+    log(f"[harness] soak {tag}: {summary['cycles']} cycles, ratio median "
+        f"{summary['ratio_median']:.4f}, p10 {summary['ratio_p10']:.4f}, upload-only "
+        f"{summary['upload_mhz_range'][0]:.4f}-{summary['upload_mhz_range'][1]:.4f} MHz ({card})")
+    _soak_stream_check(model, ring, wire, chunk, f"soak {tag}", tmp)
+    return launches
+
+
+def phase_harnesses(info, dev=None):
+    """Phase 15: the fidelity anchor at full geometry and the soak of the
+    engine against upload-only windows on three chains (see the module
+    docstring).  Returns the launches by ``kernels`` row."""
+    import tempfile
+
+    import torch
+
+    from octproz_tpu_torch import bench, soak
+    from octproz_tpu_torch.models.fdoct import FdOctModel
+
+    dev = torch.device("cuda", 0) if dev is None else dev
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def add(counts):
+        for row, n in counts.items():
+            launches[row] = launches.get(row, 0) + n
+
+    with tempfile.TemporaryDirectory() as tmp:
+        add(_harness_anchor(info, dev, tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        model = soak.soak_model(bench.FULL_ACQ, dev)
+        for wire in ("packed12", "uint16"):
+            add(_soak_chain(info, f"bf16 chain, {wire} wire, chunk 8", model, wire, 8,
+                            SOAK_CYCLES, "depth_scale", tmp))
+        del model
+        chains = (("FFT path (prep kernel), uint16 wire", bench.FULL_ACQ, bench.fft_config(),
+                   "prep_phase"),
+                  ("FFT path (torch ops, ProcConfig()), uint16 wire", bench.FULL_ACQ,
+                   default_chains()[0][1], None),
+                  ("24-bit fold path, uint32 buffers", bench.WIDE_ACQ,
+                   bench.wide_config(bench.bench_config()), "depth_scale"))
+        for tag, acq, cfg, family in chains:
+            model = FdOctModel(acq, cfg, **bench.CURVE_KW, device=dev)
+            add(_soak_chain(info, tag, model, "uint16", 1, 1, family, tmp))
+            del model
+    log(f"[harness] phase wall time {time.perf_counter() - t_phase:.1f} s; launches {launches} "
+        f"({info['device_name']}, power limit {info['power_limit']})")
+    return launches
+
+
 def main() -> None:
     info = phase_device()
     phase_build()
@@ -4335,6 +4579,8 @@ def main() -> None:
     phase_trace(info)
     times = phase_times(info)
     for k, v in phase_configurations(info).items():
+        launches[k] += v
+    for k, v in phase_harnesses(info).items():
         launches[k] += v
     kernels = [{"name": name, "route": "cuda", "source": CSRC + source,
                 "replaces": PALLAS + str(line), "launches": launches[name],

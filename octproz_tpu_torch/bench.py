@@ -60,7 +60,11 @@ from .params import AcqParams, FpnMode, Interpolation, ProcConfig, WindowType, d
 
 #: The reference's headline rate: v1.8.0 on a GTX 1080 (BASELINE.md).
 BASELINE_MHZ = 3.40
-#: Acquisition quantization-noise SNR bound (dB) of the in-bound rung.
+#: Acquisition quantization-noise SNR bound (dB) of the in-bound rung: the
+#: port's own derivation, ``fullgeom_fidelity.derive_snr_bound`` on the
+#: PhytoOCT device model at 1024 x 512 x 256 (50.6326 dB on an H100 80GB
+#: HBM3, power limit 700 W; host numpy, so the same on any machine), which
+#: ``chip_smoke.py`` phase 15 derives again and holds within 0.1 dB of this.
 IN_BOUND_SNR_DB = 50.6
 #: Per-rung gates on the FPN-off oracle PSNR (dB); "bfloat16" is
 #: ``compute_dtype="bfloat16"``, the throughput point, gated as "default"

@@ -200,6 +200,8 @@ class PortableOctSystem:
     DMA-stable ring exactly as a frame-grabber callback would; the
     StreamingEngine consumes ``buffers()``.  Replacing
     :class:`PhytoDeviceModel` with real camera reads is the entire port.
+    The ring is allocated at the first ``start()``: a system used only for
+    its model and calibration surface holds no buffer slots.
     """
 
     def __init__(self, device: PhytoDeviceConfig | None = None,
@@ -208,7 +210,8 @@ class PortableOctSystem:
         self.model = PhytoDeviceModel(self.device_cfg)
         self.acq = self.device_cfg.acq
         self.n_buffers = self.acq.buffers_per_volume * n_volumes
-        self._ring = HardwareRingSource(self.acq, n_slots=n_slots)
+        self._n_slots = n_slots
+        self._ring: Optional[HardwareRingSource] = None
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
 
@@ -216,6 +219,8 @@ class PortableOctSystem:
     def start(self) -> None:
         if self._thread is not None:
             return
+        if self._ring is None:
+            self._ring = HardwareRingSource(self.acq, n_slots=self._n_slots)
         self._thread = threading.Thread(target=self._produce,
                                         name="phytooct-acq", daemon=True)
         self._thread.start()
@@ -261,7 +266,8 @@ class PortableOctSystem:
         if self._thread is not None:
             self._thread.join(timeout=10.0)
             self._thread = None
-        self._ring.close()
+        if self._ring is not None:
+            self._ring.close()
 
     # -- calibration surface ------------------------------------------------
     def recommended_config(self, tpu: bool = True) -> ProcConfig:

@@ -290,6 +290,21 @@ class _DeviceFeeder(_Stage):
         return dev, list(zip(streams, done))
 
 
+def engine_feeder_slots(prefetch_depth: int, dispatch_chunk: int) -> tuple:
+    """The queue depth and the pinned slots of the engine's upload stage:
+    room for a whole chunk ahead (a chunk is dispatched only once all its
+    buffers are on the device), and one slot more than the queue holds."""
+    depth = max(prefetch_depth, dispatch_chunk)
+    return depth, depth + 1
+
+
+def engine_feeder(prefetcher: _Prefetcher, model: FdOctModel, prefetch_depth: int,
+                  dispatch_chunk: int, wire_format: str) -> _DeviceFeeder:
+    """The engine's upload stage (:func:`engine_feeder_slots`)."""
+    depth, ring = engine_feeder_slots(prefetch_depth, dispatch_chunk)
+    return _DeviceFeeder(prefetcher, model, depth=depth, wire_format=wire_format, ring=ring)
+
+
 class StreamingEngine:
     """The acquisition->processing->subscribers loop.
 
@@ -515,11 +530,8 @@ class StreamingEngine:
         prefetcher.start()
         feeder = None
         if self.upload_prefetch:
-            # room for a whole chunk ahead: a chunk is dispatched only once
-            # all its buffers are on the device
-            depth = max(self.prefetch_depth, self.dispatch_chunk)
-            feeder = _DeviceFeeder(prefetcher, self.model, depth=depth,
-                                   wire_format=self.wire_format, ring=depth + 1)
+            feeder = engine_feeder(prefetcher, self.model, self.prefetch_depth,
+                                   self.dispatch_chunk, self.wire_format)
             feeder.start()
         self._stop_requested.clear()
         self.running = True

@@ -585,6 +585,25 @@ def test_make_system_defaults_and_volumes():
         sys_.close()
 
 
+def test_ring_is_allocated_at_the_first_start():
+    """A system used for its model and calibration only holds no ring (the
+    fidelity anchor's full-geometry device); ``start`` allocates it once,
+    and ``close`` before any start is a no-op."""
+    idle = PortableOctSystem(PhytoDeviceConfig(**SMALL))
+    assert idle._ring is None
+    assert idle.recommended_config().fft_via_matmul and idle.curve_kwargs()
+    idle.close()
+    sys_ = PortableOctSystem(PhytoDeviceConfig(**SMALL))
+    try:
+        sys_.start()
+        ring = sys_._ring
+        assert isinstance(ring, HardwareRingSource)
+        sys_.start()
+        assert sys_._ring is ring
+    finally:
+        sys_.close()
+
+
 def test_close_stops_a_producer_on_a_full_ring():
     """A consumer that never reads: the producer waits in short slices and
     close() ends it (the retry watches close())."""

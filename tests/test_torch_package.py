@@ -35,7 +35,8 @@ MODULES = ["octproz_tpu_torch", "octproz_tpu_torch.models.fdoct",
            "octproz_tpu_torch.viz.live", "octproz_tpu_torch.control",
            "octproz_tpu_torch.cli", "octproz_tpu_torch.parallel",
            "octproz_tpu_torch.parallel.sharding", "octproz_tpu_torch.parallel.multihost",
-           "octproz_tpu_torch.parallel.traffic"]
+           "octproz_tpu_torch.parallel.traffic", "octproz_tpu_torch.fullgeom_fidelity",
+           "octproz_tpu_torch.soak"]
 
 
 @pytest.mark.parametrize("module", MODULES)
