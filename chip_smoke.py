@@ -205,7 +205,22 @@ nonzero and the final line is not printed:
    samples in uint32 on the fold path: each engine window's launches one
    per chunk of its family on its route and nothing else, the
    engine's MHz, the upload-only MHz and their ratio logged, and each
-   chain's streamed output held to ``process_buffer`` on the same buffers.
+   chain's streamed output held to ``process_buffer`` on the same buffers;
+16. rates: the harnesses of the per-buffer latency, the chunked dispatch
+   and the scaling sweep at full width -- ``latency.measure`` (the JAX
+   harness's chain, one call and one sync per buffer) at bf16 and at the
+   default rung, ``LATENCY_N`` buffers, its percentiles, mean and
+   pipelined companion; ``bench.chunk_attempt`` for the scan and the
+   batch at 4, 8, 16 and 32 at bf16 (the batch of 32 also with a bf16 store) and at
+   8 at the default rung, beside the per-buffer steady ms and the scan's
+   ``torch.stack`` copy alone, every buffer of the batches of 16 and 32
+   held to the per-buffer step (atol 1e-5); ``scaling.run_scaling`` over
+   1, 2 and 4 repeats of cuda:0, each mesh's output held to the single
+   device, the traffic report (the FPN reduction 55 296 B on each of its
+   three meshes, the compute time measured here), and one gloo-anchor
+   pair; every in-process run between a reset and a read of the launch
+   counts (B1 once per FPN buffer, B2 once per steady buffer or batch, on
+   the route of the run's compute dtype).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it holds
 the kernels' JSON record (the bf16 routes as ``*_bf16``, the one pass on
@@ -2833,10 +2848,11 @@ def _max_diff(got, want, tag):
     or outside rtol = atol = 2e-4 (tests/test_sharding.py's bound)."""
     import torch
 
-    fin = torch.isfinite(want)
-    if not torch.equal(fin, torch.isfinite(got)):
+    from octproz_tpu_torch.scaling import max_abs_diff
+
+    diff = max_abs_diff(got, want)
+    if diff == float("inf"):
         raise AssertionError(f"{tag}: finite masks differ")
-    diff = float((got[fin] - want[fin]).abs().max())
     if not torch.allclose(got, want, rtol=2e-4, atol=2e-4):
         raise AssertionError(f"{tag}: sharded output != single-device output "
                              f"(max difference {diff:.3e})")
@@ -3077,35 +3093,19 @@ def _mesh_processes(tmp):
     all three fresh processes started together (CUDA and fork do not mix;
     each loads the kernels built above from their cache).  Each rank feeds
     its B-scan block of three buffers, holds its fetched block to a
-    single-device model and reports its readings as a JSON line; every wait
-    has a deadline, after which every rank is killed and the phase fails."""
-    import subprocess
+    single-device model and reports its readings as a JSON line; the wait
+    has a deadline, after which every rank is killed and the phase fails
+    (``scaling.launch_ranks``)."""
+    from octproz_tpu_torch.scaling import launch_ranks
 
-    env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     runs = [("gloo", 2, 0), ("gloo", 2, 1), ("nccl", 1, 0)]
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "octproz_tpu_torch.parallel.multihost", "--selftest", "--full",
-         "--rank", str(rank), "--world", str(world), "--init", f"file://{tmp}/rendezvous-{name}"],
-        cwd=ROOT, env=dict(env, LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world)),
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for name, world, rank in runs]
-    deadline = time.monotonic() + MESH_PROCESS_TIMEOUT_S
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0])
-    except subprocess.TimeoutExpired:
-        raise AssertionError(f"a rank did not finish within {MESH_PROCESS_TIMEOUT_S:.0f} s")
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
+    outs = launch_ranks(
+        [(["octproz_tpu_torch.parallel.multihost", "--selftest", "--full", "--rank", str(rank),
+           "--world", str(world), "--init", f"file://{tmp}/rendezvous-{name}"], rank, world)
+         for name, world, rank in runs], MESH_PROCESS_TIMEOUT_S, "mesh ranks")
     totals = {"depth": 0, "depth_scale": 0}
-    for (name, world, rank), p, out in zip(runs, procs, outs):
+    for (name, world, rank), out in zip(runs, outs):
         tag = f"{name} world of {world}, rank {rank}"
-        if p.returncode != 0:
-            raise AssertionError(f"{tag} failed (exit {p.returncode}):\n{out[-4000:]}")
         result = json.loads([l for l in out.splitlines() if l.startswith("{")][-1])
         want = {"depth": 1, "depth_scale": 2}
         if (result["via"] != name or result["all_reduce_bytes"] != 55296
@@ -3934,8 +3934,7 @@ def _full_depth_chains(info, dev):
             for _ in range(3)]
     launches = {}
     for name, cfg, twin in default_chains():
-        for row, n in _default_chain(info, dev, name, cfg, twin, raws).items():
-            launches[row] = launches.get(row, 0) + n
+        _add(launches, _default_chain(info, dev, name, cfg, twin, raws))
     stages = bench.post_stage_ms(dev)
     log("[configs] post stages on one full buffer: " + ", ".join(
         f"{k} {v:.4f} ms" for k, v in stages.items())
@@ -4006,6 +4005,12 @@ def _config_launches(tag, cfg, acq, want=None):
     return {config_row(k, cfg, acq): n for k, n in ran.items()}
 
 
+def _add(total, counts):
+    """Sum launch counts by ``kernels`` row into ``total``."""
+    for row, n in counts.items():
+        total[row] = total.get(row, 0) + n
+
+
 def phase_configurations(info, dev=None):
     """The configuration matrix: every configuration of ``slice_configs()``
     (and ``CARD_ONLY_CONFIGS``) through ``FdOctModel`` on the card and on
@@ -4048,8 +4053,7 @@ def phase_configurations(info, dev=None):
                 tag, got, want, got_states, want_states,
                 exact=lambda side: run_config_f64(cpu, raws, config_steps(models[side], raws),
                                                   strategy))
-            for row, n in ran.items():
-                launches[row] = launches.get(row, 0) + n
+            _add(launches, ran)
             log(f"[configs] {tag}: max |card - CPU| {worst:.3e}, FPN mean line max "
                 f"difference {fpn_worst:.3e}, -inf voxels {black} on each side; launches "
                 f"{ran or 'none'} ({t_card:.1f} s card, {time.perf_counter() - t0:.1f} s "
@@ -4057,8 +4061,7 @@ def phase_configurations(info, dev=None):
             del card, cpu, got, want, got_states, want_states
     log(f"[configs] {len(configs)} configurations ({len(SCAN_CONFIGS)} also as a scan chunk) "
         f"held to the CPU in {time.perf_counter() - t_phase:.1f} s")
-    for row, n in _full_depth_chains(info, dev).items():
-        launches[row] = launches.get(row, 0) + n
+    _add(launches, _full_depth_chains(info, dev))
     log(f"[configs] phase wall time {time.perf_counter() - t_phase:.1f} s; launches {launches} "
         f"({info['device_name']}, power limit {info['power_limit']})")
     return launches
@@ -4371,8 +4374,7 @@ def _anchor_watch(acq, launches):
         tag = f"anchor {rung}, FPN {cfg.fpn_mode.value}"
         ran = _config_launches(tag, cfg, acq, first_buffer_families(cfg))
         log(f"[harness] {tag}: launches {ran}")
-        for row, n in ran.items():
-            launches[row] = launches.get(row, 0) + n
+        _add(launches, ran)
 
     return watch
 
@@ -4506,8 +4508,7 @@ def _soak_chain(info, tag, model, wire, chunk, cycles, family, tmp):
             f"{rec['upload_before_mhz']:.4f} / {rec['upload_after_mhz']:.4f} MHz "
             f"({rec['upload_buffers']} buffers), ratio {rec['ratio']:.4f}; launches "
             f"{ran or 'none'}" + (f", {family} {per_chunk}" if family else "") + f" ({card})")
-        for row, n in ran.items():
-            launches[row] = launches.get(row, 0) + n
+        _add(launches, ran)
         records.append(rec)
     summary = soak.summarize(records, wire, chunk, SOAK_WINDOW_S)
     log(f"[harness] soak {tag}: {summary['cycles']} cycles, ratio median "
@@ -4531,18 +4532,13 @@ def phase_harnesses(info, dev=None):
     dev = torch.device("cuda", 0) if dev is None else dev
     t_phase = time.perf_counter()
     launches = {}
-
-    def add(counts):
-        for row, n in counts.items():
-            launches[row] = launches.get(row, 0) + n
-
     with tempfile.TemporaryDirectory() as tmp:
-        add(_harness_anchor(info, dev, tmp))
+        _add(launches, _harness_anchor(info, dev, tmp))
     with tempfile.TemporaryDirectory() as tmp:
         model = soak.soak_model(bench.FULL_ACQ, dev)
         for wire in ("packed12", "uint16"):
-            add(_soak_chain(info, f"bf16 chain, {wire} wire, chunk 8", model, wire, 8,
-                            SOAK_CYCLES, "depth_scale", tmp))
+            _add(launches, _soak_chain(info, f"bf16 chain, {wire} wire, chunk 8", model, wire,
+                                       8, SOAK_CYCLES, "depth_scale", tmp))
         del model
         chains = (("FFT path (prep kernel), uint16 wire", bench.FULL_ACQ, bench.fft_config(),
                    "prep_phase"),
@@ -4552,9 +4548,229 @@ def phase_harnesses(info, dev=None):
                    bench.wide_config(bench.bench_config()), "depth_scale"))
         for tag, acq, cfg, family in chains:
             model = FdOctModel(acq, cfg, **bench.CURVE_KW, device=dev)
-            add(_soak_chain(info, tag, model, "uint16", 1, 1, family, tmp))
+            _add(launches, _soak_chain(info, tag, model, "uint16", 1, 1, family, tmp))
             del model
     log(f"[harness] phase wall time {time.perf_counter() - t_phase:.1f} s; launches {launches} "
+        f"({info['device_name']}, power limit {info['power_limit']})")
+    return launches
+
+
+#: Phase 16: timed buffers of each latency run (the JAX harness's --n).
+LATENCY_N = 60
+#: The chunks beside the bench's attempts (``bench.CHUNK_ATTEMPTS``): with
+#: them, scan and batch at 4, 8, 16 and 32 at bf16; the batches held buffer
+#: by buffer against the per-buffer step.
+CHUNK_EXTRA = (("scan", 4, "bfloat16", "float32"), ("batch", 4, "bfloat16", "float32"),
+               ("batch", 8, "bfloat16", "float32"), ("batch", 32, "bfloat16", "float32"))
+CHUNK_HELD = (16, 32)
+CHUNK_ITERS = 3
+#: Repeats of cuda:0 in the scaling sweep, and its timed steps per mesh.
+SCALING_REPEATS = (1, 2, 4)
+SCALING_ITERS = 20
+SCALING_WARMUP = 2
+#: The sweep's bound against the single device (phase 9's, from
+#: tests/test_sharding.py).
+MESH_ATOL = 2e-4
+#: The gloo anchor's pair: timed steps per leg, and each leg's deadline.
+GLOO_ITERS = 100
+GLOO_TIMEOUT_S = 300.0
+
+
+def _held_launches(run, cfg, want, tag):
+    """``run()`` between a reset and a read of the launch counts, which by
+    ``kernels`` row must be ``want`` (family -> count) exactly, every
+    one-pass launch on the route of ``cfg``'s compute dtype
+    (``_config_launches``).  Returns (the result, the launches by row)."""
+    import torch
+
+    from octproz_tpu_torch import bench
+    from octproz_tpu_torch.kernels import fused_prep as fp
+
+    torch.cuda.synchronize()
+    fp.reset_launch_counts()
+    result = run()
+    ran = _config_launches(tag, cfg, bench.FULL_ACQ, set(want))
+    rows = {config_row(k, cfg, bench.FULL_ACQ): n for k, n in want.items()}
+    if ran != rows:
+        raise AssertionError(f"{tag}: launched {ran}; want {rows}")
+    return result, ran
+
+
+def _rate_latency(info, dev):
+    """Part 1: ``latency.measure`` on the JAX harness's chain at full width,
+    at bf16 (its default) and at the default rung: the percentiles, the
+    mean and the pipelined companion, ``LATENCY_N`` buffers timed, B1 once
+    (the FPN buffer) and B2 once per buffer."""
+    from octproz_tpu_torch import bench, latency
+
+    card = f"{info['device_name']}, power limit {info['power_limit']}"
+    launches = {}
+    for dtype, rung in (("bfloat16", "bf16"), ("float32", "default")):
+        cfg = latency.latency_config("pallas", dtype)
+        tag = f"latency, {rung}"
+        t0 = time.perf_counter()
+        rec, ran = _held_launches(
+            lambda: latency.measure(bench.FULL_ACQ, cfg, dev, LATENCY_N), cfg,
+            {"depth": 1, "depth_scale": LATENCY_N + latency.pipelined_count(LATENCY_N)}, tag)
+        if rec["n"] != LATENCY_N:
+            raise AssertionError(f"{tag}: {rec['n']} buffers timed, want {LATENCY_N}")
+        log(f"[rates] {tag}: n {rec['n']}, p50 {rec['p50']:.4f}, p90 {rec['p90']:.4f}, p99 "
+            f"{rec['p99']:.4f}, max {rec['max']:.4f}, mean {rec['mean']:.4f} ms per buffer "
+            f"(one call and one sync each); pipelined {rec['amortized_pipelined_ms']:.4f} ms "
+            f"per buffer; launches {ran} ({time.perf_counter() - t0:.1f} s) ({card})")
+        _add(launches, ran)
+    return launches
+
+
+def _rate_batch_held(cfg, dev, chunk, tag):
+    """Every buffer of a batch of ``chunk`` against the per-buffer step on
+    the same model, one buffer at a time (finite masks equal, atol = rtol =
+    1e-5, as the main path's batch of four).  Returns the max difference."""
+    import torch
+
+    from octproz_tpu_torch import bench
+
+    model, stack = bench.chunk_model(cfg, dev, chunk)
+    out = model.process_chunk(stack, "batch")
+    worst = 0.0
+    for i in range(chunk):
+        a, b = model.process_buffer(stack[i]), out[i]
+        if not torch.equal(torch.isfinite(a), torch.isfinite(b)):
+            raise AssertionError(f"{tag}: buffer {i}: batch and per-buffer finite masks differ")
+        if not torch.allclose(a.float(), b.float(), atol=1e-5, rtol=1e-5):
+            raise AssertionError(f"{tag}: batch buffer {i} != per-buffer step "
+                                 f"({float((a.float() - b.float()).abs().max()):.3e})")
+        fin = torch.isfinite(a)
+        worst = max(worst, float((a.float()[fin] - b.float()[fin]).abs().max()))
+    return worst
+
+
+def _rate_chunks(info, dev):
+    """Part 2: ``bench.chunk_attempt`` of ``bench.CHUNK_ATTEMPTS`` and of
+    ``CHUNK_EXTRA`` -- scan and batch at 4, 8, 16 and 32 on
+    ``bench.bench_config()`` at bf16, the batch of 32 also with a bf16
+    store, both at 8 at the default rung -- each beside the per-buffer
+    steady ms of its configuration (and for a scan its ``torch.stack`` copy
+    alone); one launch per chunk for the batch, one per buffer for the
+    scan; every buffer of the batches of ``CHUNK_HELD`` against the
+    per-buffer step."""
+    from octproz_tpu_torch import bench
+
+    card = f"{info['device_name']}, power limit {info['power_limit']}"
+    launches, steady = {}, {}
+    for strategy, chunk, rung, store in bench.CHUNK_ATTEMPTS + CHUNK_EXTRA:
+        cfg = bench.at_rung(bench.bench_config(output_dtype=store), rung)
+        tag = f"{strategy} of {chunk}, {rung}, {store} store"
+        # the steady ms once per configuration: cuda_ms's 2 warm-up calls and
+        # steady_ms_per_buffer's 12, after its FPN buffer
+        fresh = (rung, store) not in steady
+        t0 = time.perf_counter()
+        rec, ran = _held_launches(
+            lambda: bench.chunk_attempt(dev, strategy, chunk, rung, store, steady,
+                                        iters=CHUNK_ITERS), cfg,
+            {"depth": 1 + fresh, "depth_scale": (CHUNK_ITERS + 1)
+             * (chunk if strategy == "scan" else 1) + 14 * fresh}, tag)
+        _add(launches, ran)
+        ms = rec["ms_per_buffer"]
+        copy = ""
+        if strategy == "scan":
+            copy = f"; its torch.stack alone {rec['stack_ms_per_buffer']:.4f} ms per buffer"
+        held = ""
+        if strategy == "batch" and chunk in CHUNK_HELD:
+            worst, ran = _held_launches(lambda: _rate_batch_held(cfg, dev, chunk, tag), cfg,
+                                        {"depth": 1, "depth_scale": 1 + chunk}, tag)
+            _add(launches, ran)
+            held = f"; all {chunk} buffers == per-buffer step (atol 1e-5, max {worst:.3e})"
+        log(f"[rates] {tag}: {ms:.4f} ms per buffer "
+            f"({bench.FULL_ACQ.ascans_per_buffer / ms / 1e3:.3f} MHz) against the per-buffer "
+            f"steady {rec['steady_ms_per_buffer']:.4f}{copy}{held}; launches {ran} "
+            f"({time.perf_counter() - t0:.1f} s) ({card})")
+    return launches
+
+
+def _rate_scaling(info, dev):
+    """Part 3: ``scaling.run_scaling`` over ``SCALING_REPEATS`` repeats of
+    cuda:0 at full width (each mesh's last steady output within
+    ``MESH_ATOL`` of the single-device step's), the traffic report on three
+    meshes of 8 repeats (the FPN reduction exactly
+    ``traffic.expected_fpn_psum_bytes``, 55 296 B) with the compute time
+    measured here, and one gloo-anchor pair (a process with a 2-position
+    mesh, then two processes of one position each, all on cuda:0)."""
+    from octproz_tpu_torch import bench, scaling
+    from octproz_tpu_torch.parallel import make_mesh, traffic
+
+    card = f"{info['device_name']}, power limit {info['power_limit']}"
+    acq, cfg = bench.FULL_ACQ, scaling.scaling_config()
+    launches = {}
+    builders = [({"mesh": f"{n}x1"}, lambda n=n: make_mesh(n, 1, devices=[dev] * n))
+                for n in SCALING_REPEATS]
+    steps = SCALING_WARMUP - 1 + SCALING_ITERS
+    t0 = time.perf_counter()
+    rows, ran = _held_launches(
+        lambda: scaling.run_scaling(builders, acq, cfg, n_iters=SCALING_ITERS,
+                                    warmup=SCALING_WARMUP, shared_device=True), cfg,
+        {"depth": 1 + sum(SCALING_REPEATS), "depth_scale": 1 + steps * sum(SCALING_REPEATS)},
+        "scaling sweep")
+    _add(launches, ran)
+    for r in rows:
+        log(f"[rates] scaling {r['mesh']} on {dev} (shared device): {r['ms_per_buffer']:.4f} ms "
+            f"per buffer, {r['ascans_per_s'] / 1e6:.3f} MHz, efficiency "
+            f"{r['scaling_efficiency']:.4f} (partition overhead, not scaling); max difference "
+            f"to the single device {r['max_abs_diff']:.3e} ({card})")
+        if not r["max_abs_diff"] <= MESH_ATOL:
+            raise AssertionError(f"scaling {r['mesh']}: output {r['max_abs_diff']:.3e} from "
+                                 f"the single device (bound {MESH_ATOL})")
+    log(f"[rates] scaling sweep: launches {ran} ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    compute_ms, ran = _held_launches(
+        lambda: bench.steady_ms_per_buffer(cfg, dev, acq=acq), cfg,
+        {"depth": 1, "depth_scale": 2 + 12}, "traffic report's compute time")
+    _add(launches, ran)
+    report, ran = _held_launches(
+        lambda: scaling.run_traffic_report(
+            acq, cfg, compute_ms / 1e3, None, [dev] * 8,
+            compute_source=f"measured in this call: single-device steady ms per buffer ({card})"),
+        cfg, {"depth": 3 * 8}, "traffic report")
+    _add(launches, ran)
+    want = traffic.expected_fpn_psum_bytes(acq)
+    if want != 55296 or any(m["by_op"] != {"all_reduce": want}
+                            for m in report["meshes"].values()):
+        raise AssertionError(f"traffic report: {report['meshes']}, want all_reduce {want} B "
+                             f"(55296) on every mesh")
+    log(f"[rates] traffic report: every mesh's transfers {{'all_reduce': {want}}} B; compute "
+        f"{compute_ms:.4f} ms per buffer; predicted 2-host efficiency "
+        f"{report['predicted_efficiency']} (links published, not measured) "
+        f"({time.perf_counter() - t0:.1f} s) ({card})")
+
+    t0 = time.perf_counter()
+    anchor = scaling.run_gloo_anchor(acq, cfg, None, iters=GLOO_ITERS, pairs=1,
+                                     timeout=GLOO_TIMEOUT_S, device=dev.type)
+    pair = anchor["pairs"][0]
+    one, two = pair["one_process_2dev"], pair["two_process_gloo"]
+    if not ((one["hosts"], one["devices"], two["hosts"], two["devices"]) == (1, 2, 2, 2)
+            and anchor["measured_protocol_ratio"] > 0):
+        raise AssertionError(f"gloo anchor: {anchor}")
+    log(f"[rates] gloo anchor at full width, {GLOO_ITERS} steps: one process, 2 positions "
+        f"{one['ms_per_buffer']:.4f} ms per buffer via {one['via']}; two processes "
+        f"{[round(r['ms_per_buffer'], 4) for r in pair['two_process_ranks']]} via {two['via']} "
+        f"(the slowest rank's counts); ratio {anchor['measured_protocol_ratio']:.4f} "
+        f"({time.perf_counter() - t0:.1f} s) ({card})")
+    return launches
+
+
+def phase_rate_harnesses(info, dev=None):
+    """Phase 16: the per-buffer latency, the chunked dispatch and the
+    scaling harness at full width (see the module docstring).  Returns the
+    launches by ``kernels`` row."""
+    import torch
+
+    dev = torch.device("cuda", 0) if dev is None else dev
+    t0 = time.perf_counter()
+    launches = {}
+    for part in (_rate_latency, _rate_chunks, _rate_scaling):
+        _add(launches, part(info, dev))
+    log(f"[rates] phase wall time {time.perf_counter() - t0:.1f} s; launches {launches} "
         f"({info['device_name']}, power limit {info['power_limit']})")
     return launches
 
@@ -4581,6 +4797,8 @@ def main() -> None:
     for k, v in phase_configurations(info).items():
         launches[k] += v
     for k, v in phase_harnesses(info).items():
+        launches[k] += v
+    for k, v in phase_rate_harnesses(info).items():
         launches[k] += v
     kernels = [{"name": name, "route": "cuda", "source": CSRC + source,
                 "replaces": PALLAS + str(line), "launches": launches[name],

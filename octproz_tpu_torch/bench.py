@@ -32,6 +32,12 @@ of 12-bit samples:
   and the packed-12 wire, per buffer and in chunks of four, every buffer
   quantized and fetched to the host; ``transfer_ms`` times the engine's
   transfer stages on their own;
+* ``paths.chunk``: ``FdOctModel.process_chunk`` on stacks of distinct
+  buffers (:data:`CHUNK_ATTEMPTS`, the JAX bench's chunked attempts: the
+  batch strategy -- one kernel launch over the chunk's lines -- and the
+  scan, at bf16 and at the default rung), ms per buffer beside the
+  per-buffer steady ms of the same configuration, and the scan's
+  ``torch.stack`` copy alone;
 * the device's name and power limit, since a card below its maximum power
   runs slower under load.
 
@@ -136,6 +142,13 @@ def device_info() -> Dict[str, object]:
             "device_count": len(devices),
             "power_limit": smi.splitlines()[0].split(",")[-1].strip(),
             "nvidia_smi": smi}
+
+
+def sync(devices: Sequence[torch.device]) -> None:
+    """Wait for every CUDA device of ``devices`` (a no-op on the CPU)."""
+    for d in dict.fromkeys(torch.device(d) for d in devices):
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -286,6 +299,75 @@ def fpn_buffer_ms(cfg: ProcConfig, device, ring: int = 4, iters: int = 12,
         model.process_buffer(bufs[next(turn) % ring])
 
     return cuda_ms(first_buffer, iters=iters)
+
+
+#: The JAX bench's chunked attempts (``bench.py:664-667``: "mega" is the
+#: batch strategy, "pallas" the scan) as (strategy, chunk, rung, store), and
+#: the batch at 8 at the default rung beside its scan.
+CHUNK_ATTEMPTS = (("batch", 32, "bfloat16", "bfloat16"), ("batch", 16, "bfloat16", "float32"),
+                  ("scan", 32, "bfloat16", "float32"), ("scan", 16, "bfloat16", "float32"),
+                  ("scan", 8, "bfloat16", "float32"), ("scan", 8, "default", "float32"),
+                  ("batch", 8, "default", "float32"))
+
+
+def chunk_model(cfg: ProcConfig, device, chunk: int, acq: AcqParams = FULL_ACQ):
+    """``FdOctModel`` of ``cfg`` and a stack of ``chunk`` distinct buffers
+    on the device (:func:`random_buffers`), the FPN determined on buffer 0:
+    what :func:`chunk_ms` times.  Returns (model, stack)."""
+    from .models.fdoct import FdOctModel
+
+    model = FdOctModel(acq, cfg, **CURVE_KW, device=device)
+    stack = random_buffers(acq, chunk, device, seed=11)
+    model.process_buffer(stack[0])  # FPN determination
+    return model, stack
+
+
+def chunk_ms(cfg: ProcConfig, device, chunk: int, strategy: str,
+             acq: AcqParams = FULL_ACQ, iters: int = 3, warmup: int = 1) -> float:
+    """CUDA-event ms per buffer of ``FdOctModel.process_chunk(stack,
+    strategy)`` in the steady state: "batch" one kernel launch over the
+    chunk's lines, "scan" the per-buffer step over the stack, then
+    ``torch.stack`` of the outputs (:func:`stack_ms`)."""
+    model, stack = chunk_model(cfg, device, chunk, acq)
+    return cuda_ms(lambda: model.process_chunk(stack, strategy), iters=iters,
+                   warmup=warmup) / chunk
+
+
+def stack_ms(cfg: ProcConfig, device, chunk: int, acq: AcqParams = FULL_ACQ,
+             iters: int = 3) -> float:
+    """CUDA-event ms per buffer of the scan's ``torch.stack`` alone
+    (``pipeline.make_scan_step``): ``chunk`` processed buffers of ``cfg``'s
+    store type copied into one stack."""
+    dtype = torch.bfloat16 if cfg.output_dtype == "bfloat16" else torch.float32
+    outs = [torch.zeros(acq.processed_buffer_shape, dtype=dtype, device=device)
+            for _ in range(chunk)]
+    return cuda_ms(lambda: torch.stack(outs), iters=iters, warmup=1) / chunk
+
+
+def chunk_attempt(device, strategy: str, chunk: int, rung: str, store: str,
+                  steady: Dict, iters: int = 3) -> Dict[str, object]:
+    """One attempt of ``paths.chunk`` on ``bench_config()`` at ``rung`` with
+    a ``store`` output: its ms per buffer beside the per-buffer steady ms of
+    the same configuration in the same call (taken once per (rung, store)
+    into ``steady``), and for a scan its stack copy alone."""
+    cfg = at_rung(bench_config(output_dtype=store), rung)
+    if (rung, store) not in steady:
+        steady[rung, store] = steady_ms_per_buffer(cfg, device)
+    ms = chunk_ms(cfg, device, chunk, strategy, iters=iters)
+    rec = {"strategy": strategy, "chunk": chunk, "rung": rung, "output_dtype": store,
+           "ms_per_buffer": ms, "equivalent_ascan_rate": FULL_ACQ.ascans_per_buffer / ms / 1e3,
+           "steady_ms_per_buffer": steady[rung, store]}
+    if strategy == "scan":
+        rec["stack_ms_per_buffer"] = stack_ms(cfg, device, chunk)
+    return rec
+
+
+def chunk_path_record(device) -> Dict[str, object]:
+    """The ``paths.chunk`` record: :func:`chunk_attempt` of each of
+    :data:`CHUNK_ATTEMPTS`."""
+    steady = {}
+    return {":".join(map(str, attempt)): chunk_attempt(device, *attempt, steady)
+            for attempt in CHUNK_ATTEMPTS}
 
 
 def post_stage_ms(device, iters: int = 12) -> Dict[str, float]:
@@ -740,7 +822,8 @@ def main() -> None:
         "oracle_psnr_db": psnr,
         "golden_psnr_db": float(golden.psnr_db),
         "kernels": kernel_times(device),
-        "paths": {"fft": fft_path_record(device), "stream": stream_path_record(device)},
+        "paths": {"fft": fft_path_record(device), "stream": stream_path_record(device),
+                  "chunk": chunk_path_record(device)},
         "platform": info["platform"],
         "device_name": info["device_name"],
         "power_limit": info["power_limit"],

@@ -117,12 +117,6 @@ def join_engine_threads(timeout_s: float = 60.0) -> None:
             raise RuntimeError(f"thread {t.name} did not end")
 
 
-def _sync(model) -> None:
-    if model.device.type == "cuda":
-        for d in model.devices:
-            torch.cuda.synchronize(d)
-
-
 def upload_window(model, ring, wire: str, chunk: int, budget_s: float):
     """Upload-only rate (MHz) and buffers through the feeder the engine
     builds for ``chunk`` (``runtime.engine_feeder``).  On the card the
@@ -158,6 +152,7 @@ def warm_up(model, ring, wire: str, chunk: int) -> None:
     chunk, so the engine window runs steady buffers only; on the card the
     feeder's pinned slots, allocated and released into PyTorch's
     pinned-memory cache, where every window's feeder takes them from."""
+    from .bench import sync
     from .runtime import engine_feeder_slots
 
     put = model.put_packed_buffer if wire == "packed12" else model.put_buffer
@@ -168,12 +163,13 @@ def warm_up(model, ring, wire: str, chunk: int) -> None:
         _, slots = engine_feeder_slots(PREFETCH_DEPTH, chunk)
         pinned = [torch.from_numpy(ring[0]).pin_memory() for _ in range(slots)]
         del pinned  # all alive at once, then cached
-    _sync(model)
+    sync(model.devices)
 
 
 def engine_window(model, ring, wire: str, chunk: int, window_s: float) -> dict:
     """The engine's rate over a window stopped by a watchdog: buffers
     processed over the run's wall time, and the meter's windows."""
+    from .bench import sync
     from .runtime import StreamingEngine
 
     windows = []
@@ -181,7 +177,7 @@ def engine_window(model, ring, wire: str, chunk: int, window_s: float) -> dict:
                           prefetch_depth=PREFETCH_DEPTH, dispatch_chunk=chunk,
                           chunk_strategy="auto", metrics_window_s=5.0, wire_format=wire,
                           on_metrics=lambda s: windows.append(s.ascans_per_s / 1e6))
-    _sync(model)
+    sync(model.devices)
     watchdog = threading.Timer(window_s, eng.stop)
     watchdog.daemon = True
     t0 = time.perf_counter()

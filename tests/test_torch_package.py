@@ -36,7 +36,8 @@ MODULES = ["octproz_tpu_torch", "octproz_tpu_torch.models.fdoct",
            "octproz_tpu_torch.cli", "octproz_tpu_torch.parallel",
            "octproz_tpu_torch.parallel.sharding", "octproz_tpu_torch.parallel.multihost",
            "octproz_tpu_torch.parallel.traffic", "octproz_tpu_torch.fullgeom_fidelity",
-           "octproz_tpu_torch.soak"]
+           "octproz_tpu_torch.soak", "octproz_tpu_torch.latency",
+           "octproz_tpu_torch.scaling"]
 
 
 @pytest.mark.parametrize("module", MODULES)
