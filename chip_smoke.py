@@ -3275,12 +3275,26 @@ CONFIG_BSCANS = 8
 #: voxels, one bf16 step (``fused_prep.BF16_STEP`` |CPU|) more on a bf16
 #: store; FPN mean lines within rtol 1e-5 and an absolute 1e-5 of the
 #: line's largest value.
+#:
+#: The port's one rule for an output against the float64 products, at any
+#: size (``config_near_exact`` against ``image_f64``; the CPU tests hold
+#: every configuration by it, tests/test_torch_exact_rule.py, and this
+#: script holds the card's outputs by it at 4096 lines and at full depth):
+#: every shown voxel within ``CONFIG_ATOL``, one bf16 step more on a bf16
+#: store, except at most a ``CONFIG_DEEP_SHARE`` share of the shown voxels,
+#: each of which within ``CONFIG_ATOL`` plus Higham's float32 bound of its
+#: depth sum.
 CONFIG_ATOL = 1e-4
 CONFIG_FPN_RTOL = 1e-5
-#: Where an output misses against the CPU's, the share of its shown voxels
-#: that may lie past ``CONFIG_ATOL`` from the float64 products, each within
-#: its float32 bound (``config_near_exact``): the share ``_check_output``
-#: allows voxels at -inf.
+#: The share of the shown voxels the rule lets past ``CONFIG_ATOL`` (the
+#: share ``_check_output`` allows voxels at -inf).  A share, not a count or
+#: a per-voxel maximum: whether a voxel meets ``CONFIG_ATOL`` depends on
+#: that voxel's float32 condition -- the sum of its terms' magnitudes over
+#: its value, large only in the deepest nulls --, not on how many voxels a
+#: check compares; so the voxels past it grow with the voxels compared
+#: (none of most outputs' 2^17-2^18 on the CPU tests' buffers, a few of
+#: 2^21-2^22 on the card's), and a bound on their share and on each one's
+#: float32 error decides the same at every size.
 CONFIG_DEEP_SHARE = 1e-5
 #: Seed of the matrix's buffers (numpy), one more per configuration.
 CONFIG_SEED = 2000
@@ -3418,6 +3432,11 @@ SCAN_CONFIGS = ("once-default", "once-high", "fpn-continuous", "fft-prep-default
 #: default rung's scaled kernel with fast log and a bf16 store.
 CARD_ONLY_CONFIGS = {"fold-k-split-fast-log-bf16-store": dict(fold_k_split=4, fast_log=True,
                                                               output_dtype="bfloat16")}
+#: The configurations with outputs that had voxels past ``CONFIG_ATOL``
+#: from the float64 products on the card (ROADMAP Queue 3, F2): the phase
+#: holds every output of their "auto" run by ``config_near_exact`` and
+#: prints what the rule saw.
+F2_CONFIGS = ("bf16-fold-24bit", "fft-prep-16bit-high", "fold-xla", "fold-24bit-continuous")
 
 
 def config_model(changes, device, ascans=None, bscans=CONFIG_BSCANS):
@@ -3750,16 +3769,18 @@ def run_config_f64(model, raws, steps, strategy="auto"):
 
 
 def config_near_exact(got, exact):
-    """``got`` against ``exact`` = (the image of the float64 products, the
-    float32 bound of each voxel) from ``image_f64``: the same finite mask;
-    over the shown voxels (finite, at or above the display floor in the
-    image) |got - image| <= ``CONFIG_ATOL`` (one bf16 step more on a bf16
-    store), but for at most a ``CONFIG_DEEP_SHARE`` share of them, each of
-    which within that bound plus its float32 bound -- the deepest nulls,
-    where any float32 evaluation order moves the log by more (the port's
-    own float32 output on the CPU lies past 1e-4 from these products at a
-    few voxels of many of the matrix's outputs).  Returns (max |err|, within, voxels past ``CONFIG_ATOL``, the largest
-    ratio of such a voxel's error to its limit)."""
+    """The port's one rule (see ``CONFIG_ATOL``): ``got`` against ``exact``
+    = (the image of the float64 products, the float32 bound of each voxel)
+    from ``image_f64``: the same finite mask; over the shown voxels (finite,
+    at or above the display floor in the image) |got - image| <=
+    ``CONFIG_ATOL`` (one bf16 step more on a bf16 store), but for at most a
+    ``CONFIG_DEEP_SHARE`` share of them, each of which within that bound
+    plus its float32 bound -- the deepest nulls, where any float32
+    evaluation order moves the log by more (the port's own float32 output
+    on the CPU lies past 1e-4 from these products at a few voxels of many of
+    the matrix's outputs).  Returns (max |err|, within, voxels past
+    ``CONFIG_ATOL``, the largest ratio of such a voxel's error to its
+    limit)."""
     import torch
 
     from octproz_tpu_torch.kernels import fused_prep as fp
@@ -4011,6 +4032,25 @@ def _add(total, counts):
         total[row] = total.get(row, 0) + n
 
 
+def _hold_f2(info, tag, got, exact):
+    """Every output of an ``F2_CONFIGS`` run on the card held by the rule
+    (``config_near_exact`` against ``exact``, its float64 images), whether
+    or not it missed against the CPU's: the voxels past ``CONFIG_ATOL`` and
+    the largest ratio of such a voxel's error to its limit, printed with the
+    card's name and power limit."""
+    for k, (g, image) in enumerate(zip(got, exact)):
+        err, ok, past, ratio = config_near_exact(g, image)
+        log(f"[configs] F2 {tag} output {k}: {past} voxel(s) past {CONFIG_ATOL:g} of "
+            f"{g.numel()} (at most {CONFIG_DEEP_SHARE:g} of them), largest ratio to the "
+            f"float32 bound {ratio:.3g}, max |err| {err:.3e} against the float64 products "
+            f"({info['device_name']}, power limit {info['power_limit']}) "
+            f"-> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{tag}: output {k} misses the rule against the float64 "
+                                 f"products: {past} voxel(s) past {CONFIG_ATOL:g}, the "
+                                 f"largest at {ratio:.3g} of its float32 bound")
+
+
 def phase_configurations(info, dev=None):
     """The configuration matrix: every configuration of ``slice_configs()``
     (and ``CARD_ONLY_CONFIGS``) through ``FdOctModel`` on the card and on
@@ -4020,7 +4060,8 @@ def phase_configurations(info, dev=None):
     ``SCAN_CONFIGS`` a chunk of three with strategy "scan" from a fresh FPN
     state.  Each card run between a reset and a read of the launch counts
     (``_config_launches``); every output and FPN state held to the CPU's
-    (``hold_config``).  Then the user-facing chains of ``default_chains()``
+    (``hold_config``), and every output of an ``F2_CONFIGS`` entry's "auto"
+    run by the rule against the float64 products (``_hold_f2``).  Then the user-facing chains of ``default_chains()``
     at full depth (``_full_depth_chains``).  Returns the launches by
     ``kernels`` row."""
     import torch
@@ -4048,11 +4089,18 @@ def phase_configurations(info, dev=None):
             t_card = time.perf_counter() - t0
             cpu = config_model(changes, "cpu")
             want, want_states = run_config(cpu, raws, strategy)
-            models = {"card": card, "cpu": cpu}
-            worst, fpn_worst, black = hold_config(
-                tag, got, want, got_states, want_states,
-                exact=lambda side: run_config_f64(cpu, raws, config_steps(models[side], raws),
-                                                  strategy))
+            models, images = {"card": card, "cpu": cpu}, {}
+
+            def exact(side):
+                if side not in images:
+                    images[side] = run_config_f64(cpu, raws, config_steps(models[side], raws),
+                                                  strategy)
+                return images[side]
+
+            worst, fpn_worst, black = hold_config(tag, got, want, got_states, want_states,
+                                                  exact=exact)
+            if name in F2_CONFIGS and strategy == "auto":
+                _hold_f2(info, tag, got, exact("card"))
             _add(launches, ran)
             log(f"[configs] {tag}: max |card - CPU| {worst:.3e}, FPN mean line max "
                 f"difference {fpn_worst:.3e}, -inf voxels {black} on each side; launches "

@@ -38,6 +38,7 @@ from octproz_tpu_torch.ops import convert as tconvert
 from octproz_tpu_torch.params import AcqParams, FpnMode, ProcConfig, default_full_config
 from octproz_tpu_torch.runtime import StreamingEngine
 from octproz_tpu_torch.utils.settings import SettingsManager
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 ACQ = AcqParams(samples_per_line=64, ascans_per_bscan=8, bscans_per_buffer=2,
                 buffers_per_volume=1, bit_depth=12)

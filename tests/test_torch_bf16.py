@@ -34,6 +34,7 @@ from octproz_tpu_torch import curves as tcurves
 from octproz_tpu_torch.kernels import fused_prep as tfp
 from octproz_tpu_torch.models.fdoct import FdOctModel
 from octproz_tpu_torch.params import AcqParams, default_full_config
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 N = 256
 #: input kind -> (bit depth, bitshift, display floor dB)

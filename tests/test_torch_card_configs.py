@@ -13,8 +13,6 @@ the port on the CPU), checked here without a card:
 * its rule for the kernel families a configuration launches
   (``config_families``) is what the pipeline dispatches, counted by
   wrappers that stand in for the kernels' launch counters;
-* its float64 reference (``image_f64``) agrees with the port's float32
-  output within the comparison's bound on a small buffer, per path;
 * ``fold_k_split``, which only the card's phase adds to the matrix, against
   the JAX package.
 
@@ -34,6 +32,7 @@ from octproz_tpu_torch.params import FpnState
 
 sys.path.insert(0, tp.bench._REPO)
 import chip_smoke  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse: one intra-op thread)
 
 ASCANS = 32
 CONFIGS = {**chip_smoke.slice_configs(), **chip_smoke.CARD_ONLY_CONFIGS}
@@ -79,13 +78,20 @@ def _moved(outs, k, by, where):
 @pytest.mark.parametrize("name", ["fft-matmul", "fft-gather-lanczos", "bf16-store",
                                   "fft-bf16-store", "fft-prep-real-default"])
 def test_compare_passes_equal_outputs_and_catches_one_moved_voxel(name):
-    """Both sides on the CPU: the same model twice passes; one shown voxel
-    of a steady output moved 1e-3 (the smallest shown value, where a bf16
-    store's step is below it) fails."""
+    """Both sides on the CPU: a run against its own outputs and mean lines,
+    cloned, passes with no difference at all; a second, independent run of
+    the same model passes within the comparison's bound (the CPU's BLAS and
+    FFT do not promise bit-equal repeats); one shown voxel of a steady
+    output moved 1e-3 (the smallest shown value, where a bf16 store's step
+    is below it) fails."""
     _, raws, (got, states) = _run(name)
-    want, want_states = chip_smoke.run_config(_model(name), raws)
-    worst, fpn, black = chip_smoke.hold_config(name, got, want, states, want_states)
+    same = [t.clone() for t in got]
+    same_states = [FpnState(mean_line=s.mean_line.clone(), determined=s.determined)
+                   for s in states]
+    worst, fpn, black = chip_smoke.hold_config(name, got, same, states, same_states)
     assert worst == 0.0 and fpn == 0.0
+    want, want_states = chip_smoke.run_config(_model(name), raws)
+    chip_smoke.hold_config(name, got, want, states, want_states)
     moved, i = _moved(got, 1, 1e-3, "smallest")
     assert float(moved[1].view(-1)[i].float() - want[1].view(-1)[i].float()) >= 0.9e-3
     with pytest.raises(AssertionError, match="output 1"):
@@ -171,26 +177,6 @@ def test_config_launches_refuse_a_missing_family(counted):
     model = _model("once-default")
     with pytest.raises(AssertionError, match="want the families"):
         chip_smoke._config_launches("once-default", model.cfg, model.acq)
-
-
-@pytest.mark.parametrize("name", ["once-default", "once-high", "fpn-continuous", "fast-log",
-                                  "fold-concat-post-stages", "fold-24bit", "fft-matmul",
-                                  "fft-prep-16bit-high", "fft-gather-lanczos",
-                                  "fft-background", "fft-prep-real-default", "bf16-fold",
-                                  "bf16-fft-matmul"])
-def test_float64_reference_agrees_with_the_port(name):
-    """``run_config_f64`` -- the products in float64 on the port's own
-    operands and elementwise stages -- is within the comparison's bound of
-    the port's float32 output on a small buffer (256 lines: no voxel as
-    deep in a null as on the card's 4096), on every path and rung form."""
-    model, raws, (got, _) = _run(name)
-    steps = chip_smoke.config_steps(model, raws)
-    for g, (image, bound) in zip(got, chip_smoke.run_config_f64(model, raws, steps)):
-        err, ok, _ = chip_smoke.config_close(g, image)
-        assert ok, err
-        assert chip_smoke.config_near_exact(g, (image, bound))[1:] == (True, 0, 0.0)
-        shown = torch.isfinite(image) & (image >= 0)
-        assert bool((bound[shown] > 0).all()) and float(bound[shown].median()) < 2e-3
 
 
 def test_fold_k_split_matches_jax():

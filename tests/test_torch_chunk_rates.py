@@ -17,6 +17,7 @@ import octproz_tpu.models.fdoct as jfdoct
 import octproz_tpu.params as jparams
 import test_torch_pipeline as tp
 from octproz_tpu_torch import bench
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_BENCH = os.path.join(ROOT, "bench.py")

@@ -22,20 +22,10 @@ import octproz_tpu.cli as jcli
 from octproz_tpu_torch.cli import main
 from octproz_tpu_torch.ops.projections import bscan_frame, enface_frame
 from octproz_tpu_torch.viz.image import apply_lut, builtin_lut, decode_png, to_uint8
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 SCALE_ATOL = 1e-4
 CPU = ["--device", "cpu"]
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for the port's small CPU work: under xdist the
-    default (a thread per core in every worker) oversubscribes the cores,
-    which slows these tests many times over and starves the other workers'."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _close(got, want):

@@ -18,7 +18,6 @@ import urllib.request
 
 import numpy as np
 import pytest
-import torch
 
 import octproz_tpu.control as jcontrol
 import octproz_tpu.io.source as jsource
@@ -31,6 +30,7 @@ from octproz_tpu_torch.io.source import SyntheticSource
 from octproz_tpu_torch.models.fdoct import FdOctModel
 from octproz_tpu_torch.params import AcqParams, FpnMode, Interpolation, ProcConfig, WindowType
 from octproz_tpu_torch.runtime import StreamingEngine
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 ACQ = AcqParams(samples_per_line=64, ascans_per_bscan=16, bscans_per_buffer=4,
                 buffers_per_volume=2, bit_depth=12)
@@ -40,17 +40,6 @@ CFG = ProcConfig(resampling=True, interpolation=Interpolation.LINEAR,
 KW = dict(resample_coeffs=(0.0, ACQ.samples_per_line - 1.0, 0.0, 0.0),
           dispersion_coeffs=(0.0, 0.0, 4.0, 0.0))
 SCALE_ATOL = 1e-4
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for the port's small CPU work: under xdist the
-    default (a thread per core in every worker) oversubscribes the cores,
-    which slows these tests many times over and starves the other workers'."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def make_model(cfg=CFG):

@@ -20,6 +20,7 @@ import octproz_tpu_torch.kernels.fused_prep as tfp
 import octproz_tpu_torch.ops.background as tbackground
 import octproz_tpu_torch.ops.resample as tresample
 import octproz_tpu_torch.params as tparams
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 # the JAX package's pallas/__init__ re-exports a function named fused_prep
 jfp = importlib.import_module("octproz_tpu.pallas.fused_prep")

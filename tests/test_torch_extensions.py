@@ -46,6 +46,7 @@ from octproz_tpu_torch.plugins import (ENTRY_POINT_GROUP, ExtensionManager, Mess
 from octproz_tpu_torch.runtime import StreamingEngine
 from octproz_tpu_torch.utils import configmap as tconfigmap
 from octproz_tpu_torch.utils import settings as tsettings
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 SOCKET_TIMEOUT_S = 5.0
 

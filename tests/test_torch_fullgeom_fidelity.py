@@ -30,6 +30,7 @@ import sys
 import jax
 import numpy as np
 import pytest
+import torch
 
 jax.config.update("jax_platforms", "cpu")
 
@@ -40,6 +41,7 @@ import fullgeom_fidelity as jfg  # noqa: E402  (scripts/, the JAX package's)
 
 from octproz_tpu_torch import fullgeom_fidelity as tfg  # noqa: E402
 from test_torch_soak import chip_smoke, counted  # noqa: E402,F401  (the counting wrappers)
+from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse: one intra-op thread)
 
 GEOMETRY = (256, 64, 8)
 RUNGS = ("bfloat16", "default", "high", "highest")

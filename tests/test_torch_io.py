@@ -35,6 +35,7 @@ from octproz_tpu_torch.ops import quantize as tquantize
 from octproz_tpu_torch.params import AcqParams, FpnMode, ProcConfig, default_full_config
 from octproz_tpu_torch.utils import configmap as tconfigmap
 from octproz_tpu_torch.utils import settings as tsettings
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 GEOM = dict(samples_per_line=64, ascans_per_bscan=8, bscans_per_buffer=4,
             buffers_per_volume=2)

@@ -38,6 +38,7 @@ import torch
 from octproz_tpu_torch import curves as tcurves
 from octproz_tpu_torch.kernels import fused_prep as tfp
 from octproz_tpu_torch.params import AcqParams, default_full_config
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 N = 256
 PLANAR_RTOL = 1e-5

@@ -23,6 +23,7 @@ from octproz_tpu import curves as jcurves
 from octproz_tpu import pipeline as jpipeline
 from octproz_tpu_torch import bench, latency
 from octproz_tpu_torch.models.fdoct import FdOctModel
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_LATENCY = os.path.join(ROOT, "benchmarks", "latency.py")

@@ -22,6 +22,7 @@ from octproz_tpu_torch.runtime import ThroughputStats
 from octproz_tpu_torch.viz import live as tlive
 from octproz_tpu_torch.viz.image import png_size
 from octproz_tpu_torch.viz.live import LiveView
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 
 def _get(url):
@@ -46,17 +47,6 @@ def _pixels(png: bytes) -> np.ndarray:
 
 STATS = dict(ascans_per_s=1e6, buffers_per_s=10, bscans_per_s=100, volumes_per_s=1,
              mb_per_s=50, buffer_mb=5, buffers_processed=7)
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for the port's small CPU work: under xdist the
-    default (a thread per core in every worker) oversubscribes the cores,
-    which slows these tests many times over and starves the other workers'."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("case", ["float", "float_lut_mip", "uint8", "uint16_lut"])

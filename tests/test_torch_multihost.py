@@ -36,6 +36,7 @@ from octproz_tpu_torch.parallel import (AXIS_HOST, Mesh, ShardedBuffer, buffer_p
                                         local_block, local_bscan_range, make_sharded_step,
                                         make_simulated_multihost_mesh, sharding,
                                         wire_bscan_pspec)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
@@ -51,14 +52,6 @@ FULL_CFG = ProcConfig(
     bscan_flip=True, sinusoidal_correction=True,
     post_background_removal=True,
 )
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _jax(obj):

@@ -30,6 +30,7 @@ import octproz_tpu_torch.ops.postprocess as tpost
 import octproz_tpu_torch.ops.resample as tresample
 from octproz_tpu_torch import curves as tcurves
 from octproz_tpu_torch.params import AcqParams, FPN_SEGMENTS, FPN_TIE_EPS, Interpolation
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 jfp = importlib.import_module("octproz_tpu.pallas.fused_prep")
 

@@ -9,6 +9,8 @@ import sys
 
 import pytest
 
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "octproz_tpu_torch")
 
@@ -91,3 +93,21 @@ def test_chip_smoke_fails_without_a_gpu():
                           env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
+
+
+def test_every_port_test_file_runs_torch_on_one_thread():
+    """Each port test file imports the autouse ``one_torch_thread`` of
+    tests/torch_threads.py: under xdist a thread per core in every worker
+    oversubscribes the cores, and a repeat the tests compare bit for bit
+    keeps threading out of it."""
+    tests = os.path.join(ROOT, "tests")
+    names = sorted(n for n in os.listdir(tests) if re.fullmatch(r"test_torch_\w+\.py", n))
+    line = re.compile(r"^from torch_threads import one_torch_thread\b", re.M)
+    missing = [n for n in names if not line.search(open(os.path.join(tests, n)).read())]
+    assert len(names) >= 28 and not missing, missing
+
+
+def test_the_fixture_holds_torch_at_one_thread():
+    import torch
+
+    assert torch.get_num_threads() == 1

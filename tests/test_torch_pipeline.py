@@ -34,6 +34,7 @@ from octproz_tpu_torch import pipeline as tpipeline
 from octproz_tpu_torch.models.fdoct import FdOctModel
 from octproz_tpu_torch.params import (AcqParams, FpnMode, Interpolation, ProcConfig,
                                       WindowType, default_full_config)
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 N, ASCANS, BSCANS = 256, 32, 8
 KW = dict(resample_coeffs=(0.0, N - 1.0, 10.0, -4.0),

@@ -44,6 +44,7 @@ from octproz_tpu_torch import bench
 from octproz_tpu_torch import curves as tcurves
 from octproz_tpu_torch.kernels import fused_prep as tfp
 from octproz_tpu_torch.params import AcqParams
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 LINES = (1, 127, 129, 999, 131073)
 N_OUTS = (64, 100, 256, 1000, 1024, 1100)

@@ -37,6 +37,7 @@ from octproz_tpu_torch.params import (AcqParams, FpnMode, Interpolation, ProcCon
                                       default_full_config)
 from octproz_tpu_torch.plugins import Extension, ExtensionManager
 from octproz_tpu_torch.runtime import StreamingEngine, ThroughputMeter
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 ACQ = AcqParams(samples_per_line=64, ascans_per_bscan=16, bscans_per_buffer=4,
                 buffers_per_volume=2, bit_depth=12)
@@ -480,14 +481,7 @@ def test_recording_screenshots_are_refused(tmp_path, monkeypatch):
 
     def spy(*a, **kw):
         seen.append(kw.get("device"))
-        # one intra-op thread: a thread per core in every xdist worker
-        # oversubscribes the cores
-        threads = torch.get_num_threads()
-        torch.set_num_threads(1)
-        try:
-            return real(*a, **kw)
-        finally:
-            torch.set_num_threads(threads)
+        return real(*a, **kw)
 
     monkeypatch.setattr(viz, "render_volume", spy)
     eng = make_engine(n_buffers=4, stream_to_host=True)

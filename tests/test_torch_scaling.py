@@ -26,6 +26,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 JAX_SCALING = os.path.join(ROOT, "benchmarks", "scaling.py")
 sys.path.insert(0, os.path.dirname(JAX_SCALING))
 import scaling as jscaling  # noqa: E402  (benchmarks/scaling.py)
+from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse: one intra-op thread)
 
 ACQ = AcqParams(samples_per_line=256, ascans_per_bscan=32, bscans_per_buffer=8, bit_depth=12)
 CPUS = [torch.device("cpu")] * 8
@@ -33,14 +34,6 @@ SMALL = ["--device", "cpu", "--samples", "256", "--ascans", "32", "--bscans", "8
 #: The JAX report's links (ICI, DCN) and their latency floors, as the port's
 #: model takes them.
 JAX_LINKS = (("ici", 100.0, 10e-6, "given"), ("dcn", 25.0, 100e-6, "given"))
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _jax(obj):

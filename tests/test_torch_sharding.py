@@ -37,6 +37,7 @@ from octproz_tpu_torch.parallel import (ShardedBuffer, make_mesh, make_sharded_s
                                         sharded_process_buffer)
 from octproz_tpu_torch.parallel.sharding import row_blocks
 from octproz_tpu_torch.runtime import StreamingEngine
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 CPU = torch.device("cpu")
 CPUS = [CPU] * 8
@@ -58,16 +59,6 @@ FULL_CFG = ProcConfig(
 )
 #: the fold path with the fused steady-state kernel
 FOLD_CFG = dataclasses.replace(FULL_CFG, background_removal=False, fft_via_matmul=True)
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread: under xdist a thread per core in every worker
-    oversubscribes the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _jax(obj):

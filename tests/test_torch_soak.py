@@ -20,6 +20,7 @@ from octproz_tpu_torch.kernels import fused_prep as tfp
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 import chip_smoke  # noqa: E402
+from torch_threads import one_torch_thread  # noqa: E402,F401  (autouse: one intra-op thread)
 JAX_SOAK = os.path.join(ROOT, "scripts", "e2e_soak.py")
 
 

@@ -47,6 +47,7 @@ from octproz_tpu_torch import bench
 from octproz_tpu_torch import curves as tcurves
 from octproz_tpu_torch.kernels import fused_prep as tfp
 from octproz_tpu_torch.params import AcqParams, default_full_config
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 STAGE = 64   # samples per pipeline stage (split.DEPTH)
 GROUP = 64   # lines per consumer warpgroup

@@ -19,6 +19,7 @@ from octproz_tpu.parallel import make_mesh as jmake_mesh
 from octproz_tpu.parallel import traffic as jtraffic
 from octproz_tpu_torch.params import AcqParams, FpnMode, Interpolation, ProcConfig
 from octproz_tpu_torch.parallel import make_mesh, make_simulated_multihost_mesh, traffic
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 CPUS = [torch.device("cpu")] * 8
 ACQ = AcqParams(samples_per_line=256, ascans_per_bscan=64, bscans_per_buffer=8,
@@ -27,14 +28,6 @@ FULL = ProcConfig(bitshift=True, resampling=True, interpolation=Interpolation.CU
                   windowing=True, dispersion=True, fpn_mode=FpnMode.ONCE, bscans_for_noise=2,
                   log_scaling=True, fft_via_matmul=True, sinusoidal_correction=True,
                   bscan_flip=True)
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _jax(obj):

@@ -15,6 +15,7 @@ import octproz_tpu_torch.utils as tutils
 from octproz_tpu_torch.utils import console as tconsole
 from octproz_tpu_torch.utils import deviceinfo as tdeviceinfo
 from octproz_tpu_torch.utils import profiling as tprofiling
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 
 def _drive_console(module, monkeypatch, echo):

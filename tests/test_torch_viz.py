@@ -37,23 +37,13 @@ from octproz_tpu_torch.params import DisplayFunction
 from octproz_tpu_torch.viz import image as timage
 from octproz_tpu_torch.viz import plots as tplots
 from octproz_tpu_torch.viz import render as trender
+from torch_threads import one_torch_thread  # noqa: F401  (autouse: one intra-op thread)
 
 RENDER_ATOL = 5e-5
 FLIP_SHARE = 0.005
 CONTINUOUS = ("mip", "depth_mip")
 LUTS = ["gray", "fire", "hotter", "ice", "blue", "deep_blue", "deep_red", "six_shades",
         "sixteen_colors", "depth_colors"]
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for the port's small CPU work: under xdist the
-    default (a thread per core in every worker) oversubscribes the cores,
-    which slows these tests many times over and starves the other workers'."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
