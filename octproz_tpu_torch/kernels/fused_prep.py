@@ -70,6 +70,7 @@ import torch
 
 from ..ops.background import rolling_average_indices
 from ..params import AcqParams, ProcConfig
+from ..utils import profiling
 
 #: Operator split widths of the multi-pass rungs: "high" -> 2 bf16 parts
 #: (3 passes), "highest" -> 3 parts (5 passes).
@@ -709,10 +710,15 @@ def _kernel_operands(raw2d, axes, family: str):
     return 1, split, family, "tensor_core"
 
 
+#: The recorder's counter of each LAUNCHES key, named once.
+_LAUNCH_COUNTERS = {key: "launches." + key for key in LAUNCHES}
+
+
 def _count_launch(key: str, route) -> None:
     LAUNCHES[key] += 1
     if route is not None:
         ONE_PASS_ROUTES[key][route] += 1
+    profiling.RECORDER.count(_LAUNCH_COUNTERS[key])
 
 
 def _launch_depth(raw2d, w_re_parts, w_im_parts, *, bitshift: bool):

@@ -25,6 +25,7 @@ import torch
 from .. import curves as curves_mod
 from .. import pipeline
 from ..params import AcqParams, Curves, FpnMode, FpnState, ProcConfig, WindowType
+from ..utils import profiling
 
 
 def _mutator(method):
@@ -46,6 +47,10 @@ def _normalized(device) -> torch.device:
 
 
 class FdOctModel:
+    #: The process's span and counter recorder (``utils.profiling``): it
+    #: records while a ``torch.profiler`` profile does.
+    recorder = profiling.RECORDER
+
     def __init__(
         self,
         acq: AcqParams,
@@ -96,6 +101,8 @@ class FdOctModel:
         self.curves: Curves = curves_mod.make_curves(acq, cfg, **self._curve_kwargs,
                                                      device=self.device)
         self.fpn_state: FpnState = pipeline.initial_fpn_state(acq, device=self.device)
+        #: The sequence number of the next buffer ``process_buffer`` takes.
+        self.sequence = 0
         self._step = self._build_step(cfg)
         # One published snapshot (cfg, curves, step): the hot path reads this
         # single attribute, so a set_config / curve rebuild from another
@@ -262,9 +269,12 @@ class FdOctModel:
     def process_buffer(self, raw) -> torch.Tensor:
         """raw uint (bscans, ascans, samples) -> processed half-volume on the
         model's device.  Updates the carried FPN state without a host sync."""
-        raw = self.put_buffer(raw)
-        _, curves, step = self._exec  # consistent (curves, step) pair
-        processed, self.fpn_state = step(raw, curves, self.fpn_state)
+        seq = self.sequence
+        self.sequence = seq + 1
+        with self.recorder.span("octproz.step", seq=seq):
+            raw = self.put_buffer(raw)
+            _, curves, step = self._exec  # consistent (curves, step) pair
+            processed, self.fpn_state = step(raw, curves, self.fpn_state)
         return processed
 
     def process_chunk(self, raw_stack, strategy: str = "auto") -> torch.Tensor:

@@ -41,6 +41,7 @@ import torch
 
 from .ops import background, convert, dispersion, fft, fpn, postprocess, resample
 from .params import AcqParams, Curves, FpnMode, FpnState, ProcConfig
+from .utils.profiling import RECORDER
 
 
 def has_post(cfg: ProcConfig) -> bool:
@@ -191,8 +192,12 @@ def process_buffer(
     """raw uint (bscans, ascans, samples) -> (processed (bscans, ascans,
     samples//2) in cfg.output_dtype, new FPN state)."""
     branch = _fold_branch if cfg.fft_via_matmul else _fft_branch
-    mag, fpn_state = branch(raw, curves, fpn_state, acq, cfg)
-    return narrow(postprocess_volume(mag, curves, cfg), cfg), fpn_state
+    with RECORDER.span("octproz.depth", raw):
+        mag, fpn_state = branch(raw, curves, fpn_state, acq, cfg)
+    if has_post(cfg):
+        with RECORDER.span("octproz.post", mag):
+            mag = postprocess_volume(mag, curves, cfg)
+    return narrow(mag, cfg), fpn_state
 
 
 def make_step(acq: AcqParams, cfg: ProcConfig):
